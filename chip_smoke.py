@@ -1,0 +1,413 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Drives the port's main path — the collective offload engine, ranks
+stacked on the card — at the repository's own top message size (64 MiB
+per rank on 8 ranks, the top of `seg_sweep` / `hier_sweep` in
+benchmarks/figures.py), and holds every kernel on that path against its
+plain PyTorch version. Phases, one line each:
+
+  1. device: the card (nvidia-smi) and the kernels' build time;
+  2. kernels: K1 add/max/min/mul fp32+bf16, K2 (codes, scales, exact .5
+     ties), K3 copy / fp32 add / bf16 add — each BITWISE against its
+     plain version at the main path's segment shape;
+  3. main path fp32: allreduce (auto), reduce_scatter, allgather, bcast,
+     alltoall and a ("pod", "data") = (2, 4) two-axis allreduce on
+     integer-valued inputs from --seed, each BITWISE against a torch
+     oracle over the rank dim;
+  4. main path int8: the same allreduce with compression="int8", within
+     the codec's error bound of the oracle, and bitwise equal to the same
+     call on the CPU (plain versions) at 4 MiB per rank;
+  5. times: the median of >= 10 runs after warm-up (CUDA events) per
+     collective; where one fp32 and one int8 allreduce spend device time
+     (torch.profiler, by kernel group, and the device's idle share); and
+     one JSON line of the kernels with their launches on the main path,
+     time, plain time, bound and library time.
+
+The last line is {"ok": true, "device": {...}}. Any failure raises and
+exits non-zero; without a CUDA device the script exits non-zero at once.
+
+    python3 chip_smoke.py [--seed 0] [--mib 64] [--reps 10]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+NRANKS = 8
+SEG = 32768                   # elements per rank in one 128 KiB segment
+
+REPLACES = {
+    "fused_combine": "src/repro/kernels/fused_reduce.py:40",
+    "quantize_blocks": "src/repro/kernels/quantize.py:38",
+    "dequantize_blocks": "src/repro/kernels/quantize.py:60",
+}
+SOURCES = {
+    "fused_combine": "src/repro_torch/kernels/csrc/fused_combine.cu",
+    "quantize_blocks": "src/repro_torch/kernels/csrc/quantize.cu",
+    "dequantize_blocks": "src/repro_torch/kernels/csrc/quantize.cu",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def device_time_ms(fn, n: int) -> float:
+    """Device time of one call of `fn`, from `n` back-to-back calls.
+
+    A sleep kernel holds the stream while the host enqueues the calls, so
+    the events time the device work, not the host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median wall time of one call, CUDA events around each, after a
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def same(name: str, got, want) -> float:
+    """Fail unless bitwise equal; return the max abs difference (0)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {tuple(got.shape)} {got.dtype} vs "
+             f"{tuple(want.shape)} {want.dtype}")
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        fail(f"{name}: {bad} elements differ from the plain version")
+    return float((got.double() - want.double()).abs().max())
+
+
+def phase_kernels(ops, ref, gen) -> dict:
+    """Phase 2: each kernel bitwise against its plain version, on the
+    card, at the main path's segment shape (8 ranks x 32768)."""
+    dev = "cuda"
+    shape = (NRANKS, SEG)
+    err = {"fused_combine": 0.0, "quantize_blocks": 0.0,
+           "dequantize_blocks": 0.0}
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        b = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        for op in ("add", "max", "min", "mul"):
+            err["fused_combine"] = max(err["fused_combine"], same(
+                f"K1 {op} {dtype}", ops.fused_combine(a, b, op),
+                ref.fused_combine(a, b, op)))
+            checked += 1
+        # fp32 -> bf16 cast output and a ragged, unaligned tail
+        err["fused_combine"] = max(err["fused_combine"], same(
+            f"K1 add {dtype}->bf16 tail", ops.fused_combine(
+                a.reshape(-1)[1:-5], b.reshape(-1)[3:-3], "add",
+                out_dtype=torch.bfloat16),
+            ref.fused_combine(a.reshape(-1)[1:-5], b.reshape(-1)[3:-3],
+                              "add", out_dtype=torch.bfloat16)))
+        checked += 1
+    # K2 on heavy-tailed values, a ragged row and exact .5 ties: a block
+    # whose max is 127 * 2^e has scale 2^e, so (j + .5) * 2^e is a tie
+    x = (torch.randn(shape, generator=gen, device=dev)
+         * torch.exp(2 * torch.randn(shape, generator=gen, device=dev)))
+    ties = torch.arange(-127, 127, device=dev, dtype=torch.float32) + 0.5
+    ties = torch.cat([torch.tensor([127.0, 0.0], device=dev), ties])
+    x[:, :256] = ties * 2.0 ** -3
+    x[:, 256:512] = -ties * 2.0 ** 5
+    for name, inp in (("fp32", x), ("bf16", x.to(torch.bfloat16)),
+                      ("ragged", x[:, :SEG - 100].contiguous())):
+        q, s = ops.quantize_int8(inp)
+        rq, rs = ref.quantize_blocks(inp)
+        err["quantize_blocks"] = max(err["quantize_blocks"],
+                                     same(f"K2 codes {name}", q, rq),
+                                     same(f"K2 scales {name}", s, rs))
+        checked += 2
+    q, s = ops.quantize_int8(x)
+    odd = (q[:, 1:256].float() % 2).abs().sum()   # half-even ties land even
+    if int(odd):
+        fail("K2: .5 ties did not round to even")
+    for dtype in (torch.float32, torch.bfloat16):
+        old = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        for op in ("copy", "add"):
+            got = ops.dequantize_int8(q, s, SEG, old=old if op != "copy"
+                                      else None, op=op, out_dtype=dtype)
+            want = ref.dequantize_blocks(q, s, SEG, old=old if op != "copy"
+                                         else None, op=op, out_dtype=dtype)
+            err["dequantize_blocks"] = max(err["dequantize_blocks"], same(
+                f"K3 {op} {dtype}", got, want))
+            checked += 1
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "checked": checked, "bitwise": True,
+          "max_abs_err": err})
+    return err
+
+
+def int_inputs(shape, gen, device="cuda"):
+    """Integer-valued fp32 in [-8, 8]: every sum over 8 ranks is exact."""
+    return torch.randint(-8, 9, shape, generator=gen, device=device,
+                         dtype=torch.int32).float()
+
+
+def phase_main_fp32(CollectiveEngine, X, counts, ops) -> dict:
+    """Phase 3: the fp32 collectives, bitwise against torch oracles."""
+    eng = CollectiveEngine({"x": NRANKS}, device="cuda")
+    L = X.shape[1]
+    total = X.sum(0)
+    runs = {}
+
+    def run(name, fn, check):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts[name] = ops.launch_counts()
+        check(out)
+        runs[name] = fn
+
+    run("allreduce", lambda: eng.allreduce(X, "x"),
+        lambda out: same("allreduce", out, total.expand_as(X)))
+    run("reduce_scatter", lambda: eng.reduce_scatter(X, "x"),
+        lambda out: same("reduce_scatter", out, total.reshape(NRANKS, -1)))
+    run("allgather", lambda: eng.allgather(X, "x"),
+        lambda out: same("allgather", out,
+                         X.reshape(1, -1).expand(NRANKS, -1)))
+    run("bcast", lambda: eng.bcast(X, "x", root=3),
+        lambda out: same("bcast", out, X[3:4].expand_as(X)))
+    A = X.reshape(NRANKS, 4096, L // 4096)
+    run("alltoall", lambda: eng.alltoall(A, "x"),
+        lambda out: same("alltoall", out, A.reshape(
+            NRANKS, NRANKS, -1, A.shape[2]).transpose(0, 1).reshape(A.shape)))
+    eng2 = CollectiveEngine({"pod": 2, "data": 4}, device="cuda")
+    X2 = X.reshape(2, 4, L)
+    run("allreduce_2x4", lambda: eng2.allreduce(X2, ("pod", "data")),
+        lambda out: same("allreduce_2x4", out, total.expand_as(X2)))
+    picks = [list(map(str, t)) for t in eng.trace_log + eng2.trace_log]
+    sched = eng.selector.choose("allreduce", L * 4, eng.comm("x"))
+    emit({"phase": "main_fp32", "ranks": NRANKS, "mib_per_rank": L * 4 / 2**20,
+          "bitwise": True, "allreduce_pick": [sched.algorithm, sched.segments],
+          "picks": picks, "launches": counts})
+    return runs
+
+
+def phase_main_int8(CollectiveEngine, X, counts, ops, gen) -> dict:
+    """Phase 4: int8 allreduce within the codec bound of the oracle, and
+    bitwise equal to the CPU run of the plain versions at 4 MiB/rank."""
+    eng = CollectiveEngine({"x": NRANKS}, device="cuda")
+    ops.reset_launch_counts()
+    out = eng.allreduce(X, "x", compression="int8")
+    torch.cuda.synchronize()
+    counts["allreduce_int8"] = ops.launch_counts()
+    # Each of the n-1 compressed reduce-scatter hops quantizes a partial
+    # sum of magnitude <= M = max_i sum_r |x_r[i]| with a block scale
+    # <= M/127, so it errs by <= M/254; fp32 rounding adds <= M * 2^-23
+    # per hop. Copies in the allgather phase are exact.
+    M = float(X.abs().sum(0).max())
+    bound = (NRANKS - 1) * M * (1.0 / 254.0 + 2.0 ** -23)
+    err = float((out - X.sum(0)).abs().max())
+    if not err <= bound:
+        fail(f"int8 allreduce error {err} exceeds its bound {bound}")
+    small = int_inputs((NRANKS, 2**20), gen)    # 4 MiB per rank
+    gpu = eng.allreduce(small, "x", compression="int8")
+    cpu_eng = CollectiveEngine({"x": NRANKS}, device="cpu")
+    cpu = cpu_eng.allreduce(small.cpu(), "x", compression="int8")
+    same("int8 allreduce card vs cpu", gpu.cpu(), cpu)
+    emit({"phase": "main_int8", "max_abs_err": err, "bound": bound,
+          "bitwise_vs_cpu_at_mib_per_rank": 4, "launches":
+          counts["allreduce_int8"]})
+    return {"allreduce_int8": lambda: eng.allreduce(X, "x",
+                                                    compression="int8")}
+
+
+_KERNEL_GROUPS = (("fused_combine_kernel", "K1 fused_combine"),
+                  ("dequantize_kernel", "K3 dequantize_blocks"),
+                  ("quantize_kernel", "K2 quantize_blocks"),
+                  ("index", "gather/scatter (indexing)"))
+
+
+def phase_profile(runs, times) -> dict:
+    """Phase 5a: where one allreduce's time goes — device busy time by
+    kernel group (torch.profiler), against the collective's median."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name in ("allreduce", "allreduce_int8"):
+        fn = runs[name]
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        groups: dict = {}
+        kernels = 0
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            key = next((g for pat, g in _KERNEL_GROUPS if pat in ev.key),
+                       "other")
+            groups[key] = groups.get(key, 0.0) + us / 1e3
+            kernels += ev.count
+        busy = sum(groups.values())
+        out[name] = {
+            "device_busy_ms": busy if kernels else None,
+            "median_ms": times[name],
+            "idle_share": (1.0 - busy / times[name]) if kernels else None,
+            "device_ms_by_group": groups, "kernel_launches": kernels}
+    emit({"phase": "profile", **out})
+    return out
+
+
+def kernel_rows(ops, ref, fr, qz, gen, counts, err) -> list:
+    """Phase 5b: per-kernel device time at the main path's segment shape,
+    cycling through 128 MiB of operands so each launch reads cold HBM."""
+    dev = "cuda"
+    pool = 64
+    a = torch.randn((pool, NRANKS, SEG), generator=gen, device=dev)
+    b = torch.randn((pool, NRANKS, SEG), generator=gen, device=dev)
+    qs = [qz.quantize_blocks(b[i]) for i in range(pool)]
+    it = {"i": 0}
+
+    def cyc():
+        it["i"] = (it["i"] + 1) % pool
+        return it["i"]
+
+    n = 400
+    main = {k: sum(c.get(k, 0) for c in counts.values())
+            for k in ops.KERNELS}
+    el = NRANKS * SEG
+    nb = el // 256
+    rows = []
+
+    def row(name, fn, plain, library, nbytes):
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": main[name],
+            "max_abs_err": err[name],
+            "ms": device_time_ms(fn, n),
+            "plain_ms": device_time_ms(plain, n // 4),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": (device_time_ms(library, n)
+                           if library is not None else None),
+            "shape": [NRANKS, SEG]})
+
+    def k1():
+        i = cyc()
+        fr.fused_combine(a[i], b[i], "add", out=a[i])
+
+    def k1_plain():
+        i = cyc()
+        ref.fused_combine(a[i], b[i], "add")
+
+    def k1_lib():
+        i = cyc()
+        torch.add(a[i], b[i], out=a[i])
+
+    row("fused_combine", k1, k1_plain, k1_lib, 3 * 4 * el)
+    row("quantize_blocks", lambda: qz.quantize_blocks(b[cyc()]),
+        lambda: ref.quantize_blocks(b[cyc()]), None,
+        4 * el + el + 4 * nb)
+
+    def k3():
+        i = cyc()
+        q, s = qs[i]
+        qz.dequantize_blocks(q, s, SEG, old=a[i], op="add", out=a[i])
+
+    def k3_plain():
+        i = cyc()
+        q, s = qs[i]
+        ref.dequantize_blocks(q, s, SEG, old=a[i], op="add")
+
+    row("dequantize_blocks", k3, k3_plain, None, el + 4 * nb + 2 * 4 * el)
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mib", type=int, default=64,
+                    help="MiB per rank on the main path")
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card "
+              "only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import CollectiveEngine
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import fused_reduce as fr
+    from repro_torch.kernels import quantize as qz
+
+    # phase 1: the card and the build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    emit({"phase": "device", "nvidia_smi": smi,
+          "name": torch.cuda.get_device_name(0), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "build_seconds": build_s,
+          "built_now": _build.BUILD_SECONDS is not None})
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    err = phase_kernels(ops, ref, gen)                      # phase 2
+    L = args.mib * 2**20 // 4
+    X = int_inputs((NRANKS, L), gen)
+    counts: dict = {}
+    runs = phase_main_fp32(CollectiveEngine, X, counts, ops)   # phase 3
+    runs.update(phase_main_int8(CollectiveEngine, X, counts, ops, gen))
+    for name in ("fused_combine", "quantize_blocks", "dequantize_blocks"):
+        if not sum(c[name] for c in counts.values()):
+            fail(f"the main path launched no {name}")
+
+    # phase 5: times
+    times = {name: median_ms(fn, args.reps) for name, fn in runs.items()}
+    emit({"phase": "times", "median_ms": times, "reps": args.reps,
+          "mib_per_rank": args.mib, "card": smi})
+    phase_profile(runs, times)
+    rows = kernel_rows(ops, ref, fr, qz, gen, counts, err)
+    torch.cuda.synchronize()
+    emit({"kernels": rows})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,932 @@
+"""CollectiveEngine — the CCLO on one device, every rank stacked.
+
+Port of `repro/core/engine.py`. The control plane is unchanged: the
+selector prices the compiled candidates, the generator emits a Schedule
+(microcode) and the compiler lowers it to a verified micro-op Program.
+The data plane is ONE executor, `execute_program`, over a RANK-STACKED
+tensor: all ranks of a communicator live on one device as one tensor
+whose leading dim is the rank. A SEND is then an index permutation along
+that dim — the bulk-synchronous meaning of the reference's
+`lax.ppermute`, and of its numpy model `repro/core/simulator.py`, whose
+structure this executor follows:
+
+  * every selector `sel.fn(rank, step)` is evaluated in Python per rank,
+    and the per-rank regions become one gather / one scatter over all
+    ranks (index tensors cached per region);
+  * LOOP is two-phase: every slot reads the iteration-start state and
+    the writes land at iteration end;
+  * STREAM and STREAM_CHAIN run as their unfused per-step equivalent at
+    the program's segment granularity (the fusion passes prove the two
+    orders value-identical), STACKED_RECV as its bodies in step order;
+  * the codec path is the reference's `_exchange_update`: compress at
+    send, decompress at consume (fused into the combine, `plugins`),
+    segment counts from `fit_segments` with the codec's block.
+
+Each segment of a combining exchange is one kernel launch over the
+stacked (ranks, segment) payload: K1 for a plain wire, K2 then K3 for the
+int8 wire. Copy receives launch no kernel.
+
+Inputs and outputs are stacked by MESH position: the engine's
+`mesh_shape` dims lead every tensor, e.g. `(n, ...)` for `{"x": n}` and
+`(P, M, ...)` for `{"pod": P, "data": M}`. A collective over one axis
+runs every group along the other axes at once; a two-axis collective
+over `(outer, inner)` uses the reference's inner-major flat rank
+`r = intra * P + pod`. `backend="native"` computes the same results with
+torch reductions over the rank dim — the software-MPI baseline role.
+"""
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import hierarchical, plugins, telemetry
+from repro_torch.core.algorithms import GENERATORS
+from repro_torch.core.hw_spec import HwSpec, TPU_V5E
+from repro_torch.core.program import (
+    SRC_ORIGINAL, SRC_RECEIVED, Compress, Copy, Loop, Program, RecvCombine,
+    SegLoop, Send, StackedRecv, Stream, StreamChain, fit_segments,
+    split_exchange,
+)
+from repro_torch.core.schedule import (
+    SEL_ALL, SEL_CHUNK, SEL_MASK, SEL_RANGE, Schedule,
+)
+from repro_torch.core.selector import Selector
+from repro_torch.core.topology import ProductComm, axis_comm, product_comm
+
+
+# --------------------------------------------------------------------------
+# Region helpers (RxBuf manager placement), evaluated per rank
+# --------------------------------------------------------------------------
+
+def _spans(sel, chunks: int, length: int, rank: int, step) -> tuple:
+    """((row_start, rows), ...) of the region `sel` names in one rank's
+    buffer of `length` rows, in payload order."""
+    if sel.kind == SEL_ALL:
+        return ((0, length),)
+    csize = length // chunks
+    if sel.kind == SEL_CHUNK:
+        return ((int(sel.fn(rank, step)) * csize, csize),)
+    if sel.kind == SEL_RANGE:
+        off, ln = sel.fn(rank, step)
+        return ((int(off) * csize, int(ln) * csize),)
+    if sel.kind == SEL_MASK:
+        return tuple((int(j) * csize, csize) for j in sel.fn(rank, step))
+    raise ValueError(sel.kind)
+
+
+# (rows, spans, k, device) -> (unit, row index, unit index); bounded FIFO
+_INDEX_CACHE: dict = {}
+_INDEX_CACHE_MAX = 4096
+
+
+def _region_index(rows: tuple, spans: tuple, k: int, device) -> tuple:
+    """Gather indices for a region of many ranks cut into `k` segments.
+
+    `rows[i]` is a stacked row and `spans[i]` its region. The buffer is
+    viewed in units of `unit` rows (the gcd of every span and of the
+    segment length), and the index is laid out (k, ranks, units/k) so
+    that segment j of every rank is one contiguous block of the gather.
+    """
+    key = (rows, spans, k, str(device))
+    hit = _INDEX_CACHE.get(key)
+    if hit is not None:
+        return hit
+    total = sum(ln for _s, ln in spans[0])
+    unit = total // k
+    for sp in spans:
+        for start, ln in sp:
+            unit = math.gcd(unit, math.gcd(start, ln))
+    unit = max(unit, 1)
+    units = np.stack([
+        np.concatenate([np.arange(s // unit, (s + ln) // unit)
+                        for s, ln in sp] or [np.zeros(0, np.int64)])
+        for sp in spans])
+    uidx = units.reshape(len(rows), k, -1).transpose(1, 0, 2)
+    res = (unit,
+           torch.as_tensor(np.asarray(rows, np.int64).reshape(1, -1, 1),
+                           device=device),
+           torch.as_tensor(np.ascontiguousarray(uidx), device=device))
+    if len(_INDEX_CACHE) >= _INDEX_CACHE_MAX:
+        _INDEX_CACHE.pop(next(iter(_INDEX_CACHE)))
+    _INDEX_CACHE[key] = res
+    return res
+
+
+def _unit_view(t, unit: int):
+    return t.reshape(t.shape[0], t.shape[1] // unit, -1)
+
+
+def _gather(t, index) -> torch.Tensor:
+    """(k, ranks, segment elements) copy of a region."""
+    unit, ridx, uidx = index
+    g = _unit_view(t, unit)[ridx, uidx]
+    return g.reshape(g.shape[0], g.shape[1], -1)
+
+
+def _scatter(t, index, val) -> None:
+    unit, ridx, uidx = index
+    view = _unit_view(t, unit)
+    view.index_put_((ridx, uidx), val.reshape(uidx.shape + view.shape[2:]))
+
+
+def _chunk_permute(buf, chunks: int, n: int, src_chunk) -> torch.Tensor:
+    """Local chunk rotation (the Bruck pre/post COPY micro-ops):
+    rank r's new chunk j is its old chunk src_chunk(r, j)."""
+    R = buf.shape[0]
+    idx = np.array([[src_chunk(row % n, j) for j in range(chunks)]
+                    for row in range(R)], np.int64)
+    grp = buf.reshape(R, chunks, -1)
+    rows = torch.arange(R, device=buf.device)[:, None]
+    out = grp[rows, torch.as_tensor(idx, device=buf.device)]
+    return out.reshape(buf.shape)
+
+
+# --------------------------------------------------------------------------
+# Wire pipeline (SEG_LOOP / COMPRESS / SEND / DECOMPRESS)
+# --------------------------------------------------------------------------
+
+def _split_wire(mid_ops: tuple):
+    """Split the wire micro-ops at the SEND: ([COMPRESS?, SEND],
+    [DECOMPRESS?]). The send half runs at transmit time; the decompress
+    half runs at consume time, fused into the combine plugin."""
+    for i, op in enumerate(mid_ops):
+        if isinstance(op, Send):
+            return mid_ops[:i + 1], mid_ops[i + 1:]
+    raise ValueError("exchange without a SEND op")
+
+
+def _codec_of(send_ops: tuple):
+    for op in send_ops:
+        if isinstance(op, Compress):
+            return plugins.get_codec(op.codec)
+    return None
+
+
+# --------------------------------------------------------------------------
+# The executor (the DMP): one path for every collective
+# --------------------------------------------------------------------------
+
+class _State:
+    """Per-run registers: the stacked buffer plus the relay sources."""
+
+    def __init__(self, prog: Program, buf, groups: int):
+        self.n = prog.nranks
+        self.groups = groups
+        self.chunks = prog.chunks
+        self.buf = buf
+        self.orig = None
+        self.prev = None
+
+    def source(self, which: str):
+        if which == SRC_ORIGINAL:
+            return self.orig
+        if which == SRC_RECEIVED:
+            return self.prev
+        return self.buf
+
+
+def _exchange(st: _State, body: tuple, k_req: int, step):
+    """Compute one exchange over every rank WITHOUT writing it.
+
+    body = (Copy('load'), [Compress], Send, [Decompress], RecvCombine).
+    The payload and combine target are gathered (copied) from the
+    current state, so a caller that defers the returned write — a LOOP
+    iteration — gets the reference's two-phase semantics. Returns
+    (target index, new region values, raw arrivals or None)."""
+    load, recv = body[0], body[-1]
+    send_ops, _dec_ops = _split_wire(body[1:-1])
+    send = send_ops[-1]
+    codec = _codec_of(send_ops)
+    n, chunks = st.n, st.chunks
+    src_of = {d: s for (s, d) in send.perm}
+    dsts = sorted(recv.dsts) if recv.dsts is not None else list(range(n))
+    missing = [d for d in dsts if d not in src_of]
+    if missing:
+        raise ValueError(f"step {step}: ranks {missing} receive nothing "
+                         f"but mask_recv=False")
+    if recv.track_recv and len(dsts) != n:
+        raise ValueError("relay='received' needs every rank to receive")
+
+    src_t = st.source(load.source)
+    buf = st.buf
+    pay_spans = tuple(_spans(load.sel, chunks, src_t.shape[1], src_of[d],
+                             step) for d in dsts)
+    tgt_spans = tuple(_spans(recv.sel, chunks, buf.shape[1], d, step)
+                      for d in dsts)
+    pay_rows = sum(ln for _s, ln in pay_spans[0])
+    view_rows = sum(ln for _s, ln in tgt_spans[0])
+    if pay_rows != view_rows:
+        raise ValueError(f"step {step}: payload of {pay_rows} rows cannot "
+                         f"land in a region of {view_rows} rows")
+    row_elems = 1
+    for d in buf.shape[2:]:
+        row_elems *= int(d)
+    k = 1
+    if k_req > 1:
+        k = fit_segments(pay_rows, k_req, row_elems,
+                         codec.block_elems if codec is not None else 1)
+
+    groups = range(st.groups)
+    src_rows = tuple(g * n + src_of[d] for g in groups for d in dsts)
+    dst_rows = tuple(g * n + d for g in groups for d in dsts)
+    pay_idx = _region_index(src_rows, pay_spans * st.groups, k, buf.device)
+    tgt_idx = _region_index(dst_rows, tgt_spans * st.groups, k, buf.device)
+
+    inc = _gather(src_t, pay_idx)                  # arrivals, (k, ranks, seg)
+    if codec is None and recv.op == "copy":
+        return tgt_idx, inc, (inc if recv.track_recv else None)
+    out = inc if recv.op == "copy" else _gather(buf, tgt_idx)
+    raw = torch.empty_like(inc) if (recv.track_recv and codec) else None
+    for j in range(k):
+        if codec is None:
+            plugins.combine(recv.op, out[j], inc[j], out=out[j])
+            continue
+        wire = codec.compress(inc[j])              # at send
+        if raw is not None:
+            raw[j] = codec.decompress(wire, inc.shape[2:], inc.dtype)
+        codec.consume(wire, out[j], recv.op, out=out[j])   # at consume
+    if recv.track_recv:
+        raw = inc if raw is None else raw
+    return tgt_idx, out, raw
+
+
+def _apply(st: _State, tgt_idx, new_val, raw) -> None:
+    _scatter(st.buf, tgt_idx, new_val)
+    if raw is not None:
+        # the relay register holds the raw arrival, payload-shaped
+        st.prev = raw.transpose(0, 1).reshape(
+            (st.buf.shape[0], -1) + tuple(st.buf.shape[2:]))
+
+
+def _run_exchange(st: _State, body: tuple, k_req: int, step) -> None:
+    _apply(st, *_exchange(st, body, k_req, step))
+
+
+def _exec_loop(st: _State, loop: Loop) -> None:
+    for it in range(loop.trip):
+        # two-phase: every slot reads the iteration-start state, the
+        # writes land at iteration end
+        writes = []
+        for slot, seq in enumerate(loop.slots):
+            body, k_req = split_exchange(seq)
+            writes.append(_exchange(st, body, k_req,
+                                    loop.base + it * loop.period + slot))
+        for w in writes:
+            _apply(st, *w)
+
+
+def execute_program(prog: Program, buf, *, groups: int = 1):
+    """Execute a compiled micro-op Program on a rank-stacked buffer.
+
+    `buf` is (groups * prog.nranks, L, ...): row g * nranks + r is rank r
+    of group g, and every group runs the program independently (the
+    other mesh axes of a one-axis collective). L must be divisible by
+    prog.chunks. Hierarchical programs run through their flat perms.
+    Returns the final buffer (a new tensor; `buf` is not modified).
+
+    This is the single data plane: every collective the engine issues —
+    whatever the algorithm, codec, or segment count — runs through here.
+    """
+    if buf.ndim < 2 or buf.shape[0] != groups * prog.nranks:
+        raise ValueError(f"buffer of shape {tuple(buf.shape)} is not "
+                         f"{groups} x {prog.nranks} stacked ranks")
+    if buf.shape[1] % prog.chunks:
+        raise ValueError(
+            f"buffer leading dim {buf.shape[1]} not divisible by "
+            f"{prog.chunks} chunks")
+    ops = prog.ops
+    n, chunks = prog.nranks, prog.chunks
+    buf = buf.contiguous().clone()
+    i = 0
+    if ops and isinstance(ops[0], Copy) and ops[0].kind == "bruck_pre":
+        buf = _chunk_permute(buf, chunks, n,
+                             lambda r, j: (j + r) % chunks)
+        i = 1
+    st = _State(prog, buf, groups)
+    if prog.relay == SRC_ORIGINAL:
+        st.orig = buf.clone()
+    elif prog.relay == SRC_RECEIVED:
+        st.prev = buf.clone()  # relay='received': step 0 forwards the input
+
+    while i < len(ops):
+        op = ops[i]
+        if isinstance(op, Stream):
+            # the stream's wave order is value-identical to the per-step
+            # order (what fuse_streams proves): run the unfused LOOP of
+            # SEG_LOOPs, segment granularity included
+            _exec_loop(st, Loop(base=op.base, trip=op.trip,
+                                period=op.period,
+                                slots=tuple((SegLoop(op.segments, b),)
+                                            for b in op.slots)))
+            i += 1
+        elif isinstance(op, Loop):
+            _exec_loop(st, op)
+            i += 1
+        elif isinstance(op, StreamChain):
+            # likewise proven value-identical to per-step SEG_LOOPs
+            for body in op.bodies:
+                _run_exchange(st, body, op.segments, body[0].step)
+            i += 1
+        elif isinstance(op, StackedRecv):
+            # write-disjoint copies of the original: step order
+            for body in op.bodies:
+                _run_exchange(st, body, 1, body[0].step)
+            i += 1
+        elif isinstance(op, Copy) and op.kind == "bruck_post":
+            st.buf = _chunk_permute(
+                st.buf, chunks, n,
+                lambda r, j: chunks - 1 - ((j - r - 1) % chunks))
+            i += 1
+        elif isinstance(op, SegLoop) or (
+                isinstance(op, Copy) and op.kind == "load"):
+            if isinstance(op, SegLoop):
+                body, k_req = op.body, op.segments
+                i += 1
+            else:
+                j = i
+                while not isinstance(ops[j], RecvCombine):
+                    j += 1
+                body, k_req = ops[i:j + 1], 1
+                i = j + 1
+            _run_exchange(st, body, k_req, body[0].step)
+        else:
+            raise ValueError(f"unexpected micro-op {op}")
+    return st.buf
+
+
+# --------------------------------------------------------------------------
+# Engine
+# --------------------------------------------------------------------------
+
+def _flatten_pad(xs, mult: int):
+    """Stacked (R, *local) -> (R, Lp) with each rank's flat local array
+    zero-padded to a multiple of `mult`; also the local shape and size."""
+    shape = tuple(xs.shape[1:])
+    flat = xs.reshape(xs.shape[0], -1)
+    size = flat.shape[1]
+    pad = (-size) % mult
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat, shape, size
+
+
+def _find_generator(collective: str, algorithm: str):
+    gen = GENERATORS.get((collective, algorithm))
+    if gen is None:
+        gen = plugins.custom_generator(collective, algorithm)
+    if gen is None:
+        raise KeyError(
+            f"no generator for ({collective!r}, {algorithm!r}); "
+            f"register one via plugins.register_collective")
+    return gen
+
+
+def _gen_schedule(collective: str, algorithm: str, comm,
+                  root: int = 0, op: str = "add") -> Schedule:
+    levels = hierarchical.parse_hier_name(algorithm) \
+        if isinstance(algorithm, str) else None
+    if levels is not None:
+        if not isinstance(comm, ProductComm):
+            raise ValueError(
+                f"{algorithm!r} needs a two-axis (ProductComm) "
+                f"communicator, got {comm!r}")
+        intra, inter = levels
+        return hierarchical.hierarchical_schedule(
+            collective, comm, intra=intra, inter=inter, root=root, op=op)
+    if isinstance(comm, ProductComm):
+        # a flat algorithm requested over the product group: generate over
+        # the equivalent flat communicator — the engine executes it
+        # sequentially per axis (level_sizes stays None)
+        comm = comm.flat
+    gen = _find_generator(collective, algorithm)
+    params = inspect.signature(gen).parameters
+    kw = {}
+    if "root" in params:
+        kw["root"] = root
+    if "op" in params:
+        kw["op"] = op
+    return gen(comm, **kw)
+
+
+def _engine_metrics() -> telemetry.MetricsRegistry:
+    reg = telemetry.MetricsRegistry()
+    reg.counter("gen_calls")
+    reg.counter("sched_cache_hits")
+    return reg
+
+
+_NATIVE_REDUCE = {
+    "add": lambda t: t.sum(1),
+    "max": lambda t: t.amax(1),
+    "min": lambda t: t.amin(1),
+}
+
+
+@dataclasses.dataclass
+class _Layout:
+    """How a mesh-stacked tensor maps onto (groups * n, *local) rows."""
+
+    moved: list
+    dst: list
+    lead: tuple
+    groups: int
+    n: int
+
+    def restore(self, ys):
+        ys = ys.reshape(self.lead + tuple(ys.shape[1:]))
+        return ys.movedim(self.dst, self.moved)
+
+    def rank_of_rows(self, device):
+        """Each stacked row's rank inside its collective group."""
+        return torch.arange(self.groups * self.n, device=device) % self.n
+
+
+@dataclasses.dataclass
+class CollectiveEngine:
+    """ACCL+ CCLO analogue over a mesh of ranks stacked on one device.
+
+    mesh_shape: {axis: size}, in the order the stacked tensors' leading
+    dims follow. device: where the stacked tensors live; "cuda" (the
+    default) runs the kernels and raises when no card is present, "cpu"
+    runs their plain versions. backend: 'microcode' (our schedules — the
+    CCLO) or 'native' (torch reductions — the software-MPI baseline).
+    """
+
+    mesh_shape: dict
+    backend: str = "microcode"
+    hw: HwSpec = TPU_V5E
+    selector: Selector = dataclasses.field(default_factory=Selector)
+    device: object = "cuda"
+    # static-verifier level applied to every program this engine compiles
+    # ("off" | "structural" | "full"; None = REPRO_VERIFY env default) —
+    # see core/verify.py
+    verify: Optional[str] = None
+    # log of issued collectives (for tests / EXPERIMENTS tables)
+    trace_log: list = dataclasses.field(default_factory=list)
+    # schedule cache: (collective, algorithm, n, root, op) -> Schedule.
+    # Repeated collectives hit this instead of re-running the generator
+    # (the uC caches compiled microcode).
+    _sched_cache: dict = dataclasses.field(default_factory=dict)
+    # control-plane telemetry (`stats` below is the read-compatible
+    # mapping view over this registry)
+    metrics: telemetry.MetricsRegistry = dataclasses.field(
+        default_factory=_engine_metrics)
+
+    def __post_init__(self):
+        self.mesh_shape = dict(self.mesh_shape)
+        self.device = torch.device(self.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "CollectiveEngine: no CUDA device is available; pass "
+                "device='cpu' to run the plain versions on the host")
+
+    # -- infrastructure ------------------------------------------------------
+    def comm(self, axis):
+        """Communicator for one mesh axis, or a `ProductComm` for a
+        two-axis tuple (outer pod-crossing axis first)."""
+        if isinstance(axis, tuple):
+            outer_ax, inner_ax = axis
+            return product_comm(self.mesh_shape, outer_ax, inner_ax, self.hw)
+        return axis_comm(self.mesh_shape, axis, self.hw)
+
+    def _axis_size(self, axis) -> int:
+        if isinstance(axis, tuple):
+            n = 1
+            for a in axis:
+                n *= self.mesh_shape[a]
+            return n
+        return self.mesh_shape[axis]
+
+    @property
+    def stats(self) -> telemetry.StatsView:
+        """Read-compatible mapping view over `metrics` (legacy name)."""
+        return self.metrics.view()
+
+    def _tensor(self, x):
+        x = torch.as_tensor(x, device=self.device)
+        lead = tuple(self.mesh_shape.values())
+        if tuple(x.shape[:len(lead)]) != lead:
+            raise ValueError(
+                f"input of shape {tuple(x.shape)} is not stacked over the "
+                f"mesh {self.mesh_shape}")
+        return x
+
+    def _layout(self, x, axis):
+        """(rows, layout): `x` as (groups * n, *local) stacked rows, the
+        collective's ranks innermost (inner-major for a two-axis tuple:
+        row = group * n + intra * P + pod)."""
+        x = self._tensor(x)
+        names = list(self.mesh_shape)
+        D = len(names)
+        if isinstance(axis, tuple):
+            outer_ax, inner_ax = axis
+            moved = [names.index(inner_ax), names.index(outer_ax)]
+        else:
+            moved = [names.index(axis)]
+        dst = list(range(D - len(moved), D))
+        xt = x.movedim(moved, dst)
+        lead = tuple(xt.shape[:D])
+        n = self._axis_size(axis)
+        groups = math.prod(lead) // n
+        rows = xt.reshape((groups * n,) + tuple(xt.shape[D:]))
+        return rows, _Layout(moved, dst, lead, groups, n)
+
+    def _cached_schedule(self, collective: str, algorithm: str,
+                         comm, root: int, op: str) -> Schedule:
+        # a product communicator keys on its level split, not just the
+        # flat rank count — a 4x4 product and a flat 16 must not collide
+        shape = ((comm.outer.size, comm.inner.size)
+                 if isinstance(comm, ProductComm) else comm.size)
+        key = (collective, algorithm, shape, root, op)
+        sched = self._sched_cache.get(key)
+        if sched is not None:
+            self.metrics.inc("sched_cache_hits")
+            return sched
+        self.metrics.inc("gen_calls")
+        sched = _gen_schedule(collective, algorithm, comm, root, op)
+        self._sched_cache[key] = sched
+        return sched
+
+    def _resolve(self, collective: str, x, axis, algorithm: str,
+                 root: int = 0, op: str = "add",
+                 segments: Optional[int] = None,
+                 compression: Optional[str] = None) -> Schedule:
+        """Pick algorithm + segment count; return the (cached) schedule.
+
+        `x` is ONE rank's local array (the selector prices per-rank
+        bytes). The returned schedule carries the chosen segment count in
+        `.segments` (caller-supplied `segments` overrides the selector).
+        """
+        comm = self.comm(axis)
+        nbytes = x.numel() * x.element_size()
+        if algorithm in (None, "auto"):
+            # alltoall executes on the caller's 2-D leading-dim grid, so
+            # the selector clamps candidate segments on rows, not the
+            # flat element count (priced k == executed k)
+            lead = int(x.shape[0]) if collective == "alltoall" \
+                and x.ndim else None
+            choice = self.selector.choose(
+                collective, nbytes, comm, codec=compression,
+                elem_bytes=x.element_size(), lead_dim=lead)
+            algorithm = choice.algorithm
+            if segments is None:
+                segments = choice.segments
+            if root == 0 and op == "add":
+                # the auto pick already generated exactly this schedule
+                sched = choice.schedule
+            else:
+                sched = self._cached_schedule(collective, algorithm, comm,
+                                              root, op)
+        else:
+            sched = self._cached_schedule(collective, algorithm, comm,
+                                          root, op)
+        sched = sched.with_segments(segments if segments else 1)
+        self.trace_log.append((collective, algorithm, axis, int(nbytes)))
+        return sched
+
+    def _execute(self, sched: Schedule, rows, groups: int,
+                 compression: Optional[str] = None):
+        """Compile (memoized) and run through the one data plane."""
+        prog = sched.compile(codec=compression, verify=self.verify)
+        return execute_program(prog, rows, groups=groups)
+
+    def _own_chunks(self, sched: Schedule, out, lay: _Layout):
+        """Each rank's owned chunk of a 'shard' result."""
+        own = [sched.owned_chunk(int(r)) for r in range(lay.n)] * lay.groups
+        grp = out.reshape(out.shape[0], sched.chunks, -1)
+        rows = torch.arange(out.shape[0], device=out.device)
+        return grp[rows, torch.as_tensor(own, device=out.device)]
+
+    def _place_own(self, flat, lay: _Layout, slots):
+        """(R, n * F) zeros with each rank's flat input at its slot."""
+        R, F = flat.shape
+        buf = torch.zeros((R, lay.n, F), dtype=flat.dtype, device=flat.device)
+        rows = torch.arange(R, device=flat.device)
+        buf[rows, slots] = flat
+        return buf.reshape(R, lay.n * F)
+
+    def _native(self, rows, lay: _Layout, op: str):
+        g = rows.reshape((lay.groups, lay.n) + tuple(rows.shape[1:]))
+        red = _NATIVE_REDUCE[op](g)
+        return red.unsqueeze(1).expand(g.shape).reshape(rows.shape)
+
+    # -- two-axis (hierarchical) dispatch ------------------------------------
+    def _flatten_pad_mesh(self, x, mult: int):
+        """Mesh-stacked x -> mesh-stacked flat local arrays padded to
+        `mult`; also the local shape and size."""
+        D = len(self.mesh_shape)
+        shape = tuple(x.shape[D:])
+        flat = x.reshape(tuple(x.shape[:D]) + (-1,))
+        size = flat.shape[-1]
+        pad = (-size) % mult
+        if pad:
+            flat = torch.nn.functional.pad(flat, (0, pad))
+        return flat, shape, size
+
+    def _sequential_product(self, collective: str, x, axis: tuple, *,
+                            op: str = "add", root: int = 0,
+                            compression: Optional[str] = None):
+        """Per-axis composition over (outer, inner): the fallback the
+        engine executes when a FLAT algorithm wins the product pricing
+        (or the backend is native) — one single-axis collective per
+        level, each re-resolved on its own fabric."""
+        outer_ax, inner_ax = axis
+        P = self.mesh_shape[outer_ax]
+        x = self._tensor(x)
+        D = len(self.mesh_shape)
+        if collective == "allreduce":
+            M = self.mesh_shape[inner_ax]
+            flat, shape, size = self._flatten_pad_mesh(x, M)
+            shard = self.reduce_scatter(flat, inner_ax, op=op,
+                                        compression=compression)
+            shard = self.allreduce(shard, outer_ax, op=op,
+                                   compression=compression)
+            full = self.allgather(shard, inner_ax)
+            return full[..., :size].reshape(tuple(x.shape[:D]) + shape)
+        if collective == "reduce_scatter":
+            # inner-major rank map: slice r of (RS inner -> RS outer) is
+            # exactly flat slice r = intra * P + pod
+            shard = self.reduce_scatter(x, inner_ax, op=op,
+                                        compression=compression)
+            return self.reduce_scatter(shard, outer_ax, op=op,
+                                       compression=compression)
+        if collective == "allgather":
+            part = self.allgather(x, outer_ax)
+            return self.allgather(part, inner_ax)
+        if collective == "bcast":
+            # inner first: after it every member of the root's pod
+            # (pod index root % P) holds the data; the outer bcast then
+            # fans each intra slot's copy across pods
+            y = self.bcast(x, inner_ax, root=root // P)
+            return self.bcast(y, outer_ax, root=root % P)
+        raise ValueError(f"no two-axis composition for {collective!r}")
+
+    def _product_collective(self, collective: str, x, axis: tuple, *,
+                            op: str = "add", root: int = 0,
+                            algorithm: str = "auto",
+                            compression: Optional[str] = None,
+                            segments: Optional[int] = None):
+        """Collective over a two-axis (outer, inner) product group.
+
+        Resolves against the `ProductComm`: a hierarchical pick executes
+        as ONE two-level program over the inner-major flat ranks; a flat
+        pick executes as the sequential per-axis composition it was
+        priced against. A size-1 level degenerates to the ordinary
+        single-axis path.
+        """
+        outer_ax, inner_ax = axis
+
+        def single(ax):
+            if collective == "allreduce":
+                return self.allreduce(x, ax, op=op, algorithm=algorithm,
+                                      compression=compression,
+                                      segments=segments)
+            if collective == "reduce_scatter":
+                return self.reduce_scatter(x, ax, op=op,
+                                           algorithm=algorithm,
+                                           compression=compression,
+                                           segments=segments)
+            if collective == "allgather":
+                return self.allgather(x, ax, algorithm=algorithm,
+                                      segments=segments)
+            return self.bcast(x, ax, root=root, algorithm=algorithm,
+                              segments=segments)
+
+        if self.mesh_shape[outer_ax] == 1:
+            return single(inner_ax)
+        if self.mesh_shape[inner_ax] == 1:
+            return single(outer_ax)
+        if self.backend == "native" and algorithm in (None, "auto"):
+            return self._sequential_product(collective, x, axis, op=op,
+                                            root=root,
+                                            compression=compression)
+        if collective == "bcast" and root != 0:
+            # the two-level bcast composition is root=0 only (see
+            # hierarchical.hier_bcast); other roots run per axis
+            return self._sequential_product("bcast", x, axis, root=root)
+        rows, lay = self._layout(x, axis)
+        sched = self._resolve(collective, rows[0], axis, algorithm,
+                              root=root, op=op, segments=segments,
+                              compression=compression)
+        if sched.level_sizes is None:
+            return self._sequential_product(collective, x, axis, op=op,
+                                            root=root,
+                                            compression=compression)
+        if collective == "reduce_scatter":
+            if rows[0].numel() % sched.chunks:
+                raise ValueError(
+                    f"reduce_scatter size {rows[0].numel()} % "
+                    f"{sched.chunks} != 0")
+            flat = rows.reshape(rows.shape[0], -1)
+            out = self._execute(sched, flat, lay.groups, compression)
+            return lay.restore(self._own_chunks(sched, out, lay))
+        if collective == "allgather":
+            flat = rows.reshape(rows.shape[0], -1)
+            buf = self._place_own(flat, lay, lay.rank_of_rows(flat.device))
+            return lay.restore(self._execute(sched, buf, lay.groups))
+        # allreduce / bcast: full result, chunk-padded like the flat path
+        flat, shape, size = _flatten_pad(rows, sched.chunks)
+        out = self._execute(sched, flat, lay.groups, compression)
+        return lay.restore(out[:, :size].reshape((-1,) + shape))
+
+    # -- MPI-like API (paper Listing 1) --------------------------------------
+    def allreduce(self, x, axis, op: str = "add",
+                  algorithm: str = "auto",
+                  compression: Optional[str] = None,
+                  segments: Optional[int] = None):
+        if isinstance(axis, tuple):
+            return self._product_collective(
+                "allreduce", x, axis, op=op, algorithm=algorithm,
+                compression=compression, segments=segments)
+        rows, lay = self._layout(x, axis)
+        if lay.n == 1:
+            return self._tensor(x)
+        if self.backend == "native" and algorithm in (None, "auto") \
+                and op in _NATIVE_REDUCE:
+            return lay.restore(self._native(rows, lay, op))
+        sched = self._resolve("allreduce", rows[0], axis, algorithm, op=op,
+                              segments=segments, compression=compression)
+        # Padding stays a function of chunks alone so the chunk layout —
+        # and hence the elementwise reduction order — is identical at
+        # every segment count.
+        flat, shape, size = _flatten_pad(rows, sched.chunks)
+        out = self._execute(sched, flat, lay.groups, compression)
+        return lay.restore(out[:, :size].reshape((-1,) + shape))
+
+    def reduce_scatter(self, x, axis, op: str = "add",
+                       algorithm: str = "auto",
+                       compression: Optional[str] = None,
+                       segments: Optional[int] = None):
+        """Tiled semantics on the flattened array: rank r gets slice r of
+        the reduction. Input size must be divisible by the rank count."""
+        if isinstance(axis, tuple):
+            return self._product_collective(
+                "reduce_scatter", x, axis, op=op, algorithm=algorithm,
+                compression=compression, segments=segments)
+        rows, lay = self._layout(x, axis)
+        n = lay.n
+        if n == 1:
+            return self._tensor(x)
+        size = rows[0].numel()
+        if size % n:
+            raise ValueError(f"reduce_scatter size {size} % {n} != 0")
+        flat = rows.reshape(rows.shape[0], -1)
+        if self.backend == "native" and algorithm in (None, "auto") \
+                and op in _NATIVE_REDUCE:
+            g = flat.reshape(lay.groups, n, n, size // n)
+            red = _NATIVE_REDUCE[op](g)            # (groups, n, size/n)
+            return lay.restore(red.reshape(lay.groups * n, size // n))
+        sched = self._resolve("reduce_scatter", rows[0], axis, algorithm,
+                              op=op, segments=segments,
+                              compression=compression)
+        out = self._execute(sched, flat, lay.groups, compression)
+        return lay.restore(self._own_chunks(sched, out, lay))
+
+    def allgather(self, x, axis, algorithm: str = "auto",
+                  segments: Optional[int] = None):
+        """Tiled: returns concat of every rank's flat x (own shard at
+        position rank)."""
+        if isinstance(axis, tuple):
+            return self._product_collective(
+                "allgather", x, axis, algorithm=algorithm,
+                segments=segments)
+        rows, lay = self._layout(x, axis)
+        flat = rows.reshape(rows.shape[0], -1)
+        if lay.n == 1:
+            return lay.restore(flat)
+        if self.backend == "native" and algorithm in (None, "auto"):
+            return lay.restore(self._native_allgather(flat, lay))
+        sched = self._resolve("allgather", rows[0], axis, algorithm,
+                              segments=segments)
+        buf = self._place_own(flat, lay, lay.rank_of_rows(flat.device))
+        return lay.restore(self._execute(sched, buf, lay.groups))
+
+    def _native_allgather(self, flat, lay: _Layout):
+        g = flat.reshape(lay.groups, 1, lay.n * flat.shape[1])
+        return g.expand(lay.groups, lay.n, g.shape[2]).reshape(
+            lay.groups * lay.n, -1)
+
+    def bcast(self, x, axis, root: int = 0, algorithm: str = "auto",
+              segments: Optional[int] = None):
+        if isinstance(axis, tuple):
+            return self._product_collective(
+                "bcast", x, axis, root=root, algorithm=algorithm,
+                segments=segments)
+        rows, lay = self._layout(x, axis)
+        if lay.n == 1:
+            return self._tensor(x)
+        if self.backend == "native" and algorithm in (None, "auto"):
+            g = rows.reshape((lay.groups, lay.n) + tuple(rows.shape[1:]))
+            out = g[:, root:root + 1].expand(g.shape).reshape(rows.shape)
+            return lay.restore(out)
+        sched = self._resolve("bcast", rows[0], axis, algorithm, root=root,
+                              segments=segments)
+        flat, shape, size = _flatten_pad(rows, sched.chunks)
+        out = self._execute(sched, flat, lay.groups)
+        return lay.restore(out[:, :size].reshape((-1,) + shape))
+
+    def reduce(self, x, axis: str, root: int = 0, op: str = "add",
+               algorithm: str = "auto", segments: Optional[int] = None):
+        """MPI semantics: result meaningful at `root` only (other ranks may
+        hold partial reductions, depending on the algorithm)."""
+        rows, lay = self._layout(x, axis)
+        if lay.n == 1:
+            return self._tensor(x)
+        if self.backend == "native" and algorithm in (None, "auto"):
+            return lay.restore(self._native(rows, lay, "add"))
+        sched = self._resolve("reduce", rows[0], axis, algorithm, root=root,
+                              op=op, segments=segments)
+        flat, shape, size = _flatten_pad(rows, sched.chunks)
+        out = self._execute(sched, flat, lay.groups)
+        return lay.restore(out[:, :size].reshape((-1,) + shape))
+
+    def gather(self, x, axis: str, root: int = 0, algorithm: str = "auto"):
+        """Root ends with concat of all ranks' flat x (others undefined)."""
+        rows, lay = self._layout(x, axis)
+        flat = rows.reshape(rows.shape[0], -1)
+        n = lay.n
+        if n == 1:
+            return lay.restore(flat)
+        if self.backend == "native" and algorithm in (None, "auto"):
+            return lay.restore(self._native_allgather(flat, lay))
+        sched = self._resolve("gather", rows[0], axis, algorithm, root=root)
+        rank = lay.rank_of_rows(flat.device)
+        slots = rank if sched.chunk_coords == "absolute" \
+            else (rank - root) % n
+        out = self._execute(sched, self._place_own(flat, lay, slots),
+                            lay.groups)
+        if sched.chunk_coords == "relative":
+            grp = out.reshape(out.shape[0], n, -1)
+            out = torch.roll(grp, root, dims=1).reshape(out.shape[0], -1)
+        return lay.restore(out)
+
+    def alltoall(self, x, axis: str, algorithm: str = "auto",
+                 segments: Optional[int] = None):
+        """Tiled on leading dim: block j of the output came from rank j."""
+        rows, lay = self._layout(x, axis)
+        n = lay.n
+        if n == 1:
+            return self._tensor(x)
+        if rows.shape[1] % n:
+            raise ValueError(f"alltoall dim0 {rows.shape[1]} % {n} != 0")
+        if self.backend == "native" and algorithm in (None, "auto"):
+            rest = tuple(rows.shape[2:])
+            g = rows.reshape((lay.groups, n, n, rows.shape[1] // n) + rest)
+            return lay.restore(g.transpose(1, 2).reshape(rows.shape))
+        sched = self._resolve("alltoall", rows[0], axis, algorithm,
+                              segments=segments)
+        return lay.restore(self._execute(sched, rows, lay.groups))
+
+    def collective(self, name: str, x, axis: str, *,
+                   algorithm: str = "auto", root: int = 0, op: str = "add",
+                   compression: Optional[str] = None,
+                   segments: Optional[int] = None):
+        """Run a collective registered via `plugins.register_collective`.
+
+        The paper's "new collectives without re-synthesis" path: an
+        out-of-tree schedule generator lowers through the same selector,
+        compiler, and `execute_program` data plane as the built-ins.
+        Result convention follows the schedule: 'shard' returns each
+        rank's owned chunk, anything else the full (trimmed) buffer.
+        """
+        rows, lay = self._layout(x, axis)
+        if lay.n == 1:
+            return self._tensor(x)
+        sched = self._resolve(name, rows[0], axis, algorithm, root=root,
+                              op=op, segments=segments,
+                              compression=compression)
+        size = rows[0].numel()
+        if sched.result == "shard" and size % sched.chunks:
+            # a shard result returns one raw chunk — padding would hand
+            # some rank silent zeros (reduce_scatter applies the same rule)
+            raise ValueError(
+                f"{name} returns shards: input size {size} must be "
+                f"divisible by {sched.chunks} chunks")
+        flat, shape, size = _flatten_pad(rows, sched.chunks)
+        out = self._execute(sched, flat, lay.groups, compression)
+        if sched.result == "shard":
+            return lay.restore(self._own_chunks(sched, out, lay))
+        return lay.restore(out[:, :size].reshape((-1,) + shape))
+
+    def send_recv(self, x, axis: str, shift: int = 1):
+        """Neighbour exchange along a ring (the paper's send/recv pair):
+        rank (r + shift) % n receives rank r's x."""
+        rows, lay = self._layout(x, axis)
+        g = rows.reshape((lay.groups, lay.n) + tuple(rows.shape[1:]))
+        return lay.restore(torch.roll(g, shift, dims=1).reshape(rows.shape))
+
+    def barrier(self, axis: str):
+        """1-element allreduce, like the paper's barrier collective."""
+        lead = tuple(self.mesh_shape.values())
+        return self.allreduce(
+            torch.zeros(lead + (1,), dtype=torch.float32,
+                        device=self.device), axis, algorithm="auto")
+
+    def nop(self):
+        """Engine invocation NOP (fig8 latency benchmark)."""
+        return torch.zeros((), dtype=torch.int32, device=self.device)

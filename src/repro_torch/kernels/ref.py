@@ -1,0 +1,112 @@
+"""Plain PyTorch versions of the port's CUDA kernels (K1-K3).
+
+Each function computes exactly what its kernel computes, bit for bit:
+the CPU path of `ops` runs these, and `chip_smoke.py` holds every kernel
+against them on the card. They mirror the reference package's oracles in
+`repro/kernels/ref.py` and its jnp codec in `repro/core/plugins.py`,
+including the two places where the reference's compiler changed the
+arithmetic:
+
+* the int8 scale is `amax * float32(1/127)` (XLA rewrites the division
+  by the constant 127 into a multiply by its reciprocal);
+* a dequantize feeding an fp32 add is ONE rounding, `fma(q, s, old)`
+  (XLA contracts the multiply into the add).
+"""
+from __future__ import annotations
+
+import torch
+
+QUANT_BLOCK = 256   # elements per int8 scale block
+
+_COMBINE = {
+    "add": torch.add,
+    "max": torch.maximum,
+    "min": torch.minimum,
+    "mul": torch.mul,
+}
+
+
+def fused_combine(x, y, op: str = "add", out_dtype=None):
+    """K1: `op(x.f32, y.f32).to(out_dtype)` elementwise."""
+    out_dtype = out_dtype or x.dtype
+    return _COMBINE[op](x.float(), y.float()).to(out_dtype)
+
+
+def padded_len(n_valid: int) -> int:
+    """A rank row's length padded to whole scale blocks."""
+    return -(-int(n_valid) // QUANT_BLOCK) * QUANT_BLOCK
+
+
+def quantize_blocks(x2d):
+    """K2: (rows, n_valid) fp -> (int8 (rows, Lp), fp32 scales (rows, Lp/256)).
+
+    Every row (one rank's flat payload) is zero-padded to whole 256-element
+    blocks on its own, so a block never straddles two rows. fp32 input:
+    `scale = max(amax * f32(1/127), 1e-12)`, `q = rint(x / scale)`. bf16
+    input follows the reference's bf16 arithmetic: the scale, its floor
+    and the quotient `x / scale` are each rounded to bf16."""
+    rows, n_valid = x2d.shape
+    lp = padded_len(n_valid)
+    x = x2d.float()
+    if lp != n_valid:
+        x = torch.nn.functional.pad(x, (0, lp - n_valid))
+    blocks = x.reshape(rows, lp // QUANT_BLOCK, QUANT_BLOCK)
+    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=x.device)
+    floor = torch.tensor(1e-12, dtype=torch.float32, device=x.device)
+    scale = blocks.abs().amax(dim=2) * inv127
+    if x2d.dtype == torch.bfloat16:
+        # the reference computes a bf16 payload's codec in bf16: the scale
+        # and the quotient each round to bf16 before the next step
+        scale = scale.to(torch.bfloat16).float()
+        floor = floor.to(torch.bfloat16).float()
+    scale = torch.maximum(scale, floor)
+    ratio = blocks / scale[..., None]
+    if x2d.dtype == torch.bfloat16:
+        ratio = ratio.to(torch.bfloat16).float()
+    q = torch.round(ratio).clamp(-127, 127)
+    return q.to(torch.int8).reshape(rows, lp), scale
+
+
+def _fma_f32(a, b, c):
+    """Single-rounding float32 `a * b + c` for a product that is exact in
+    float64 (int8 code times fp32 scale).
+
+    The sum is taken in float64 with its exact error term (TwoSum); the
+    float64 sum rounds to the same float32 as the exact value except when
+    it sits exactly on a float32 midpoint, where the error's sign decides.
+    """
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = c64 + p
+    bb = s - c64
+    err = (c64 - (s - bb)) + (p - bb)
+    r = s.float()
+    d = s - r.double()
+    toward = torch.where(d > 0, torch.full_like(r, float("inf")),
+                         torch.full_like(r, float("-inf")))
+    nb = torch.nextafter(r, toward)
+    mid = (r.double() + nb.double()) * 0.5
+    fix = (d != 0) & (s == mid) & (err != 0) & ((err > 0) == (d > 0))
+    return torch.where(fix, nb, r)
+
+
+def dequantize_blocks(q2d, scales, n_valid: int, old=None, op: str = "copy",
+                      out_dtype=None):
+    """K3: `q * s` per block, trimmed to `n_valid` per row, optionally
+    combined into `old` at the consume site.
+
+    op 'copy' is the plain dequantize. fp32 'add' rounds once (FMA); a
+    bf16 buffer, or max/min/mul, rounds `q * s` to the buffer's dtype
+    first and then combines, as the reference does."""
+    out_dtype = old.dtype if old is not None else (out_dtype or torch.float32)
+    rows, lp = q2d.shape
+    qf = q2d.float().reshape(rows, lp // QUANT_BLOCK, QUANT_BLOCK)
+    sf = scales[..., None].expand_as(qf)
+    if op == "add" and out_dtype == torch.float32:
+        return _fma_f32(qf.reshape(rows, lp)[:, :n_valid],
+                        sf.reshape(rows, lp)[:, :n_valid],
+                        old.reshape(rows, n_valid))
+    v = (qf * sf).reshape(rows, lp)[:, :n_valid].to(out_dtype)
+    if op == "copy":
+        return v
+    return fused_combine(old.reshape(rows, n_valid), v, op, out_dtype)

@@ -1,0 +1,295 @@
+"""The port's kernels' plain versions (K1-K3) against the JAX reference.
+
+The same numpy inputs, made from a seed, go through
+`repro_torch.kernels` (on the CPU: the plain PyTorch versions the CUDA
+kernels are held to on the card) and through the reference — its Pallas
+kernels in interpret mode (`repro.kernels.ops`) and its jnp codec
+(`repro.core.plugins.int8_compress/decompress(use_pallas=False)`, the
+path the reference engine runs). Every comparison is BITWISE. Covered:
+the reciprocal scale, half-even ties, the single-rounding fp32
+dequantize-add, the bf16 path, per-rank padding, and the Pallas path's
+32768-element padding (valid blocks only).
+"""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import plugins as jplugins
+from repro.kernels import ops as jops
+from repro_torch.core import plugins as tplugins
+from repro_torch.kernels import fused_reduce, ops, ref
+
+
+def _np(t):
+    return np.asarray(t.float()) if t.dtype == torch.bfloat16 else \
+        np.asarray(t)
+
+
+def _j2np(a):
+    return np.asarray(a.astype(jnp.float32)) if a.dtype == jnp.bfloat16 \
+        else np.asarray(a)
+
+
+def _mixed(shape, seed):
+    """Heavy-tailed values spanning many binades."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=shape) * np.exp(3 * rng.normal(size=shape))
+            ).astype(np.float32)
+
+
+def _jax_rows(fn, X):
+    """Apply a per-rank reference function to every row of X."""
+    return [fn(jnp.asarray(row)) for row in X]
+
+
+# -- K1: fused combine ---------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["add", "max", "min", "mul"])
+def test_k1_matches_pallas_interpret(op, dtype):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(8, 1000)).astype(np.float32)
+    y = rng.normal(size=(8, 1000)).astype(np.float32)
+    want = jops.fused_combine(jnp.asarray(x).astype(dtype),
+                              jnp.asarray(y).astype(dtype), op=op)
+    got = ops.fused_combine(torch.from_numpy(x).to(getattr(torch, dtype)),
+                            torch.from_numpy(y).to(getattr(torch, dtype)),
+                            op)
+    assert np.array_equal(_np(got), _j2np(want))
+
+
+@pytest.mark.parametrize("op", ["add", "max", "min", "mul"])
+def test_k1_matches_jnp_plugin_bf16(op):
+    """bf16 combine, as the reference engine's jnp plugin computes it."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(4, 3000)).astype(np.float32) * 100
+    y = rng.normal(size=(4, 3000)).astype(np.float32)
+    xb, yb = jnp.asarray(x).astype(jnp.bfloat16), \
+        jnp.asarray(y).astype(jnp.bfloat16)
+    want = jax.jit(lambda a, b: jplugins.combine(op, a, b))(xb, yb)
+    got = tplugins.combine(op, torch.from_numpy(x).to(torch.bfloat16),
+                           torch.from_numpy(y).to(torch.bfloat16))
+    assert np.array_equal(_np(got), _j2np(want))
+
+
+def test_k1_cast_and_in_place_out():
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(3, 77)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(3, 77)).astype(np.float32))
+    want = jops.fused_combine(jnp.asarray(x.numpy()), jnp.asarray(y.numpy()),
+                              op="add", out_dtype=jnp.bfloat16)
+    got = ops.fused_combine(x, y, "add", out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(_np(got), _j2np(want))
+    expect = (x + y).clone()
+    ops.fused_combine(x, y, "add", out=x)
+    assert torch.equal(x, expect)
+
+
+# -- K2: quantize ----------------------------------------------------------------
+
+def _jnp_compress(X, dtype="float32"):
+    """Reference engine codec, one rank row at a time."""
+    f = jax.jit(jplugins.int8_compress)
+    outs = [f(jnp.asarray(row).astype(dtype)) for row in X]
+    return (np.stack([np.asarray(o.payload) for o in outs]),
+            np.stack([np.asarray(o.scale) for o in outs]))
+
+
+def test_k2_reciprocal_scale_matches_jnp():
+    """Finding 1: the reference's scale is amax * f32(1/127), not a true
+    division; the input is chosen so that the two differ on some blocks."""
+    X = _mixed((4, 256 * 256), seed=3)
+    q, s = ops.quantize_int8(torch.from_numpy(X))
+    jq, js = _jnp_compress(X)
+    assert np.array_equal(np.asarray(s), js)
+    assert np.array_equal(np.asarray(q), jq)
+    amax = np.abs(X.reshape(4, -1, 256)).max(-1)
+    true_div = np.maximum(amax / np.float32(127.0), np.float32(1e-12))
+    assert np.sum(true_div != js) > 0   # the input discriminates
+
+
+def _tie_rows():
+    """Blocks whose max is 127 * 2^e have scale exactly 2^e, so every
+    (j + .5) * 2^e lands on a rounding tie."""
+    ties = np.concatenate([[127.0, 0.0], np.arange(-127, 127) + 0.5])
+    rows = [ties * 2.0 ** e for e in (-6, 0, 3)]
+    return np.stack([np.concatenate(rows), -np.concatenate(rows)]
+                    ).astype(np.float32)
+
+
+def test_k2_half_even_ties():
+    X = _tie_rows()
+    q, s = ops.quantize_int8(torch.from_numpy(X))
+    jq, js = _jnp_compress(X)
+    assert np.array_equal(np.asarray(q), jq)
+    assert np.array_equal(np.asarray(s), js)
+    codes = np.asarray(q).reshape(2, 3, 256)[:, :, 2:]
+    assert np.all(codes % 2 == 0)            # ties went to even
+    assert np.sum(np.abs(codes) == 126) > 0  # 126.5 rounded down
+
+
+def test_k2_per_rank_padding():
+    """Each rank's row pads to whole 256-blocks on its own."""
+    X = _mixed((5, 1000), seed=4)
+    q, s = ops.quantize_int8(torch.from_numpy(X))
+    assert tuple(q.shape) == (5, 1024) and tuple(s.shape) == (5, 4)
+    jq, js = _jnp_compress(X)
+    assert np.array_equal(np.asarray(q), jq)
+    assert np.array_equal(np.asarray(s), js)
+
+
+def test_k2_bf16_path():
+    X = _mixed((3, 2048), seed=5)
+    q, s = ops.quantize_int8(torch.from_numpy(X).to(torch.bfloat16))
+    jq, js = _jnp_compress(X, "bfloat16")
+    assert np.array_equal(np.asarray(q), jq)
+    assert np.array_equal(np.asarray(s), js)
+
+
+def test_k2_matches_pallas_valid_blocks():
+    """The Pallas wrapper pads to 32768 elements; the valid blocks agree."""
+    X = _mixed((1, 256 * 40), seed=6)
+    q, s = ops.quantize_int8(torch.from_numpy(X))
+    pq, ps = jops.quantize_int8(jnp.asarray(X[0]))
+    assert pq.shape[0] == 32768
+    assert np.array_equal(np.asarray(q)[0], np.asarray(pq)[:256 * 40])
+    assert np.array_equal(np.asarray(s)[0], np.asarray(ps)[:40])
+
+
+# -- K3: dequantize (+ fused consume) -----------------------------------------
+
+def _codes(seed, rows=4, n=256 * 24):
+    X = _mixed((rows, n), seed=seed)
+    q, s = ref.quantize_blocks(torch.from_numpy(X))
+    return q, s, n
+
+
+def test_k3_copy_matches_jnp_and_pallas():
+    q, s, n = _codes(7)
+    got = ops.dequantize_int8(q, s, n)
+    for r in range(q.shape[0]):
+        c = jplugins.Compressed(jnp.asarray(q[r].numpy()),
+                                jnp.asarray(s[r].numpy()))
+        want = jplugins.int8_decompress(c, (n,), jnp.float32)
+        assert np.array_equal(np.asarray(got[r]), np.asarray(want))
+        pal = jops.dequantize_int8(
+            jnp.pad(c.payload, (0, 32768 - n)),
+            jnp.pad(c.scale, (0, 128 - n // 256)))
+        assert np.array_equal(np.asarray(got[r]), np.asarray(pal)[:n])
+
+
+def _jnp_consume(q, s, old, n, op, dtype):
+    def f(qr, sr, o):
+        inc = jplugins.int8_decompress(jplugins.Compressed(qr, sr), (n,),
+                                       dtype)
+        return jplugins.combine(op, o, inc)
+    f = jax.jit(f)
+    return np.stack([
+        _j2np(f(jnp.asarray(q[r].numpy()), jnp.asarray(s[r].numpy()),
+                jnp.asarray(old[r]).astype(dtype)))
+        for r in range(q.shape[0])])
+
+
+def test_k3_fp32_add_rounds_once():
+    """Finding 2: the reference contracts dequantize + add into one FMA."""
+    q, s, n = _codes(8)
+    old = np.random.default_rng(9).normal(size=(q.shape[0], n)
+                                          ).astype(np.float32)
+    got = ops.dequantize_int8(q, s, n, old=torch.from_numpy(old), op="add")
+    want = _jnp_consume(q, s, old, n, "add", jnp.float32)
+    assert np.array_equal(np.asarray(got), want)
+    two_roundings = old + ref.dequantize_blocks(q, s, n).numpy()
+    assert np.sum(two_roundings != want) > 0   # the input discriminates
+
+
+def test_k3_bf16_add_rounds_twice():
+    q, s, n = _codes(10)
+    old = np.random.default_rng(11).normal(size=(q.shape[0], n)
+                                           ).astype(np.float32)
+    got = ops.dequantize_int8(
+        q, s, n, old=torch.from_numpy(old).to(torch.bfloat16), op="add")
+    want = _jnp_consume(q, s, old, n, "add", jnp.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(_np(got), want)
+
+
+@pytest.mark.parametrize("op", ["max", "min", "mul"])
+def test_k3_other_consume_ops(op):
+    q, s, n = _codes(12)
+    old = np.random.default_rng(13).normal(size=(q.shape[0], n)
+                                           ).astype(np.float32)
+    got = ops.dequantize_int8(q, s, n, old=torch.from_numpy(old), op=op)
+    want = _jnp_consume(q, s, old, n, op, jnp.float32)
+    assert np.array_equal(np.asarray(got), want)
+
+
+def test_fma_plain_version_is_exact():
+    """The plain single-rounding FMA agrees with exact rational
+    arithmetic, including sums that sit on a float32 midpoint."""
+    from fractions import Fraction
+    rng = np.random.default_rng(14)
+    a = rng.integers(-127, 128, size=4000).astype(np.float32)
+    b = (rng.normal(size=4000) * np.exp(4 * rng.normal(size=4000))
+         ).astype(np.float32)
+    c = (rng.normal(size=4000) * np.exp(4 * rng.normal(size=4000))
+         ).astype(np.float32)
+    # midpoint cases: c + a*b exactly halfway between two float32s
+    c[:8] = np.float32(1.0)
+    a[:8] = 1.0
+    b[:8] = np.float32(2.0 ** -24) * np.array([1, -1, 3, -3, 1, -1, 5, -5])
+    got = ref._fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                       torch.from_numpy(c)).numpy()
+    for i in range(len(a)):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) \
+            + Fraction(float(c[i]))
+        lo = np.float32(float(exact))
+        # float(Fraction) rounds correctly to float64; check float32 RN
+        cands = [lo, np.nextafter(lo, np.float32(np.inf)),
+                 np.nextafter(lo, np.float32(-np.inf))]
+        best = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                         int(v.view(np.int32)) & 1))
+        assert got[i] == best, (i, a[i], b[i], c[i], got[i], best)
+
+
+# -- wrappers, devices and imports ---------------------------------------------
+
+def test_cpu_tensors_take_the_plain_version():
+    x = torch.ones(4, 300)
+    ops.reset_launch_counts()
+    assert torch.equal(ops.fused_combine(x, x, "add"), 2 * x)
+    q, s = ops.quantize_int8(x)
+    ops.dequantize_int8(q, s, 300)
+    assert ops.launch_counts() == {"fused_combine": 0, "quantize_blocks": 0,
+                                   "dequantize_blocks": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_reduce.fused_combine(torch.ones(4), torch.ones(4))
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """Every repro_torch module imports in a fresh process without
+    loading jax or the reference package."""
+    code = (
+        "import pkgutil, sys, importlib, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "import repro_torch.core.engine\n"
+        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True,
+                         env=dict(os.environ))
+    assert int(out.stdout.strip()) >= 15
