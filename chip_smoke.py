@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — the collective offload engine, ranks
-stacked on the card — at the repository's own top message size (64 MiB
-per rank on 8 ranks, the top of `seg_sweep` / `hier_sweep` in
-benchmarks/figures.py), and holds every kernel on that path against its
-plain PyTorch version. Phases, one line each:
+Drives the port's two paths — the collective offload engine at the
+repository's own top message size (64 MiB per rank on 8 ranks, the top
+of `seg_sweep` / `hier_sweep` in benchmarks/figures.py), and distributed
+DLRM inference (the paper's use case 2) at the full width of the paper's
+Table 2 model — ranks stacked on the card, and holds every kernel on
+those paths against its plain PyTorch version. Phases, one line each:
 
   1. device: the card (nvidia-smi) and the kernels' build time;
   2. kernels: K1 add/max/min/mul fp32+bf16, K2 (codes, scales, exact .5
@@ -20,18 +21,31 @@ plain PyTorch version. Phases, one line each:
      call on the CPU (plain versions) at 4 MiB per rank;
   5. times: the median of >= 10 runs after warm-up (CUDA events) per
      collective; where one fp32 and one int8 allreduce spend device time
-     (torch.profiler, by kernel group, and the device's idle share); and
-     one JSON line of the kernels with their launches on the main path,
-     time, plain time, bound and library time.
+     (torch.profiler, by kernel group, and the device's idle share);
+  6. dlrm: the full `CONFIG` (100 tables x 4,000,000 rows x 32 fp32,
+     51.2 GB, drawn on the card from --seed) served by `DLRMServer` on
+     the (pod, data, model) = (1, 1, 8) mesh with collective_matmul:
+     K4 at the FC1 shapes within its per-element bound of the plain
+     version and K5 bitwise; 20 batches of 32 requests and one of 2048,
+     each launching K4, K5 and K1 at least once; the concat vector
+     BITWISE equal to direct indexing of the tables and the logits
+     within atol 1e-5 + rtol 1e-4 of a float64 single-copy reference;
+     median latency and queries/s against the single-copy reference;
+     the device time of one batch by kernel group with the idle share.
+     (If the card's free memory is short of the tables, only
+     rows_per_table is cut, and the phase's lines say so.)
 
-The last line is {"ok": true, "device": {...}}. Any failure raises and
-exits non-zero; without a CUDA device the script exits non-zero at once.
+Then one JSON line of the five kernels with their launches on the two
+paths, time, plain time, bound and library time. The last line is
+{"ok": true, "device": {...}}. Any failure raises and exits non-zero;
+without a CUDA device the script exits non-zero at once.
 
     python3 chip_smoke.py [--seed 0] [--mib 64] [--reps 10]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -43,6 +57,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, fp32 outside tensor cores
 NRANKS = 8
 SEG = 32768                   # elements per rank in one 128 KiB segment
 
@@ -50,12 +65,20 @@ REPLACES = {
     "fused_combine": "src/repro/kernels/fused_reduce.py:40",
     "quantize_blocks": "src/repro/kernels/quantize.py:38",
     "dequantize_blocks": "src/repro/kernels/quantize.py:60",
+    "matmul_tiled": "src/repro/kernels/matmul.py:47",
+    "gather_rows": "src/repro/kernels/embedding_gather.py:34",
 }
 SOURCES = {
     "fused_combine": "src/repro_torch/kernels/csrc/fused_combine.cu",
     "quantize_blocks": "src/repro_torch/kernels/csrc/quantize.cu",
     "dequantize_blocks": "src/repro_torch/kernels/csrc/quantize.cu",
+    "matmul_tiled": "src/repro_torch/kernels/csrc/matmul.cu",
+    "gather_rows": "src/repro_torch/kernels/csrc/embedding_gather.cu",
 }
+DLRM_MESH = {"pod": 1, "data": 1, "model": 8}
+DLRM_BATCHES, DLRM_SMALL, DLRM_LARGE = 20, 32, 2048
+DLRM_HEADROOM = 10 * 2**30    # bytes the serving path needs beside the tables
+DLRM_ATOL, DLRM_RTOL = 1e-5, 1e-4
 
 
 def emit(obj) -> None:
@@ -253,43 +276,49 @@ _KERNEL_GROUPS = (("fused_combine_kernel", "K1 fused_combine"),
                   ("index", "gather/scatter (indexing)"))
 
 
+def device_split(fn, groups) -> dict:
+    """Device time of one call of `fn` by kernel group (torch.profiler):
+    the first (pattern, group) whose pattern the kernel's name holds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    kernels = 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        key = next((g for pat, g in groups if pat in ev.key), "other")
+        split[key] = split.get(key, 0.0) + us / 1e3
+        kernels += ev.count
+    return {"device_ms_by_group": split, "kernel_launches": kernels}
+
+
+def busy_and_idle(split: dict, median_ms: float) -> dict:
+    busy = sum(split["device_ms_by_group"].values())
+    seen = split["kernel_launches"] > 0
+    return {"device_busy_ms": busy if seen else None, "median_ms": median_ms,
+            "idle_share": (1.0 - busy / median_ms) if seen else None, **split}
+
+
 def phase_profile(runs, times) -> dict:
     """Phase 5a: where one allreduce's time goes — device busy time by
     kernel group (torch.profiler), against the collective's median."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    out = {}
-    for name in ("allreduce", "allreduce_int8"):
-        fn = runs[name]
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        groups: dict = {}
-        kernels = 0
-        for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = getattr(ev, "self_cuda_time_total", 0.0)
-            key = next((g for pat, g in _KERNEL_GROUPS if pat in ev.key),
-                       "other")
-            groups[key] = groups.get(key, 0.0) + us / 1e3
-            kernels += ev.count
-        busy = sum(groups.values())
-        out[name] = {
-            "device_busy_ms": busy if kernels else None,
-            "median_ms": times[name],
-            "idle_share": (1.0 - busy / times[name]) if kernels else None,
-            "device_ms_by_group": groups, "kernel_launches": kernels}
+    out = {name: busy_and_idle(device_split(runs[name], _KERNEL_GROUPS),
+                               times[name])
+           for name in ("allreduce", "allreduce_int8")}
     emit({"phase": "profile", **out})
     return out
 
 
-def kernel_rows(ops, ref, fr, qz, gen, counts, err) -> list:
+def kernel_rows(ref, fr, qz, gen, err) -> list:
     """Phase 5b: per-kernel device time at the main path's segment shape,
     cycling through 128 MiB of operands so each launch reads cold HBM."""
     dev = "cuda"
@@ -304,8 +333,6 @@ def kernel_rows(ops, ref, fr, qz, gen, counts, err) -> list:
         return it["i"]
 
     n = 400
-    main = {k: sum(c.get(k, 0) for c in counts.values())
-            for k in ops.KERNELS}
     el = NRANKS * SEG
     nb = el // 256
     rows = []
@@ -313,8 +340,7 @@ def kernel_rows(ops, ref, fr, qz, gen, counts, err) -> list:
     def row(name, fn, plain, library, nbytes):
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": main[name],
-            "max_abs_err": err[name],
+            "replaces": REPLACES[name], "max_abs_err": err[name],
             "ms": device_time_ms(fn, n),
             "plain_ms": device_time_ms(plain, n // 4),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -353,6 +379,232 @@ def kernel_rows(ops, ref, fr, qz, gen, counts, err) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# Phase 6: distributed DLRM inference at the full CONFIG width
+# --------------------------------------------------------------------------
+
+_CUBLAS = "cuBLAS (FC2/FC3/head)"
+_DLRM_GROUPS = (("gather_rows_kernel", "K5 gather_rows"),
+                ("matmul_tiled_kernel", "K4 matmul_tiled"),
+                ("fused_combine_kernel", "K1 fused_combine"),
+                ("gemm", _CUBLAS), ("xmma", _CUBLAS), ("cutlass", _CUBLAS),
+                ("index", "gather/scatter (indexing)"))
+
+
+def dlrm_config(CONFIG):
+    """CONFIG, with rows_per_table cut only if the card's free memory is
+    short of the tables plus the serving path's headroom."""
+    free, total = torch.cuda.mem_get_info()
+    per_row = CONFIG.n_tables * CONFIG.emb_dim * 4
+    tp = DLRM_MESH["model"]
+    rows = CONFIG.rows_per_table
+    if rows * per_row > free - DLRM_HEADROOM:
+        rows = max(tp, (free - DLRM_HEADROOM) // per_row // tp * tp)
+    return dataclasses.replace(CONFIG, rows_per_table=rows), free, total
+
+
+def phase_dlrm_build(DLRMServer, CONFIG, seed: int):
+    """Phase 6a: the model's params drawn on the card from the seed."""
+    cfg, free0, total = dlrm_config(CONFIG)
+    t0 = time.perf_counter()
+    server = DLRMServer(cfg, mesh_shape=DLRM_MESH, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    free1, _ = torch.cuda.mem_get_info()
+    tables = server.model.tables
+    emit({"phase": "dlrm_build", "config": dataclasses.asdict(cfg),
+          "rows_per_table_cut": (None if cfg == CONFIG
+                                 else [CONFIG.rows_per_table,
+                                       cfg.rows_per_table]),
+          "mesh": DLRM_MESH, "collective_matmul": server.pcfg.collective_matmul,
+          "stacked_tables": list(tables.shape),
+          "table_bytes": tables.numel() * tables.element_size(),
+          "mem_free_before": free0, "mem_free_after": free1,
+          "mem_total": total, "init_seconds": init_s})
+    return server
+
+
+def fc1_operands(server):
+    """FC1's stacked weight, (8, concat/8, fc_dims[0])."""
+    w = server.model.fc0_w
+    return w.reshape((-1,) + tuple(w.shape[-2:]))
+
+
+def stacked_tables(server):
+    """Every table of every rank, (8 * n_tables, rows_local, dim)."""
+    t = server.model.tables
+    return t.reshape((-1,) + tuple(t.shape[-2:]))
+
+
+def phase_dlrm_kernels(server, ops, ref, gen) -> dict:
+    """Phase 6b: K4 at the FC1 shapes within its per-element bound of the
+    plain version (fp32 sums in two orders differ by at most
+    2 K 2^-24 (|x| @ |w|)), K5 at the lookup shapes bitwise."""
+    w = fc1_operands(server)
+    tables = stacked_tables(server)
+    G, rows_l, _dim = tables.shape
+    err = {"matmul_tiled": 0.0, "gather_rows": 0.0}
+    for B in (DLRM_SMALL, DLRM_LARGE):
+        x = torch.randn((w.shape[0], B, w.shape[1]), generator=gen,
+                        device="cuda") * 0.01
+        got, want = ops.matmul(x, w), ref.matmul(x, w)
+        bound = 2 * w.shape[1] * 2.0 ** -24 * (x.double().abs()
+                                                @ w.double().abs())
+        diff = (got.double() - want.double()).abs()
+        if not bool((diff <= bound).all()):
+            fail(f"K4 at B={B}: {int((diff > bound).sum())} elements "
+                 f"exceed the per-element bound")
+        err["matmul_tiled"] = max(err["matmul_tiled"], float(diff.max()))
+        idx = torch.randint(0, rows_l, (G, B), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        err["gather_rows"] = max(err["gather_rows"], same(
+            f"K5 B={B}", ops.embedding_gather(tables, idx),
+            ref.gather_rows(tables, idx)))
+    torch.cuda.synchronize()
+    emit({"phase": "dlrm_kernels", "k4": "within 2 K 2^-24 (|x| @ |w|)",
+          "k5": "bitwise", "batches": [DLRM_SMALL, DLRM_LARGE],
+          "max_abs_err": err})
+    return err
+
+
+def phase_dlrm_serve(server, dlrm_mod, ops, counts, seed: int):
+    """Phase 6c: 20 batches of 32 requests and one of 2048 through the
+    server; each must launch K5, K4 and K1; concat vector bitwise, logits
+    within DLRM_ATOL + DLRM_RTOL |ref| of the float64 reference."""
+    cfg = server.cfg
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def requests(B):
+        return torch.randint(0, cfg.rows_per_table, (B, cfg.n_tables),
+                             generator=g, device="cuda", dtype=torch.int32)
+
+    small = [requests(DLRM_SMALL) for _ in range(DLRM_BATCHES)]
+    large = requests(DLRM_LARGE)
+    seen: dict = {}
+    err = scale = 0.0
+    for batch in small + [large]:
+        key = f"dlrm_b{batch.shape[0]}"
+        ops.reset_launch_counts()
+        out = server(batch)
+        torch.cuda.synchronize()
+        c = ops.launch_counts()
+        for name in ("gather_rows", "matmul_tiled", "fused_combine"):
+            if c[name] < 1:
+                fail(f"a DLRM batch of {batch.shape[0]} launched no {name}")
+        acc = counts.setdefault(key, dict.fromkeys(c, 0))
+        for name, n in c.items():
+            acc[name] += n
+        seen.setdefault(key, [])
+        if c not in seen[key]:
+            seen[key].append(c)
+        # checks, outside the counted window
+        if out.shape != (batch.shape[0], cfg.out_dim) or \
+                not bool(torch.isfinite(out).all()):
+            fail(f"DLRM logits of shape {tuple(out.shape)} or not finite")
+        with torch.inference_mode():
+            vec = dlrm_mod.embedding_lookup(
+                server.model.tables,
+                dlrm_mod.stack_batch(batch, server.mesh_shape), server.ctx)
+        same("concat vector replicas", vec, vec[:, :, :1].expand_as(vec))
+        same("concat vector", vec[0, 0, 0],
+             dlrm_mod.lookup_shards(server.tables_copy(), batch))
+        want = server.reference(batch, dtype=torch.float64)
+        diff = (out.double() - want).abs()
+        if not bool((diff <= DLRM_ATOL + DLRM_RTOL * want.abs()).all()):
+            fail(f"DLRM logits differ from the float64 reference by "
+                 f"{float(diff.max())}")
+        err = max(err, float(diff.max()))
+        scale = max(scale, float(want.abs().max()))
+    emit({"phase": "dlrm_serve", "batches": {"32": DLRM_BATCHES, "2048": 1},
+          "launches_per_batch": seen, "concat_bitwise": True,
+          "logits_max_abs_err": err, "logits_max_abs": scale,
+          "tolerance": f"atol {DLRM_ATOL} + rtol {DLRM_RTOL} vs float64"})
+    return small, large
+
+
+def phase_dlrm_times(server, small, large, reps: int, smi: str) -> dict:
+    """Phase 6d: median latency per batch and queries/s, the distributed
+    path against the single-copy reference; one batch's device time by
+    kernel group with the idle share."""
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(small)
+        return small[it["i"]]
+
+    big = max(3, reps // 4)
+    t = {"b32": median_ms(lambda: server(nxt()), max(reps, DLRM_BATCHES)),
+         "b32_reference": median_ms(lambda: server.reference(nxt()),
+                                    max(reps, DLRM_BATCHES)),
+         "b2048": median_ms(lambda: server(large), big),
+         "b2048_reference": median_ms(lambda: server.reference(large), big)}
+    qps = {k: (DLRM_LARGE if k.startswith("b2048") else DLRM_SMALL)
+           / (ms / 1e3) for k, ms in t.items()}
+    emit({"phase": "dlrm_times", "median_ms": t, "queries_per_s": qps,
+          "card": smi})
+    prof = {"b32": busy_and_idle(device_split(
+                lambda: server(small[0]), _DLRM_GROUPS), t["b32"]),
+            "b2048": busy_and_idle(device_split(
+                lambda: server(large), _DLRM_GROUPS), t["b2048"])}
+    emit({"phase": "dlrm_profile", **prof})
+    return t
+
+
+def dlrm_kernel_rows(server, ref, mm, eg, gen, err) -> list:
+    """Phase 6e: K4 and K5 device time at the DLRM shapes (B = 32, and
+    B = 2048 beside it), cycling through operand pools so each launch
+    reads cold HBM (four FC1 weight copies exceed the 50 MB L2)."""
+    pool = 4
+    w = fc1_operands(server)
+    ws = [w] + [w.clone() for _ in range(pool - 1)]
+    tables = stacked_tables(server)
+    G, rows_l, dim = tables.shape
+    flat = tables.reshape(-1, dim)
+    R, K, N = w.shape
+    it = {"i": 0}
+
+    def cyc():
+        it["i"] = (it["i"] + 1) % pool
+        return it["i"]
+
+    def measure(fn, plain, library, nbytes, flops, n):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        return {"ms": device_time_ms(fn, n),
+                "plain_ms": device_time_ms(plain, max(1, n // 4)),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": device_time_ms(library, n)}
+
+    k4, k5 = {}, {}
+    for B in (DLRM_SMALL, DLRM_LARGE):
+        xs = [torch.randn((R, B, K), generator=gen, device="cuda") * 0.01
+              for _ in range(pool)]
+        n = 200 if B == DLRM_SMALL else 10
+        k4[B] = measure(lambda: mm.matmul_tiled(xs[cyc()], ws[it["i"]]),
+                        lambda: ref.matmul(xs[cyc()], ws[it["i"]]),
+                        lambda: torch.bmm(xs[cyc()], ws[it["i"]]),
+                        4 * R * (B * K + K * N + B * N), 2 * R * B * K * N, n)
+        k4[B]["shape"] = [R, B, K, N]
+        idxs = [torch.randint(0, rows_l, (G, B), generator=gen, device="cuda",
+                              dtype=torch.int32) for _ in range(pool)]
+        gids = [(torch.arange(G, device="cuda")[:, None] * rows_l
+                 + ix).reshape(-1) for ix in idxs]
+        k5[B] = measure(lambda: eg.gather_rows(tables, idxs[cyc()]),
+                        lambda: ref.gather_rows(tables, idxs[cyc()]),
+                        lambda: torch.index_select(flat, 0, gids[cyc()]),
+                        2 * G * B * dim * 4 + G * B * 4, 0, n * 2)
+        k5[B]["shape"] = [G, rows_l, dim, B]
+        del xs, idxs, gids
+    rows = []
+    for name, m in (("matmul_tiled", k4), ("gather_rows", k5)):
+        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
+                     "replaces": REPLACES[name], "max_abs_err": err[name],
+                     **m[DLRM_SMALL],
+                     "at_batch_2048": m[DLRM_LARGE]})
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -364,11 +616,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card "
               "only", file=sys.stderr)
         return 2
+    # the plain fp32 products are IEEE fp32, as K4's are (never TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.dlrm import CONFIG
     from repro_torch.core import CollectiveEngine
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import embedding_gather as eg
     from repro_torch.kernels import fused_reduce as fr
+    from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import quantize as qz
+    from repro_torch.launch.dlrm_serve import DLRMServer
+    from repro_torch.models import dlrm as dlrm_mod
 
     # phase 1: the card and the build
     smi = subprocess.run(
@@ -390,17 +649,28 @@ def main() -> int:
     counts: dict = {}
     runs = phase_main_fp32(CollectiveEngine, X, counts, ops)   # phase 3
     runs.update(phase_main_int8(CollectiveEngine, X, counts, ops, gen))
-    for name in ("fused_combine", "quantize_blocks", "dequantize_blocks"):
-        if not sum(c[name] for c in counts.values()):
-            fail(f"the main path launched no {name}")
 
     # phase 5: times
     times = {name: median_ms(fn, args.reps) for name, fn in runs.items()}
     emit({"phase": "times", "median_ms": times, "reps": args.reps,
           "mib_per_rank": args.mib, "card": smi})
     phase_profile(runs, times)
-    rows = kernel_rows(ops, ref, fr, qz, gen, counts, err)
+    rows = kernel_rows(ref, fr, qz, gen, err)
     torch.cuda.synchronize()
+    del runs, X
+    torch.cuda.empty_cache()
+
+    # phase 6: DLRM inference
+    server = phase_dlrm_build(DLRMServer, CONFIG, args.seed)
+    err.update(phase_dlrm_kernels(server, ops, ref, gen))
+    small, large = phase_dlrm_serve(server, dlrm_mod, ops, counts, args.seed)
+    phase_dlrm_times(server, small, large, args.reps, smi)
+    rows += dlrm_kernel_rows(server, ref, mm, eg, gen, err)
+    torch.cuda.synchronize()
+    for row in rows:      # launches on both paths' runs (K1 runs on both)
+        row["launches"] = sum(c[row["name"]] for c in counts.values())
+        if not row["launches"]:
+            fail(f"the main path launched no {row['name']}")
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,15 @@
 """Carry state across from the JAX package, as numpy.
 
-A collective engine has no weights: its state is its inputs and its
-tuning tables. This module moves both between the reference package's
+The engine's state is its inputs and its tuning tables; the DLRM's is
+its params. This module moves them between the reference package's
 forms and the port's, through numpy only (it imports no jax):
 
   * a global array as the reference shards it over a mesh (a numpy copy
     of the jax array, plus its PartitionSpec entries) <-> the port's
     MESH-STACKED tensor, whose leading dims are the mesh axes in mesh
-    order and whose trailing dims are one device's local shard;
+    order and whose trailing dims are one device's local shard
+    (`unstack` is the same inverse in torch, on the tensor's device);
+  * the reference `dlrm_params` pytree <-> the port's stacked params;
   * the reference `Selector.table_rows()` artifact <-> rows the port's
     `Selector.apply_table` takes (and its own `table_rows` emits).
 """
@@ -17,6 +19,8 @@ import itertools
 
 import numpy as np
 import torch
+
+from repro_torch.models.dlrm import dlrm_specs
 
 _ROW_TYPES = {"collective": str, "msg_bytes": int, "nranks": int,
               "algorithm": str, "protocol": str, "segments": int,
@@ -64,26 +68,54 @@ def to_stacked(global_array, mesh_shape: dict, spec, device="cpu"):
     return torch.from_numpy(out).to(device)
 
 
+def unstack(stacked, mesh_shape: dict, spec):
+    """The global tensor the mesh-stacked shards make up under `spec`,
+    on the shards' device (replicated dims take the first copy)."""
+    names = list(mesh_shape)
+    local_nd = stacked.ndim - len(names)
+    spec = tuple(spec) + (None,) * (local_nd - len(tuple(spec)))
+    used = [a for entry in spec for a in _dim_axes(entry)]
+    t = stacked[tuple(slice(None) if a in used else 0 for a in names)]
+    kept = [a for a in names if a in used]
+    perm, shape = [], []
+    for d, entry in enumerate(spec):
+        axes = _dim_axes(entry)            # the first axis is the major one
+        perm += [kept.index(a) for a in axes] + [len(kept) + d]
+        shape.append(t.shape[len(kept) + d]
+                     * int(np.prod([mesh_shape[a] for a in axes])))
+    return t.permute(perm).reshape(shape)
+
+
 def from_stacked(stacked, mesh_shape: dict, spec) -> np.ndarray:
     """Inverse of `to_stacked`: the global numpy array the mesh-stacked
     shards make up under `spec` (replicated dims take any one copy)."""
-    s = stacked.detach().cpu()
-    if s.dtype == torch.bfloat16:
-        s = s.float()
-    s = s.numpy()
-    D = len(mesh_shape)
-    local = s.shape[D:]
-    spec = tuple(spec) + (None,) * (len(local) - len(tuple(spec)))
-    gshape = []
-    for dim, entry in zip(local, spec):
-        parts = 1
-        for a in _dim_axes(entry):
-            parts *= mesh_shape[a]
-        gshape.append(dim * parts)
-    out = np.empty(tuple(gshape), dtype=s.dtype)
-    for coords, index in _blocks(tuple(gshape), dict(mesh_shape), spec):
-        out[index] = s[coords]
-    return out
+    g = unstack(stacked.detach(), mesh_shape, spec).cpu()
+    return (g.float() if g.dtype == torch.bfloat16 else g).numpy()
+
+
+def dlrm_params_from_jax(params_np, cfg, mesh_shape: dict, device="cpu"):
+    """The reference `dlrm_params` pytree (numpy leaves: {"tables",
+    "fc": [{"w", "b"}, ...]}) -> the port's mesh-stacked params."""
+    specs = dlrm_specs(cfg, mesh_shape.get("model", 1))
+    return {
+        "tables": to_stacked(params_np["tables"], mesh_shape,
+                             specs["tables"], device),
+        "fc": [{k: to_stacked(fc[k], mesh_shape, sp[k], device)
+                for k in ("w", "b")}
+               for fc, sp in zip(params_np["fc"], specs["fc"])],
+    }
+
+
+def dlrm_params_to_jax(params, cfg, mesh_shape: dict):
+    """Inverse of `dlrm_params_from_jax`: the reference pytree as numpy."""
+    specs = dlrm_specs(cfg, mesh_shape.get("model", 1))
+    return {
+        "tables": from_stacked(params["tables"], mesh_shape,
+                               specs["tables"]),
+        "fc": [{k: from_stacked(fc[k], mesh_shape, sp[k])
+                for k in ("w", "b")}
+               for fc, sp in zip(params["fc"], specs["fc"])],
+    }
 
 
 def table_rows(rows) -> list:

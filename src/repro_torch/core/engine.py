@@ -24,7 +24,9 @@ structure this executor follows:
 
 Each segment of a combining exchange is one kernel launch over the
 stacked (ranks, segment) payload: K1 for a plain wire, K2 then K3 for the
-int8 wire. Copy receives launch no kernel.
+int8 wire. Copy receives launch no kernel. The streaming API
+(`allgather_matmul`, `matmul_reduce_scatter`) computes each ring step's
+products for every rank in one K4 launch.
 
 Inputs and outputs are stacked by MESH position: the engine's
 `mesh_shape` dims lead every tensor, e.g. `(n, ...)` for `{"x": n}` and
@@ -57,6 +59,7 @@ from repro_torch.core.schedule import (
 )
 from repro_torch.core.selector import Selector
 from repro_torch.core.topology import ProductComm, axis_comm, product_comm
+from repro_torch.kernels import ops as kops
 
 
 # --------------------------------------------------------------------------
@@ -158,6 +161,13 @@ def _split_wire(mid_ops: tuple):
         if isinstance(op, Send):
             return mid_ops[:i + 1], mid_ops[i + 1:]
     raise ValueError("exchange without a SEND op")
+
+
+def _fit_segments(seg_len: int, segments) -> int:
+    """Largest k <= segments that divides seg_len (>= 1); see
+    `program.fit_segments` (the reference's name for the streaming
+    fusions)."""
+    return fit_segments(seg_len, segments)
 
 
 def _codec_of(send_ops: tuple):
@@ -930,3 +940,86 @@ class CollectiveEngine:
     def nop(self):
         """Engine invocation NOP (fig8 latency benchmark)."""
         return torch.zeros((), dtype=torch.int32, device=self.device)
+
+    # -- streaming API (paper Listing 2): compute fused with communication ---
+    def _matmul(self, a, b, out_dtype=None):
+        """Every rank's local product in one call: K4 on the card, its
+        plain version on the CPU — fp32 accumulation either way (the
+        reference's `preferred_element_type=f32`), cast to `out_dtype`
+        (default a.dtype)."""
+        return kops.matmul(a, b, out_dtype or a.dtype)
+
+    def allgather_matmul(self, x, w, axis: str, segments: int = 1):
+        """y = allgather(x, rows) @ w without staging the gathered buffer.
+
+        Each ring step multiplies the resident shard of every rank (one
+        K4 launch over the stack) while the next shard is on the wire.
+        x: mesh-stacked (m, k) local rows; w: mesh-stacked (k, p); out:
+        mesh-stacked (n*m, p). segments > 1 row-splits the shard into
+        independent segment pipelines, as the reference does.
+        """
+        x = self._tensor(x)
+        w = self._tensor(w)
+        rows, lay = self._layout(x, axis)
+        n, G = lay.n, lay.groups
+        if n == 1:
+            return self._matmul(x, w)
+        wrows, _ = self._layout(w, axis)
+        m, p = rows.shape[1], wrows.shape[-1]
+        segs = _fit_segments(m, segments)
+        sub = m // segs
+        parts = list(rows.split(sub, dim=1))
+        out = torch.zeros((G, n, n, m, p), dtype=x.dtype, device=x.device)
+        r = torch.arange(n, device=x.device)
+        src = (r - 1) % n            # ring_perm(1): rank r receives r - 1's
+        for s in range(n):
+            for j, part in enumerate(parts):
+                seg_out = self._matmul(part, wrows)
+                out[:, r, (r - s) % n, j * sub:(j + 1) * sub] = \
+                    seg_out.reshape(G, n, sub, p)
+            if s < n - 1:
+                parts = [pt.reshape((G, n) + tuple(pt.shape[1:]))[:, src]
+                         .reshape(pt.shape) for pt in parts]
+        self.trace_log.append(("allgather_matmul", "ring", axis,
+                               int(rows[0].numel() * rows.element_size())))
+        return lay.restore(out.reshape(G * n, n * m, p))
+
+    def matmul_reduce_scatter(self, x, w, axis: str, segments: int = 1):
+        """Row-sharded output of (x @ w) with the partial-sum reduction
+        streamed around the ring. x: mesh-stacked (m, k_local); w:
+        mesh-stacked (k_local, p); out: mesh-stacked (m/n, p) — rank r
+        holds row-chunk r, fully summed.
+
+        Every rank's partial product is one K4 launch; the ring adds are
+        plain adds in the reference's order (arriving accumulator +
+        local chunk), so equal partials give bitwise equal results.
+        segments > 1 splits the rotating accumulator into independent
+        row-segment pipelines."""
+        x = self._tensor(x)
+        w = self._tensor(w)
+        partial = self._matmul(x, w)
+        rows, lay = self._layout(partial, axis)
+        n, G = lay.n, lay.groups
+        if n == 1:
+            return partial
+        m, p = rows.shape[1], rows.shape[2]
+        if m % n:
+            raise ValueError(f"matmul_reduce_scatter rows {m} % {n} != 0")
+        c = m // n
+        segs = _fit_segments(c, segments)
+        sub = c // segs
+        chunks = rows.reshape(G, n, n, c, p)    # [g, rank, chunk]
+        r = torch.arange(n, device=partial.device)
+        src = (r - 1) % n            # ring_perm(1): rank r receives r - 1's
+
+        def chunk(s, j):
+            """Every rank's local row-chunk (rank - 1 - s) % n, segment j."""
+            return chunks[:, r, (r - 1 - s) % n, j * sub:(j + 1) * sub]
+
+        accs = [chunk(0, j) for j in range(segs)]
+        for s in range(1, n):
+            accs = [a[:, src] + chunk(s, j) for j, a in enumerate(accs)]
+        self.trace_log.append(("matmul_reduce_scatter", "ring", axis,
+                               int(rows[0].numel() * rows.element_size())))
+        out = accs[0] if segs == 1 else torch.cat(accs, dim=2)
+        return lay.restore(out.reshape(G * n, c, p))

@@ -115,6 +115,10 @@ def library() -> ctypes.CDLL:
     lib.k2_quantize_blocks.restype = i
     lib.k3_dequantize_blocks.argtypes = [p, p, p, p, ll, ll, ll, i, i, p]
     lib.k3_dequantize_blocks.restype = i
+    lib.k4_matmul_tiled.argtypes = [p, p, p, ll, ll, ll, ll, i, i, p]
+    lib.k4_matmul_tiled.restype = i
+    lib.k5_gather_rows.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
+    lib.k5_gather_rows.restype = i
     _LIB = lib
     return lib
 

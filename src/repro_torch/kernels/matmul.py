@@ -1,0 +1,70 @@
+"""K4 wrapper: the tiled fp32-accumulating matrix product as a CUDA
+kernel on Hopper.
+
+Replaces the TPU kernel `repro/kernels/matmul.py::matmul_tiled` (Pallas,
+body `_kernel`): (M, K) @ (K, N) with an fp32 accumulator, cast once to
+the output type. The kernel (csrc/matmul.cu) is batched over a leading
+dim — the stacked ranks, so one launch serves all of them — masks ragged
+tails instead of padding to 128, and sums in IEEE fp32 FMA, never TF32.
+At the DLRM FC1 shapes it is bound by bytes at small batch and by fp32
+operations at large batch. Its plain version is `ref.matmul`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+_MAX_GRID_YZ = 65535
+_BM = 64          # output rows per block (csrc/matmul.cu MM_BM)
+
+
+def _dtype_code(dtype) -> int:
+    name = str(dtype).replace("torch.", "")
+    if name not in _build.DTYPE_CODES:
+        raise TypeError(f"matmul_tiled: unsupported dtype {dtype}")
+    return _build.DTYPE_CODES[name]
+
+
+def matmul_tiled(x, y, out_dtype=None):
+    """Launch K4 on CUDA tensors: (G, M, K) @ (G, K, N) -> (G, M, N),
+    fp32 accumulate, cast to `out_dtype` (default x.dtype). Raises on
+    anything it cannot take."""
+    if x.device.type != "cuda" or y.device != x.device:
+        raise ValueError(f"matmul_tiled: needs CUDA tensors on one device, "
+                         f"got {x.device} and {y.device}")
+    if x.dtype != y.dtype:
+        raise TypeError(f"matmul_tiled: operand dtypes differ: {x.dtype} "
+                        f"vs {y.dtype}")
+    if x.ndim != 3 or y.ndim != 3:
+        raise ValueError(f"matmul_tiled: needs two 3-D operands, got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError("matmul_tiled: operands must be contiguous")
+    G, M, K = x.shape
+    G2, K2, N = y.shape
+    if G2 != G or K2 != K:
+        raise ValueError(f"matmul_tiled: shapes do not chain: "
+                         f"{tuple(x.shape)} @ {tuple(y.shape)}")
+    if (G > _MAX_GRID_YZ or -(-M // _BM) > _MAX_GRID_YZ
+            or max(M, K, N) >= 2**31):
+        raise ValueError(f"matmul_tiled: shape {tuple(x.shape)} @ "
+                         f"{tuple(y.shape)} exceeds the launch grid")
+    in_code = _dtype_code(x.dtype)
+    out_dtype = out_dtype or x.dtype
+    out_code = _dtype_code(out_dtype)
+    out = torch.empty((G, M, N), dtype=out_dtype, device=x.device)
+    if out.numel():
+        if K == 0:
+            out.zero_()
+        else:
+            lib = _build.library()
+            rc = lib.k4_matmul_tiled(x.data_ptr(), y.data_ptr(),
+                                     out.data_ptr(), G, M, K, N, in_code,
+                                     out_code, _build.stream_handle(x))
+            matmul_tiled.launches += 1
+            _build.check(rc, "matmul_tiled")
+    return out
+
+
+matmul_tiled.launches = 0

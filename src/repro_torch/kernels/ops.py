@@ -2,14 +2,16 @@
 plain PyTorch version on the CPU.
 
 A CUDA tensor launches the hand-written kernel (fused_reduce.py,
-quantize.py) or raises; a CPU tensor takes the plain version in ref.py.
-The choice follows the tensor's device alone — there is no fallback and
-no flag. Mirrors `repro/kernels/ops.py`, whose `_interpret` picks the
+quantize.py, matmul.py, embedding_gather.py) or raises; a CPU tensor
+takes the plain version in ref.py. The choice follows the tensor's
+device alone — there is no fallback and no flag. Mirrors `repro/kernels/ops.py`, whose `_interpret` picks the
 Pallas interpreter off a TPU.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import embedding_gather as _eg
 from repro_torch.kernels import fused_reduce as _fr
+from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import ref
 
@@ -17,6 +19,8 @@ KERNELS = {
     "fused_combine": _fr.fused_combine,
     "quantize_blocks": _qz.quantize_blocks,
     "dequantize_blocks": _qz.dequantize_blocks,
+    "matmul_tiled": _mm.matmul_tiled,
+    "gather_rows": _eg.gather_rows,
 }
 
 
@@ -60,6 +64,32 @@ def dequantize_int8(q2d, scales, n_valid: int, old=None, op: str = "copy",
             out_dtype=out_dtype, out=out)
     return _into(out, ref.dequantize_blocks(q2d, scales, n_valid, old=old,
                                             op=op, out_dtype=out_dtype))
+
+
+def matmul(x, y, out_dtype=None):
+    """K4: `x @ y` with an fp32 accumulator, cast to `out_dtype` (default
+    x.dtype); (M, K) @ (K, N), or batched over matching leading dims."""
+    if not _on_card(x):
+        return ref.matmul(x, y, out_dtype)
+    lead = tuple(x.shape[:-2])
+    if tuple(y.shape[:-2]) != lead:
+        raise ValueError(f"matmul: leading dims differ: {tuple(x.shape)} "
+                         f"@ {tuple(y.shape)}")
+    x3 = x.reshape((-1,) + tuple(x.shape[-2:])).contiguous()
+    y3 = y.reshape((-1,) + tuple(y.shape[-2:])).contiguous()
+    out = _mm.matmul_tiled(x3, y3, out_dtype=out_dtype)
+    return out.reshape(lead + tuple(out.shape[-2:]))
+
+
+def embedding_gather(table, indices):
+    """K5: rows `indices` of a (V, D) table -> (B, D), or of every table
+    of a (G, V, D) stack with (G, B) indices -> (G, B, D). Indices are
+    int32 and already clipped into [0, V)."""
+    if not _on_card(table):
+        return ref.gather_rows(table, indices)
+    if table.ndim == 2:
+        return embedding_gather(table[None], indices[None])[0]
+    return _eg.gather_rows(table.contiguous(), indices.contiguous())
 
 
 def launch_counts() -> dict:

@@ -1,6 +1,8 @@
-"""Plain PyTorch versions of the port's CUDA kernels (K1-K3).
+"""Plain PyTorch versions of the port's CUDA kernels (K1-K5).
 
-Each function computes exactly what its kernel computes, bit for bit:
+K1-K3 and K5 compute exactly what their kernels compute, bit for bit;
+K4 (`matmul`) sums in another order than its kernel, so the card holds
+the kernel to it within a per-element bound (`chip_smoke.py`). Either way
 the CPU path of `ops` runs these, and `chip_smoke.py` holds every kernel
 against them on the card. They mirror the reference package's oracles in
 `repro/kernels/ref.py` and its jnp codec in `repro/core/plugins.py`,
@@ -110,3 +112,20 @@ def dequantize_blocks(q2d, scales, n_valid: int, old=None, op: str = "copy",
     if op == "copy":
         return v
     return fused_combine(old.reshape(rows, n_valid), v, op, out_dtype)
+
+
+def matmul(x, y, out_dtype=None):
+    """K4: `x @ y` accumulated in fp32, then cast to `out_dtype` (default
+    x.dtype); batched over matching leading dims."""
+    out_dtype = out_dtype or x.dtype
+    return torch.matmul(x.float(), y.float()).to(out_dtype)
+
+
+def gather_rows(table, indices):
+    """K5: `out[..., i, :] = table[..., indices[..., i], :]` — rows of a
+    (V, D) table, or of each (V, D) table of a (G, V, D) stack with
+    (G, B) indices."""
+    if table.ndim == 2:
+        return table[indices.long()]
+    g = torch.arange(table.shape[0], device=table.device)[:, None]
+    return table[g, indices.long()]

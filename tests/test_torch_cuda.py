@@ -6,18 +6,27 @@ it runs on a machine without jax:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ParallelConfig, reduced
 from repro_torch.core import CollectiveEngine
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels import fused_reduce, quantize
+from repro_torch.kernels import embedding_gather, fused_reduce, matmul, \
+    quantize
+from repro_torch.launch.dlrm_serve import DLRMServer
+from repro_torch.models import dlrm
+from repro_torch.models.common import Builder
+from repro_torch.parallel import ParCtx
 
 
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    # the plain fp32 products K4 is held to run in IEEE fp32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -77,3 +86,136 @@ def test_engine_on_card_equals_cpu(card, codec):
     cpu = CollectiveEngine({"x": 8}, device="cpu").allreduce(
         X, "x", compression=codec, segments=4)
     assert torch.equal(gpu.cpu(), cpu)
+
+
+def k4_bound(x, y):
+    """Per-element bound on the distance between two fp32 sums of the
+    same K products in different orders: 2 K 2^-24 (|x| @ |y|)."""
+    return 2 * x.shape[-1] * 2.0 ** -24 * (x.double().abs()
+                                           @ y.double().abs())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 257, 129, 65), (1, 1, 128, 1),
+                                   (8, 32, 400, 2048), (8, 70, 33, 130)])
+def test_k4_within_bound(card, shape, dtype):
+    G, M, K, N = shape
+    x = _randn((G, M, K), 7, card, dtype)
+    y = _randn((G, K, N), 8, card, dtype)
+    before = matmul.matmul_tiled.launches
+    got = ops.matmul(x, y, out_dtype=torch.float32)
+    assert matmul.matmul_tiled.launches == before + 1
+    want = ref.matmul(x, y, torch.float32)
+    assert got.shape == (G, M, N)
+    assert bool(((got.double() - want.double()).abs()
+                 <= k4_bound(x, y)).all())
+    if dtype == torch.bfloat16:        # the reference's bf16 tolerance
+        got16 = ops.matmul(x, y)
+        assert got16.dtype == torch.bfloat16
+        torch.testing.assert_close(got16.float(), want, atol=2e-2, rtol=2e-2)
+    if G == 1:                          # the unbatched 2-D form
+        assert torch.equal(ops.matmul(x[0], y[0], torch.float32), got[0])
+
+
+def test_k5_bitwise_beyond_2_31_elements(card):
+    """A (2, 33.6M, 32) fp32 stack holds 2.15e9 elements (8.6 GB): the
+    second table's rows and the last row lie past 2^31 elements."""
+    V = 33_600_000
+    tables = torch.empty((2, V, 32), device=card)
+    tables.normal_(generator=torch.Generator(card).manual_seed(9))
+    assert tables.numel() > 2 ** 31
+    g = torch.Generator(card).manual_seed(10)
+    idx = torch.randint(0, V, (2, 1000), generator=g, device=card,
+                        dtype=torch.int32)
+    idx[:, -1] = V - 1
+    got = ops.embedding_gather(tables, idx)
+    assert torch.equal(got, ref.gather_rows(tables, idx))
+    assert torch.equal(got[1, -1], tables[1, V - 1])
+    del tables
+
+
+@pytest.mark.parametrize("D,dtype", [(32, torch.float32), (96, torch.float32),
+                                     (3, torch.float32), (5, torch.bfloat16)])
+def test_k5_bitwise_row_widths(card, D, dtype):
+    """16-byte rows down to 2-byte units, batched and unbatched."""
+    tables = _randn((6, 500, D), 11, card, dtype)
+    g = torch.Generator(card).manual_seed(12)
+    idx = torch.randint(0, 500, (6, 77), generator=g, device=card,
+                        dtype=torch.int32)
+    before = embedding_gather.gather_rows.launches
+    assert torch.equal(ops.embedding_gather(tables, idx),
+                       ref.gather_rows(tables, idx))
+    assert torch.equal(ops.embedding_gather(tables[2], idx[2]),
+                       tables[2][idx[2].long()])
+    assert embedding_gather.gather_rows.launches == before + 2
+
+
+def test_k4_k5_wrappers_raise_on_bad_input(card):
+    x = _randn((1, 4, 8), 13, card)
+    xt = x.transpose(1, 2)
+    with pytest.raises(TypeError):
+        matmul.matmul_tiled(x, xt.contiguous().double())
+    with pytest.raises(ValueError):
+        matmul.matmul_tiled(x, xt)                      # not contiguous
+    with pytest.raises(ValueError):
+        matmul.matmul_tiled(x, x)                       # shapes do not chain
+    with pytest.raises(ValueError):
+        matmul.matmul_tiled(x[0], xt[0].contiguous())   # not batched
+    with pytest.raises(TypeError):
+        matmul.matmul_tiled(x.double(), xt.contiguous().double())
+    table = _randn((1, 10, 4), 14, card)
+    with pytest.raises(TypeError):
+        embedding_gather.gather_rows(table, torch.zeros(
+            (1, 3), dtype=torch.int64, device=card))
+    with pytest.raises(ValueError):
+        embedding_gather.gather_rows(table.transpose(1, 2), torch.zeros(
+            (1, 3), dtype=torch.int32, device=card))
+    with pytest.raises(ValueError):
+        embedding_gather.gather_rows(table, torch.zeros(
+            (2, 3), dtype=torch.int32, device=card))
+
+
+def _reduced_params(mesh_shape, device):
+    gen = torch.Generator().manual_seed(15)
+    b = Builder("init", generator=gen, mesh_shape=mesh_shape)
+    params = dlrm.dlrm_params(b, reduced(), mesh_shape["model"])
+    return {"tables": params["tables"].to(device),
+            "fc": [{k: v.to(device) for k, v in fc.items()}
+                   for fc in params["fc"]]}
+
+
+def test_embedding_lookup_on_card_equals_cpu(card):
+    ms = {"pod": 1, "data": 2, "model": 4}
+    cfg = reduced()
+    idx = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.rows_per_table, (16, cfg.n_tables)).astype(np.int32))
+    outs = {}
+    for dev in ("cpu", card):
+        ctx = ParCtx(engine=CollectiveEngine(ms, device=dev),
+                     pcfg=ParallelConfig())
+        params = _reduced_params(ms, dev)
+        stacked = dlrm.stack_batch(idx.to(dev), ms)
+        outs[str(dev)] = dlrm.embedding_lookup(params["tables"], stacked,
+                                               ctx).cpu()
+    assert torch.equal(outs["cuda"], outs["cpu"])
+
+
+@pytest.mark.parametrize("collective_matmul", [False, True])
+def test_dlrm_server_on_card(card, collective_matmul):
+    """The server on the card: K4 and K5 launch on every batch; logits
+    within 1e-5 of the float64 single-copy reference."""
+    cfg = reduced()
+    server = DLRMServer(cfg, pcfg=ParallelConfig(
+        collective_matmul=collective_matmul), seed=17)
+    idx = torch.randint(0, cfg.rows_per_table, (16, cfg.n_tables),
+                        generator=torch.Generator().manual_seed(18),
+                        dtype=torch.int32)
+    ops.reset_launch_counts()
+    out = server(idx)
+    counts = ops.launch_counts()
+    assert counts["gather_rows"] == 1
+    assert counts["matmul_tiled"] == (1 if collective_matmul else 0)
+    want = server.reference(idx, dtype=torch.float64)
+    torch.testing.assert_close(out.double(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(server.lookup(idx), dlrm.lookup_shards(
+        server.tables_copy(), idx.to(card)))

@@ -151,6 +151,73 @@ def test_alltoall(algo, segments):
         v, "x", algorithm=algo, segments=segments), X))
 
 
+_MATMUL_JAX = {}
+
+
+def _matmul_both(name, X, W, segments, use_pallas, inputs):
+    """(reference, port) of a streaming matmul on the 8-rank ring: X and
+    W stacked by rank; the reference under shard_map with its engine's
+    `use_pallas` (K4 in interpret mode when on)."""
+    key = (name, X.shape, W.shape, segments, use_pallas)
+    if key not in _MATMUL_JAX:
+        mesh = make_mesh((8,), ("x",))
+        jeng = JaxEngine(mesh, use_pallas=use_pallas)
+
+        def body(xs, ws):
+            return getattr(jeng, name)(xs[0], ws[0], "x",
+                                       segments=segments)[None]
+
+        _MATMUL_JAX[key] = jax.jit(jax.shard_map(
+            body, mesh=mesh, in_specs=(P("x"), P("x")), out_specs=P("x"),
+            check_vma=False))
+    ref = np.asarray(_MATMUL_JAX[key](jnp.asarray(X), jnp.asarray(W)))
+    teng = CollectiveEngine({"x": 8}, device="cpu")
+    out = getattr(teng, name)(torch.from_numpy(X), torch.from_numpy(W), "x",
+                              segments=segments).numpy()
+    if inputs == "int":
+        _bitwise(ref, out)
+    else:
+        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+    return teng
+
+
+def _matmul_inputs(inputs, x_shape, w_shape, seed):
+    if inputs == "int":
+        rng = np.random.default_rng(seed)
+        return (rng.integers(-4, 5, x_shape).astype(np.float32),
+                rng.integers(-4, 5, w_shape).astype(np.float32))
+    return _normal(x_shape, seed), _normal(w_shape, seed + 1)
+
+
+@pytest.mark.parametrize("inputs", ["int", "normal"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("segments", [1, 2, 4])
+def test_allgather_matmul(segments, use_pallas, inputs):
+    X, W = _matmul_inputs(inputs, (8, 8, 24), (8, 24, 16), seed=20)
+    teng = _matmul_both("allgather_matmul", X, W, segments, use_pallas,
+                        inputs)
+    assert teng.trace_log[-1] == ("allgather_matmul", "ring", "x",
+                                  8 * 24 * 4)
+
+
+@pytest.mark.parametrize("inputs", ["int", "normal"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("segments", [1, 2, 4])
+def test_matmul_reduce_scatter(segments, use_pallas, inputs):
+    X, W = _matmul_inputs(inputs, (8, 32, 12), (8, 12, 16), seed=21)
+    teng = _matmul_both("matmul_reduce_scatter", X, W, segments, use_pallas,
+                        inputs)
+    assert teng.trace_log[-1] == ("matmul_reduce_scatter", "ring", "x",
+                                  32 * 16 * 4)
+
+
+def test_matmul_reduce_scatter_needs_divisible_rows():
+    teng = CollectiveEngine({"x": 8}, device="cpu")
+    with pytest.raises(ValueError, match="rows"):
+        teng.matmul_reduce_scatter(torch.ones(8, 12, 4), torch.ones(8, 4, 2),
+                                   "x")
+
+
 def test_send_recv_and_barrier():
     X = _normal((8, 33), seed=10)
     _bitwise(*_both(lambda e, v: e.send_recv(v, "x", shift=3), X))

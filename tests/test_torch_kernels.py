@@ -1,4 +1,4 @@
-"""The port's kernels' plain versions (K1-K3) against the JAX reference.
+"""The port's kernels' plain versions (K1-K5) against the JAX reference.
 
 The same numpy inputs, made from a seed, go through
 `repro_torch.kernels` (on the CPU: the plain PyTorch versions the CUDA
@@ -8,7 +8,8 @@ kernels in interpret mode (`repro.kernels.ops`) and its jnp codec
 path the reference engine runs). Every comparison is BITWISE. Covered:
 the reciprocal scale, half-even ties, the single-rounding fp32
 dequantize-add, the bf16 path, per-rank padding, and the Pallas path's
-32768-element padding (valid blocks only).
+32768-element padding (valid blocks only). K5 is bitwise too; K4 (a sum
+in another order) is held to the reference's own tolerances.
 """
 import os
 import subprocess
@@ -23,7 +24,8 @@ import torch
 from repro.core import plugins as jplugins
 from repro.kernels import ops as jops
 from repro_torch.core import plugins as tplugins
-from repro_torch.kernels import fused_reduce, ops, ref
+from repro_torch.kernels import embedding_gather, fused_reduce, matmul, ops, \
+    ref
 
 
 def _np(t):
@@ -258,6 +260,63 @@ def test_fma_plain_version_is_exact():
         assert got[i] == best, (i, a[i], b[i], c[i], got[i], best)
 
 
+# -- K4: tiled matmul, K5: embedding gather -------------------------------------
+
+@pytest.mark.parametrize("m,k,n", [(300, 200, 100), (512, 512, 512),
+                                   (64, 384, 128), (1, 128, 1),
+                                   (257, 129, 65)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_matches_pallas_interpret(m, k, n, dtype):
+    """The shapes and tolerances of the reference's own
+    tests/test_kernels.py::test_matmul."""
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    y = rng.normal(size=(k, n)).astype(np.float32)
+    want = jops.matmul(jnp.asarray(x).astype(dtype),
+                       jnp.asarray(y).astype(dtype))
+    got = ops.matmul(torch.from_numpy(x).to(getattr(torch, dtype)),
+                     torch.from_numpy(y).to(getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (m, n)
+    np.testing.assert_allclose(_np(got), _j2np(want),
+                               atol=2e-2 if dtype != "float32" else 1e-3,
+                               rtol=2e-2)
+
+
+def test_k4_batched_equals_per_entry():
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(2, 3, 5, 7)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(2, 3, 7, 4)).astype(np.float32))
+    got = ops.matmul(x, y, out_dtype=torch.bfloat16)
+    assert got.shape == (2, 3, 5, 4) and got.dtype == torch.bfloat16
+    for i in range(2):
+        for j in range(3):
+            assert torch.equal(got[i, j], ref.matmul(x[i, j], y[i, j],
+                                                     torch.bfloat16))
+
+
+@pytest.mark.parametrize("v,d,b", [(100, 32, 16), (1000, 96, 64),
+                                   (37, 128, 5)])
+def test_k5_matches_pallas_interpret(v, d, b):
+    """The shapes of the reference's own
+    tests/test_kernels.py::test_embedding_gather, bitwise."""
+    rng = np.random.default_rng(8)
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    idx = rng.integers(0, v, size=(b,)).astype(np.int32)
+    want = jops.embedding_gather(jnp.asarray(table), jnp.asarray(idx))
+    got = ops.embedding_gather(torch.from_numpy(table), torch.from_numpy(idx))
+    assert np.array_equal(_np(got), _j2np(want))
+
+
+def test_k5_stacked_tables():
+    rng = np.random.default_rng(9)
+    tables = torch.from_numpy(rng.normal(size=(6, 50, 32)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 50, (6, 9)).astype(np.int32))
+    got = ops.embedding_gather(tables, idx)
+    assert got.shape == (6, 9, 32)
+    for g in range(6):
+        assert torch.equal(got[g], tables[g][idx[g].long()])
+
+
 # -- wrappers, devices and imports ---------------------------------------------
 
 def test_cpu_tensors_take_the_plain_version():
@@ -266,13 +325,22 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(ops.fused_combine(x, x, "add"), 2 * x)
     q, s = ops.quantize_int8(x)
     ops.dequantize_int8(q, s, 300)
+    assert torch.equal(ops.matmul(x, x.T), torch.full((4, 4), 300.0))
+    assert torch.equal(ops.embedding_gather(x, torch.zeros(2, dtype=torch.int32)),
+                       x[:2])
     assert ops.launch_counts() == {"fused_combine": 0, "quantize_blocks": 0,
-                                   "dequantize_blocks": 0}
+                                   "dequantize_blocks": 0, "matmul_tiled": 0,
+                                   "gather_rows": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_reduce.fused_combine(torch.ones(4), torch.ones(4))
+    with pytest.raises(ValueError, match="CUDA"):
+        matmul.matmul_tiled(torch.ones(1, 2, 2), torch.ones(1, 2, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        embedding_gather.gather_rows(torch.ones(1, 4, 2),
+                                     torch.zeros(1, 1, dtype=torch.int32))
 
 
 def test_port_imports_neither_jax_nor_repro():
