@@ -11,7 +11,11 @@ those paths against its plain PyTorch version. Phases, one line each:
   1. device: the card (nvidia-smi) and the kernels' build time;
   2. kernels: K1 add/max/min/mul fp32+bf16, K2 (codes, scales, exact .5
      ties), K3 copy / fp32 add / bf16 add — each BITWISE against its
-     plain version at the main path's segment shape;
+     plain version at the main path's segment shape; K1's indexed entry
+     point (operands read in place through the executor's region index)
+     BITWISE, every op, fp32 and bf16 and an fp32 -> bf16 cast, on the
+     indices of real ring exchanges: 16-byte and unaligned units, 1 and
+     32 segments;
   3. main path fp32: allreduce (auto), reduce_scatter, allgather, bcast,
      alltoall and a ("pod", "data") = (2, 4) two-axis allreduce on
      integer-valued inputs from --seed, each BITWISE against a torch
@@ -22,6 +26,8 @@ those paths against its plain PyTorch version. Phases, one line each:
   5. times: the median of >= 10 runs after warm-up (CUDA events) per
      collective; where one fp32 and one int8 allreduce spend device time
      (torch.profiler, by kernel group, and the device's idle share);
+     per-launch times of K1-K3 (K1 also through a bidi_ring exchange's
+     index out of the 8 x 64 MiB stack: `indexed_ms`);
   6. dlrm: the full `CONFIG` (100 tables x 4,000,000 rows x 32 fp32,
      51.2 GB, drawn on the card from --seed) served by `DLRMServer` on
      the (pod, data, model) = (1, 1, 8) mesh with collective_matmul:
@@ -36,7 +42,8 @@ those paths against its plain PyTorch version. Phases, one line each:
      rows_per_table is cut, and the phase's lines say so.)
 
 Then one JSON line of the five kernels with their launches on the two
-paths, time, plain time, bound and library time. The last line is
+paths, time, plain time, bound and library time (K4 also with the tile
+configuration that ran and its achieved rate). The last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 without a CUDA device the script exits non-zero at once.
 
@@ -189,10 +196,66 @@ def phase_kernels(ops, ref, gen) -> dict:
             err["dequantize_blocks"] = max(err["dequantize_blocks"], same(
                 f"K3 {op} {dtype}", got, want))
             checked += 1
+    checked += phase_kernels_indexed(ops, ref, gen)
     torch.cuda.synchronize()
     emit({"phase": "kernels", "checked": checked, "bitwise": True,
           "max_abs_err": err})
     return err
+
+
+def exchange_indices(ops, shape, algorithm: str, segments: int) -> list:
+    """(target index, payload index, segment) of every indexed K1 call
+    one fp32 allreduce of a `shape` buffer makes on the card."""
+    from repro_torch.core import CollectiveEngine
+    calls = []
+    real = ops.fused_combine_at
+
+    def record(a, a_index, b, b_index, j, *args, **kw):
+        calls.append((a_index, b_index, j))
+        return real(a, a_index, b, b_index, j, *args, **kw)
+
+    ops.fused_combine_at = record
+    try:
+        CollectiveEngine({"x": NRANKS}, device="cuda").allreduce(
+            torch.zeros(shape, device="cuda"), "x", algorithm=algorithm,
+            segments=segments)
+    finally:
+        ops.fused_combine_at = real
+    return calls
+
+
+def phase_kernels_indexed(ops, ref, gen) -> int:
+    """K1's indexed entry point BITWISE against its plain version on the
+    region indices of real ring exchanges: 16-byte units (8 x 32768 and
+    8 x 1024 per segment) and unaligned ones (15 elements), 1 and 32
+    segments."""
+    dev = "cuda"
+    checked = 0
+    for shape, k in (((NRANKS, NRANKS * SEG), 1),
+                     ((NRANKS, NRANKS * 32 * 1024), 32),
+                     ((NRANKS, NRANKS * 15), 1),
+                     ((NRANKS, NRANKS * 32 * 15), 32)):
+        calls = exchange_indices(ops, shape, "ring", k)
+        tgt, pay, _j = calls[0]
+        if tgt[2].shape[0] != k:
+            fail(f"K1 indexed: a ring exchange of {shape} has "
+                 f"{tgt[2].shape[0]} segments, not {k}")
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            b = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for op in ("add", "max", "min", "mul"):
+                for j in sorted({0, k - 1}):
+                    same(f"K1 indexed {op} {dtype} {shape} j={j}/{k}",
+                         ops.fused_combine_at(a, tgt, b, pay, j, op),
+                         ref.fused_combine_at(a, tgt, b, pay, j, op))
+                    checked += 1
+            same(f"K1 indexed add {dtype}->bf16 {shape}",
+                 ops.fused_combine_at(a, tgt, b, pay, k - 1, "add",
+                                      out_dtype=torch.bfloat16),
+                 ref.fused_combine_at(a, tgt, b, pay, k - 1, "add",
+                                      torch.bfloat16))
+            checked += 1
+    return checked
 
 
 def int_inputs(shape, gen, device="cuda"):
@@ -318,9 +381,11 @@ def phase_profile(runs, times) -> dict:
     return out
 
 
-def kernel_rows(ref, fr, qz, gen, err) -> list:
+def kernel_rows(ref, fr, qz, ops, X, gen, err) -> list:
     """Phase 5b: per-kernel device time at the main path's segment shape,
-    cycling through 128 MiB of operands so each launch reads cold HBM."""
+    cycling through 128 MiB of operands so each launch reads cold HBM;
+    K1's indexed entry point cycling through the 448 combine exchanges of
+    a bidi_ring allreduce of the stacked X (8 x 64 MiB)."""
     dev = "cuda"
     pool = 64
     a = torch.randn((pool, NRANKS, SEG), generator=gen, device=dev)
@@ -361,6 +426,23 @@ def kernel_rows(ref, fr, qz, gen, err) -> list:
         torch.add(a[i], b[i], out=a[i])
 
     row("fused_combine", k1, k1_plain, k1_lib, 3 * 4 * el)
+    # bidi_ring x 32: 2 x 8 chunks of 32 segments, 8 x 32768 at 64 MiB
+    calls = exchange_indices(ops, X.shape, "bidi_ring", 32)
+    seg = X.shape[1] // (NRANKS * 64)
+    seg_out = torch.empty((NRANKS, seg), device=dev)
+    unit, _rows, units = calls[0][0]
+    if units.shape[1] != NRANKS or units.shape[2] * unit != seg:
+        fail(f"K1 indexed: bidi_ring segments of {tuple(X.shape)} are not "
+             f"{NRANKS} x {seg}")
+    at = {"i": 0}
+
+    def k1_at():
+        at["i"] = (at["i"] + 1) % len(calls)
+        tgt, pay, j = calls[at["i"]]
+        fr.fused_combine_at(X, tgt, X, pay, j, "add", out=seg_out)
+
+    rows[-1]["indexed_ms"] = device_time_ms(k1_at, n)
+    rows[-1]["indexed_exchanges"] = len(calls)
     row("quantize_blocks", lambda: qz.quantize_blocks(b[cyc()]),
         lambda: ref.quantize_blocks(b[cyc()]), None,
         4 * el + el + 4 * nb)
@@ -586,6 +668,10 @@ def dlrm_kernel_rows(server, ref, mm, eg, gen, err) -> list:
                         lambda: torch.bmm(xs[cyc()], ws[it["i"]]),
                         4 * R * (B * K + K * N + B * N), 2 * R * B * K * N, n)
         k4[B]["shape"] = [R, B, K, N]
+        k4[B]["config"] = mm.plan_name(B, K, N, w.dtype)
+        k4[B]["achieved_tb_per_s"] = \
+            4 * R * (B * K + K * N + B * N) / k4[B]["ms"] / 1e9
+        k4[B]["achieved_tflop_per_s"] = 2 * R * B * K * N / k4[B]["ms"] / 1e9
         idxs = [torch.randint(0, rows_l, (G, B), generator=gen, device="cuda",
                               dtype=torch.int32) for _ in range(pool)]
         gids = [(torch.arange(G, device="cuda")[:, None] * rows_l
@@ -655,7 +741,7 @@ def main() -> int:
     emit({"phase": "times", "median_ms": times, "reps": args.reps,
           "mib_per_rank": args.mib, "card": smi})
     phase_profile(runs, times)
-    rows = kernel_rows(ref, fr, qz, gen, err)
+    rows = kernel_rows(ref, fr, qz, ops, X, gen, err)
     torch.cuda.synchronize()
     del runs, X
     torch.cuda.empty_cache()

@@ -23,8 +23,9 @@ structure this executor follows:
     segment counts from `fit_segments` with the codec's block.
 
 Each segment of a combining exchange is one kernel launch over the
-stacked (ranks, segment) payload: K1 for a plain wire, K2 then K3 for the
-int8 wire. Copy receives launch no kernel. The streaming API
+stacked (ranks, segment) payload: K1 for a plain wire, reading both
+operands in place through the region indices, K2 then K3 for the int8
+wire. Copy receives launch no kernel. The streaming API
 (`allgather_matmul`, `matmul_reduce_scatter`) computes each ring step's
 products for every rank in one K4 launch.
 
@@ -204,10 +205,13 @@ def _exchange(st: _State, body: tuple, k_req: int, step):
     """Compute one exchange over every rank WITHOUT writing it.
 
     body = (Copy('load'), [Compress], Send, [Decompress], RecvCombine).
-    The payload and combine target are gathered (copied) from the
-    current state, so a caller that defers the returned write — a LOOP
-    iteration — gets the reference's two-phase semantics. Returns
-    (target index, new region values, raw arrivals or None)."""
+    The new region values are computed from the current state into fresh
+    tensors, so a caller that defers the returned write — a LOOP
+    iteration — gets the reference's two-phase semantics. A plain
+    combine (no codec, no relay register) reads its payload and target in
+    place through the region indices (K1's indexed entry point); every
+    other exchange gathers (copies) its operands first. Returns (target
+    index, new region values, raw arrivals or None)."""
     load, recv = body[0], body[-1]
     send_ops, _dec_ops = _split_wire(body[1:-1])
     send = send_ops[-1]
@@ -247,6 +251,14 @@ def _exchange(st: _State, body: tuple, k_req: int, step):
     pay_idx = _region_index(src_rows, pay_spans * st.groups, k, buf.device)
     tgt_idx = _region_index(dst_rows, tgt_spans * st.groups, k, buf.device)
 
+    if codec is None and recv.op in kops.COMBINE_OPS and not recv.track_recv:
+        unit, _rows, uidx = tgt_idx
+        out = torch.empty((k, uidx.shape[1], uidx.shape[2] * unit * row_elems),
+                          dtype=buf.dtype, device=buf.device)
+        for j in range(k):
+            kops.fused_combine_at(buf, tgt_idx, src_t, pay_idx, j, recv.op,
+                                  out=out[j])
+        return tgt_idx, out, None
     inc = _gather(src_t, pay_idx)                  # arrivals, (k, ranks, seg)
     if codec is None and recv.op == "copy":
         return tgt_idx, inc, (inc if recv.track_recv else None)

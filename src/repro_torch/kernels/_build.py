@@ -111,11 +111,15 @@ def library() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.k1_fused_combine.argtypes = [p, p, p, ll, i, i, i, i, p]
     lib.k1_fused_combine.restype = i
+    lib.k1_fused_combine_at.argtypes = [p, p, p, ll, ll, ll,
+                                        p, p, p, ll, ll, ll,
+                                        p, ll, ll, i, i, i, i, p]
+    lib.k1_fused_combine_at.restype = i
     lib.k2_quantize_blocks.argtypes = [p, p, p, ll, ll, ll, i, p]
     lib.k2_quantize_blocks.restype = i
     lib.k3_dequantize_blocks.argtypes = [p, p, p, p, ll, ll, ll, i, i, p]
     lib.k3_dequantize_blocks.restype = i
-    lib.k4_matmul_tiled.argtypes = [p, p, p, ll, ll, ll, ll, i, i, p]
+    lib.k4_matmul_tiled.argtypes = [p, p, p, ll, ll, ll, ll, i, i, i, i, p]
     lib.k4_matmul_tiled.restype = i
     lib.k5_gather_rows.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
     lib.k5_gather_rows.restype = i

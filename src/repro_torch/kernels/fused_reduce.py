@@ -3,17 +3,24 @@
 Replaces the TPU kernel `repro/kernels/fused_reduce.py::fused_combine`
 (Pallas, body `_kernel`): `op(x.f32, y.f32).astype(out_dtype)` for op in
 add/max/min/mul. The kernel (csrc/fused_combine.cu) is memory-bound on
-the H100 — two reads and one write per element — and takes the tensors
-as they are, contiguous, with a masked tail instead of the TPU's 256x128
-padding. Its plain version is `ref.fused_combine`.
+the H100 — two reads and one write per element — and has two entry
+points: `fused_combine` takes contiguous tensors as they are, with a
+masked tail instead of the TPU's 256x128 padding; `fused_combine_at`
+reads both operands in place through the executor's region indices
+(`core/engine.py::_region_index`), as the TPU kernel's BlockSpec index
+maps did. Both count into `fused_combine.launches`. Their plain versions
+are `ref.fused_combine` and `ref.fused_combine_at`.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 
 OPS = ("add", "max", "min", "mul")
+_MAX_GRID_Y = 65535
 
 
 def _dtype_code(dtype) -> int:
@@ -63,3 +70,106 @@ def fused_combine(x, y, op: str = "add", out_dtype=None, out=None):
 
 
 fused_combine.launches = 0
+
+
+# id(index) -> (index, device): indices already checked. Holding the index
+# keeps its id from being reused while the entry lives; bounded FIFO.
+_CHECKED: dict = {}
+_CHECKED_MAX = 4096
+
+
+def _check_index(name: str, index, device) -> None:
+    """Raise unless `index` is a region index on `device`; each index
+    object is checked once (the executor reuses its cached indices)."""
+    hit = _CHECKED.get(id(index))
+    if hit is not None and hit[0] is index and hit[1] == device:
+        return
+    unit, ridx, uidx = index
+    for idx in (ridx, uidx):
+        if idx.device != device or idx.dtype != torch.int64 or \
+                not idx.is_contiguous():
+            raise ValueError(f"fused_combine_at: {name}'s index must be "
+                             f"contiguous int64 on {device}, got "
+                             f"{idx.dtype} on {idx.device}")
+    if ridx.ndim != 3 or uidx.ndim != 3 or ridx.shape[0] != 1 or \
+            ridx.shape[2] != 1 or uidx.shape[1] != ridx.shape[1] or \
+            int(unit) < 1:
+        raise ValueError(f"fused_combine_at: {name}'s index has shapes "
+                         f"{tuple(ridx.shape)} and {tuple(uidx.shape)}, not "
+                         f"(1, ranks, 1) and (k, ranks, units)")
+    if len(_CHECKED) >= _CHECKED_MAX:
+        _CHECKED.pop(next(iter(_CHECKED)))
+    _CHECKED[id(index)] = (index, device)
+
+
+def _row_and_unit(name: str, t, unit: int) -> tuple:
+    """(elements per stacked row, elements per unit) of buffer `t`."""
+    if t.ndim < 2 or t.shape[1] % unit:
+        raise ValueError(f"fused_combine_at: {name} of shape "
+                         f"{tuple(t.shape)} is not cut in units of {unit} rows")
+    rest = math.prod(t.shape[2:])
+    return t.shape[1] * rest, unit * rest
+
+
+def fused_combine_at(a, a_index, b, b_index, j: int, op: str = "add",
+                     out_dtype=None, out=None):
+    """Launch K1 on segment `j` of two regions of rank-stacked CUDA
+    buffers, read in place: `op(gather(a)[j].f32, gather(b)[j].f32)` as a
+    (ranks, seg) tensor of `out_dtype` (default a.dtype) — `out` when
+    given (it must not overlap a or b), else a new one. Each index is
+    `(unit, rows (1, ranks, 1), units (k, ranks, units/k))` as
+    `core/engine.py::_region_index` builds it. Raises on anything it
+    cannot take."""
+    if op not in OPS:
+        raise ValueError(f"fused_combine_at: unknown op {op!r}")
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"fused_combine_at: needs CUDA tensors on one "
+                         f"device, got {a.device} and {b.device}")
+    if a.dtype != b.dtype:
+        raise ValueError(f"fused_combine_at: operand dtypes differ: "
+                         f"{a.dtype} vs {b.dtype}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("fused_combine_at: operands must be contiguous")
+    _check_index("a", a_index, a.device)
+    _check_index("b", b_index, a.device)
+    unit_a, rows_a, units_a = a_index
+    unit_b, rows_b, units_b = b_index
+    row_a, ue_a = _row_and_unit("a", a, unit_a)
+    row_b, ue_b = _row_and_unit("b", b, unit_b)
+    k, ranks, upk_a = units_a.shape
+    upk_b = units_b.shape[2]
+    seg = upk_a * ue_a
+    if units_b.shape[:2] != (k, ranks) or upk_b * ue_b != seg:
+        raise ValueError(f"fused_combine_at: regions differ: {k} x {ranks} "
+                         f"x {seg} vs {tuple(units_b.shape[:2])} x "
+                         f"{upk_b * ue_b} elements")
+    if not 0 <= j < k:
+        raise ValueError(f"fused_combine_at: segment {j} of {k}")
+    if ranks > _MAX_GRID_Y or max(seg, ue_a, ue_b) >= 2**31:
+        raise ValueError(f"fused_combine_at: {ranks} ranks x {seg} elements "
+                         f"exceed the launch grid")
+    out_dtype = out_dtype or a.dtype
+    if out is None:
+        out = torch.empty((ranks, seg), dtype=out_dtype, device=a.device)
+    if (out.device != a.device or tuple(out.shape) != (ranks, seg)
+            or out.dtype != out_dtype or not out.is_contiguous()):
+        raise ValueError(f"fused_combine_at: `out` must be a contiguous "
+                         f"{(ranks, seg)} {out_dtype} tensor on {a.device}")
+    if seg == 0 or ranks == 0:
+        return out
+    v = 16 // a.element_size()
+    vec_ok = int(all(t.data_ptr() % 16 == 0 for t in (a, b, out))
+                 and ue_a % v == 0 and ue_b % v == 0)
+    # segment j's units: the int64 rows j * ranks.. of each units tensor
+    seg_a = units_a.data_ptr() + 8 * j * ranks * upk_a
+    seg_b = units_b.data_ptr() + 8 * j * ranks * upk_b
+    lib = _build.library()
+    rc = lib.k1_fused_combine_at(
+        a.data_ptr(), rows_a.data_ptr(), seg_a, row_a, ue_a, upk_a,
+        b.data_ptr(), rows_b.data_ptr(), seg_b, row_b, ue_b, upk_b,
+        out.data_ptr(), ranks, seg, _dtype_code(a.dtype),
+        _dtype_code(out_dtype), _build.OP_CODES[op], vec_ok,
+        _build.stream_handle(a))
+    fused_combine.launches += 1
+    _build.check(rc, "fused_combine_at")
+    return out

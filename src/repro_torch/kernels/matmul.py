@@ -7,7 +7,10 @@ the output type. The kernel (csrc/matmul.cu) is batched over a leading
 dim — the stacked ranks, so one launch serves all of them — masks ragged
 tails instead of padding to 128, and sums in IEEE fp32 FMA, never TF32.
 At the DLRM FC1 shapes it is bound by bytes at small batch and by fp32
-operations at large batch. Its plain version is `ref.matmul`.
+operations at large batch, and `plan` picks a tile configuration for
+each: a small-M one whose block tile covers all of M (M <= 64) and a
+128 x 128 large-M one; and 16-byte or 4-byte staging copies by the rows'
+alignment. Its plain version is `ref.matmul`.
 """
 from __future__ import annotations
 
@@ -16,7 +19,9 @@ import torch
 from repro_torch.kernels import _build
 
 _MAX_GRID_YZ = 65535
-_BM = 64          # output rows per block (csrc/matmul.cu MM_BM)
+# tile configurations of csrc/matmul.cu: (name, largest M, rows per block)
+CONFIGS = (("small_m32", 32, 32), ("small_m64", 64, 64),
+           ("large_m", None, 128))
 
 
 def _dtype_code(dtype) -> int:
@@ -24,6 +29,22 @@ def _dtype_code(dtype) -> int:
     if name not in _build.DTYPE_CODES:
         raise TypeError(f"matmul_tiled: unsupported dtype {dtype}")
     return _build.DTYPE_CODES[name]
+
+
+def plan(M: int, K: int, N: int, dtype, aligned: bool = True) -> tuple:
+    """(configuration index, 16-byte staging?) K4 takes for (M, K) @
+    (K, N) operands of `dtype`; `aligned`: both bases 16-byte aligned."""
+    config = next(i for i, (_n, top, _bm) in enumerate(CONFIGS)
+                  if top is None or M <= top)
+    vec = (str(dtype) == "torch.float32" and aligned and K % 4 == 0
+           and N % 4 == 0)
+    return config, vec
+
+
+def plan_name(M: int, K: int, N: int, dtype, aligned: bool = True) -> str:
+    """The configuration `plan` picks, as a name, e.g. 'large_m/vec16'."""
+    config, vec = plan(M, K, N, dtype, aligned)
+    return f"{CONFIGS[config][0]}/{'vec16' if vec else 'scalar4'}"
 
 
 def matmul_tiled(x, y, out_dtype=None):
@@ -46,7 +67,9 @@ def matmul_tiled(x, y, out_dtype=None):
     if G2 != G or K2 != K:
         raise ValueError(f"matmul_tiled: shapes do not chain: "
                          f"{tuple(x.shape)} @ {tuple(y.shape)}")
-    if (G > _MAX_GRID_YZ or -(-M // _BM) > _MAX_GRID_YZ
+    config, vec = plan(M, K, N, x.dtype, x.data_ptr() % 16 == 0
+                       and y.data_ptr() % 16 == 0)
+    if (G > _MAX_GRID_YZ or -(-M // CONFIGS[config][2]) > _MAX_GRID_YZ
             or max(M, K, N) >= 2**31):
         raise ValueError(f"matmul_tiled: shape {tuple(x.shape)} @ "
                          f"{tuple(y.shape)} exceeds the launch grid")
@@ -61,7 +84,8 @@ def matmul_tiled(x, y, out_dtype=None):
             lib = _build.library()
             rc = lib.k4_matmul_tiled(x.data_ptr(), y.data_ptr(),
                                      out.data_ptr(), G, M, K, N, in_code,
-                                     out_code, _build.stream_handle(x))
+                                     out_code, config, int(vec),
+                                     _build.stream_handle(x))
             matmul_tiled.launches += 1
             _build.check(rc, "matmul_tiled")
     return out

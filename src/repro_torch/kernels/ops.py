@@ -15,6 +15,8 @@ from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import ref
 
+COMBINE_OPS = _fr.OPS     # the ops K1 computes
+
 KERNELS = {
     "fused_combine": _fr.fused_combine,
     "quantize_blocks": _qz.quantize_blocks,
@@ -43,6 +45,19 @@ def fused_combine(x, y, op: str = "add", out_dtype=None, out=None):
         return _fr.fused_combine(x.contiguous(), y.contiguous(), op=op,
                                  out_dtype=out_dtype, out=out)
     return _into(out, ref.fused_combine(x, y, op, out_dtype))
+
+
+def fused_combine_at(a, a_index, b, b_index, j: int, op: str = "add",
+                     out_dtype=None, out=None):
+    """K1 reading its operands in place: `op` of segment `j` of two
+    regions of rank-stacked buffers (`core/engine.py::_region_index`
+    triples), as a (ranks, seg) tensor; written into `out` (which must
+    not overlap a or b) when given."""
+    if _on_card(a):
+        return _fr.fused_combine_at(a, a_index, b, b_index, j, op=op,
+                                    out_dtype=out_dtype, out=out)
+    return _into(out, ref.fused_combine_at(a, a_index, b, b_index, j, op,
+                                           out_dtype))
 
 
 def quantize_int8(x2d):

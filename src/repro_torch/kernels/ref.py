@@ -34,6 +34,24 @@ def fused_combine(x, y, op: str = "add", out_dtype=None):
     return _COMBINE[op](x.float(), y.float()).to(out_dtype)
 
 
+def gather_region(t, index, j: int):
+    """Segment `j` of a region of the rank-stacked buffer `t`, as a
+    (ranks, seg) copy. `index` is `(unit, rows (1, ranks, 1), units (k,
+    ranks, units/k))`: row r is the `unit`-row units `units[j, r]` of
+    stacked row `rows[0, r, 0]` (`core/engine.py::_region_index`)."""
+    unit, ridx, uidx = index
+    g = t.reshape(t.shape[0], t.shape[1] // unit, -1)[ridx[0], uidx[j]]
+    return g.reshape(g.shape[0], -1)
+
+
+def fused_combine_at(a, a_index, b, b_index, j: int, op: str = "add",
+                     out_dtype=None):
+    """K1 on segment `j` of two regions: `fused_combine` of the two
+    gathered operands."""
+    return fused_combine(gather_region(a, a_index, j),
+                         gather_region(b, b_index, j), op, out_dtype)
+
+
 def padded_len(n_valid: int) -> int:
     """A rank row's length padded to whole scale blocks."""
     return -(-int(n_valid) // QUANT_BLOCK) * QUANT_BLOCK

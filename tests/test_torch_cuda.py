@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.configs import ParallelConfig, reduced
 from repro_torch.core import CollectiveEngine
+from repro_torch.core import engine as engine_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import embedding_gather, fused_reduce, matmul, \
     quantize
@@ -66,10 +67,78 @@ def test_k2_k3_bitwise(card, dtype, n):
         assert torch.equal(got, want), op
 
 
+def _ring_index(L, width, k, step, device, rows=8, spans=1):
+    """Target and payload indices of ring step `step` over a (rows, L,
+    width) buffer in `rows` chunks: rank d combines chunk (d - 1 - step)
+    of rank d - 1 into its own — as `engine._exchange` builds them. With
+    spans=2 each rank's region is two chunks, 3 apart."""
+    c = L // rows
+    tgt = tuple(tuple((((d - 1 - step + 3 * s) % rows) * c, c)
+                      for s in range(spans)) for d in range(rows))
+    src = tuple((d - 1) % rows for d in range(rows))
+    return (engine_mod._region_index(tuple(range(rows)), tgt, k, device),
+            engine_mod._region_index(src, tgt, k, device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["add", "max", "min", "mul"])
+@pytest.mark.parametrize("L,width,k,spans", [
+    (8 * 256, 1, 4, 1), (8 * 15, 3, 3, 1), (8 * 40, 1, 1, 1),
+    (8 * 64, 1, 32, 1), (8 * 48, 1, 1, 2), (8 * 10, 3, 1, 2)])
+def test_k1_at_bitwise(card, op, dtype, L, width, k, spans):
+    """The indexed K1 against its plain version, on 16-byte units and on
+    unaligned ones (15 elements)."""
+    a = _randn((8, L, width), 19, card, dtype)
+    b = _randn((8, L, width), 20, card, dtype)
+    tgt, pay = _ring_index(L, width, k, 2, card, spans=spans)
+    before = fused_reduce.fused_combine.launches
+    for j in range(k):
+        got = ops.fused_combine_at(a, tgt, b, pay, j, op)
+        assert torch.equal(got, ref.fused_combine_at(a, tgt, b, pay, j, op))
+        assert torch.equal(got, ref.fused_combine(
+            engine_mod._gather(a, tgt)[j], engine_mod._gather(b, pay)[j], op))
+        cast = ops.fused_combine_at(a, tgt, b, pay, j, op,
+                                    out_dtype=torch.bfloat16)
+        assert torch.equal(cast, ref.fused_combine_at(
+            a, tgt, b, pay, j, op, torch.bfloat16))
+    assert fused_reduce.fused_combine.launches == before + 2 * k
+
+
+@pytest.mark.parametrize("op", ["add", "max"])
+def test_engine_segments_32_on_card_equals_cpu(card, op):
+    """A 32-segment allreduce through the indexed K1 on the card, bitwise
+    equal to the plain versions on the CPU; 1 launch per combine segment."""
+    X = _randn((8, 8 * 32 * 64), 21, "cpu")
+    ops.reset_launch_counts()
+    gpu = CollectiveEngine({"x": 8}).allreduce(X.to(card), "x", op=op,
+                                               algorithm="ring", segments=32)
+    assert ops.launch_counts()["fused_combine"] == 7 * 32
+    cpu = CollectiveEngine({"x": 8}, device="cpu").allreduce(
+        X, "x", op=op, algorithm="ring", segments=32)
+    assert torch.equal(gpu.cpu(), cpu)
+
+
 def test_wrappers_raise_on_bad_input(card):
     a = _randn((8, 64), 5, card)
     with pytest.raises(ValueError):
         fused_reduce.fused_combine(a.t(), a.t())          # not contiguous
+    tgt, pay = _ring_index(64, 1, 2, 0, card)
+    fused_reduce.fused_combine_at(a, tgt, a, pay, 1)      # takes these
+    with pytest.raises(ValueError):                       # index on the CPU
+        fused_reduce.fused_combine_at(
+            a, (tgt[0], tgt[1].cpu(), tgt[2].cpu()), a, pay, 0)
+    with pytest.raises(ValueError):                       # buffer on the CPU
+        fused_reduce.fused_combine_at(a.cpu(), tgt, a, pay, 0)
+    with pytest.raises(ValueError):                       # int32 index
+        fused_reduce.fused_combine_at(a, (tgt[0], tgt[1].int(), tgt[2]), a,
+                                      pay, 0)
+    with pytest.raises(ValueError):                       # index shape
+        fused_reduce.fused_combine_at(a, (tgt[0], tgt[1], tgt[2][:, :4]), a,
+                                      pay, 0)
+    with pytest.raises(ValueError):                       # dtypes differ
+        fused_reduce.fused_combine_at(a, tgt, a.to(torch.bfloat16), pay, 0)
+    with pytest.raises(ValueError):                       # no segment 2
+        fused_reduce.fused_combine_at(a, tgt, a, pay, 2)
     with pytest.raises(TypeError):
         quantize.quantize_blocks(a.double())
     with pytest.raises(ValueError):
@@ -96,8 +165,12 @@ def k4_bound(x, y):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 257, 129, 65), (1, 1, 128, 1),
-                                   (8, 32, 400, 2048), (8, 70, 33, 130)])
+@pytest.mark.parametrize("shape", [
+    (1, 257, 129, 65), (1, 1, 128, 1), (8, 32, 400, 2048), (8, 70, 33, 130),
+    # both configurations and their edges, aligned (K, N % 4 == 0) or not
+    (2, 1, 400, 256), (2, 32, 64, 132), (2, 33, 400, 200), (2, 64, 16, 64),
+    (2, 65, 400, 256), (1, 2048, 400, 2048), (2, 1, 37, 130),
+    (2, 33, 41, 66), (2, 64, 3, 7), (2, 65, 130, 131), (1, 2048, 131, 65)])
 def test_k4_within_bound(card, shape, dtype):
     G, M, K, N = shape
     x = _randn((G, M, K), 7, card, dtype)

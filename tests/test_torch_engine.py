@@ -313,6 +313,34 @@ def test_trace_log_and_schedule_cache():
     assert eng.trace_log[-1] == ("allreduce", "ring", "x", 64 * 4)
 
 
+@pytest.mark.parametrize("coll,codec,gathers", [
+    ("reduce_scatter", None, 0), ("reduce_scatter", "int8", 14),
+    ("allreduce", None, 7), ("allreduce", "int8", 21)])
+def test_plain_combine_gathers_no_operand(monkeypatch, coll, codec, gathers):
+    """An uncompressed combine reads its payload and target in place (K1's
+    indexed entry point): a ring reduce-scatter gathers nothing, a ring
+    allreduce only its 7 allgather payloads. The int8 wire still gathers
+    each payload it quantizes (and the target it combines into)."""
+    from repro_torch.core import engine as tengine
+    from repro_torch.kernels import ops as tops
+    seen = {"gather": 0, "at": 0}
+    gather, at = tengine._gather, tops.fused_combine_at
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            seen[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tengine, "_gather", count("gather", gather))
+    monkeypatch.setattr(tops, "fused_combine_at", count("at", at))
+    X = torch.from_numpy(_normal((8, 2048), seed=17))
+    eng = CollectiveEngine({"x": 8}, device="cpu")
+    getattr(eng, coll)(X, "x", algorithm="ring", compression=codec)
+    assert seen["gather"] == gathers
+    assert seen["at"] == (7 if codec is None else 0)
+
+
 def test_engine_needs_the_card_by_default():
     """Without `device`, the engine asks for CUDA and raises without it."""
     code = ("import torch\n"

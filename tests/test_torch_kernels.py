@@ -23,6 +23,8 @@ import torch
 
 from repro.core import plugins as jplugins
 from repro.kernels import ops as jops
+from repro_torch.core import CollectiveEngine
+from repro_torch.core import engine as tengine
 from repro_torch.core import plugins as tplugins
 from repro_torch.kernels import embedding_gather, fused_reduce, matmul, ops, \
     ref
@@ -92,6 +94,70 @@ def test_k1_cast_and_in_place_out():
     expect = (x + y).clone()
     ops.fused_combine(x, y, "add", out=x)
     assert torch.equal(x, expect)
+
+
+# -- K1 indexed: operands read in place through the executor's region index ---
+
+def _recorded_combines(monkeypatch, algo, segments, X, op="add"):
+    """Every indexed K1 call one port allreduce of X makes on the CPU:
+    (a, a_index, b, b_index, j, op), operands as they were at the call."""
+    calls = []
+    real = ops.fused_combine_at
+
+    def record(a, a_index, b, b_index, j, op="add", out_dtype=None,
+               out=None):
+        calls.append((a.clone(), a_index, b.clone(), b_index, j, op))
+        return real(a, a_index, b, b_index, j, op, out_dtype, out)
+
+    monkeypatch.setattr(ops, "fused_combine_at", record)
+    CollectiveEngine({"x": 8}, device="cpu").allreduce(
+        X, "x", op=op, algorithm=algo, segments=segments)
+    return calls
+
+
+@pytest.mark.parametrize("layout", ["aligned", "ragged"])
+@pytest.mark.parametrize("segments", [1, 4])
+@pytest.mark.parametrize("algo", ["ring", "bidi_ring", "halving_doubling"])
+def test_k1_at_plain_version_is_gather_then_combine(monkeypatch, algo,
+                                                    segments, layout):
+    """The indexed K1's plain version, on the (unit, k) layouts of real
+    programs, equals `ref.fused_combine` of the two `_gather`ed operands
+    and the reference's Pallas kernel (interpret mode) on them, bitwise.
+    The ragged layout's units are 5 or 15 fp32 (not 16-byte vectors)."""
+    shape = (8, 1024) if layout == "aligned" else (8, 40, 3)
+    X = torch.from_numpy(_mixed(shape, seed=20))
+    calls = _recorded_combines(monkeypatch, algo, segments, X)
+    assert calls
+    units = {(c[1][0], c[1][2].shape[0]) for c in calls}
+    if segments > 1:
+        assert any(k > 1 for _u, k in units), units
+    for a, ai, b, bi, j, op in calls[:2] + calls[-2:]:
+        got = ref.fused_combine_at(a, ai, b, bi, j, op)
+        ga, gb = tengine._gather(a, ai)[j], tengine._gather(b, bi)[j]
+        assert torch.equal(got, ref.fused_combine(ga, gb, op))
+        want = jops.fused_combine(jnp.asarray(ga.numpy()),
+                                  jnp.asarray(gb.numpy()), op=op)
+        assert np.array_equal(got.numpy(), _j2np(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["max", "min", "mul"])
+def test_k1_at_ops_match_pallas_interpret(monkeypatch, op, dtype):
+    """Every op and dtype through the indexed entry point of ops, on a
+    ring program's regions, with an fp32 -> bf16 cast."""
+    X = torch.from_numpy(_mixed((8, 512), seed=21)).to(getattr(torch, dtype))
+    calls = _recorded_combines(monkeypatch, "ring", 4, X, op=op)
+    for a, ai, b, bi, j, _op in calls[:2]:
+        ga, gb = tengine._gather(a, ai)[j], tengine._gather(b, bi)[j]
+        for out_dtype in (None, "bfloat16"):
+            got = ops.fused_combine_at(
+                a, ai, b, bi, j, op,
+                out_dtype=out_dtype and getattr(torch, out_dtype))
+            want = jops.fused_combine(
+                jnp.asarray(_np(ga)).astype(dtype),
+                jnp.asarray(_np(gb)).astype(dtype), op=op,
+                out_dtype=out_dtype and getattr(jnp, out_dtype))
+            assert np.array_equal(_np(got), _j2np(want))
 
 
 # -- K2: quantize ----------------------------------------------------------------
@@ -328,6 +394,9 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(ops.matmul(x, x.T), torch.full((4, 4), 300.0))
     assert torch.equal(ops.embedding_gather(x, torch.zeros(2, dtype=torch.int32)),
                        x[:2])
+    tgt = tengine._region_index((0, 1, 2, 3), (((0, 300),),) * 4, 3, "cpu")
+    assert torch.equal(ops.fused_combine_at(x, tgt, x, tgt, 2, "add"),
+                       2 * x[:, 200:])
     assert ops.launch_counts() == {"fused_combine": 0, "quantize_blocks": 0,
                                    "dequantize_blocks": 0, "matmul_tiled": 0,
                                    "gather_rows": 0}
@@ -336,6 +405,10 @@ def test_cpu_tensors_take_the_plain_version():
 def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_reduce.fused_combine(torch.ones(4), torch.ones(4))
+    tgt = tengine._region_index((0,), (((0, 4),),), 1, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_reduce.fused_combine_at(torch.ones(1, 4), tgt,
+                                      torch.ones(1, 4), tgt, 0)
     with pytest.raises(ValueError, match="CUDA"):
         matmul.matmul_tiled(torch.ones(1, 2, 2), torch.ones(1, 2, 2))
     with pytest.raises(ValueError, match="CUDA"):
