@@ -15,19 +15,25 @@ those paths against its plain PyTorch version. Phases, one line each:
      point (operands read in place through the executor's region index)
      BITWISE, every op, fp32 and bf16 and an fp32 -> bf16 cast, on the
      indices of real ring exchanges: 16-byte and unaligned units, 1 and
-     32 segments;
+     32 segments; K2's and K3's indexed entry points (a whole compressed
+     exchange per launch) BITWISE likewise, every consume op, .5 ties;
   3. main path fp32: allreduce (auto), reduce_scatter, allgather, bcast,
      alltoall and a ("pod", "data") = (2, 4) two-axis allreduce on
      integer-valued inputs from --seed, each BITWISE against a torch
      oracle over the rank dim;
   4. main path int8: the same allreduce with compression="int8", within
      the codec's error bound of the oracle, and bitwise equal to the same
-     call on the CPU (plain versions) at 4 MiB per rank;
+     call on the CPU (plain versions) at 4 MiB per rank; one K2 and one
+     K3 launch per compressed exchange;
   5. times: the median of >= 10 runs after warm-up (CUDA events) per
      collective; where one fp32 and one int8 allreduce spend device time
      (torch.profiler, by kernel group, and the device's idle share);
      per-launch times of K1-K3 (K1 also through a bidi_ring exchange's
-     index out of the 8 x 64 MiB stack: `indexed_ms`);
+     index out of the 8 x 64 MiB stack: `indexed_ms`; K2 and K3 also one
+     launch per compressed exchange of the int8 allreduce: `exchange_ms`
+     beside `exchange_bound_ms`, and a line with k per-segment launches
+     against one exchange launch, after K2 and K3 are held BITWISE
+     against their plain versions on every one of those exchanges);
   6. dlrm: the full `CONFIG` (100 tables x 4,000,000 rows x 32 fp32,
      51.2 GB, drawn on the card from --seed) served by `DLRMServer` on
      the (pod, data, model) = (1, 1, 8) mesh with collective_matmul:
@@ -197,31 +203,57 @@ def phase_kernels(ops, ref, gen) -> dict:
                 f"K3 {op} {dtype}", got, want))
             checked += 1
     checked += phase_kernels_indexed(ops, ref, gen)
+    checked += phase_codec_indexed(ops, ref, gen)
     torch.cuda.synchronize()
     emit({"phase": "kernels", "checked": checked, "bitwise": True,
           "max_abs_err": err})
     return err
 
 
+def recorded_calls(ops, names, shape, **kw) -> list:
+    """(name, args) of every call to the entry points `names` of ops that
+    one allreduce of a `shape` buffer (`kw` passed on) makes on the
+    card. The recorder itself launches nothing."""
+    from repro_torch.core import CollectiveEngine
+    calls = []
+    real = {name: getattr(ops, name) for name in names}
+
+    def recorder(name):
+        def record(*args, **kwargs):
+            calls.append((name, args))
+            return real[name](*args, **kwargs)
+        return record
+
+    for name in names:
+        setattr(ops, name, recorder(name))
+    try:
+        CollectiveEngine({"x": NRANKS}, device="cuda").allreduce(
+            torch.zeros(shape, device="cuda"), "x", **kw)
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+    return calls
+
+
 def exchange_indices(ops, shape, algorithm: str, segments: int) -> list:
     """(target index, payload index, segment) of every indexed K1 call
     one fp32 allreduce of a `shape` buffer makes on the card."""
-    from repro_torch.core import CollectiveEngine
-    calls = []
-    real = ops.fused_combine_at
+    return [(a[1], a[3], a[4]) for _n, a in recorded_calls(
+        ops, ("fused_combine_at",), shape, algorithm=algorithm,
+        segments=segments)]
 
-    def record(a, a_index, b, b_index, j, *args, **kw):
-        calls.append((a_index, b_index, j))
-        return real(a, a_index, b, b_index, j, *args, **kw)
 
-    ops.fused_combine_at = record
-    try:
-        CollectiveEngine({"x": NRANKS}, device="cuda").allreduce(
-            torch.zeros(shape, device="cuda"), "x", algorithm=algorithm,
-            segments=segments)
-    finally:
-        ops.fused_combine_at = real
-    return calls
+def codec_exchange_indices(ops, shape, **kw) -> list:
+    """(target index, payload index) of every compressed exchange of one
+    int8 allreduce of a `shape` buffer on the card: the index its K2 call
+    reads the payload through, and its K3 call the target."""
+    calls = recorded_calls(ops, ("quantize_int8_at", "dequantize_int8_at"),
+                           shape, compression="int8", **kw)
+    if [n for n, _a in calls] != ["quantize_int8_at",
+                                  "dequantize_int8_at"] * (len(calls) // 2):
+        fail(f"int8 allreduce of {shape}: indexed K2/K3 calls do not pair")
+    return [(dq[4], q[1]) for (_n, q), (_m, dq) in zip(calls[::2],
+                                                      calls[1::2])]
 
 
 def phase_kernels_indexed(ops, ref, gen) -> int:
@@ -255,6 +287,48 @@ def phase_kernels_indexed(ops, ref, gen) -> int:
                  ref.fused_combine_at(a, tgt, b, pay, k - 1, "add",
                                       torch.bfloat16))
             checked += 1
+    return checked
+
+
+def phase_codec_indexed(ops, ref, gen) -> int:
+    """K2's and K3's indexed entry points (a whole exchange per launch,
+    operands read in place) BITWISE against their plain versions on the
+    region indices of real int8 ring exchanges: 16-byte units at 1 and 32
+    segments, a ragged last block (1000 elements) and unaligned units
+    (15 elements, one block short); heavy-tailed values with exact .5
+    ties in every other block; every consume op, fp32 and bf16."""
+    dev = "cuda"
+    checked = 0
+    ties = torch.arange(-127, 127, device=dev, dtype=torch.float32) + 0.5
+    ties = torch.cat([torch.tensor([127.0, 0.0], device=dev), ties])
+    for shape, k in (((NRANKS, NRANKS * SEG), 1),
+                     ((NRANKS, NRANKS * 32 * 1024), 32),
+                     ((NRANKS, NRANKS * 1000), 1),
+                     ((NRANKS, NRANKS * 15), 1)):
+        tgt, pay = codec_exchange_indices(ops, shape, algorithm="ring",
+                                          segments=k)[0]
+        if pay[2].shape[0] != k:
+            fail(f"K2/K3 indexed: an int8 ring exchange of {shape} has "
+                 f"{pay[2].shape[0]} segments, not {k}")
+        n = pay[2].shape[2] * pay[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(shape, generator=gen, device=dev)
+                 * torch.exp(2 * torch.randn(shape, generator=gen,
+                                             device=dev)))
+            if shape[1] % 256 == 0:   # block max 127 * 2^-3: scale 2^-3
+                x.view(NRANKS, -1, 256)[:, ::2] = ties * 2.0 ** -3
+            x = x.to(dtype)
+            old = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            q, s = ops.quantize_int8_at(x, pay)
+            rq, rs = ref.quantize_blocks_at(x, pay)
+            same(f"K2 indexed codes {dtype} {shape} k={k}", q, rq)
+            same(f"K2 indexed scales {dtype} {shape} k={k}", s, rs)
+            checked += 2
+            for op in ("copy", "add", "max", "min", "mul"):
+                same(f"K3 indexed {op} {dtype} {shape} k={k}",
+                     ops.dequantize_int8_at(q, s, n, old, tgt, op),
+                     ref.dequantize_blocks_at(q, s, n, old, tgt, op))
+                checked += 1
     return checked
 
 
@@ -308,10 +382,26 @@ def phase_main_int8(CollectiveEngine, X, counts, ops, gen) -> dict:
     """Phase 4: int8 allreduce within the codec bound of the oracle, and
     bitwise equal to the CPU run of the plain versions at 4 MiB/rank."""
     eng = CollectiveEngine({"x": NRANKS}, device="cuda")
-    ops.reset_launch_counts()
-    out = eng.allreduce(X, "x", compression="int8")
-    torch.cuda.synchronize()
-    counts["allreduce_int8"] = ops.launch_counts()
+    exchanges = []
+    real_q = ops.quantize_int8_at
+
+    def count_exchange(src, index):      # launches nothing itself
+        exchanges.append(int(index[2].shape[0]))
+        return real_q(src, index)
+
+    ops.quantize_int8_at = count_exchange
+    try:
+        ops.reset_launch_counts()
+        out = eng.allreduce(X, "x", compression="int8")
+        torch.cuda.synchronize()
+        counts["allreduce_int8"] = c = ops.launch_counts()
+    finally:
+        ops.quantize_int8_at = real_q
+    # one K2 and one K3 launch per compressed exchange, none per segment
+    if not exchanges or not (c["quantize_blocks"] == c["dequantize_blocks"]
+                             == len(exchanges)):
+        fail(f"int8 allreduce: {c} launches for {len(exchanges)} "
+             f"compressed exchanges")
     # Each of the n-1 compressed reduce-scatter hops quantizes a partial
     # sum of magnitude <= M = max_i sum_r |x_r[i]| with a block scale
     # <= M/127, so it errs by <= M/254; fp32 rounding adds <= M * 2^-23
@@ -328,7 +418,8 @@ def phase_main_int8(CollectiveEngine, X, counts, ops, gen) -> dict:
     same("int8 allreduce card vs cpu", gpu.cpu(), cpu)
     emit({"phase": "main_int8", "max_abs_err": err, "bound": bound,
           "bitwise_vs_cpu_at_mib_per_rank": 4, "launches":
-          counts["allreduce_int8"]})
+          counts["allreduce_int8"], "compressed_exchanges": len(exchanges),
+          "segments_per_exchange": sorted(set(exchanges))})
     return {"allreduce_int8": lambda: eng.allreduce(X, "x",
                                                     compression="int8")}
 
@@ -385,7 +476,9 @@ def kernel_rows(ref, fr, qz, ops, X, gen, err) -> list:
     """Phase 5b: per-kernel device time at the main path's segment shape,
     cycling through 128 MiB of operands so each launch reads cold HBM;
     K1's indexed entry point cycling through the 448 combine exchanges of
-    a bidi_ring allreduce of the stacked X (8 x 64 MiB)."""
+    a bidi_ring allreduce of the stacked X (8 x 64 MiB); K2's and K3's
+    (one launch per exchange) through the compressed exchanges of the
+    int8 allreduce of X, each reading its own 32 MiB region."""
     dev = "cuda"
     pool = 64
     a = torch.randn((pool, NRANKS, SEG), generator=gen, device=dev)
@@ -458,7 +551,102 @@ def kernel_rows(ref, fr, qz, ops, X, gen, err) -> list:
         ref.dequantize_blocks(q, s, SEG, old=a[i], op="add")
 
     row("dequantize_blocks", k3, k3_plain, None, el + 4 * nb + 2 * 4 * el)
+    exchange_rows(rows, ref, qz, ops, X, gen, err)
     return rows
+
+
+def check_exchanges(ref, qz, X, ex, seg, gen, err) -> int:
+    """K2's and K3's indexed entry points BITWISE against their plain
+    versions at the main path's exchange shape, on its own indices: every
+    compressed exchange of the int8 allreduce of X (codes, scales, K3
+    fp32 add into X's target region); on the first, heavy-tailed fp32
+    and bf16 values and every consume op."""
+    checked = 0
+    for i, (tgt, pay) in enumerate(ex):
+        q, s = qz.quantize_blocks_at(X, pay)
+        rq, rs = ref.quantize_blocks_at(X, pay)
+        err["quantize_blocks"] = max(
+            err["quantize_blocks"], same(f"K2 exchange {i} codes", q, rq),
+            same(f"K2 exchange {i} scales", s, rs))
+        err["dequantize_blocks"] = max(err["dequantize_blocks"], same(
+            f"K3 exchange {i} add",
+            qz.dequantize_blocks_at(q, s, seg, X, tgt, "add"),
+            ref.dequantize_blocks_at(q, s, seg, X, tgt, "add")))
+        checked += 3
+        del q, s, rq, rs
+    tgt, pay = ex[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(X.shape, generator=gen, device="cuda")
+             * torch.exp(2 * torch.randn(X.shape, generator=gen,
+                                         device="cuda"))).to(dtype)
+        q, s = qz.quantize_blocks_at(x, pay)
+        rq, rs = ref.quantize_blocks_at(x, pay)
+        same(f"K2 exchange 0 codes {dtype}", q, rq)
+        same(f"K2 exchange 0 scales {dtype}", s, rs)
+        for op in ("copy", "add", "max", "min", "mul"):
+            same(f"K3 exchange 0 {op} {dtype}",
+                 qz.dequantize_blocks_at(q, s, seg, x, tgt, op),
+                 ref.dequantize_blocks_at(q, s, seg, x, tgt, op))
+        checked += 7
+        del x, q, s, rq, rs
+    torch.cuda.synchronize()
+    return checked
+
+
+def exchange_rows(rows, ref, qz, ops, X, gen, err) -> None:
+    """K2's and K3's indexed entry points, one launch per exchange, on the
+    compressed exchanges of the int8 allreduce of X: first each BITWISE
+    against its plain version there (`check_exchanges`), then cycling
+    through them for `exchange_ms` beside `exchange_bound_ms` on the K2
+    and K3 rows, and a line with the time of k per-segment launches
+    against one."""
+    ex = codec_exchange_indices(ops, X.shape)
+    _unit, _rows, units = ex[0][1]
+    k, ranks, upk = units.shape
+    if any(tuple(p[2].shape) != (k, ranks, upk) or p[0] != _unit
+           for _t, p in ex):
+        fail("int8 allreduce: compressed exchanges of unequal shapes")
+    seg = upk * _unit
+    elems = k * ranks * seg
+    checked = check_exchanges(ref, qz, X, ex, seg, gen, err)
+    wires = [qz.quantize_blocks_at(X, pay) for _t, pay in ex]
+    out = torch.empty((k, ranks, seg), device="cuda")
+    it = {"i": 0}
+
+    def cyc():
+        it["i"] = (it["i"] + 1) % len(ex)
+        return it["i"]
+
+    def k2():
+        qz.quantize_blocks_at(X, ex[cyc()][1])
+
+    def k3():
+        i = cyc()
+        q, s = wires[i]
+        qz.dequantize_blocks_at(q, s, seg, X, ex[i][0], "add", out=out)
+
+    n = 4 * len(ex)
+    index_bytes = 8 * (ranks + units.numel())
+    scale_bytes = 4 * elems // 256
+    bytes_of = {"quantize_blocks": 4 * elems + elems + scale_bytes,
+                "dequantize_blocks": elems + scale_bytes + 2 * 4 * elems}
+    line = {"phase": "exchange_vs_segments", "exchanges": len(ex),
+            "segments_per_exchange": k, "shape": [k, ranks, seg],
+            "bitwise_checked": checked}
+    for row in rows:
+        fn = {"quantize_blocks": k2, "dequantize_blocks": k3}.get(row["name"])
+        if fn is None:
+            continue
+        row["exchange_ms"] = device_time_ms(fn, n)
+        row["exchange_bound_ms"] = ((bytes_of[row["name"]] + index_bytes)
+                                    / HBM_BYTES_PER_S * 1e3)
+        row["exchange_elems"] = elems
+        row["exchanges"] = len(ex)
+        line[row["name"]] = {
+            "segment_ms": row["ms"], "segments_ms": k * row["ms"],
+            "exchange_ms": row["exchange_ms"],
+            "segments_over_exchange": k * row["ms"] / row["exchange_ms"]}
+    emit(line)
 
 
 # --------------------------------------------------------------------------

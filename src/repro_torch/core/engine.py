@@ -22,10 +22,13 @@ structure this executor follows:
     send, decompress at consume (fused into the combine, `plugins`),
     segment counts from `fit_segments` with the codec's block.
 
-Each segment of a combining exchange is one kernel launch over the
-stacked (ranks, segment) payload: K1 for a plain wire, reading both
-operands in place through the region indices, K2 then K3 for the int8
-wire. Copy receives launch no kernel. The streaming API
+A plain combining exchange launches K1 once per segment over the
+stacked (ranks, segment) payload, reading both operands in place through
+the region indices. An int8 exchange launches K2 once over all its
+segments and ranks, reading the payload in place ("at send"), then K3
+once, reading the combine target in place ("at consume"); a relay
+exchange adds one K3 copy of the wire for its raw arrivals. Copy
+receives launch no kernel. The streaming API
 (`allgather_matmul`, `matmul_reduce_scatter`) computes each ring step's
 products for every rank in one K4 launch.
 
@@ -61,6 +64,7 @@ from repro_torch.core.schedule import (
 from repro_torch.core.selector import Selector
 from repro_torch.core.topology import ProductComm, axis_comm, product_comm
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels._index import gather_regions as _gather
 
 
 # --------------------------------------------------------------------------
@@ -123,13 +127,6 @@ def _region_index(rows: tuple, spans: tuple, k: int, device) -> tuple:
 
 def _unit_view(t, unit: int):
     return t.reshape(t.shape[0], t.shape[1] // unit, -1)
-
-
-def _gather(t, index) -> torch.Tensor:
-    """(k, ranks, segment elements) copy of a region."""
-    unit, ridx, uidx = index
-    g = _unit_view(t, unit)[ridx, uidx]
-    return g.reshape(g.shape[0], g.shape[1], -1)
 
 
 def _scatter(t, index, val) -> None:
@@ -209,9 +206,11 @@ def _exchange(st: _State, body: tuple, k_req: int, step):
     tensors, so a caller that defers the returned write — a LOOP
     iteration — gets the reference's two-phase semantics. A plain
     combine (no codec, no relay register) reads its payload and target in
-    place through the region indices (K1's indexed entry point); every
-    other exchange gathers (copies) its operands first. Returns (target
-    index, new region values, raw arrivals or None)."""
+    place through the region indices (K1's indexed entry point), one
+    launch per segment; a codec with indexed hooks (int8) compresses and
+    consumes the whole exchange in place, one launch each; every other
+    exchange gathers (copies) its operands first. Returns (target index,
+    new region values, raw arrivals or None)."""
     load, recv = body[0], body[-1]
     send_ops, _dec_ops = _split_wire(body[1:-1])
     send = send_ops[-1]
@@ -259,6 +258,15 @@ def _exchange(st: _State, body: tuple, k_req: int, step):
             kops.fused_combine_at(buf, tgt_idx, src_t, pay_idx, j, recv.op,
                                   out=out[j])
         return tgt_idx, out, None
+    if codec is not None and codec.compress_at is not None and \
+            codec.consume_at is not None:
+        wire = codec.compress_at(src_t, pay_idx)               # at send
+        raw = None
+        if recv.track_recv:
+            seg = pay_rows // k * row_elems
+            raw = codec.decompress(wire, (seg,), src_t.dtype).reshape(
+                k, -1, seg)
+        return tgt_idx, codec.consume_at(wire, buf, tgt_idx, recv.op), raw
     inc = _gather(src_t, pay_idx)                  # arrivals, (k, ranks, seg)
     if codec is None and recv.op == "copy":
         return tgt_idx, inc, (inc if recv.track_recv else None)

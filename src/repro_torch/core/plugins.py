@@ -110,6 +110,22 @@ def int8_consume(c: Compressed, old, op: str, out=None):
     return res.reshape(old.shape)
 
 
+def int8_compress_at(t, index) -> Compressed:
+    """Quantize every segment of a region of the rank-stacked buffer `t`
+    (a `core/engine.py::_region_index` triple), read in place: one wire
+    of k * ranks rows, segment j's rows j * ranks..(j + 1) * ranks - 1."""
+    return Compressed(*kops.quantize_int8_at(t, index))
+
+
+def int8_consume_at(c: Compressed, old, index, op: str):
+    """Decompress a whole exchange's wire and combine it with `op` into
+    the region `index` of the rank-stacked buffer `old`, read in place:
+    a (k, ranks, seg) result (K3 fused, as `int8_consume`)."""
+    unit, _rows, uidx = index
+    seg = uidx.shape[2] * unit * _per_rank(old.shape[2:])
+    return kops.dequantize_int8_at(c.payload, c.scale, seg, old, index, op)
+
+
 class Codec(NamedTuple):
     compress: Callable     # (ranks, ...) payload -> Compressed
     decompress: Callable   # (Compressed, per-rank shape, dtype) -> payload
@@ -123,12 +139,20 @@ class Codec(NamedTuple):
     # (Compressed, old, op, out=None) -> combined: decompress at the
     # consume site, fused with the combine plugin
     consume: Optional[Callable] = None
+    # A whole exchange at once, its operands read in place through the
+    # executor's region indices (the executor takes them only as a pair;
+    # None: it gathers the operands):
+    # (buffer, index) -> Compressed of every segment, stacked in j order
+    compress_at: Optional[Callable] = None
+    # (Compressed, buffer, index, op) -> (k, ranks, seg) combined
+    consume_at: Optional[Callable] = None
 
 
 CODECS: dict[str, Codec] = {
     "bf16": Codec(bf16_compress, bf16_decompress, 2.0, 1, bf16_consume),
     "int8": Codec(int8_compress, int8_decompress, 1.0 + 4.0 / QUANT_BLOCK,
-                  QUANT_BLOCK, int8_consume),
+                  QUANT_BLOCK, int8_consume, int8_compress_at,
+                  int8_consume_at),
 }
 
 

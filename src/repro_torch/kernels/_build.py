@@ -102,28 +102,41 @@ def build() -> pathlib.Path:
     return lib_path
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The C entry points' argument types: c_void_p for every pointer and the
+# stream, c_longlong for every size (else ctypes cuts them to 32 bits).
+# Every entry point returns an int (cudaGetLastError()).
+ARGTYPES = {
+    "k1_fused_combine": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "k1_fused_combine_at": [_P, _P, _P, _LL, _LL, _LL,
+                            _P, _P, _P, _LL, _LL, _LL,
+                            _P, _LL, _LL, _I, _I, _I, _I, _P],
+    "k2_quantize_blocks": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
+    "k2_quantize_blocks_at": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL,
+                              _P, _P, _LL, _LL, _I, _P],
+    "k3_dequantize_blocks": [_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P],
+    "k3_dequantize_blocks_at": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
+                                _LL, _P, _LL, _LL, _I, _I, _P],
+    "k4_matmul_tiled": [_P, _P, _P, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _P],
+    "k5_gather_rows": [_P, _P, _P, _LL, _LL, _LL, _LL, _I, _P],
+}
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _LIB
-    if _LIB is not None:
-        return _LIB
-    lib = ctypes.CDLL(str(build()))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.k1_fused_combine.argtypes = [p, p, p, ll, i, i, i, i, p]
-    lib.k1_fused_combine.restype = i
-    lib.k1_fused_combine_at.argtypes = [p, p, p, ll, ll, ll,
-                                        p, p, p, ll, ll, ll,
-                                        p, ll, ll, i, i, i, i, p]
-    lib.k1_fused_combine_at.restype = i
-    lib.k2_quantize_blocks.argtypes = [p, p, p, ll, ll, ll, i, p]
-    lib.k2_quantize_blocks.restype = i
-    lib.k3_dequantize_blocks.argtypes = [p, p, p, p, ll, ll, ll, i, i, p]
-    lib.k3_dequantize_blocks.restype = i
-    lib.k4_matmul_tiled.argtypes = [p, p, p, ll, ll, ll, ll, i, i, i, i, p]
-    lib.k4_matmul_tiled.restype = i
-    lib.k5_gather_rows.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
-    lib.k5_gather_rows.restype = i
-    _LIB = lib
+    if _LIB is None:
+        _LIB = bind(ctypes.CDLL(str(build())), ARGTYPES)
+    return _LIB
+
+
+def bind(lib: ctypes.CDLL, names) -> ctypes.CDLL:
+    """Declare the argument types of the entry points `names` on a
+    loaded library."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = ARGTYPES[name]
+        fn.restype = _I
     return lib
 
 

@@ -13,11 +13,10 @@ are `ref.fused_combine` and `ref.fused_combine_at`.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._index import check_index, row_and_unit
 
 OPS = ("add", "max", "min", "mul")
 _MAX_GRID_Y = 65535
@@ -72,45 +71,6 @@ def fused_combine(x, y, op: str = "add", out_dtype=None, out=None):
 fused_combine.launches = 0
 
 
-# id(index) -> (index, device): indices already checked. Holding the index
-# keeps its id from being reused while the entry lives; bounded FIFO.
-_CHECKED: dict = {}
-_CHECKED_MAX = 4096
-
-
-def _check_index(name: str, index, device) -> None:
-    """Raise unless `index` is a region index on `device`; each index
-    object is checked once (the executor reuses its cached indices)."""
-    hit = _CHECKED.get(id(index))
-    if hit is not None and hit[0] is index and hit[1] == device:
-        return
-    unit, ridx, uidx = index
-    for idx in (ridx, uidx):
-        if idx.device != device or idx.dtype != torch.int64 or \
-                not idx.is_contiguous():
-            raise ValueError(f"fused_combine_at: {name}'s index must be "
-                             f"contiguous int64 on {device}, got "
-                             f"{idx.dtype} on {idx.device}")
-    if ridx.ndim != 3 or uidx.ndim != 3 or ridx.shape[0] != 1 or \
-            ridx.shape[2] != 1 or uidx.shape[1] != ridx.shape[1] or \
-            int(unit) < 1:
-        raise ValueError(f"fused_combine_at: {name}'s index has shapes "
-                         f"{tuple(ridx.shape)} and {tuple(uidx.shape)}, not "
-                         f"(1, ranks, 1) and (k, ranks, units)")
-    if len(_CHECKED) >= _CHECKED_MAX:
-        _CHECKED.pop(next(iter(_CHECKED)))
-    _CHECKED[id(index)] = (index, device)
-
-
-def _row_and_unit(name: str, t, unit: int) -> tuple:
-    """(elements per stacked row, elements per unit) of buffer `t`."""
-    if t.ndim < 2 or t.shape[1] % unit:
-        raise ValueError(f"fused_combine_at: {name} of shape "
-                         f"{tuple(t.shape)} is not cut in units of {unit} rows")
-    rest = math.prod(t.shape[2:])
-    return t.shape[1] * rest, unit * rest
-
-
 def fused_combine_at(a, a_index, b, b_index, j: int, op: str = "add",
                      out_dtype=None, out=None):
     """Launch K1 on segment `j` of two regions of rank-stacked CUDA
@@ -130,12 +90,12 @@ def fused_combine_at(a, a_index, b, b_index, j: int, op: str = "add",
                          f"{a.dtype} vs {b.dtype}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("fused_combine_at: operands must be contiguous")
-    _check_index("a", a_index, a.device)
-    _check_index("b", b_index, a.device)
+    check_index("fused_combine_at", "a", a_index, a.device)
+    check_index("fused_combine_at", "b", b_index, a.device)
     unit_a, rows_a, units_a = a_index
     unit_b, rows_b, units_b = b_index
-    row_a, ue_a = _row_and_unit("a", a, unit_a)
-    row_b, ue_b = _row_and_unit("b", b, unit_b)
+    row_a, ue_a = row_and_unit("fused_combine_at", "a", a, unit_a)
+    row_b, ue_b = row_and_unit("fused_combine_at", "b", b, unit_b)
     k, ranks, upk_a = units_a.shape
     upk_b = units_b.shape[2]
     seg = upk_a * ue_a

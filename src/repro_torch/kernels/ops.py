@@ -81,6 +81,29 @@ def dequantize_int8(q2d, scales, n_valid: int, old=None, op: str = "copy",
                                             op=op, out_dtype=out_dtype))
 
 
+def quantize_int8_at(src, index):
+    """K2 over a whole exchange, reading every segment of a region of the
+    rank-stacked buffer `src` in place (a `core/engine.py::_region_index`
+    triple): codes (k*ranks, Lp) and scales (k*ranks, Lp/256), row
+    j*ranks + r for segment j of rank r."""
+    if _on_card(src):
+        return _qz.quantize_blocks_at(src, index)
+    return ref.quantize_blocks_at(src, index)
+
+
+def dequantize_int8_at(q2d, scales, n_valid: int, old, old_index,
+                       op: str = "add", out=None, out_dtype=None):
+    """K3 over a whole exchange's wire, combined with `op` into the region
+    `old_index` of the rank-stacked buffer `old`, read in place: a (k,
+    ranks, n_valid) tensor, written into `out` (which must not overlap
+    old) when given. 'copy' reads no `old`."""
+    if _on_card(q2d):
+        return _qz.dequantize_blocks_at(q2d, scales, n_valid, old, old_index,
+                                        op=op, out=out, out_dtype=out_dtype)
+    return _into(out, ref.dequantize_blocks_at(q2d, scales, n_valid, old,
+                                               old_index, op, out_dtype))
+
+
 def matmul(x, y, out_dtype=None):
     """K4: `x @ y` with an fp32 accumulator, cast to `out_dtype` (default
     x.dtype); (M, K) @ (K, N), or batched over matching leading dims."""

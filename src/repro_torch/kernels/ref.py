@@ -1,5 +1,10 @@
 """Plain PyTorch versions of the port's CUDA kernels (K1-K5).
 
+The indexed entry points (`fused_combine_at`, `quantize_blocks_at`,
+`dequantize_blocks_at`) gather their operands' regions and run the
+contiguous version on the copies, so they are bitwise equal to it by
+construction.
+
 K1-K3 and K5 compute exactly what their kernels compute, bit for bit;
 K4 (`matmul`) sums in another order than its kernel, so the card holds
 the kernel to it within a per-element bound (`chip_smoke.py`). Either way
@@ -18,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._index import gather_regions
+
 QUANT_BLOCK = 256   # elements per int8 scale block
 
 _COMBINE = {
@@ -34,22 +41,18 @@ def fused_combine(x, y, op: str = "add", out_dtype=None):
     return _COMBINE[op](x.float(), y.float()).to(out_dtype)
 
 
-def gather_region(t, index, j: int):
-    """Segment `j` of a region of the rank-stacked buffer `t`, as a
-    (ranks, seg) copy. `index` is `(unit, rows (1, ranks, 1), units (k,
-    ranks, units/k))`: row r is the `unit`-row units `units[j, r]` of
-    stacked row `rows[0, r, 0]` (`core/engine.py::_region_index`)."""
-    unit, ridx, uidx = index
-    g = t.reshape(t.shape[0], t.shape[1] // unit, -1)[ridx[0], uidx[j]]
-    return g.reshape(g.shape[0], -1)
-
-
 def fused_combine_at(a, a_index, b, b_index, j: int, op: str = "add",
                      out_dtype=None):
     """K1 on segment `j` of two regions: `fused_combine` of the two
     gathered operands."""
-    return fused_combine(gather_region(a, a_index, j),
-                         gather_region(b, b_index, j), op, out_dtype)
+    return fused_combine(_segment(a, a_index, j), _segment(b, b_index, j),
+                         op, out_dtype)
+
+
+def _segment(t, index, j: int):
+    """Segment `j` of a region of `t`, as a (ranks, seg) copy."""
+    unit, ridx, uidx = index
+    return gather_regions(t, (unit, ridx, uidx[j:j + 1]))[0]
 
 
 def padded_len(n_valid: int) -> int:
@@ -130,6 +133,27 @@ def dequantize_blocks(q2d, scales, n_valid: int, old=None, op: str = "copy",
     if op == "copy":
         return v
     return fused_combine(old.reshape(rows, n_valid), v, op, out_dtype)
+
+
+def quantize_blocks_at(src, index):
+    """K2 over every segment of a region of `src`: `quantize_blocks` of
+    the gathered segments stacked in j order, (k * ranks, seg) rows."""
+    g = gather_regions(src, index)
+    return quantize_blocks(g.reshape(-1, g.shape[2]))
+
+
+def dequantize_blocks_at(q2d, scales, n_valid: int, old, old_index,
+                         op: str = "add", out_dtype=None):
+    """K3 over a whole exchange's wire: `dequantize_blocks` into the
+    gathered segments of old's region (none for 'copy'), as a (k, ranks,
+    n_valid) tensor of old's dtype (else `out_dtype`)."""
+    k, ranks = old_index[2].shape[:2]
+    g = None if op == "copy" else \
+        gather_regions(old, old_index).reshape(k * ranks, n_valid)
+    res = dequantize_blocks(q2d, scales, n_valid, old=g, op=op,
+                            out_dtype=old.dtype if old is not None
+                            else out_dtype)
+    return res.reshape(k, ranks, n_valid)
 
 
 def matmul(x, y, out_dtype=None):

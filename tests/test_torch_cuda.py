@@ -147,6 +147,76 @@ def test_wrappers_raise_on_bad_input(card):
                                    torch.zeros(8, 1, device=card), 100)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,width,k,spans", [
+    (8 * 256 * 32, 1, 32, 1), (8 * 1000, 1, 1, 1), (8 * 15, 1, 1, 1),
+    (8 * 5, 3, 1, 1), (8 * 48, 1, 1, 2), (8 * 256, 1, 1, 2),
+    (8 * 2048, 1, 4, 2)])
+def test_k2_k3_at_bitwise(card, dtype, L, width, k, spans):
+    """The indexed K2 and K3 against their plain versions, one launch
+    each per exchange, on 16-byte units (with and without a ragged last
+    block, one or two units per rank and segment) and unaligned ones (15
+    elements), k = 1 to 32, every op."""
+    a = _randn((8, L, width), 22, card) * torch.exp(
+        2 * _randn((8, L, width), 23, card))
+    a = a.to(dtype)
+    b = _randn((8, L, width), 24, card, dtype)
+    tgt, pay = _ring_index(L, width, k, 1, card, spans=spans)
+    assert pay[2].shape[0] == k
+    before = quantize.quantize_blocks.launches
+    q, s = ops.quantize_int8_at(a, pay)
+    assert quantize.quantize_blocks.launches == before + 1
+    rq, rs = ref.quantize_blocks_at(a, pay)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    n = ref.gather_regions(a, pay).shape[2]
+    before = quantize.dequantize_blocks.launches
+    for op in ("copy", "add", "max", "min", "mul"):
+        got = ops.dequantize_int8_at(q, s, n, b, tgt, op)
+        assert torch.equal(got, ref.dequantize_blocks_at(q, s, n, b, tgt,
+                                                         op)), op
+    assert quantize.dequantize_blocks.launches == before + 5
+
+
+def test_engine_int8_one_launch_per_exchange(card):
+    """A 32-segment int8 ring allreduce: one K2 and one K3 launch per
+    compressed exchange (7), bitwise equal to the plain versions on the
+    CPU."""
+    X = _randn((8, 8 * 32 * 256), 25, "cpu")
+    ops.reset_launch_counts()
+    gpu = CollectiveEngine({"x": 8}).allreduce(
+        X.to(card), "x", algorithm="ring", segments=32, compression="int8")
+    counts = ops.launch_counts()
+    assert counts["quantize_blocks"] == counts["dequantize_blocks"] == 7
+    cpu = CollectiveEngine({"x": 8}, device="cpu").allreduce(
+        X, "x", algorithm="ring", segments=32, compression="int8")
+    assert torch.equal(gpu.cpu(), cpu)
+
+
+def test_k2_k3_at_raise_on_bad_input(card):
+    a = _randn((8, 8 * 256), 26, card)
+    tgt, pay = _ring_index(8 * 256, 1, 1, 0, card)
+    q, s = quantize.quantize_blocks_at(a, pay)            # takes these
+    quantize.dequantize_blocks_at(q, s, 256, a, tgt, "add")
+    cpu_idx = (pay[0], pay[1].cpu(), pay[2].cpu())
+    with pytest.raises(ValueError):                       # index on the CPU
+        quantize.quantize_blocks_at(a, cpu_idx)
+    with pytest.raises(ValueError):
+        quantize.dequantize_blocks_at(q, s, 256, a, cpu_idx, "add")
+    with pytest.raises(ValueError):                       # buffer on the CPU
+        quantize.quantize_blocks_at(a.cpu(), pay)
+    with pytest.raises(ValueError):                       # 4 rows, not 8
+        quantize.dequantize_blocks_at(q[:4], s[:4], 256, a, tgt, "add")
+    with pytest.raises(ValueError):                       # wrong n_valid
+        quantize.dequantize_blocks_at(q, s, 200, a, tgt, "add")
+    with pytest.raises(ValueError):                       # out inside a
+        quantize.dequantize_blocks_at(q, s, 256, a, tgt, "add",
+                                      out=a.reshape(-1)[:8 * 256].view(1, 8, 256))
+    with pytest.raises(ValueError):                       # add needs old
+        quantize.dequantize_blocks_at(q, s, 256, None, tgt, "add")
+    with pytest.raises(TypeError):
+        quantize.quantize_blocks_at(a.double(), pay)
+
+
 @pytest.mark.parametrize("codec", [None, "int8"])
 def test_engine_on_card_equals_cpu(card, codec):
     X = _randn((8, 4096 * 3), 6, "cpu")

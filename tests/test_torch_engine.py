@@ -314,17 +314,17 @@ def test_trace_log_and_schedule_cache():
 
 
 @pytest.mark.parametrize("coll,codec,gathers", [
-    ("reduce_scatter", None, 0), ("reduce_scatter", "int8", 14),
-    ("allreduce", None, 7), ("allreduce", "int8", 21)])
+    ("reduce_scatter", None, 0), ("reduce_scatter", "int8", 0),
+    ("allreduce", None, 7), ("allreduce", "int8", 7)])
 def test_plain_combine_gathers_no_operand(monkeypatch, coll, codec, gathers):
-    """An uncompressed combine reads its payload and target in place (K1's
-    indexed entry point): a ring reduce-scatter gathers nothing, a ring
-    allreduce only its 7 allgather payloads. The int8 wire still gathers
-    each payload it quantizes (and the target it combines into)."""
+    """A combine reads its payload and target in place: an uncompressed
+    one through K1's indexed entry point (one call per segment), an int8
+    one through the indexed K2 and K3 (one call each per exchange). A
+    ring reduce-scatter gathers nothing, a ring allreduce only its 7
+    allgather payloads."""
     from repro_torch.core import engine as tengine
     from repro_torch.kernels import ops as tops
-    seen = {"gather": 0, "at": 0}
-    gather, at = tengine._gather, tops.fused_combine_at
+    seen = {"gather": 0, "at": 0, "quantize_at": 0, "dequantize_at": 0}
 
     def count(name, fn):
         def wrapped(*a, **kw):
@@ -332,13 +332,18 @@ def test_plain_combine_gathers_no_operand(monkeypatch, coll, codec, gathers):
             return fn(*a, **kw)
         return wrapped
 
-    monkeypatch.setattr(tengine, "_gather", count("gather", gather))
-    monkeypatch.setattr(tops, "fused_combine_at", count("at", at))
+    monkeypatch.setattr(tengine, "_gather", count("gather", tengine._gather))
+    for name, attr in (("at", "fused_combine_at"),
+                       ("quantize_at", "quantize_int8_at"),
+                       ("dequantize_at", "dequantize_int8_at")):
+        monkeypatch.setattr(tops, attr, count(name, getattr(tops, attr)))
     X = torch.from_numpy(_normal((8, 2048), seed=17))
     eng = CollectiveEngine({"x": 8}, device="cpu")
     getattr(eng, coll)(X, "x", algorithm="ring", compression=codec)
     assert seen["gather"] == gathers
     assert seen["at"] == (7 if codec is None else 0)
+    assert seen["quantize_at"] == seen["dequantize_at"] == \
+        (0 if codec is None else 7)
 
 
 def test_engine_needs_the_card_by_default():

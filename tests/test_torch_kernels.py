@@ -27,7 +27,7 @@ from repro_torch.core import CollectiveEngine
 from repro_torch.core import engine as tengine
 from repro_torch.core import plugins as tplugins
 from repro_torch.kernels import embedding_gather, fused_reduce, matmul, ops, \
-    ref
+    quantize, ref
 
 
 def _np(t):
@@ -326,6 +326,178 @@ def test_fma_plain_version_is_exact():
         assert got[i] == best, (i, a[i], b[i], c[i], got[i], best)
 
 
+# -- K2/K3 indexed: a whole exchange in one call, operands read in place ------
+
+def _recorded_codec_calls(monkeypatch, algo, segments, X, op="add"):
+    """Every indexed K2 and K3 call one port int8 allreduce of X makes on
+    the CPU, operands as they were at the call: ("q", src, index) and
+    ("dq", q, s, n_valid, old, old_index, op)."""
+    calls = []
+    real_q, real_dq = ops.quantize_int8_at, ops.dequantize_int8_at
+
+    def record_q(src, index):
+        calls.append(("q", src.clone(), index))
+        return real_q(src, index)
+
+    def record_dq(q, s, n_valid, old, old_index, op="add", out=None,
+                  out_dtype=None):
+        calls.append(("dq", q.clone(), s.clone(), n_valid,
+                      None if old is None else old.clone(),
+                      old_index, op))
+        return real_dq(q, s, n_valid, old, old_index, op, out, out_dtype)
+
+    monkeypatch.setattr(ops, "quantize_int8_at", record_q)
+    monkeypatch.setattr(ops, "dequantize_int8_at", record_dq)
+    CollectiveEngine({"x": 8}, device="cpu").allreduce(
+        X, "x", op=op, algorithm=algo, segments=segments, compression="int8")
+    return calls
+
+
+def _check_quantize_at(src, index):
+    """ref.quantize_blocks_at == quantize of the gathered segments ==
+    the reference's jnp codec per row, and its Pallas kernel (interpret
+    mode) on the first row's blocks; bitwise."""
+    q, s = ref.quantize_blocks_at(src, index)
+    g = tengine._gather(src, index)
+    g = g.reshape(-1, g.shape[2])
+    rq, rs = ref.quantize_blocks(g)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    jdt = "bfloat16" if g.dtype == torch.bfloat16 else "float32"
+    jq, js = _jnp_compress(_np(g), jdt)
+    assert np.array_equal(q.numpy(), jq) and np.array_equal(s.numpy(), js)
+    # the Pallas wrapper zero-pads to 32768: the same blocks, then more
+    pq, ps = jops.quantize_int8(jnp.asarray(_np(g[0])).astype(jdt))
+    assert np.array_equal(q[0].numpy(), np.asarray(pq)[:q.shape[1]])
+    assert np.array_equal(s[0].numpy(), np.asarray(ps)[:s.shape[1]])
+    return q, s
+
+
+def _check_dequantize_at(q, s, n, old, old_index, op):
+    """ref.dequantize_blocks_at == dequantize into the gathered target ==
+    the reference's jnp decompress + combine per row; the first row's
+    dequantize == the reference's Pallas kernel (interpret mode); all
+    bitwise."""
+    got = ref.dequantize_blocks_at(q, s, n, old, old_index, op)
+    k, ranks = old_index[2].shape[:2]
+    assert tuple(got.shape) == (k, ranks, n) and got.dtype == old.dtype
+    g = tengine._gather(old, old_index).reshape(k * ranks, n)
+    want = ref.dequantize_blocks(q, s, n, old=None if op == "copy" else g,
+                                 op=op, out_dtype=old.dtype)
+    assert torch.equal(got.reshape(k * ranks, n), want)
+    jdt = jnp.bfloat16 if old.dtype == torch.bfloat16 else jnp.float32
+    pal = jops.dequantize_int8(jnp.pad(jnp.asarray(q[0].numpy()),
+                                       (0, 32768 - q.shape[1])),
+                               jnp.pad(jnp.asarray(s[0].numpy()),
+                                       (0, 128 - s.shape[1])))
+    assert np.array_equal(ref.dequantize_blocks(q[:1], s[:1], n)[0].numpy(),
+                          np.asarray(pal)[:n])
+    if op == "copy":
+        for r in range(q.shape[0]):
+            c = jplugins.Compressed(jnp.asarray(q[r].numpy()),
+                                    jnp.asarray(s[r].numpy()))
+            jw = jplugins.int8_decompress(c, (n,), jdt)
+            assert np.array_equal(_np(got.reshape(-1, n)[r]), _j2np(jw))
+    else:
+        jw = _jnp_consume(q, s, _np(g), n, op, jdt)
+        assert np.array_equal(_np(got.reshape(-1, n)), jw)
+    return got
+
+
+_LAYOUTS = {"aligned": (8, 1024), "ragged": (8, 40, 3),
+            "segmented": (8, 8192)}
+
+
+@pytest.mark.parametrize("layout", list(_LAYOUTS))
+@pytest.mark.parametrize("segments", [1, 4])
+@pytest.mark.parametrize("algo", ["ring", "bidi_ring", "halving_doubling"])
+def test_k2_k3_at_plain_versions_are_gather_then_codec(monkeypatch, algo,
+                                                       segments, layout):
+    """The indexed K2/K3 calls of a real int8 allreduce: one of each per
+    compressed exchange, each plain version equal to the contiguous one
+    on the gathered operands, to the reference's jnp codec and to its
+    Pallas kernels (interpret mode); bitwise. The ragged layout's rows
+    are short of one block (k = 1), its units 15 elements where the
+    algorithm cuts 8 chunks; the segmented one has k > 1 with
+    segments=4."""
+    X = torch.from_numpy(_mixed(_LAYOUTS[layout], seed=22))
+    calls = _recorded_codec_calls(monkeypatch, algo, segments, X)
+    kinds = [c[0] for c in calls]
+    assert kinds and kinds == ["q", "dq"] * (len(calls) // 2)
+    ks = {c[2][2].shape[0] for c in calls if c[0] == "q"}
+    if segments > 1 and layout == "segmented":
+        assert max(ks) > 1, ks
+    if layout == "ragged":      # k = 1 rows of 8-120 elements
+        assert ks == {1}
+        if algo != "bidi_ring":  # its 16 chunks pad the row to 8 each
+            assert 15 in {c[2][0] for c in calls if c[0] == "q"}
+    for i in sorted({0, len(calls) - 2}):
+        (_, src, pay), (_, q, s, n, old, tgt, op) = calls[i], calls[i + 1]
+        wq, ws = _check_quantize_at(src, pay)
+        assert torch.equal(q, wq) and torch.equal(s, ws)
+        _check_dequantize_at(q, s, n, old, tgt, op)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["add", "max", "min", "mul", "copy"])
+def test_k2_k3_at_every_op(monkeypatch, op, dtype):
+    """Every consume op and dtype through the indexed entry points of
+    ops, on a segmented ring program's regions, against the reference's
+    jnp codec; 'copy' with and without `old`."""
+    X = torch.from_numpy(_mixed((8, 8192), seed=23)).to(getattr(torch, dtype))
+    calls = _recorded_codec_calls(monkeypatch, "ring", 4,
+                                  X, op="add" if op == "copy" else op)
+    (_, src, pay), (_, _q, _s, n, old, tgt, rec_op) = calls[0], calls[1]
+    assert rec_op == ("add" if op == "copy" else op)
+    assert pay[2].shape[0] == 4
+    q, s = ops.quantize_int8_at(src, pay)
+    got = ops.dequantize_int8_at(q, s, n, old, tgt, op)
+    assert torch.equal(got, _check_dequantize_at(q, s, n, old, tgt, op))
+    out = torch.empty_like(got)
+    assert ops.dequantize_int8_at(q, s, n, old, tgt, op, out=out) is out
+    assert torch.equal(out, got)
+    if op == "copy":
+        bare = ops.dequantize_int8_at(q, s, n, None, tgt, "copy",
+                                      out_dtype=old.dtype)
+        assert torch.equal(bare, got)
+
+
+@pytest.mark.parametrize("shape", [(8, 2048), (8, 120)])
+@pytest.mark.parametrize("segments", [1, 4])
+def test_int8_relay_program_matches_jax(monkeypatch, shape, segments):
+    """A relay='received' program (the ring reduce) with the int8 codec:
+    the port's executor quantizes each exchange in place, takes its raw
+    arrivals from one contiguous K3 copy of the wire, and equals the JAX
+    engine's executor bitwise."""
+    from jax.sharding import PartitionSpec as P
+
+    from repro.core import algorithms as jalgo
+    from repro.core import engine as jengine
+    from repro.core.topology import Communicator as JComm
+    from repro.core.topology import make_mesh
+    from repro_torch.core import algorithms as talgo
+    from repro_torch.core.topology import Communicator as TComm
+    X = _mixed(shape, seed=24)
+    jprog = jalgo.ring_reduce(JComm(axis="x", size=8)).with_segments(
+        segments).compile(codec="int8")
+    tprog = talgo.ring_reduce(TComm(axis="x", size=8)).with_segments(
+        segments).compile(codec="int8")
+    assert tprog.relay == "received"
+    mesh = make_mesh((8,), ("x",))
+    run = jax.jit(jax.shard_map(
+        lambda v: jengine.execute_program(jprog, v[0], "x")[None], mesh=mesh,
+        in_specs=P("x"), out_specs=P("x"), check_vma=False))
+    want = np.asarray(run(jnp.asarray(X)))
+    seen = {"at": 0, "copy": 0}
+    real_q, real_dq = ops.quantize_int8_at, ops.dequantize_int8
+    monkeypatch.setattr(ops, "quantize_int8_at", lambda *a: (
+        seen.__setitem__("at", seen["at"] + 1), real_q(*a))[1])
+    monkeypatch.setattr(ops, "dequantize_int8", lambda *a, **kw: (
+        seen.__setitem__("copy", seen["copy"] + 1), real_dq(*a, **kw))[1])
+    got = tengine.execute_program(tprog, torch.from_numpy(X)).numpy()
+    assert np.array_equal(got, want)
+    assert seen["at"] == seen["copy"] == 7
+
+
 # -- K4: tiled matmul, K5: embedding gather -------------------------------------
 
 @pytest.mark.parametrize("m,k,n", [(300, 200, 100), (512, 512, 512),
@@ -397,6 +569,10 @@ def test_cpu_tensors_take_the_plain_version():
     tgt = tengine._region_index((0, 1, 2, 3), (((0, 300),),) * 4, 3, "cpu")
     assert torch.equal(ops.fused_combine_at(x, tgt, x, tgt, 2, "add"),
                        2 * x[:, 200:])
+    q8, s8 = ops.quantize_int8_at(x, tgt)
+    assert tuple(q8.shape) == (12, 256) and tuple(s8.shape) == (12, 1)
+    assert torch.equal(ops.dequantize_int8_at(q8, s8, 100, x, tgt, "add"),
+                       torch.full((3, 4, 100), 2.0))
     assert ops.launch_counts() == {"fused_combine": 0, "quantize_blocks": 0,
                                    "dequantize_blocks": 0, "matmul_tiled": 0,
                                    "gather_rows": 0}
@@ -409,6 +585,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_reduce.fused_combine_at(torch.ones(1, 4), tgt,
                                       torch.ones(1, 4), tgt, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize.quantize_blocks_at(torch.ones(1, 4), tgt)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize.dequantize_blocks_at(torch.zeros(1, 256, dtype=torch.int8),
+                                      torch.ones(1, 1), 4, torch.ones(1, 4),
+                                      tgt)
     with pytest.raises(ValueError, match="CUDA"):
         matmul.matmul_tiled(torch.ones(1, 2, 2), torch.ones(1, 2, 2))
     with pytest.raises(ValueError, match="CUDA"):
