@@ -38,8 +38,12 @@ those paths against its plain PyTorch version. Phases, one line each:
      51.2 GB, drawn on the card from --seed) served by `DLRMServer` on
      the (pod, data, model) = (1, 1, 8) mesh with collective_matmul:
      K4 at the FC1 shapes within its per-element bound of the plain
-     version and K5 bitwise; 20 batches of 32 requests and one of 2048,
-     each launching K4, K5 and K1 at least once; the concat vector
+     version, K5's `gather_rows` and `lookup_rows` (the lookup the path
+     runs: each rank's partial vector straight into the concat layout)
+     bitwise on the server's own tables and the mesh's row offsets, ids
+     at every shard edge, below 0 and past the last row included; 20
+     batches of 32 requests and one of 2048, each launching K4 and K1 at
+     least once and K5 exactly once; the concat vector
      BITWISE equal to direct indexing of the tables and the logits
      within atol 1e-5 + rtol 1e-4 of a float64 single-copy reference;
      median latency and queries/s against the single-copy reference;
@@ -49,7 +53,9 @@ those paths against its plain PyTorch version. Phases, one line each:
 
 Then one JSON line of the five kernels with their launches on the two
 paths, time, plain time, bound and library time (K4 also with the tile
-configuration that ran and its achieved rate). The last line is
+configuration that ran and its achieved rate; K5 also its `lookup` entry
+at B = 32 and 2048, beside the device time of the sequence of PyTorch
+ops and `gather_rows` it replaced, `sequence_ms`). The last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 without a CUDA device the script exits non-zero at once.
 
@@ -654,7 +660,7 @@ def exchange_rows(rows, ref, qz, ops, X, gen, err) -> None:
 # --------------------------------------------------------------------------
 
 _CUBLAS = "cuBLAS (FC2/FC3/head)"
-_DLRM_GROUPS = (("gather_rows_kernel", "K5 gather_rows"),
+_DLRM_GROUPS = (("k5_rows_kernel", "K5 gather_rows"),
                 ("matmul_tiled_kernel", "K4 matmul_tiled"),
                 ("fused_combine_kernel", "K1 fused_combine"),
                 ("gemm", _CUBLAS), ("xmma", _CUBLAS), ("cutlass", _CUBLAS),
@@ -706,14 +712,43 @@ def stacked_tables(server):
     return t.reshape((-1,) + tuple(t.shape[-2:]))
 
 
-def phase_dlrm_kernels(server, ops, ref, gen) -> dict:
+def lookup_ids(server, dlrm_mod, B, gen, edges=False):
+    """(G, B, n_tables) ids as the path gives them to K5: one batch of
+    uniform requests, a stride-0 view over the ranks (`stack_batch`).
+    With `edges`, its first ids are each rank's shard edges (lo - 1, lo,
+    lo + rows_l - 1, lo + rows_l), the first and last rows, -1, one past
+    the last row and the int32 extremes."""
+    cfg = server.cfg
+    req = torch.randint(0, cfg.rows_per_table, (B, cfg.n_tables),
+                        generator=gen, device="cuda", dtype=torch.int32)
+    tables, lo = dlrm_mod.lookup_operands(server.model.tables,
+                                          server.ctx)
+    if edges:
+        rows_l = tables.shape[2]
+        e = [x for m in lo.tolist() for x in (m - 1, m, m + rows_l - 1,
+                                              m + rows_l)]
+        e += [0, cfg.rows_per_table - 1, -1, cfg.rows_per_table,
+              -2**31, 2**31 - 1]
+        req.view(-1)[:len(e)] = torch.tensor(e, dtype=torch.int32,
+                                             device="cuda")
+    G = tables.shape[0]
+    return dlrm_mod.stack_batch(req, server.mesh_shape).reshape(
+        (G, B, cfg.n_tables))
+
+
+def phase_dlrm_kernels(server, dlrm_mod, ops, ref, gen) -> dict:
     """Phase 6b: K4 at the FC1 shapes within its per-element bound of the
     plain version (fp32 sums in two orders differ by at most
-    2 K 2^-24 (|x| @ |w|)), K5 at the lookup shapes bitwise."""
+    2 K 2^-24 (|x| @ |w|)); K5 at the lookup shapes bitwise: `gather_rows`
+    on the stacked tables, `lookup_rows` on the server's own tables with
+    the mesh's `lo`, stride-0 ids with every shard edge."""
     w = fc1_operands(server)
     tables = stacked_tables(server)
     G, rows_l, _dim = tables.shape
+    ltables, lo = dlrm_mod.lookup_operands(server.model.tables,
+                                           server.ctx)
     err = {"matmul_tiled": 0.0, "gather_rows": 0.0}
+    hits = {}
     for B in (DLRM_SMALL, DLRM_LARGE):
         x = torch.randn((w.shape[0], B, w.shape[1]), generator=gen,
                         device="cuda") * 0.01
@@ -730,17 +765,38 @@ def phase_dlrm_kernels(server, ops, ref, gen) -> dict:
         err["gather_rows"] = max(err["gather_rows"], same(
             f"K5 B={B}", ops.embedding_gather(tables, idx),
             ref.gather_rows(tables, idx)))
+        ids = lookup_ids(server, dlrm_mod, B, gen, edges=True)
+        if ids.stride()[0] != 0:
+            fail("K5 lookup: the path's ids are not a stride-0 view")
+        want = ref.lookup_rows(ltables, ids, lo)
+        err["gather_rows"] = max(err["gather_rows"], same(
+            f"K5 lookup B={B}", ops.embedding_lookup_rows(ltables, ids, lo),
+            want))
+        hits[B] = lookup_hits(ids, lo, ltables.shape[2])
+        # every id in [0, rows_per_table) hits one rank; 6 edge ids do not
+        if hits[B] != B * ids.shape[2] - 6:
+            fail(f"K5 lookup B={B}: {hits[B]} hits for {B} x "
+                 f"{ids.shape[2]} ids")
+        del x, got, want, diff, bound, idx, ids
     torch.cuda.synchronize()
     emit({"phase": "dlrm_kernels", "k4": "within 2 K 2^-24 (|x| @ |w|)",
-          "k5": "bitwise", "batches": [DLRM_SMALL, DLRM_LARGE],
-          "max_abs_err": err})
+          "k5": "bitwise (gather_rows, lookup_rows)",
+          "batches": [DLRM_SMALL, DLRM_LARGE], "lookup_hits": hits,
+          "lookup_lo": lo.tolist(), "max_abs_err": err})
     return err
+
+
+def lookup_hits(ids, lo, rows_l: int) -> int:
+    """(g, b, t) entries whose id lies in rank g's rows (int32 shift)."""
+    local = ids - lo.to(torch.int32)[:, None, None]
+    return int(((local >= 0) & (local < rows_l)).sum())
 
 
 def phase_dlrm_serve(server, dlrm_mod, ops, counts, seed: int):
     """Phase 6c: 20 batches of 32 requests and one of 2048 through the
-    server; each must launch K5, K4 and K1; concat vector bitwise, logits
-    within DLRM_ATOL + DLRM_RTOL |ref| of the float64 reference."""
+    server; each must launch K4 and K1, and K5 once; concat vector
+    bitwise, logits within DLRM_ATOL + DLRM_RTOL |ref| of the float64
+    reference."""
     cfg = server.cfg
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
 
@@ -761,6 +817,9 @@ def phase_dlrm_serve(server, dlrm_mod, ops, counts, seed: int):
         for name in ("gather_rows", "matmul_tiled", "fused_combine"):
             if c[name] < 1:
                 fail(f"a DLRM batch of {batch.shape[0]} launched no {name}")
+        if c["gather_rows"] != 1:
+            fail(f"a DLRM batch of {batch.shape[0]} launched K5 "
+                 f"{c['gather_rows']} times, not once")
         acc = counts.setdefault(key, dict.fromkeys(c, 0))
         for name, n in c.items():
             acc[name] += n
@@ -820,10 +879,18 @@ def phase_dlrm_times(server, small, large, reps: int, smi: str) -> dict:
     return t
 
 
-def dlrm_kernel_rows(server, ref, mm, eg, gen, err) -> list:
+LOOKUP_NO_LIBRARY = ("none: no single PyTorch call computes a masked, "
+                     "sharded gather into the concat layout")
+
+
+def dlrm_kernel_rows(server, dlrm_mod, ref, mm, eg, gen, err) -> list:
     """Phase 6e: K4 and K5 device time at the DLRM shapes (B = 32, and
     B = 2048 beside it), cycling through operand pools so each launch
-    reads cold HBM (four FC1 weight copies exceed the 50 MB L2)."""
+    reads cold HBM (four FC1 weight copies exceed the 50 MB L2). K5's
+    `lookup` entry times `lookup_rows` on the path's own operands, its
+    bound counting the concat vector written once, the rows the drawn ids
+    hit read once and the ids read once, beside `sequence_ms`: the
+    PyTorch ops around `gather_rows` that the lookup replaced."""
     pool = 4
     w = fc1_operands(server)
     ws = [w] + [w.clone() for _ in range(pool - 1)]
@@ -844,9 +911,13 @@ def dlrm_kernel_rows(server, ref, mm, eg, gen, err) -> list:
                 "plain_ms": device_time_ms(plain, max(1, n // 4)),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": device_time_ms(library, n)}
+                "library_ms": (device_time_ms(library, n)
+                               if library is not None else None)}
 
-    k4, k5 = {}, {}
+    ltables, lo = dlrm_mod.lookup_operands(server.model.tables,
+                                           server.ctx)
+    T = ltables.shape[1]
+    k4, k5, lk = {}, {}, {}
     for B in (DLRM_SMALL, DLRM_LARGE):
         xs = [torch.randn((R, B, K), generator=gen, device="cuda") * 0.01
               for _ in range(pool)]
@@ -869,13 +940,29 @@ def dlrm_kernel_rows(server, ref, mm, eg, gen, err) -> list:
                         lambda: torch.index_select(flat, 0, gids[cyc()]),
                         2 * G * B * dim * 4 + G * B * 4, 0, n * 2)
         k5[B]["shape"] = [G, rows_l, dim, B]
-        del xs, idxs, gids
+        ids = [lookup_ids(server, dlrm_mod, B, gen) for _ in range(pool)]
+        hits = lookup_hits(ids[0], lo, rows_l)
+        lk[B] = measure(lambda: eg.lookup_rows(ltables, ids[cyc()], lo),
+                        lambda: ref.lookup_rows(ltables, ids[cyc()], lo),
+                        None, 4 * (lo.shape[0] * B * T * dim + hits * dim
+                                   + B * T) + 8 * lo.shape[0], 0, n * 2)
+        lk[B]["library_ms"] = None
+        lk[B]["library_none"] = LOOKUP_NO_LIBRARY
+        lk[B]["sequence_ms"] = device_time_ms(
+            lambda: ref.lookup_rows(ltables, ids[cyc()], lo, gather=lambda
+                                    t, i: eg.gather_rows(t, i.contiguous())),
+            max(1, n // 2))
+        lk[B]["shape"] = list(ltables.shape) + [B]
+        lk[B]["hits"] = hits
+        del xs, idxs, gids, ids
     rows = []
     for name, m in (("matmul_tiled", k4), ("gather_rows", k5)):
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "max_abs_err": err[name],
                      **m[DLRM_SMALL],
                      "at_batch_2048": m[DLRM_LARGE]})
+    rows[-1]["lookup"] = {"entry": "lookup_rows", **lk[DLRM_SMALL],
+                          "at_batch_2048": lk[DLRM_LARGE]}
     return rows
 
 
@@ -936,15 +1023,19 @@ def main() -> int:
 
     # phase 6: DLRM inference
     server = phase_dlrm_build(DLRMServer, CONFIG, args.seed)
-    err.update(phase_dlrm_kernels(server, ops, ref, gen))
+    err.update(phase_dlrm_kernels(server, dlrm_mod, ops, ref, gen))
     small, large = phase_dlrm_serve(server, dlrm_mod, ops, counts, args.seed)
     phase_dlrm_times(server, small, large, args.reps, smi)
-    rows += dlrm_kernel_rows(server, ref, mm, eg, gen, err)
+    rows += dlrm_kernel_rows(server, dlrm_mod, ref, mm, eg, gen, err)
     torch.cuda.synchronize()
     for row in rows:      # launches on both paths' runs (K1 runs on both)
         row["launches"] = sum(c[row["name"]] for c in counts.values())
         if not row["launches"]:
             fail(f"the main path launched no {row['name']}")
+        if "lookup" in row:   # every K5 launch of the DLRM path is a lookup
+            row["lookup"]["launches"] = sum(
+                c["gather_rows"] for k, c in counts.items()
+                if k.startswith("dlrm"))
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

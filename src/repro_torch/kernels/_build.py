@@ -119,6 +119,8 @@ ARGTYPES = {
                                 _LL, _P, _LL, _LL, _I, _I, _P],
     "k4_matmul_tiled": [_P, _P, _P, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _P],
     "k5_gather_rows": [_P, _P, _P, _LL, _LL, _LL, _LL, _I, _P],
+    "k5_lookup_rows": [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+                       _LL, _I, _P],
 }
 
 

@@ -130,6 +130,16 @@ def embedding_gather(table, indices):
     return _eg.gather_rows(table.contiguous(), indices.contiguous())
 
 
+def embedding_lookup_rows(tables, ids, lo):
+    """K5 as the DLRM lookup: stacked tables (G, T, rows_l, D), global ids
+    (G, B, T) int32 (any strides), `lo` (G,) int64, each stacked rank's
+    first row -> (G, B, T*D), each rank's partial concat vector (rows it
+    does not hold are +0.0). One K5 launch on the card."""
+    if _on_card(tables):
+        return _eg.lookup_rows(tables, ids, lo)
+    return ref.lookup_rows(tables, ids, lo)
+
+
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset."""
     return {name: fn.launches for name, fn in KERNELS.items()}

@@ -5,6 +5,10 @@ The indexed entry points (`fused_combine_at`, `quantize_blocks_at`,
 contiguous version on the copies, so they are bitwise equal to it by
 construction.
 
+K5's `lookup_rows` is the reference DLRM lookup's sequence of ops (shift,
+hit mask, clamp, gather, zeroed misses, concat layout), so it equals
+`repro/models/dlrm.py::embedding_lookup`'s per-rank vector bitwise.
+
 K1-K3 and K5 compute exactly what their kernels compute, bit for bit;
 K4 (`matmul`) sums in another order than its kernel, so the card holds
 the kernel to it within a per-element bound (`chip_smoke.py`). Either way
@@ -171,3 +175,20 @@ def gather_rows(table, indices):
         return table[indices.long()]
     g = torch.arange(table.shape[0], device=table.device)[:, None]
     return table[g, indices.long()]
+
+
+def lookup_rows(tables, ids, lo, gather=gather_rows):
+    """K5 as the DLRM lookup: stacked tables (G, T, rows_l, D), global ids
+    (G, B, T) int32, `lo` (G,), each stacked rank's first row -> (G, B,
+    T*D), rank g's partial concat vector: `tables[g, t, id - lo[g]]` where
+    `id - lo[g]` (int32 arithmetic) lies in [0, rows_l), else +0.0.
+    `gather` runs the row gather (the kernel's plain version by default)."""
+    G, T, rows_l, D = tables.shape
+    B = ids.shape[1]
+    local = ids.to(torch.int32).transpose(1, 2) - \
+        lo.to(torch.int32)[:, None, None]                  # (G, T, B)
+    hit = (local >= 0) & (local < rows_l)
+    safe = local.clamp(0, rows_l - 1)
+    rows = gather(tables.reshape(G * T, rows_l, D), safe.reshape(G * T, B))
+    rows = torch.where(hit[..., None], rows.reshape(G, T, B, D), 0.0)
+    return rows.movedim(1, 2).reshape(G, B, T * D)

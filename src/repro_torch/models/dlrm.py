@@ -71,30 +71,35 @@ def dlrm_specs(cfg: DLRMConfig, tp: int):
     return dlrm_params(Builder("spec"), cfg, tp)
 
 
+def lookup_operands(tables, ctx: ParCtx):
+    """K5's view of the stacked tables: every rank's (T, rows_local, dim)
+    slice as one (G, T, rows_local, dim) stack over the G = prod(mesh)
+    stacked ranks, and `lo` (G,), each one's first global row."""
+    lead = tuple(tables.shape[:ctx.lead])
+    rows_l = tables.shape[-2]
+    G = math.prod(lead)
+    lo = (ctx.tp_rank() * rows_l).expand(lead).reshape(G)
+    return tables.reshape((G,) + tuple(tables.shape[ctx.lead:])), lo
+
+
 def embedding_lookup(tables, indices, ctx: ParCtx):
     """tables: stacked (T, rows_local, dim), each rank's slice over
     'model'; indices: stacked (B, T) global row ids. Returns the stacked
     (B, T*dim) concat vector, replicated over 'model'.
 
-    Each rank serves the rows it owns (partial vectors: every rank
-    gathers all B rows per table with misses clipped, and the hit mask
-    zeroes them after, as the reference does), then one engine allreduce
-    assembles the concat vector — the paper's partial-embedding
-    transmission from memory nodes to compute nodes.
+    Each rank serves the rows it owns (a partial vector, zero where
+    another rank owns the row: one K5 launch for every table of every
+    rank writes them straight into the concat layout), then one engine
+    allreduce assembles the concat vector — the paper's
+    partial-embedding transmission from memory nodes to compute nodes.
     """
-    D = ctx.lead
-    lead = tuple(tables.shape[:D])
-    t, rows_l, dim = tables.shape[D:]
-    lo = (ctx.tp_rank() * rows_l).to(torch.int32)[..., None, None]
-    local = indices.to(torch.int32).transpose(-1, -2) - lo   # (.., T, B)
-    hit = (local >= 0) & (local < rows_l)
-    safe = local.clamp(0, rows_l - 1)
-    B = local.shape[-1]
-    g = math.prod(lead) * t
-    rows = kops.embedding_gather(tables.reshape(g, rows_l, dim),
-                                 safe.reshape(g, B))
-    rows = torch.where(hit[..., None], rows.reshape(lead + (t, B, dim)), 0.0)
-    vec = rows.movedim(-3, -2).reshape(lead + (B, t * dim))
+    lead = tuple(tables.shape[:ctx.lead])
+    stacked, lo = lookup_operands(tables, ctx)
+    G, t, _rows_l, dim = stacked.shape
+    B = indices.shape[-2]
+    vec = kops.embedding_lookup_rows(
+        stacked, indices.to(torch.int32).reshape((G, B, t)), lo)
+    vec = vec.reshape(lead + (B, t * dim))
     if ctx.tp > 1:
         vec = ctx.engine.allreduce(vec, ctx.tp_axis)
     return vec

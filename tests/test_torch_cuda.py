@@ -293,6 +293,111 @@ def test_k5_bitwise_row_widths(card, D, dtype):
     assert embedding_gather.gather_rows.launches == before + 2
 
 
+def _lookup_case(G, T, rows_l, D, B, dtype, device, seed, lo=None):
+    """Tables, stride-0 ids (one request batch shared by the G ranks, as
+    `stack_batch` gives them) and the mesh's `lo`, with ids at every shard
+    edge, below 0, past the last row and at the int32 extremes."""
+    rng = np.random.default_rng(seed)
+    tables = _randn((G, T, rows_l, D), seed, device, dtype)
+    lo = [g * rows_l for g in range(G)] if lo is None else lo
+    ids = rng.integers(-rows_l, (G + 1) * rows_l, (B, T))
+    edges = [e for x in lo for e in (x - 1, x, x + rows_l - 1, x + rows_l)]
+    edges += [0, G * rows_l - 1, -1, G * rows_l, -2**31, 2**31 - 1]
+    n = min(len(edges), ids.size)
+    ids.reshape(-1)[:n] = edges[:n]
+    ids = torch.from_numpy(ids.astype(np.int32)).to(device)
+    return (tables, ids[None].expand(G, B, T),
+            torch.tensor(lo, dtype=torch.int64, device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 1, 3, 33])
+def test_k5_lookup_and_gather_bitwise(card, D, dtype):
+    """lookup_rows and the redesigned gather_rows BITWISE against their
+    plain versions, 16-byte rows down to 2-byte units, one K5 launch
+    each; stride-0 ids read in place."""
+    tables, ids, lo = _lookup_case(3, 5, 40, D, 17, dtype, card, 20)
+    before = embedding_gather.gather_rows.launches
+    got = ops.embedding_lookup_rows(tables, ids, lo)
+    assert embedding_gather.gather_rows.launches == before + 1
+    assert torch.equal(got, ref.lookup_rows(tables, ids, lo))
+    assert torch.equal(got, ref.lookup_rows(tables.cpu(), ids.cpu(),
+                                            lo.cpu()).to(card))
+    flat = tables.reshape(15, 40, D)
+    idx = torch.randint(0, 40, (15, 33), device=card, dtype=torch.int32,
+                        generator=torch.Generator(card).manual_seed(21))
+    assert torch.equal(ops.embedding_gather(flat, idx),
+                       ref.gather_rows(flat, idx))
+
+
+def test_k5_unaligned_empty_and_extreme_ranks(card):
+    """An unaligned table base (4-byte units for 128-byte rows), B = 0 (no
+    launch), a rank that misses every id and one that hits every id."""
+    G, T, rows_l, D = 2, 3, 50, 32
+    buf = _randn((G * T * rows_l * D + 1,), 22, card)
+    tables = buf[1:].view(G, T, rows_l, D)
+    assert tables.data_ptr() % 16 == 4
+    ids = torch.randint(0, rows_l, (1, 64, T), device=card, dtype=torch.int32,
+                        generator=torch.Generator(card).manual_seed(23))
+    ids = ids.expand(G, 64, T)
+    lo = torch.tensor([10**6, 0], dtype=torch.int64, device=card)
+    got = embedding_gather.lookup_rows(tables, ids, lo)
+    assert torch.equal(got, ref.lookup_rows(tables, ids, lo))
+    assert not got[0].any()                               # all miss
+    assert torch.equal(got[1].reshape(64, T, D),          # all hit
+                       tables[1, torch.arange(T, device=card), ids[1].long()])
+    idx = ids[1].T.contiguous()
+    assert torch.equal(embedding_gather.gather_rows(tables[1], idx),
+                       ref.gather_rows(tables[1], idx))
+    before = embedding_gather.gather_rows.launches
+    empty = embedding_gather.lookup_rows(tables, ids[:, :0], lo)
+    assert empty.shape == (G, 0, T * D)
+    assert embedding_gather.gather_rows(tables[1], idx[:, :0]).shape == \
+        (T, 0, D)
+    assert embedding_gather.gather_rows.launches == before
+
+
+def test_k5_table_offsets_past_2_31_elements(card):
+    """Rows more than 2^31 elements (and units) past the base of the table
+    stack: 64-bit offsets in both entry points."""
+    rows_l = 2**30 + 64
+    tables = torch.empty((1, 2, rows_l, 1), device=card)   # 8.6 GB
+    tail = _randn((200,), 24, card)
+    tables[0, 1, -200:, 0] = tail
+    ids = torch.arange(rows_l - 150, rows_l + 3, device=card,
+                       dtype=torch.int32)
+    ids = torch.stack([ids, ids], dim=1)[None]       # (1, 153, 2)
+    ids[0, :, 0] = rows_l                            # table 0: all miss
+    lo = torch.zeros(1, dtype=torch.int64, device=card)
+    got = embedding_gather.lookup_rows(tables, ids, lo)
+    want = torch.cat([tail[50:], torch.zeros(3, device=card)])
+    assert torch.equal(got[0, :, 1], want) and not got[0, :, 0].any()
+    idx = torch.stack([ids[0, :150, 1] - rows_l + 150, ids[0, :150, 1]])
+    got = embedding_gather.gather_rows(tables.view(2, rows_l, 1), idx)
+    assert torch.equal(got[1].reshape(-1), tail[50:])
+    del tables
+
+
+def test_k5_lookup_raises_on_bad_input(card):
+    tables = _randn((2, 3, 10, 4), 25, card)
+    ids = torch.zeros((2, 5, 3), dtype=torch.int32, device=card)
+    lo = torch.zeros(2, dtype=torch.int64, device=card)
+    with pytest.raises(TypeError):
+        embedding_gather.lookup_rows(tables, ids.long(), lo)
+    with pytest.raises(TypeError):
+        embedding_gather.lookup_rows(tables, ids, lo.int())
+    with pytest.raises(ValueError, match="CUDA"):
+        embedding_gather.lookup_rows(tables, ids, lo.cpu())   # mixed
+    with pytest.raises(ValueError):
+        embedding_gather.lookup_rows(tables, ids[:, :, :2], lo)
+    with pytest.raises(ValueError):
+        embedding_gather.lookup_rows(tables, ids, lo[:1])
+    with pytest.raises(ValueError):
+        embedding_gather.lookup_rows(tables.transpose(2, 3), ids, lo)
+    with pytest.raises(ValueError):
+        embedding_gather.lookup_rows(tables[0], ids[0], lo)
+
+
 def test_k4_k5_wrappers_raise_on_bad_input(card):
     x = _randn((1, 4, 8), 13, card)
     xt = x.transpose(1, 2)
@@ -338,8 +443,11 @@ def test_embedding_lookup_on_card_equals_cpu(card):
                      pcfg=ParallelConfig())
         params = _reduced_params(ms, dev)
         stacked = dlrm.stack_batch(idx.to(dev), ms)
+        ops.reset_launch_counts()
         outs[str(dev)] = dlrm.embedding_lookup(params["tables"], stacked,
                                                ctx).cpu()
+        # one K5 launch per lookup on the card, none on the CPU
+        assert ops.launch_counts()["gather_rows"] == (dev == card)
     assert torch.equal(outs["cuda"], outs["cpu"])
 
 

@@ -104,16 +104,65 @@ def _torch_run(shape, params_np, idx, what: str, collective_matmul=False):
     return dlrm.unstack_batch(out, ms).numpy()
 
 
+def _edge_requests(tp: int, seed: int = 0):
+    """Requests holding an id at every shard edge of a `tp`-way split
+    (lo - 1, lo, lo + rows_l - 1, lo + rows_l), row 0 and the last row,
+    negative ids, ids past the last row and the int32 extremes; the rest
+    uniform."""
+    rows_l = CFG.rows_per_table // tp
+    idx = _requests(seed)
+    edges = [e for m in range(tp) for e in (m * rows_l - 1, m * rows_l,
+                                            (m + 1) * rows_l - 1,
+                                            (m + 1) * rows_l)]
+    edges += [0, CFG.rows_per_table - 1, -1, -rows_l, CFG.rows_per_table,
+              2**31 - 1, -2**31]
+    idx.reshape(-1)[:len(edges)] = np.array(edges, dtype=np.int64)
+    return idx
+
+
+@pytest.mark.parametrize("ids", ["uniform", "edges"])
 @pytest.mark.parametrize("use_pallas", [False, True])
 @pytest.mark.parametrize("shape", MESHES)
-def test_embedding_lookup_bitwise(shape, use_pallas):
+def test_embedding_lookup_bitwise(shape, use_pallas, ids):
+    """The port's lookup (one K5 lookup per call, on the CPU its plain
+    version) equals the reference's BITWISE: uniform ids, and ids at
+    every shard edge, below 0 and past the last row (zero vectors)."""
     params = _params_np("normal", shape[-1])
-    idx = _requests(1)
+    idx = _requests(1) if ids == "uniform" else _edge_requests(shape[-1], 1)
     want = np.asarray(_jax_fn(shape, "lookup", use_pallas=use_pallas)(
         params, jnp.asarray(idx)))
     got = _torch_run(shape, params, idx, "lookup")
     assert got.shape == (B, CFG.n_tables * CFG.emb_dim)
     assert np.array_equal(got, want)
+    if ids == "edges":     # the out-of-range ids looked up nothing
+        out = (idx < 0) | (idx >= CFG.rows_per_table)
+        assert out.any() and not got.reshape(B, CFG.n_tables, -1)[out].any()
+
+
+def test_embedding_lookup_reads_ids_in_place(monkeypatch):
+    """embedding_lookup makes ONE K5 lookup call and no other kernel call:
+    the stacked ids reach it as the stride-0 view `stack_batch` made
+    (no copy), with each rank's first row as `lo`."""
+    ms = _mesh_shape((1, 1, 4))
+    ctx = _torch_ctx((1, 1, 4))
+    params = convert.dlrm_params_from_jax(_params_np("normal", 4), CFG, ms)
+    stacked = dlrm.stack_batch(torch.from_numpy(_requests(3)), ms)
+    calls = []
+    real = dlrm.kops.embedding_lookup_rows
+
+    def record(tables, ids, lo):
+        calls.append((tables, ids, lo))
+        return real(tables, ids, lo)
+
+    monkeypatch.setattr(dlrm.kops, "embedding_lookup_rows", record)
+    monkeypatch.setattr(dlrm.kops, "embedding_gather", None)
+    dlrm.embedding_lookup(params["tables"], stacked, ctx)
+    (tables, ids, lo), = calls
+    rows_l = CFG.rows_per_table // 4
+    assert tables.shape == (4, CFG.n_tables, rows_l, CFG.emb_dim)
+    assert ids.shape == (4, B, CFG.n_tables) and ids.stride()[0] == 0
+    assert ids.data_ptr() == stacked.data_ptr()
+    assert lo.tolist() == [m * rows_l for m in range(4)]
 
 
 @pytest.mark.parametrize("collective_matmul", [False, True])

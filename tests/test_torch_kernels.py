@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro.core import plugins as jplugins
+from repro.kernels import embedding_gather as jeg
 from repro.kernels import ops as jops
 from repro_torch.core import CollectiveEngine
 from repro_torch.core import engine as tengine
@@ -555,6 +556,90 @@ def test_k5_stacked_tables():
         assert torch.equal(got[g], tables[g][idx[g].long()])
 
 
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
+
+
+def lookup_edge_ids(los, rows_l, rows_total):
+    """Ids at every shard edge (lo - 1, lo, lo + rows_l - 1, lo + rows_l
+    of each rank), the first and last global rows, ids below 0 and past
+    the last row, and the int32 extremes — wrapped into int32."""
+    ids = [e for lo in los for e in (lo - 1, lo, lo + rows_l - 1,
+                                     lo + rows_l)]
+    ids += [0, rows_total - 1, -1, -rows_l, rows_total, I32_MIN, I32_MAX]
+    return np.array(ids, dtype=np.int64).astype(np.int32)
+
+
+def jax_rank_lookup(tables, ids, lo):
+    """One rank's lookup as `repro/models/dlrm.py::embedding_lookup`
+    computes it with `use_pallas`: int32 shift, hit mask, clip, the Pallas
+    gather (interpret mode, D padded to 128 lanes as `repro.kernels.ops`
+    pads it) per table, `jnp.where`, `jnp.moveaxis` — (T, rows_l, D)
+    tables, (B, T) int32 ids -> (B, T*D)."""
+    t, rows_l, dim = tables.shape
+    local = jnp.asarray(ids).T - jnp.asarray(np.int32(lo))
+    hit = (local >= 0) & (local < rows_l)
+    safe = jnp.clip(local, 0, rows_l - 1)
+    padded = jnp.pad(jnp.asarray(tables), ((0, 0), (0, 0), (0, 128 - dim)))
+    rows = jnp.stack([jeg.gather_rows(padded[i], safe[i], interpret=True)
+                      for i in range(t)])[..., :dim]
+    rows = jnp.where(hit[..., None], rows, 0.0)
+    return jnp.moveaxis(rows, 0, 1).reshape(ids.shape[0], t * dim)
+
+
+_LOS = {
+    "mesh": lambda g, rows_l: g * rows_l,          # each rank's first row
+    "zero": lambda g, rows_l: 0,
+    "negative": lambda g, rows_l: -3 * rows_l + 7 * g,
+    "int32_wrap": lambda g, rows_l: I32_MAX - 5 - g * rows_l,
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("los", list(_LOS))
+def test_k5_lookup_rows_matches_jax_lookup(los, dtype):
+    """ref.lookup_rows, every stacked rank at once, equals the reference
+    lookup body per rank BITWISE, shard edges, misses and int32
+    wrap-around included; ids given as a stride-0 expand give the same."""
+    rng = np.random.default_rng(10)
+    G, T, rows_l, D, B = 3, 4, 20, 32, 12
+    los_g = [_LOS[los](g, rows_l) for g in range(G)]
+    tables = rng.normal(size=(G, T, rows_l, D)).astype(np.float32)
+    ids = rng.integers(-rows_l, (G + 1) * rows_l, (B, T)).astype(np.int32)
+    edges = lookup_edge_ids(los_g, rows_l, G * rows_l)
+    ids.reshape(-1)[:len(edges)] = edges
+    jt = jnp.asarray(tables).astype(dtype)
+    want = np.stack([_j2np(jax_rank_lookup(jt[g], ids, los_g[g]))
+                     for g in range(G)])
+    tt = torch.from_numpy(tables).to(getattr(torch, dtype))
+    lo = torch.tensor(los_g, dtype=torch.int64)
+    shared = torch.from_numpy(ids)[None].expand(G, B, T)
+    for ids_t in (shared, shared.contiguous()):
+        got = ops.embedding_lookup_rows(tt, ids_t, lo)
+        assert got.shape == (G, B, T * D) and got.dtype == tt.dtype
+        assert np.array_equal(_np(got), want)
+    hits = want.reshape(G, B, T, D).any(-1).sum()
+    assert 0 < hits < G * B * T
+
+
+def test_k5_lookup_rows_is_the_gather_sequence():
+    """The plain lookup equals gather_rows of the clipped shifted ids with
+    the misses zeroed, laid out (g, b, t): the definition, spelled out."""
+    rng = np.random.default_rng(11)
+    G, T, rows_l, D, B = 2, 3, 10, 5, 7
+    tables = torch.from_numpy(rng.normal(size=(G, T, rows_l, D)).astype(
+        np.float32))
+    ids = torch.from_numpy(rng.integers(-5, 25, (G, B, T)).astype(np.int32))
+    lo = torch.tensor([0, rows_l])
+    got = ops.embedding_lookup_rows(tables, ids, lo)
+    for g in range(G):
+        for b in range(B):
+            for t in range(T):
+                local = int(ids[g, b, t]) - int(lo[g])
+                want = tables[g, t, local] if 0 <= local < rows_l else \
+                    torch.zeros(D)
+                assert torch.equal(got[g, b, t * D:(t + 1) * D], want)
+
+
 # -- wrappers, devices and imports ---------------------------------------------
 
 def test_cpu_tensors_take_the_plain_version():
@@ -573,6 +658,11 @@ def test_cpu_tensors_take_the_plain_version():
     assert tuple(q8.shape) == (12, 256) and tuple(s8.shape) == (12, 1)
     assert torch.equal(ops.dequantize_int8_at(q8, s8, 100, x, tgt, "add"),
                        torch.full((3, 4, 100), 2.0))
+    lookup = ops.embedding_lookup_rows(x.reshape(1, 1, 4, 300),
+                                       torch.tensor([[[-1], [5]]],
+                                                    dtype=torch.int32),
+                                       torch.tensor([2]))
+    assert torch.equal(lookup, torch.stack([torch.zeros(300), x[3]])[None])
     assert ops.launch_counts() == {"fused_combine": 0, "quantize_blocks": 0,
                                    "dequantize_blocks": 0, "matmul_tiled": 0,
                                    "gather_rows": 0}
@@ -596,6 +686,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         embedding_gather.gather_rows(torch.ones(1, 4, 2),
                                      torch.zeros(1, 1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        embedding_gather.lookup_rows(torch.ones(1, 1, 4, 2),
+                                     torch.zeros(1, 1, 1, dtype=torch.int32),
+                                     torch.zeros(1, dtype=torch.int64))
 
 
 def test_port_imports_neither_jax_nor_repro():
