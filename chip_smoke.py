@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two paths — the collective offload engine at the
+Drives the port's paths — the collective offload engine at the
 repository's own top message size (64 MiB per rank on 8 ranks, the top
-of `seg_sweep` / `hier_sweep` in benchmarks/figures.py), and distributed
+of `seg_sweep` / `hier_sweep` in benchmarks/figures.py), distributed
 DLRM inference (the paper's use case 2) at the full width of the paper's
-Table 2 model — ranks stacked on the card, and holds every kernel on
-those paths against its plain PyTorch version. Phases, one line each:
+Table 2 model, and the offload queue with the paper's use case 1
+(distributed vector-matrix multiply) — ranks stacked on the card, and
+holds every kernel on those paths against its plain PyTorch version.
+Phases, one line each:
 
   1. device: the card (nvidia-smi) and the kernels' build time;
   2. kernels: K1 add/max/min/mul fp32+bf16, K2 (codes, scales, exact .5
@@ -50,9 +52,25 @@ those paths against its plain PyTorch version. Phases, one line each:
      the device time of one batch by kernel group with the idle share.
      (If the card's free memory is short of the tables, only
      rows_per_table is cut, and the phase's lines say so.)
+  7. queue: use case 1, `distributed_vecmat` at the example's sizes
+     512-4096 and at 32768 (a 4 GiB fp32 matrix, 512 MiB per rank, drawn
+     on the card from --seed), 4 tiles, one binomial-tree `ireduce` per
+     tile (exactly log2(8) = 3 K1 launches per tile), within gamma_K
+     (|x| @ |w|) of the float64 single-copy product, the queue model's
+     makespan below the serial cost on ACCL_CLUSTER, medians against the
+     single-copy `x @ w` and the device's idle share at every size; then
+     a mixed queue drained on the card (three coalescing small
+     allreduces, an int8 allreduce at 4 MiB per rank, a reduce consuming
+     another request, an issue_multi over a (2, 4) mesh) BITWISE equal
+     to the blocking calls and, without the int8 request, to
+     `simulate_drain`; one K2 and one K3 launch per compressed exchange;
+     the coalesced bucket one program. Every K1 call of both runs is
+     recorded with its operands and replayed BITWISE against K1's plain
+     version: on the path's own operands, and through the same region
+     indices on normal-valued operands of the same shapes.
 
-Then one JSON line of the five kernels with their launches on the two
-paths, time, plain time, bound and library time (K4 also with the tile
+Then one JSON line of the five kernels with their launches on every
+path (in total and by path), time, plain time, bound and library time (K4 also with the tile
 configuration that ran and its achieved rate; K5 also its `lookup` entry
 at B = 32 and 2048, beside the device time of the sequence of PyTorch
 ops and `gather_rows` it replaced, `sequence_ms`). The last line is
@@ -64,14 +82,16 @@ without a CUDA device the script exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import inspect
 import json
 import pathlib
-import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -127,20 +147,10 @@ def device_time_ms(fn, n: int) -> float:
 
 
 def median_ms(fn, reps: int) -> float:
-    """Median wall time of one call, CUDA events around each, after a
-    warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
+    """Median time of one call on the card (the port's CUDA-event helper,
+    after a warm-up call)."""
+    from repro_torch.launch import median_ms as port_median_ms
+    return port_median_ms(fn, reps, "cuda")
 
 
 def same(name: str, got, want) -> float:
@@ -216,35 +226,99 @@ def phase_kernels(ops, ref, gen) -> dict:
     return err
 
 
-def recorded_calls(ops, names, shape, **kw) -> list:
-    """(name, args) of every call to the entry points `names` of ops that
-    one allreduce of a `shape` buffer (`kw` passed on) makes on the
-    card. The recorder itself launches nothing."""
-    from repro_torch.core import CollectiveEngine
-    calls = []
+@contextlib.contextmanager
+def recording(ops, names, keep=(), seqs=()):
+    """Record every call to the entry points `names` of ops made while the
+    block runs, as (name, args, kwargs, result); for the names in `keep`
+    the tensor arguments are cloned before the call and the result after
+    it (else the result is None), so a replay sees what the kernel saw (an argument passed twice
+    stays one tensor). For each Sequencer in `seqs`, also record every
+    plan item it runs as (request ids, K1 launches of that item alone).
+    The recorder itself launches nothing."""
+    calls, items = [], []
     real = {name: getattr(ops, name) for name in names}
+    runs = [(seq, seq._run_item) for seq in seqs]
 
     def recorder(name):
         def record(*args, **kwargs):
-            calls.append((name, args))
-            return real[name](*args, **kwargs)
+            if name not in keep:
+                calls.append((name, args, kwargs, None))
+                return real[name](*args, **kwargs)
+            memo = {}
+
+            def kept(v):
+                if not isinstance(v, torch.Tensor):
+                    return v
+                if id(v) not in memo:
+                    memo[id(v)] = v.clone()
+                return memo[id(v)]
+            kargs = tuple(kept(a) for a in args)
+            kkw = {k: kept(v) for k, v in kwargs.items() if k != "out"}
+            res = real[name](*args, **kwargs)
+            calls.append((name, kargs, kkw, res.clone()))
+            return res
         return record
+
+    def item_recorder(run):
+        def run_item(item):
+            k0, n0 = ops.launch_counts()["fused_combine"], len(items)
+            run(item)
+            inner = sum(k for _rids, k in items[n0:])   # nested dep items
+            items.append(([r.rid for r in item.requests],
+                          ops.launch_counts()["fused_combine"] - k0 - inner))
+        return run_item
 
     for name in names:
         setattr(ops, name, recorder(name))
+    for seq, run in runs:
+        seq._run_item = item_recorder(run)
     try:
-        CollectiveEngine({"x": NRANKS}, device="cuda").allreduce(
-            torch.zeros(shape, device="cuda"), "x", **kw)
+        yield calls, items
     finally:
         for name, fn in real.items():
             setattr(ops, name, fn)
+        for seq, _run in runs:
+            del seq._run_item
+
+
+def recorded_calls(ops, names, shape, **kw) -> list:
+    """(name, args, kwargs, None) of every call to the entry points
+    `names` of ops that one allreduce of a `shape` buffer (`kw` passed
+    on) makes on the card."""
+    from repro_torch.core import CollectiveEngine
+    with recording(ops, names) as (calls, _items):
+        CollectiveEngine({"x": NRANKS}, device="cuda").allreduce(
+            torch.zeros(shape, device="cuda"), "x", **kw)
     return calls
+
+
+def replay_k1(ops, ref, calls, gen, where: str) -> int:
+    """Each recorded K1 call of a path BITWISE against K1's plain version:
+    the path's own result on the operands it was given, and K1 again
+    through the same region indices on normal-valued operands of the same
+    shapes (a path's own operands may be integer-valued, where every sum
+    is exact in any order and precision)."""
+    sig = inspect.signature(ops.fused_combine_at)
+    for i, (_n, args, kw, res) in enumerate(calls):
+        p = sig.bind(*args, **kw)
+        p.apply_defaults()
+        a, ai, b, bi, j, op, od = (p.arguments[k] for k in (
+            "a", "a_index", "b", "b_index", "j", "op", "out_dtype"))
+        same(f"{where}: K1 call {i} ({op}) on the path's operands", res,
+             ref.fused_combine_at(a, ai, b, bi, j, op, od))
+        na = torch.randn(a.shape, generator=gen, device=a.device).to(a.dtype)
+        nb = na if b is a else torch.randn(
+            b.shape, generator=gen, device=b.device).to(b.dtype)
+        same(f"{where}: K1 call {i} ({op}) on normal values",
+             ops.fused_combine_at(na, ai, nb, bi, j, op, out_dtype=od),
+             ref.fused_combine_at(na, ai, nb, bi, j, op, od))
+    return len(calls)
 
 
 def exchange_indices(ops, shape, algorithm: str, segments: int) -> list:
     """(target index, payload index, segment) of every indexed K1 call
     one fp32 allreduce of a `shape` buffer makes on the card."""
-    return [(a[1], a[3], a[4]) for _n, a in recorded_calls(
+    return [(a[1], a[3], a[4]) for _n, a, _kw, _r in recorded_calls(
         ops, ("fused_combine_at",), shape, algorithm=algorithm,
         segments=segments)]
 
@@ -255,11 +329,10 @@ def codec_exchange_indices(ops, shape, **kw) -> list:
     reads the payload through, and its K3 call the target."""
     calls = recorded_calls(ops, ("quantize_int8_at", "dequantize_int8_at"),
                            shape, compression="int8", **kw)
-    if [n for n, _a in calls] != ["quantize_int8_at",
+    if [c[0] for c in calls] != ["quantize_int8_at",
                                   "dequantize_int8_at"] * (len(calls) // 2):
         fail(f"int8 allreduce of {shape}: indexed K2/K3 calls do not pair")
-    return [(dq[4], q[1]) for (_n, q), (_m, dq) in zip(calls[::2],
-                                                      calls[1::2])]
+    return [(dq[1][4], q[1][1]) for q, dq in zip(calls[::2], calls[1::2])]
 
 
 def phase_kernels_indexed(ops, ref, gen) -> int:
@@ -443,22 +516,26 @@ def device_split(fn, groups) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    split: dict = {}
-    kernels = 0
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        key = next((g for pat, g in groups if pat in ev.key), "other")
-        split[key] = split.get(key, 0.0) + us / 1e3
-        kernels += ev.count
-    return {"device_ms_by_group": split, "kernel_launches": kernels}
+    for attempt in range(1, 4):  # now and then a trace holds no device event
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        split: dict = {}
+        kernels = 0
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            key = next((g for pat, g in groups if pat in ev.key), "other")
+            split[key] = split.get(key, 0.0) + us / 1e3
+            kernels += ev.count
+        if kernels:
+            break
+    return {"device_ms_by_group": split, "kernel_launches": kernels,
+            "traces": attempt}
 
 
 def busy_and_idle(split: dict, median_ms: float) -> dict:
@@ -966,6 +1043,193 @@ def dlrm_kernel_rows(server, dlrm_mod, ref, mm, eg, gen, err) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# Phase 7: the offload queue and use case 1, distributed vector-matrix
+# --------------------------------------------------------------------------
+
+VECMAT_SIZES = (512, 1024, 2048, 4096, 32768)
+VECMAT_TILES = 4
+_VECMAT_GROUPS = (("fused_combine_kernel", "K1 fused_combine"),
+                  ("gemv", "cuBLAS (partials)"), ("gemm", "cuBLAS (partials)"),
+                  ("xmma", "cuBLAS (partials)"),
+                  ("cutlass", "cuBLAS (partials)"),
+                  ("index", "gather/scatter (indexing)"))
+
+
+def check_vecmat(y, x, w) -> tuple:
+    """y against the float64 single-copy x @ w, column block by column
+    block: any fp32 summation order of K = size products errs by at most
+    gamma_K (|x| @ |w|), gamma_K = K u / (1 - K u), u = 2^-24. Returns
+    (max abs error, max error / bound)."""
+    K = w.shape[0]
+    gamma = K * 2.0 ** -24 / (1 - K * 2.0 ** -24)
+    xd = x.double()
+    err = ratio = 0.0
+    for c0 in range(0, w.shape[1], 4096):
+        wb = w[:, c0:c0 + 4096].double()
+        diff = (y[c0:c0 + 4096].double() - xd @ wb).abs()
+        bound = gamma * (xd.abs() @ wb.abs())
+        if not bool((diff <= bound).all()):
+            fail(f"vecmat size {K}: {int((diff > bound).sum())} outputs "
+                 f"exceed gamma_K (|x| @ |w|) of the float64 product")
+        err = max(err, float(diff.max()))
+        ratio = max(ratio, float((diff / bound.clamp_min(1e-300)).max()))
+        del wb, diff, bound
+    return err, ratio
+
+
+def phase_vecmat(CollectiveEngine, vm, ops, ref, counts, gen, reps: int,
+                 smi: str) -> None:
+    """Phase 7a: use case 1 through the queue — `distributed_vecmat` at
+    the example's sizes and at 32768 (a 4 GiB fp32 matrix, 512 MiB per
+    rank, drawn on the card from the seed), 4 tiles: each tile one
+    binomial-tree `ireduce`: exactly log2(8) = 3 K1 launches per tile
+    (one per RECV_COMBINE), each call replayed BITWISE against K1's plain
+    version; the result within gamma_K of the float64 single-copy
+    product, the queue model's t_queue < t_serial on ACCL_CLUSTER, and
+    the median time (CUDA events) against the single-copy `x @ w`, with
+    the device's idle share. All ranks' partials are one batched product
+    on one card, so `measured_x` is not an 8-rank cluster's speedup."""
+    eng = CollectiveEngine({"x": NRANKS}, device="cuda")
+    levels = NRANKS.bit_length() - 1     # binomial-tree depth
+    out = []
+    for size in VECMAT_SIZES:
+        w = torch.randn((size, size), generator=gen, device="cuda")
+        x = torch.randn((size,), generator=gen, device="cuda")
+        xs, ws = x.reshape(NRANKS, -1), w.reshape(NRANKS, -1, size)
+
+        def dist():
+            return vm.distributed_vecmat(eng, xs, ws, VECMAT_TILES)
+
+        ops.reset_launch_counts()
+        with recording(ops, ("fused_combine_at",), keep=("fused_combine_at",),
+                       seqs=(eng.queue,)) as (calls, items):
+            y = dist()
+            torch.cuda.synchronize()
+        counts[f"vecmat_{size}"] = c = ops.launch_counts()
+        per_tile = [k for _rids, k in items]
+        if (per_tile != [levels] * VECMAT_TILES
+                or c["fused_combine"] != levels * VECMAT_TILES
+                or len(calls) != c["fused_combine"]):
+            fail(f"vecmat size {size}: K1 launches per tile reduction "
+                 f"{per_tile} ({c['fused_combine']} in all, {len(calls)} "
+                 f"through the indexed entry), not {levels} for each of "
+                 f"{VECMAT_TILES} tiles")
+        replay_k1(ops, ref, calls, gen, f"vecmat size {size}")
+        if y.shape != (size,) or not bool(torch.isfinite(y).all()):
+            fail(f"vecmat size {size}: result {tuple(y.shape)} not finite")
+        err, ratio = check_vecmat(y, x, w)
+        m = vm.queue_model(eng, size, VECMAT_TILES)
+        if not m["t_queue_s"] < m["t_serial_s"]:
+            fail(f"vecmat size {size}: the queue model does not overlap "
+                 f"({m['t_queue_s']} >= {m['t_serial_s']})")
+        t_dist = median_ms(dist, reps)
+        t_single = median_ms(lambda: x @ w, reps)
+        row = {"size": size, "tiles": VECMAT_TILES,
+               "matrix_bytes": w.numel() * 4, "dist_ms": t_dist,
+               "single_ms": t_single, "measured_x": t_single / t_dist,
+               "k1_per_tile": per_tile, "k1_replayed_bitwise": len(calls),
+               "launches": c, "max_abs_err": err, "err_over_bound": ratio,
+               **m, "profile": busy_and_idle(
+                   device_split(dist, _VECMAT_GROUPS), t_dist)}
+        out.append(row)
+        del w, x, xs, ws, y
+        torch.cuda.empty_cache()
+    emit({"phase": "vecmat", "rows": out, "bound": "gamma_K (|x| @ |w|) "
+          "vs float64", "model_comm": "ACCL_CLUSTER, 8 ranks",
+          "card": smi})
+
+
+def phase_queue(CollectiveEngine, Sequencer, ops, ref, counts, gen) -> None:
+    """Phase 7b: an engine drain on the card. A mixed queue — three small
+    same-dtype allreduces that coalesce, a compression="int8" allreduce
+    at 4 MiB per rank, a binomial-tree reduce that consumes another
+    request, an issue_multi over a (2, 4) mesh — drained on integer-
+    valued fp32: BITWISE equal to the same calls made blocking; the non-
+    int8 requests BITWISE equal to the port's `simulate_drain` of the
+    same queue; one K2 and one K3 launch per compressed exchange; the
+    coalesced bucket one program (`coalesced_buckets`, `trace_log`);
+    every K1 call of the drain (the 72-element coalesced bucket's
+    included) replayed BITWISE against K1's plain version."""
+    eng = CollectiveEngine({"x": NRANKS}, device="cuda")
+    eng2 = CollectiveEngine({"pod": 2, "data": 4}, device="cuda")
+    small = [int_inputs((NRANKS, n), gen) for n in (40, 8, 24)]
+    big = int_inputs((NRANKS, 2**20), gen)
+    mid = int_inputs((NRANKS, 2**16), gen)
+    X2 = int_inputs((2, 4, 2**16), gen)
+
+    def issue(seq):
+        rs = [seq.issue("allreduce", v, "x") for v in small]
+        r_mid = seq.issue("allreduce", mid, "x")
+        rs += [r_mid, seq.issue("reduce", r_mid, "x", root=2,
+                                algorithm="binomial_tree")]
+        return rs
+
+    reqs = issue(eng.queue)
+    r_int8 = eng.iallreduce(big, "x", compression="int8")
+    r_multi = eng2.issue_multi(X2, ["data", "pod"])
+    plan = [[r.rid for r in it.requests] for it in eng.queue.plan("x")]
+    if plan[0] != [r.rid for r in reqs[:3]]:
+        fail(f"queue: the small allreduces did not coalesce: plan {plan}")
+    log0 = len(eng.trace_log)
+    ops.reset_launch_counts()
+    with recording(ops, ("fused_combine_at", "quantize_int8_at"),
+                   keep=("fused_combine_at",),
+                   seqs=(eng.queue, eng2.queue)) as (calls, items):
+        eng.queue.drain()
+        eng2.queue.drain()
+        torch.cuda.synchronize()
+    counts["queue"] = c = ops.launch_counts()
+    k1_calls = [call for call in calls if call[0] == "fused_combine_at"]
+    exchanges = [int(call[1][1][2].shape[0]) for call in calls
+                 if call[0] == "quantize_int8_at"]
+    if not exchanges or not (c["quantize_blocks"] == c["dequantize_blocks"]
+                             == len(exchanges)):
+        fail(f"queue: {c} launches for {len(exchanges)} compressed "
+             f"exchanges of the int8 request")
+    if c["fused_combine"] < 1 or len(k1_calls) != c["fused_combine"]:
+        fail(f"queue: {c['fused_combine']} K1 launches, {len(k1_calls)} "
+             f"through the indexed entry")
+    stats = dict(eng.queue.stats)
+    if (stats["coalesced_buckets"], stats["coalesced_requests"]) != (1, 3):
+        fail(f"queue: coalescing stats {stats}")
+    bucket_bytes = sum(v[0].numel() * 4 for v in small)
+    drained = [t for t in eng.trace_log[log0:] if t[0] == "allreduce"]
+    if [t[3] for t in drained].count(bucket_bytes) != 1 or any(
+            t[3] == v[0].numel() * 4 for t in drained for v in small):
+        fail(f"queue: the coalesced bucket did not run as one program: "
+             f"{drained}")
+    # blocking calls, outside the counted window
+    blocking = [eng.allreduce(v, "x") for v in small]
+    b_mid = eng.allreduce(mid, "x")
+    blocking += [b_mid, eng.reduce(b_mid, "x", root=2,
+                                   algorithm="binomial_tree")]
+    for i, (r, want) in enumerate(zip(reqs, blocking)):
+        same(f"queue request {i} vs blocking", r.result, want)
+    same("queue int8 request vs blocking", r_int8.result,
+         eng.allreduce(big, "x", compression="int8"))
+    same("queue issue_multi vs blocking", r_multi.result,
+         eng2.allreduce_multi(X2, ["data", "pod"]))
+    # the same queue, minus the int8 request, through the simulator
+    sim_seq = Sequencer(eng)
+    sim_reqs = issue(sim_seq)
+    feeds = {r: list(v.cpu().numpy())
+             for r, v in zip(sim_reqs, small + [mid])}
+    sim = sim_seq.simulate_drain(feeds)
+    for i, (r, s) in enumerate(zip(reqs, sim_reqs)):
+        got = r.result.cpu()
+        want = torch.from_numpy(np.stack(sim[s]))
+        same(f"queue request {i} vs simulate_drain", got, want)
+    replay_k1(ops, ref, k1_calls, gen, "queue")
+    emit({"phase": "queue", "plan": plan, "stats": stats,
+          "launches": c, "compressed_exchanges": len(exchanges),
+          "segments_per_exchange": sorted(set(exchanges)),
+          "k1_per_item": items, "k1_replayed_bitwise": len(k1_calls),
+          "bitwise_vs_blocking": len(reqs) + 2,
+          "bitwise_vs_simulate_drain": len(sim_reqs),
+          "int8_mib_per_rank": 4, "issue_multi_mesh": [2, 4]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -981,12 +1245,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.dlrm import CONFIG
-    from repro_torch.core import CollectiveEngine
+    from repro_torch.core import CollectiveEngine, Sequencer
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import embedding_gather as eg
     from repro_torch.kernels import fused_reduce as fr
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import quantize as qz
+    from repro_torch.launch import distributed_vecmat as vm
     from repro_torch.launch.dlrm_serve import DLRMServer
     from repro_torch.models import dlrm as dlrm_mod
 
@@ -1028,10 +1293,22 @@ def main() -> int:
     phase_dlrm_times(server, small, large, args.reps, smi)
     rows += dlrm_kernel_rows(server, dlrm_mod, ref, mm, eg, gen, err)
     torch.cuda.synchronize()
-    for row in rows:      # launches on both paths' runs (K1 runs on both)
+    del server
+    torch.cuda.empty_cache()
+
+    # phase 7: the offload queue and use case 1
+    phase_vecmat(CollectiveEngine, vm, ops, ref, counts, gen, args.reps, smi)
+    phase_queue(CollectiveEngine, Sequencer, ops, ref, counts, gen)
+    for row in rows:      # launches on every path's runs (K1 runs on all)
         row["launches"] = sum(c[row["name"]] for c in counts.values())
         if not row["launches"]:
             fail(f"the main path launched no {row['name']}")
+        by_path: dict = {}
+        for key, c in counts.items():
+            path = next((p for p in ("dlrm", "vecmat", "queue")
+                         if key.startswith(p)), "collectives")
+            by_path[path] = by_path.get(path, 0) + c[row["name"]]
+        row["launches_by_path"] = by_path
         if "lookup" in row:   # every K5 launch of the DLRM path is a lookup
             row["lookup"]["launches"] = sum(
                 c["gather_rows"] for k, c in counts.items()

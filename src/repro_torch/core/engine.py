@@ -39,13 +39,18 @@ runs every group along the other axes at once; a two-axis collective
 over `(outer, inner)` uses the reference's inner-major flat rank
 `r = intra * P + pod`. `backend="native"` computes the same results with
 torch reductions over the rank dim — the software-MPI baseline role.
+
+The non-blocking request API (`issue`, the `i*` helpers, `issue_multi`,
+`itree_allreduce`) defers these same calls through the engine's
+`Sequencer` (`core/sequencer.py`, the offload queue), on the same
+mesh-stacked operands.
 """
 from __future__ import annotations
 
 import dataclasses
 import inspect
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -405,6 +410,92 @@ def _flatten_pad(xs, mult: int):
     return flat, shape, size
 
 
+def _tree_leaves(tree) -> tuple:
+    """(leaves, unflatten) for a pytree of dicts, lists and tuples of
+    mesh-stacked tensors: the leaves in the reference's order (jax
+    sorts dict keys, torch's pytree keeps insertion order), and the
+    function that rebuilds `tree`'s structure from leaves in that
+    order."""
+    from torch.utils import _pytree as pytree
+    pairs, spec = pytree.tree_flatten_with_path(tree)
+
+    def key(path):
+        return tuple(getattr(k, "key", getattr(k, "idx", None))
+                     for k in path)
+
+    order = sorted(range(len(pairs)), key=lambda i: key(pairs[i][0]))
+
+    def unflatten(vals):
+        out = [None] * len(vals)
+        for j, i in enumerate(order):
+            out[i] = vals[j]
+        return pytree.tree_unflatten(out, spec)
+
+    return [pairs[i][1] for i in order], unflatten
+
+
+def _local_numel(leaf, lead: tuple) -> int:
+    return leaf.numel() // math.prod(lead)
+
+
+def _bucket_leaves(leaves, cap: int, lead: tuple) -> list:
+    """dtype-grouped, size-capped buckets over leaf indices — the ONE
+    bucketing rule both `tree_allreduce` and `itree_allreduce` apply.
+    Caps count one rank's bytes, so the plan is the reference's for the
+    same tree; dtypes group in the order each first appears."""
+    groups: dict = {}
+    for i, leaf in enumerate(leaves):
+        groups.setdefault(leaf.dtype, []).append(i)
+    buckets: list[list[int]] = []
+    for dtype, idxs in groups.items():
+        cur, cur_bytes = [], 0
+        for i in idxs:
+            nbytes = _local_numel(leaves[i], lead) * dtype.itemsize
+            if cur and cur_bytes + nbytes > cap:
+                buckets.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append(i)
+            cur_bytes += nbytes
+        if cur:
+            buckets.append(cur)
+    return buckets
+
+
+def _fuse_bucket(leaves, idxs, lead: tuple):
+    """The bucket's leaves joined along each rank's flat local dims."""
+    if len(idxs) == 1:
+        return leaves[idxs[0]].reshape(lead + (-1,))
+    return torch.cat([leaves[i].reshape(lead + (-1,)) for i in idxs],
+                     dim=-1)
+
+
+def _scatter_bucket(leaves, idxs, buf, out, lead: tuple) -> None:
+    off = 0
+    for i in idxs:
+        leaf = leaves[i]
+        n = _local_numel(leaf, lead)
+        out[i] = buf[..., off:off + n].reshape(leaf.shape)
+        off += n
+
+
+@dataclasses.dataclass
+class _TreeTicket:
+    """Handle for an in-flight `itree_allreduce`: the bucket requests
+    sit in the engine's queue until `wait()` drains them and scatters
+    the fused buffers back into the tree."""
+
+    unflatten: object
+    leaves: list
+    lead: tuple
+    plan: list                      # [(leaf indices, Request), ...]
+
+    def wait(self):
+        out: list = [None] * len(self.leaves)
+        for idxs, req in self.plan:
+            _scatter_bucket(self.leaves, idxs, req.wait(), out, self.lead)
+        return self.unflatten(out)
+
+
 def _find_generator(collective: str, algorithm: str):
     gen = GENERATORS.get((collective, algorithm))
     if gen is None:
@@ -506,6 +597,7 @@ class CollectiveEngine:
     # mapping view over this registry)
     metrics: telemetry.MetricsRegistry = dataclasses.field(
         default_factory=_engine_metrics)
+    _queue: object = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         self.mesh_shape = dict(self.mesh_shape)
@@ -531,6 +623,14 @@ class CollectiveEngine:
                 n *= self.mesh_shape[a]
             return n
         return self.mesh_shape[axis]
+
+    @property
+    def queue(self):
+        """The engine's `Sequencer` (created on first use)."""
+        if self._queue is None:
+            from repro_torch.core.sequencer import Sequencer
+            self._queue = Sequencer(self)
+        return self._queue
 
     @property
     def stats(self) -> telemetry.StatsView:
@@ -960,6 +1060,169 @@ class CollectiveEngine:
     def nop(self):
         """Engine invocation NOP (fig8 latency benchmark)."""
         return torch.zeros((), dtype=torch.int32, device=self.device)
+
+    # -- non-blocking request API (the collective offload queue) -------------
+    #
+    # SIGNATURE CONTRACT: `CollectiveEngine.issue` / `issue_multi` are
+    # thin delegates of `Sequencer.issue` / `Sequencer.issue_multi` and
+    # accept the identical public call shapes — same parameter order,
+    # same `after=None` / `timeout=None` keyword-only defaults (the
+    # sequencer's `_pre`/`_post`/`_shape` hooks are private plumbing the
+    # engine surface does not expose). The `i*` helpers fix the
+    # collective name and otherwise take `issue`'s keywords.
+    def issue(self, collective: str, x, axis: str, *, after=None,
+              timeout: Optional[float] = None, **kwargs):
+        """Enqueue a collective without executing it; returns a `Request`
+        handle immediately (the CCLO request-queue contract — paper use
+        case 1). `x` is a mesh-stacked tensor or another `Request` (a
+        dependency edge: this call consumes that request's result).
+        Materialize with `Request.wait()` or `engine.queue.drain()`; the
+        queue keeps per-communicator FIFO order, infers conflict edges
+        from tensor identity (override with `after=`), enforces `timeout`
+        (virtual seconds) on the simulated drain's clock, and coalesces
+        consecutive small same-(op, dtype) reductions into one bucketed
+        program — see `core/sequencer.py`. Remaining keywords are those
+        of the blocking method (`op`, `root`, `algorithm`,
+        `compression`, `segments`).
+        """
+        return self.queue.issue(collective, x, axis, after=after,
+                                timeout=timeout, **kwargs)
+
+    def issue_multi(self, x, axes, op: str = "add",
+                    algorithm: str = "auto",
+                    compression: Optional[str] = None):
+        """Non-blocking `allreduce_multi`: the hierarchical multi-axis
+        allreduce as queued work (`Sequencer.issue_multi` — two live
+        axes fold into one tuple-axis request; more chain RS ->
+        recurse -> AG with dependency edges)."""
+        return self.queue.issue_multi(x, axes, op=op, algorithm=algorithm,
+                                      compression=compression)
+
+    def iallreduce(self, x, axis: str, *, after=None,
+                   timeout: Optional[float] = None, **kwargs):
+        """Non-blocking `allreduce` (MPI_Iallreduce analogue)."""
+        return self.issue("allreduce", x, axis, after=after,
+                          timeout=timeout, **kwargs)
+
+    def ireduce_scatter(self, x, axis: str, *, after=None,
+                        timeout: Optional[float] = None, **kwargs):
+        """Non-blocking `reduce_scatter`."""
+        return self.issue("reduce_scatter", x, axis, after=after,
+                          timeout=timeout, **kwargs)
+
+    def iallgather(self, x, axis: str, *, after=None,
+                   timeout: Optional[float] = None, **kwargs):
+        """Non-blocking `allgather`."""
+        return self.issue("allgather", x, axis, after=after,
+                          timeout=timeout, **kwargs)
+
+    def ibcast(self, x, axis: str, *, after=None,
+               timeout: Optional[float] = None, **kwargs):
+        """Non-blocking `bcast`."""
+        return self.issue("bcast", x, axis, after=after,
+                          timeout=timeout, **kwargs)
+
+    def ireduce(self, x, axis: str, *, after=None,
+                timeout: Optional[float] = None, **kwargs):
+        """Non-blocking `reduce`."""
+        return self.issue("reduce", x, axis, after=after,
+                          timeout=timeout, **kwargs)
+
+    def ialltoall(self, x, axis: str, *, after=None,
+                  timeout: Optional[float] = None, **kwargs):
+        """Non-blocking `alltoall`."""
+        return self.issue("alltoall", x, axis, after=after,
+                          timeout=timeout, **kwargs)
+
+    def icollective(self, name: str, x, axis: str, *, after=None,
+                    timeout: Optional[float] = None, **kwargs):
+        """Non-blocking plugin-registered collective (`collective`)."""
+        return self.issue(name, x, axis, after=after,
+                          timeout=timeout, **kwargs)
+
+    # -- hierarchical multi-axis collectives (multi-pod path) ----------------
+    def allreduce_multi(self, x, axes: Sequence[str], op: str = "add",
+                        algorithm: str = "auto",
+                        compression: Optional[str] = None):
+        """Hierarchical allreduce over several axes, fastest axis first.
+
+        RS over axes[0] -> recurse over the rest on 1/n of the bytes -> AG
+        back over axes[0]; two live axes run as ONE two-level program
+        over the (outer, inner) product instead.
+        """
+        axes = [a for a in axes if self.mesh_shape[a] > 1]
+        if not axes:
+            return self._tensor(x)
+        if len(axes) == 1:
+            return self.allreduce(x, axes[0], op=op, algorithm=algorithm,
+                                  compression=compression)
+        if len(axes) == 2:
+            # axes are ordered fastest first, so the slow pod-crossing
+            # axis is the last one (the outer level of the product)
+            return self.allreduce(x, (axes[1], axes[0]), op=op,
+                                  algorithm=algorithm,
+                                  compression=compression)
+        x = self._tensor(x)
+        D = len(self.mesh_shape)
+        n0 = self.mesh_shape[axes[0]]
+        flat, shape, size = self._flatten_pad_mesh(x, n0)
+        shard = self.reduce_scatter(flat, axes[0], op=op,
+                                    algorithm=algorithm,
+                                    compression=compression)
+        shard = self.allreduce_multi(shard, axes[1:], op=op,
+                                     algorithm=algorithm,
+                                     compression=compression)
+        full = self.allgather(shard, axes[0], algorithm=algorithm)
+        return full[..., :size].reshape(tuple(x.shape[:D]) + shape)
+
+    # -- gradient-bucket collectives (offload-engine H2H role) ---------------
+    #: default gradient-bucket cap (one rank's bytes)
+    BUCKET_BYTES = 4 << 20
+
+    def tree_allreduce(self, tree, axes: Sequence[str], op: str = "add",
+                       compression: Optional[str] = None,
+                       algorithm: str = "auto",
+                       bucket_bytes: Optional[int] = None):
+        """Bucketed pytree allreduce: fused collectives over leaf groups.
+
+        `tree` is a dict / list / tuple of mesh-stacked tensors. Leaves
+        are grouped by dtype (a bf16 leaf ships 2 bytes per element, no
+        upcast) and packed into buckets of at most `bucket_bytes` per
+        rank; each bucket is one `allreduce_multi`.
+        """
+        leaves, unflatten = _tree_leaves(tree)
+        if not leaves:
+            return tree
+        lead = tuple(self.mesh_shape.values())
+        cap = bucket_bytes if bucket_bytes is not None else self.BUCKET_BYTES
+        out: list = [None] * len(leaves)
+        for idxs in _bucket_leaves(leaves, cap, lead):
+            buf = self.allreduce_multi(_fuse_bucket(leaves, idxs, lead),
+                                       axes, op=op, algorithm=algorithm,
+                                       compression=compression)
+            _scatter_bucket(leaves, idxs, buf, out, lead)
+        return unflatten(out)
+
+    def itree_allreduce(self, tree, axes: Sequence[str], op: str = "add",
+                        compression: Optional[str] = None,
+                        algorithm: str = "auto",
+                        bucket_bytes: Optional[int] = None):
+        """Non-blocking `tree_allreduce`: every bucket's hierarchical
+        allreduce is ISSUED into the request queue up front and a ticket
+        is returned; `ticket.wait()` drains the requests and rebuilds
+        the tree. Tickets collected before any wait share the queue, so
+        small same-dtype buckets coalesce into one program."""
+        leaves, unflatten = _tree_leaves(tree)
+        lead = tuple(self.mesh_shape.values())
+        cap = bucket_bytes if bucket_bytes is not None else self.BUCKET_BYTES
+        plan = []
+        for idxs in _bucket_leaves(leaves, cap, lead):
+            req = self.queue.issue_multi(_fuse_bucket(leaves, idxs, lead),
+                                         axes, op=op, algorithm=algorithm,
+                                         compression=compression)
+            plan.append((idxs, req))
+        return _TreeTicket(unflatten=unflatten, leaves=leaves, lead=lead,
+                           plan=plan)
 
     # -- streaming API (paper Listing 2): compute fused with communication ---
     def _matmul(self, a, b, out_dtype=None):

@@ -1,4 +1,37 @@
 """Entry points of the port (the only place its library code prints):
 
-  dlrm_serve  the distributed DLRM server and its CLI
+  dlrm_serve          the distributed DLRM server and its CLI
+  distributed_vecmat  use case 1: the vector-matrix offload and its CLI
+
+and `median_ms`, the timing helper they and `chip_smoke.py` share.
 """
+from __future__ import annotations
+
+import statistics
+import time
+
+import torch
+
+
+def median_ms(fn, reps: int, device) -> float:
+    """Median time of one call of `fn`, in ms, after a warm-up call: CUDA
+    events around each call on the card, the host clock on the CPU."""
+    device = torch.device(device)
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize(device)
+            times.append(e0.elapsed_time(e1))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)

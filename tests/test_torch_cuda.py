@@ -11,11 +11,12 @@ import pytest
 import torch
 
 from repro_torch.configs import ParallelConfig, reduced
-from repro_torch.core import CollectiveEngine
+from repro_torch.core import CollectiveEngine, Sequencer
 from repro_torch.core import engine as engine_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import embedding_gather, fused_reduce, matmul, \
     quantize
+from repro_torch.launch import distributed_vecmat
 from repro_torch.launch.dlrm_serve import DLRMServer
 from repro_torch.models import dlrm
 from repro_torch.models.common import Builder
@@ -470,3 +471,81 @@ def test_dlrm_server_on_card(card, collective_matmul):
     torch.testing.assert_close(out.double(), want, rtol=1e-5, atol=1e-5)
     assert torch.equal(server.lookup(idx), dlrm.lookup_shards(
         server.tables_copy(), idx.to(card)))
+
+
+def _ints(shape, seed, device):
+    """Integer-valued fp32: every 8-rank sum is exact."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-8, 9, shape, generator=g).float().to(device)
+
+
+def test_queue_drain_on_card_equals_blocking(card):
+    """The mixed queue of `chip_smoke.py` phase 7b, smaller: three
+    coalescing allreduces, an int8 allreduce, a reduce consuming another
+    request and an issue_multi over (2, 4), drained on the card — bitwise
+    equal to the blocking calls; the non-int8 requests bitwise equal to
+    `simulate_drain` of the same queue; one coalesced program."""
+    eng = CollectiveEngine({"x": 8})
+    eng2 = CollectiveEngine({"pod": 2, "data": 4})
+    small = [_ints((8, n), 30 + n, card) for n in (40, 8, 24)]
+    mid, big = _ints((8, 4096), 31, card), _ints((8, 1 << 16), 32, card)
+    X2 = _ints((2, 4, 1000), 33, card)
+
+    def issue(seq):
+        rs = [seq.issue("allreduce", v, "x") for v in small]
+        r_mid = seq.issue("allreduce", mid, "x")
+        return rs + [r_mid, seq.issue("reduce", r_mid, "x", root=2,
+                                      algorithm="binomial_tree")]
+
+    reqs = issue(eng.queue)
+    r8 = eng.iallreduce(big, "x", compression="int8")
+    rm = eng2.issue_multi(X2, ["data", "pod"])
+    eng.queue.drain()
+    eng2.queue.drain()
+    assert eng.queue.stats["coalesced_buckets"] == 1
+    b_mid = eng.allreduce(mid, "x")
+    want = [eng.allreduce(v, "x") for v in small] + [
+        b_mid, eng.reduce(b_mid, "x", root=2, algorithm="binomial_tree")]
+    for r, w in zip(reqs, want):
+        assert torch.equal(r.result, w)
+    assert torch.equal(r8.result, eng.allreduce(big, "x", compression="int8"))
+    assert torch.equal(rm.result, eng2.allreduce_multi(X2, ["data", "pod"]))
+    seq = Sequencer(eng)
+    sreqs = issue(seq)
+    sim = seq.simulate_drain({r: list(v.cpu().numpy())
+                              for r, v in zip(sreqs, small + [mid])})
+    for r, s_ in zip(reqs, sreqs):
+        assert np.array_equal(r.result.cpu().numpy(), np.stack(sim[s_]))
+
+
+def test_queue_int8_one_k2_k3_launch_per_exchange(card):
+    """A drained int8 request launches exactly one K2 and one K3 per
+    compressed exchange (a ring allreduce: 7), as the blocking call does."""
+    eng = CollectiveEngine({"x": 8})
+    X = _randn((8, 8 * 32 * 256), 34, card)
+    r = eng.iallreduce(X, "x", algorithm="ring", segments=32,
+                       compression="int8")
+    ops.reset_launch_counts()
+    got = r.wait()
+    counts = ops.launch_counts()
+    assert counts["quantize_blocks"] == counts["dequantize_blocks"] == 7
+    assert torch.equal(got, eng.allreduce(X, "x", algorithm="ring",
+                                          segments=32, compression="int8"))
+
+
+def test_vecmat_4096_on_card(card):
+    """Use case 1 at 4096, 4 tiles: exactly log2(8) = 3 K1 launches per
+    tile's binomial-tree reduction, the result within gamma_K (|x| @ |w|)
+    of the float64 product."""
+    size = 4096
+    w = _randn((size, size), 35, card)
+    x = _randn((size,), 36, card)
+    eng = CollectiveEngine({"x": 8})
+    ops.reset_launch_counts()
+    y = distributed_vecmat.distributed_vecmat(
+        eng, x.reshape(8, -1), w.reshape(8, -1, size), 4)
+    assert ops.launch_counts()["fused_combine"] == 3 * 4
+    gamma = size * 2.0 ** -24 / (1 - size * 2.0 ** -24)
+    want = x.double() @ w.double()
+    bound = gamma * (x.double().abs() @ w.double().abs())
+    assert bool(((y.double() - want).abs() <= bound).all())
