@@ -5,8 +5,9 @@ Drives the port's paths — the collective offload engine at the
 repository's own top message size (64 MiB per rank on 8 ranks, the top
 of `seg_sweep` / `hier_sweep` in benchmarks/figures.py), distributed
 DLRM inference (the paper's use case 2) at the full width of the paper's
-Table 2 model, and the offload queue with the paper's use case 1
-(distributed vector-matrix multiply) — ranks stacked on the card, and
+Table 2 model, the offload queue with the paper's use case 1
+(distributed vector-matrix multiply), and LM serving (prefill and
+decode of qwen3-0.6b at full width) — ranks stacked on the card, and
 holds every kernel on those paths against its plain PyTorch version.
 Phases, one line each:
 
@@ -68,9 +69,31 @@ Phases, one line each:
      recorded with its operands and replayed BITWISE against K1's plain
      version: on the path's own operands, and through the same region
      indices on normal-valued operands of the same shapes.
+  8. lm: LM serving, `get_config("qwen3-0.6b")` at full width and depth
+     (28 layers, d 1024, bf16, 4.8 GB of weights stacked over the 8
+     ranks), params drawn on the card from --seed, on the (pod, data,
+     model) = (1, 4, 2) mesh of `launch/serve.py`. At (batch, prompt,
+     gen) = (4, 16, 8): run A the `ServeSession` (prefill, handoff,
+     decode), run B the launcher's teacher-forced decode loop, run C a
+     prefill with sequence_parallel + collective_matmul (K4 through
+     `allgather_matmul`), run D run A with the int8 KV cache (decoding
+     teacher-forced on run A's tokens). Each run counted from 0; every K1
+     call held BITWISE against its plain version as it runs and again on
+     normal values through its indices, every K4 call within
+     2 K 2^-24 (|x| @ |w|) + 2^-8 |y|; per decode step, K1 launches equal
+     to the count its compiled allreduce programs imply, 59 allreduces.
+     The tokens of runs A and B against a float64 single-copy forward
+     (plain torch, weights unstacked): equal to its argmax wherever its
+     top-1 leads its top-2 by more than 4 sqrt(2) eps rms(logits), eps =
+     2^-8 sqrt(10 L + 2) (`lm_eps`); run C's token by the same rule and
+     its caches within 4 eps of run A's; run D's tokens equal run A's on
+     >= 85% of positions. Then prefill ms, the median decode step (CUDA
+     events) and tokens/s at (4, 16, 8) and (32, 512, 32), with one
+     step's and one prefill's device time by kernel group, idle share
+     and top kernels.
 
 Then one JSON line of the five kernels with their launches on every
-path (in total and by path), time, plain time, bound and library time (K4 also with the tile
+path (in total and by path: collectives, dlrm, vecmat, queue, lm), time, plain time, bound and library time (K4 also with the tile
 configuration that ran and its achieved rate; K5 also its `lookup` entry
 at B = 32 and 2048, beside the device time of the sequence of PyTorch
 ops and `gather_rows` it replaced, `sequence_ms`). The last line is
@@ -86,6 +109,7 @@ import contextlib
 import dataclasses
 import inspect
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -509,9 +533,10 @@ _KERNEL_GROUPS = (("fused_combine_kernel", "K1 fused_combine"),
                   ("index", "gather/scatter (indexing)"))
 
 
-def device_split(fn, groups) -> dict:
+def device_split(fn, groups, top: int = 0) -> dict:
     """Device time of one call of `fn` by kernel group (torch.profiler):
-    the first (pattern, group) whose pattern the kernel's name holds."""
+    the first (pattern, group) whose pattern the kernel's name holds;
+    with `top`, also the `top` kernels that took the most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -523,6 +548,7 @@ def device_split(fn, groups) -> dict:
             torch.cuda.synchronize()
         split: dict = {}
         kernels = 0
+        names = []
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:
                 continue
@@ -532,10 +558,14 @@ def device_split(fn, groups) -> dict:
             key = next((g for pat, g in groups if pat in ev.key), "other")
             split[key] = split.get(key, 0.0) + us / 1e3
             kernels += ev.count
+            names.append((us / 1e3, ev.count, ev.key[:90]))
         if kernels:
             break
-    return {"device_ms_by_group": split, "kernel_launches": kernels,
-            "traces": attempt}
+    out = {"device_ms_by_group": split, "kernel_launches": kernels,
+           "traces": attempt}
+    if top:
+        out["top_kernels"] = sorted(names, reverse=True)[:top]
+    return out
 
 
 def busy_and_idle(split: dict, median_ms: float) -> dict:
@@ -1230,6 +1260,528 @@ def phase_queue(CollectiveEngine, Sequencer, ops, ref, counts, gen) -> None:
           "int8_mib_per_rank": 4, "issue_multi_mesh": [2, 4]})
 
 
+# --------------------------------------------------------------------------
+# Phase 8: LM serving, qwen3-0.6b at full width and depth
+# --------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-0.6b"
+LM_MESH = {"pod": 1, "data": 4, "model": 2}   # launch/serve.py's defaults
+LM_TP = 2
+LM_SMALL = (4, 16, 8)       # (batch, prompt, gen): launch/serve.py's defaults
+LM_LARGE = (32, 512, 32)
+BF16_U = 2.0 ** -8          # bf16 unit roundoff
+LM_Z = 4.0                  # standard deviations the token margin allows
+LM_INT8_AGREE = 0.85        # tests/test_decode.py::test_int8_kv_cache_close_to_bf16
+_LM_CUBLAS = "cuBLAS (projections)"
+_LM_GROUPS = (("fused_combine_kernel", "K1 fused_combine"),
+              ("matmul_tiled_kernel", "K4 matmul_tiled"),
+              ("gemm", _LM_CUBLAS), ("gemv", _LM_CUBLAS),
+              ("xmma", _LM_CUBLAS), ("cutlass", _LM_CUBLAS),
+              ("nvjet", _LM_CUBLAS), ("CatArrayBatchedCopy", "torch.cat"),
+              ("index", "gather/scatter (indexing)"),
+              ("elementwise", "elementwise"), ("reduce", "reductions"))
+
+
+def lm_eps(cfg) -> float:
+    """Relative error of the bf16 path's final hidden state against the
+    float64 reference, as this script derives it: the residual stream
+    takes n_r = 10 L + 2 roundings to bf16 (per layer the outputs of the
+    q, k, v and o projections, of the attention, of the gate, up and down
+    projections and of the two residual adds; the embedding rows and the
+    final norm), each counted at the stream's full magnitude and at most
+    u = 2^-8 relative; as independent errors they add in quadrature:
+    eps = u sqrt(n_r) (0.0656 at 28 layers)."""
+    return BF16_U * (10 * cfg.n_layers + 2) ** 0.5
+
+
+def lm_margins(logits, cfg):
+    """Per position: (top-1 id, top-1 minus top-2, margin). A logit
+    difference h . (w_a - w_b) moves by about eps sqrt(2) rms(logits)
+    when h carries a relative error eps in a direction uncorrelated with
+    the rows; the margin is LM_Z of those."""
+    top = logits.topk(2, dim=-1).values
+    rms = logits.pow(2).mean(-1).sqrt()
+    return (logits.argmax(-1), top[..., 0] - top[..., 1],
+            LM_Z * 2 ** 0.5 * lm_eps(cfg) * rms)
+
+
+def lm_global(params, cfg, convert, stages):
+    """The served params as single-copy float64 tensors on the card:
+    every leaf unstacked (`convert.unstack`) from the serving layout."""
+    specs = stages.param_specs(cfg, LM_TP, serve=True)
+
+    def walk(t, spec, layered):
+        if isinstance(t, dict):
+            return {k: walk(v, spec[k], layered) for k, v in t.items()}
+        if layered:
+            return torch.stack([convert.unstack(t[i], LM_MESH, spec[1:])
+                                for i in range(t.shape[0])]).double()
+        return convert.unstack(t, LM_MESH, spec).double()
+    return {k: walk(v, specs[k], k == "layers") for k, v in params.items()}
+
+
+def lm_reference_logits(G, cfg, toks):
+    """The float64 single-copy forward (plain torch on the card, one
+    rank): logits (B, T, vocab) over every position of `toks` (B, T)."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    B, T = toks.shape
+    f64 = dict(dtype=torch.float64, device="cuda")
+
+    def rms(x, w):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True)
+                               + cfg.norm_eps) * w
+
+    half = hd // 2
+    freqs = torch.exp(-math.log(cfg.rope_theta)
+                      * torch.arange(half, **f64) / half)
+    ang = torch.arange(T, **f64)[:, None] * freqs
+    cos, sin = ang.cos()[:, None, :], ang.sin()[:, None, :]
+
+    def rope(x):
+        x1, x2 = x[..., :half], x[..., half:]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+    causal = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
+    x = G["embed"][toks.long()]
+    Ls = G["layers"]
+    for i in range(cfg.n_layers):
+        a, m = Ls["attn"], Ls["mlp"]
+        h = rms(x, Ls["norm1"][i])
+        q = (h @ a["wq"][i]).reshape(B, T, H, hd)
+        k = (h @ a["wk"][i]).reshape(B, T, KV, hd)
+        v = (h @ a["wv"][i]).reshape(B, T, KV, hd)
+        if cfg.qk_norm:
+            q, k = rms(q, a["q_norm"][i]), rms(k, a["k_norm"][i])
+        q, k = rope(q), rope(k)
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+        p = torch.softmax(s.masked_fill(~causal, float("-inf")), -1)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, T, H * hd)
+        x = x + o @ a["wo"][i]
+        h = rms(x, Ls["norm2"][i])
+        g, u = h @ m["w1"][i], h @ m["w3"][i]
+        x = x + (g * torch.sigmoid(g) * u) @ m["w2"][i]
+    x = rms(x, G["final_norm"])
+    return (x @ G["embed"].T)[..., :cfg.vocab_size]
+
+
+def lm_token_check(name, tokens, logits, cfg) -> dict:
+    """tokens[b, t] must be the reference's argmax at position t wherever
+    the reference's top-1 beats its top-2 by more than the margin."""
+    best, gap, margin = lm_margins(logits, cfg)
+    clear = gap > margin
+    bad = clear & (tokens.to(best.device).long() != best)
+    if bool(bad.any()):
+        fail(f"lm {name}: {int(bad.sum())} tokens differ from the float64 "
+             f"reference's argmax where its top-1 leads by more than the "
+             f"margin")
+    agree = tokens.to(best.device).long() == best
+    return {"positions": int(gap.numel()), "compared": int(clear.sum()),
+            "skipped": int((~clear).sum()),
+            "agree_where_skipped": int((agree & ~clear).sum()),
+            "median_gap_over_margin": float((gap / margin).median())}
+
+
+@contextlib.contextmanager
+def lm_checked(ops, ref, log):
+    """While the block runs, hold every K1 call (`fused_combine_at`)
+    BITWISE against K1's plain version on the operands it was given, and
+    every K4 call (`matmul`) within 2 K 2^-24 (|x| @ |w|) of the fp32
+    plain product plus one rounding to its output type (bf16: 2^-8 |y|),
+    right after the call, before any later write (plain versions launch
+    no kernel, so the counts are the path's). Log what a later replay on
+    normal values needs (the indices and operand shapes)."""
+    real = {n: getattr(ops, n) for n in ("fused_combine_at", "matmul")}
+    sig = inspect.signature(real["fused_combine_at"])
+
+    def k1(*args, **kwargs):
+        res = real["fused_combine_at"](*args, **kwargs)
+        p = sig.bind(*args, **kwargs)
+        p.apply_defaults()
+        a, ai, b, bi, j, op, od = (p.arguments[k] for k in (
+            "a", "a_index", "b", "b_index", "j", "op", "out_dtype"))
+        same(f"lm K1 call {len(log['k1'])} ({op})", res,
+             ref.fused_combine_at(a, ai, b, bi, j, op, od))
+        log["k1"].append((a.shape, a.dtype, b.shape, b.dtype, b is a, ai,
+                          bi, j, op, od))
+        return res
+
+    def k4(x, y, out_dtype=None):
+        res = real["matmul"](x, y, out_dtype)
+        want = ref.matmul(x, y, torch.float32).double()
+        bound = 2 * x.shape[-1] * 2.0 ** -24 * (x.double().abs()
+                                                @ y.double().abs())
+        if res.dtype != torch.float32:
+            bound = bound + BF16_U * want.abs()
+        diff = (res.double() - want).abs()
+        if not bool((diff <= bound).all()):
+            fail(f"lm K4 call {len(log['k4'])}: {int((diff > bound).sum())} "
+                 f"elements outside the bound")
+        log["k4"].append(float(diff.max()))
+        return res
+
+    ops.fused_combine_at, ops.matmul = k1, k4
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(ops, n, fn)
+
+
+def lm_replay_normal(ops, ref, log, gen) -> int:
+    """Every logged K1 call again on normal-valued operands of its shapes
+    through its own region indices, BITWISE against the plain version."""
+    for i, (ash, adt, bsh, bdt, same_ab, ai, bi, j, op, od) in \
+            enumerate(log["k1"]):
+        a = torch.randn(ash, generator=gen, device="cuda").to(adt)
+        b = a if same_ab else torch.randn(bsh, generator=gen,
+                                          device="cuda").to(bdt)
+        same(f"lm K1 call {i} ({op}) on normal values",
+             ops.fused_combine_at(a, ai, b, bi, j, op, out_dtype=od),
+             ref.fused_combine_at(a, ai, b, bi, j, op, od))
+    return len(log["k1"])
+
+
+def implied_k1(prog, shape) -> int:
+    """K1 launches the executor makes for `prog` on a (rows, L, ...)
+    buffer: one per segment of every uncompressed combining exchange
+    (`core/engine.py::_exchange`), walked as `execute_program` walks."""
+    from repro_torch.core import engine as em
+    from repro_torch.core import program as pm
+    from repro_torch.kernels import ops as kops
+    length = shape[1]
+    row_elems = 1
+    for d in shape[2:]:
+        row_elems *= int(d)
+
+    def body(b, k_req, step):
+        recv = b[-1]
+        send_ops, _dec = em._split_wire(b[1:-1])
+        if em._codec_of(send_ops) is not None:
+            fail("lm: a compressed exchange on the serving path")
+        if recv.op not in kops.COMBINE_OPS or recv.track_recv:
+            return 0
+        if k_req <= 1:
+            return 1
+        src = send_ops[-1].perm[0][0]
+        rows = sum(ln for _s, ln in em._spans(b[0].sel, prog.chunks,
+                                               length, src, step))
+        return pm.fit_segments(rows, k_req, row_elems, 1)
+
+    n, ops_, i = 0, prog.ops, 0
+    while i < len(ops_):
+        op = ops_[i]
+        if isinstance(op, pm.Stream):
+            n += sum(body(s, op.segments, op.base + it * op.period + j)
+                     for it in range(op.trip) for j, s in
+                     enumerate(op.slots))
+        elif isinstance(op, pm.Loop):
+            for it in range(op.trip):
+                for j, seq in enumerate(op.slots):
+                    b, k_req = pm.split_exchange(seq)
+                    n += body(b, k_req, op.base + it * op.period + j)
+        elif isinstance(op, pm.StreamChain):
+            n += sum(body(b, op.segments, b[0].step) for b in op.bodies)
+        elif isinstance(op, pm.StackedRecv):
+            n += sum(body(b, 1, b[0].step) for b in op.bodies)
+        elif isinstance(op, pm.SegLoop):
+            n += body(op.body, op.segments, op.body[0].step)
+        elif isinstance(op, pm.Copy) and op.kind == "load":
+            j = i
+            while not isinstance(ops_[j], pm.RecvCombine):
+                j += 1
+            n += body(ops_[i:j + 1], 1, op.step)
+            i = j
+        elif not (isinstance(op, pm.Copy) and op.kind.startswith("bruck")):
+            fail(f"lm: unexpected micro-op {op}")
+        i += 1
+    return n
+
+
+def lm_counted_steps(dstep, engine, ops, steps):
+    """`dstep` wrapped to log, per call, (K1 launches, the K1 launches the
+    compiled programs it executed imply, allreduces among them)."""
+    real = engine._execute
+    progs = []
+
+    def execute(sched, rows, groups, compression=None):
+        progs.append((sched, tuple(rows.shape), compression))
+        return real(sched, rows, groups, compression)
+
+    def step(*args, **kwargs):
+        progs.clear()
+        k0 = ops.launch_counts()["fused_combine"]
+        out = dstep(*args, **kwargs)
+        launched = ops.launch_counts()["fused_combine"] - k0
+        implied = sum(implied_k1(s.compile(codec=c, verify=engine.verify),
+                                 shape) for s, shape, c in progs)
+        steps.append((launched, implied,
+                      sum(s.collective == "allreduce" for s, _sh, _c in
+                          progs)))
+        return out
+
+    engine._execute = execute
+    return step
+
+
+def lm_check_steps(name, steps, cfg) -> dict:
+    """Each decode step launched K1 exactly as often as its programs
+    imply, and made 1 + 2 L + 2 allreduces (embedding, the attention and
+    MLP finishes of every layer, the head's max and min: KV heads shard
+    at tp 2, so no flash-combine)."""
+    want_ar = 1 + 2 * cfg.n_layers + 2
+    for t, (launched, implied, n_ar) in enumerate(steps):
+        if launched != implied or n_ar != want_ar:
+            fail(f"lm {name} step {t}: {launched} K1 launches, {implied} "
+                 f"implied by its programs, {n_ar} allreduces "
+                 f"(want {want_ar})")
+    return {"steps": len(steps), "allreduces_per_step": want_ar,
+            "k1_per_step": sorted({s[0] for s in steps}),
+            "k1_implied_per_step": sorted({s[1] for s in steps})}
+
+
+def phase_lm_build(cfg, stages, seed: int):
+    """Phase 8a: the full-width model's params drawn on the card."""
+    free0, total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    params = stages.init_params(cfg, LM_MESH, LM_TP, seed=seed,
+                                device="cuda", serve=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        else:
+            leaves.append(t)
+    walk(params)
+    free1, _ = torch.cuda.mem_get_info()
+    emit({"phase": "lm_build", "config": dataclasses.asdict(cfg),
+          "n_params": cfg.n_params(), "mesh": LM_MESH,
+          "stacked_param_bytes": sum(t.numel() * t.element_size()
+                                     for t in leaves),
+          "single_copy_bytes": cfg.n_params() * 2, "init_seconds": init_s,
+          "mem_free_before": free0, "mem_free_after": free1,
+          "mem_total": total})
+    return params
+
+
+def phase_lm_serve(cfg, params, mods, ops, ref, counts, gen, seed: int):
+    """Phase 8b: runs A-D at (B, prompt, gen) = (4, 16, 8), each counted
+    from 0, every K1 call held BITWISE and every K4 call within its bound
+    as it runs, then replayed on normal values; tokens against the
+    float64 reference's argmax (the margin rule), run C's prefill and run
+    D's int8 tokens against run A's."""
+    convert, stages, ServeSession, convert_prefill_caches, serve_launch = \
+        mods
+    from repro_torch.configs import ParallelConfig
+    B, P, Gn = LM_SMALL
+    pcfg = ParallelConfig()
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                           device="cuda", dtype=torch.int32)
+    log = {"k1": [], "k4": []}
+    out, steps = {}, {}
+
+    dp = stages.dp_axes(LM_MESH, B)
+
+    def session(name, kv, forced=None):
+        """A ServeSession's generate, counted; with `forced` (B, Gn)
+        tokens, each decode step is fed forced[:, i] instead of the
+        session's own last token (teacher forcing)."""
+        sess = ServeSession(cfg, dataclasses.replace(
+            pcfg, kv_cache_dtype=kv), LM_MESH, LM_TP, B, P, P + Gn,
+            device="cuda")
+        seen, steps[name] = {}, []
+        real_pf = sess.prefill_fn
+
+        def pf(*a):
+            seen["nxt"], seen["caches"] = res = real_pf(*a)
+            return res
+        sess.prefill_fn = pf
+        dec = lm_counted_steps(sess.decode_fn, sess.decode_ctx.engine, ops,
+                               steps[name])
+        if forced is None:
+            sess.decode_fn = dec
+        else:
+            def teacher(params, caches, tok, pos):
+                i = pos - P
+                return dec(params, caches, convert.stack_global(
+                    forced[:, i:i + 1].to("cuda"), LM_MESH, (dp, None)), pos)
+            sess.decode_fn = teacher
+        ops.reset_launch_counts()
+        with lm_checked(ops, ref, log):
+            toks = sess.generate(params, prompt, Gn)
+            torch.cuda.synchronize()
+        counts[f"lm_{name}"] = ops.launch_counts()
+        del sess.decode_ctx.engine._execute
+        return toks, seen
+
+    # run A: the serve session
+    out["A"], seen_a = session("session", "param")
+    # run B: the launcher's decode-only loop, every step's prediction kept
+    dstep, dctx, _, _ = stages.build_decode_step(
+        cfg, pcfg, LM_MESH, s_max=P + Gn, global_batch=B, device="cuda")
+    cache = stages.init_cache(cfg, pcfg, LM_MESH, LM_TP, B, P + Gn,
+                              device="cuda")
+    preds, steps["loop"] = [], []
+    counted = lm_counted_steps(dstep, dctx.engine, ops, steps["loop"])
+
+    def keep(*a):
+        nxt, c = counted(*a)
+        preds.append(convert.unstack(nxt, LM_MESH, (dp,)))
+        return nxt, c
+    ops.reset_launch_counts()
+    with lm_checked(ops, ref, log):
+        seq_b = serve_launch.decode_loop(keep, params, cache, prompt, Gn,
+                                         LM_MESH, dp)
+        torch.cuda.synchronize()
+    counts["lm_loop"] = ops.launch_counts()
+    del dctx.engine._execute, cache
+    # run C: a prefill with sequence parallelism + the collective matmul
+    pf_c, _, _, bspec = stages.build_prefill(
+        cfg, dataclasses.replace(pcfg, sequence_parallel=True,
+                                 collective_matmul=True),
+        LM_MESH, B, P, device="cuda")
+    batch = {"tokens": convert.stack_global(prompt, LM_MESH,
+                                            bspec["tokens"])}
+    ops.reset_launch_counts()
+    with lm_checked(ops, ref, log):
+        nxt_c, caches_c = pf_c(params, batch)
+        torch.cuda.synchronize()
+    counts["lm_prefill_sp"] = c = ops.launch_counts()
+    if c["matmul_tiled"] < 1:
+        fail("lm run C: the SP prefill launched no K4")
+    # run D: the serve session with the int8 KV cache, decoding
+    # teacher-forced on run A's tokens, so each of its tokens is predicted
+    # from the prefix run A's was (as the reference's int8 test compares)
+    out["D"], _ = session("session_int8", "int8", forced=out["A"])
+    for key in ("lm_session", "lm_loop", "lm_session_int8"):
+        if counts[key]["fused_combine"] < 1:
+            fail(f"lm {key}: no K1 launch")
+    replayed = lm_replay_normal(ops, ref, log, gen)
+
+    # correctness against the float64 single-copy reference
+    G = lm_global(params, cfg, convert, stages)
+    seq_a = torch.cat([prompt, out["A"][:, :-1].to("cuda")], dim=1)
+    tok = {}
+    logits_a = lm_reference_logits(G, cfg, seq_a)
+    tok["A"] = lm_token_check("run A", out["A"], logits_a[:, P - 1:], cfg)
+    logits_b = lm_reference_logits(G, cfg, seq_b[:, :-1])
+    tok["B"] = lm_token_check("run B", torch.stack(preds, dim=1),
+                              logits_b, cfg)
+    # run C against run A's prefill: the token by the margin rule, the
+    # caches within LM_Z eps of their largest entry
+    nxt_a = convert.unstack(seen_a["nxt"], LM_MESH, (dp,))
+    _best, gap, margin = lm_margins(logits_a[:, P - 1], cfg)
+    nxt_c = convert.unstack(nxt_c, LM_MESH, (dp,))
+    if bool(((gap > margin) & (nxt_c != nxt_a)).any()):
+        fail("lm run C: the SP prefill's token differs from run A's where "
+             "the reference's margin is clear")
+    cache_err = 0.0
+    for la, lc in zip(seen_a["caches"], caches_c):
+        for i in range(la.shape[0]):
+            d = float((lc[i].float() - la[i].float()).abs().max())
+            top = float(la[i].float().abs().max())
+            if d > LM_Z * lm_eps(cfg) * top:
+                fail(f"lm run C: layer {i} cache differs from run A's by "
+                     f"{d} (largest entry {top})")
+            cache_err = max(cache_err, d / top)
+    agree_d = float((out["D"] == out["A"]).float().mean())
+    if agree_d < LM_INT8_AGREE:
+        fail(f"lm run D: int8-cache tokens agree with run A's on "
+             f"{agree_d:.3f} of positions")
+    # the bf16 forward's logit-gap error, against the margin it is held to
+    ctx = stages.make_ctx(cfg, dataclasses.replace(pcfg, serving=True),
+                          LM_MESH, "cuda")
+    from repro_torch.models import lm as lm_mod
+    with torch.inference_mode():
+        x, _ = lm_mod.forward(params, {"tokens": convert.stack_global(
+            seq_a, LM_MESH, (dp, None))}, cfg, ctx)
+    x = convert.unstack(x, LM_MESH, (dp, None, None)).double()
+    mine = (x @ G["embed"].T)[..., :cfg.vocab_size]
+    best, gap, margin = lm_margins(logits_a, cfg)
+    top10 = logits_a.topk(10, dim=-1).indices
+    d_gap = ((mine.gather(-1, top10) - mine.gather(-1, best[..., None]))
+             - (logits_a.gather(-1, top10)
+                - logits_a.gather(-1, best[..., None]))).abs().amax(-1)
+    emit({"phase": "lm_serve", "shape": {"batch": B, "prompt": P,
+                                         "gen": Gn},
+          "runs": {"A": "ServeSession", "B": "launch/serve.py loop",
+                   "C": "prefill, sequence_parallel + collective_matmul",
+                   "D": "ServeSession, kv_cache_dtype=int8, decode "
+                        "teacher-forced on run A's tokens"},
+          "launches": {k: counts[k] for k in ("lm_session", "lm_loop",
+                                              "lm_prefill_sp",
+                                              "lm_session_int8")},
+          "decode_steps": {k: lm_check_steps(k, v, cfg)
+                           for k, v in steps.items()},
+          "k1_checked_bitwise": len(log["k1"]),
+          "k1_replayed_normal": replayed, "k4_checked": len(log["k4"]),
+          "k4_max_abs_err": max(log["k4"]) if log["k4"] else None,
+          "margin": f"{LM_Z} sqrt(2) eps rms(logits), eps = 2^-8 "
+                    f"sqrt(10 L + 2) = {lm_eps(cfg):.4f}",
+          "tokens": tok, "run_c_cache_rel_err": cache_err,
+          "run_c_token_equal": bool((nxt_c == nxt_a).all()),
+          "run_d_agreement": agree_d,
+          "bf16_forward_gap_err_over_margin": float((d_gap / margin).max()),
+          "generated_A": out["A"].tolist()})
+    del G, logits_a, logits_b, mine, x, seen_a, caches_c
+    torch.cuda.empty_cache()
+
+
+def phase_lm_times(cfg, params, mods, reps: int, smi: str) -> None:
+    """Phase 8c: prefill ms, the median decode step (CUDA events) and
+    tokens/s = B / step at (4, 16, 8) and (32, 512, 32); one decode
+    step's device time by kernel group with the idle share."""
+    convert, stages, ServeSession, convert_prefill_caches, _launch = mods
+    from repro_torch.configs import ParallelConfig
+    pcfg = ParallelConfig()
+    rows = []
+    for B, P, Gn in (LM_SMALL, LM_LARGE):
+        sess = ServeSession(cfg, pcfg, LM_MESH, LM_TP, B, P, P + Gn,
+                            device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(B + P)
+        prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                               device="cuda", dtype=torch.int32)
+        batch = sess.stack_batch({"tokens": prompt})
+        torch.cuda.reset_peak_memory_stats()
+        pf_ms = median_ms(lambda: sess.prefill_fn(params, batch),
+                          max(3, reps // 2))
+        nxt, pf_caches = sess.prefill_fn(params, batch)
+        caches = convert_prefill_caches(pf_caches, cfg, pcfg, LM_MESH,
+                                        LM_TP, B, P, P + Gn)
+        del pf_caches
+        tok = nxt[..., None]
+
+        def step():
+            return sess.decode_fn(params, caches, tok, P)
+        step_ms = median_ms(step, max(reps, 10))
+        t0 = time.perf_counter()
+        gen = sess.generate(params, prompt, Gn)
+        gen_s = time.perf_counter() - t0
+        if gen.shape != (B, Gn) or not bool(((gen >= 0)
+                                             & (gen < cfg.vocab_size)).all()):
+            fail(f"lm at B={B}: generated tokens {tuple(gen.shape)} out of "
+                 f"range")
+        rows.append({"batch": B, "prompt": P, "gen": Gn,
+                     "prefill_ms": pf_ms, "decode_step_ms": step_ms,
+                     "tokens_per_s": B / (step_ms / 1e3),
+                     "generate_s": gen_s,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                     "profile": busy_and_idle(device_split(
+                         step, _LM_GROUPS, top=8), step_ms),
+                     "prefill_profile": busy_and_idle(device_split(
+                         lambda: sess.prefill_fn(params, batch), _LM_GROUPS,
+                         top=8), pf_ms)})
+        del sess, caches, batch, nxt, tok
+        torch.cuda.empty_cache()
+    emit({"phase": "lm_times", "rows": rows, "card": smi})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1241,9 +1793,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card "
               "only", file=sys.stderr)
         return 2
-    # the plain fp32 products are IEEE fp32, as K4's are (never TF32)
+    # the plain fp32 products are IEEE fp32, as K4's are (never TF32), and
+    # bf16 products accumulate in fp32, as the reference's do
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import convert
+    from repro_torch.configs import get_config
     from repro_torch.configs.dlrm import CONFIG
     from repro_torch.core import CollectiveEngine, Sequencer
     from repro_torch.kernels import _build, ops, ref
@@ -1252,8 +1808,11 @@ def main() -> int:
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import quantize as qz
     from repro_torch.launch import distributed_vecmat as vm
+    from repro_torch.launch import serve as serve_launch
     from repro_torch.launch.dlrm_serve import DLRMServer
     from repro_torch.models import dlrm as dlrm_mod
+    from repro_torch.parallel import stages
+    from repro_torch.runtime import ServeSession, convert_prefill_caches
 
     # phase 1: the card and the build
     smi = subprocess.run(
@@ -1299,13 +1858,24 @@ def main() -> int:
     # phase 7: the offload queue and use case 1
     phase_vecmat(CollectiveEngine, vm, ops, ref, counts, gen, args.reps, smi)
     phase_queue(CollectiveEngine, Sequencer, ops, ref, counts, gen)
+
+    # phase 8: LM serving, qwen3-0.6b at full width
+    torch.cuda.empty_cache()
+    lm_cfg = get_config(LM_ARCH)
+    mods = (convert, stages, ServeSession, convert_prefill_caches,
+            serve_launch)
+    params = phase_lm_build(lm_cfg, stages, args.seed)
+    phase_lm_serve(lm_cfg, params, mods, ops, ref, counts, gen, args.seed)
+    phase_lm_times(lm_cfg, params, mods, args.reps, smi)
+    del params
+    torch.cuda.empty_cache()
     for row in rows:      # launches on every path's runs (K1 runs on all)
         row["launches"] = sum(c[row["name"]] for c in counts.values())
         if not row["launches"]:
             fail(f"the main path launched no {row['name']}")
         by_path: dict = {}
         for key, c in counts.items():
-            path = next((p for p in ("dlrm", "vecmat", "queue")
+            path = next((p for p in ("dlrm", "vecmat", "queue", "lm")
                          if key.startswith(p)), "collectives")
             by_path[path] = by_path.get(path, 0) + c[row["name"]]
         row["launches_by_path"] = by_path

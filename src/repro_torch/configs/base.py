@@ -1,17 +1,150 @@
-"""Parallelism knobs: `ParallelConfig`, copied field for field from
-`repro/configs/base.py`.
+"""Config system: architecture + parallelism + run configs.
 
-`ArchConfig`, `ShapeConfig` and `get_config` wait for the LM stack
-(`get_config` imports `repro.configs.<id>`, which the port must not).
-The port reads `backend`, `tp_axis`, `fsdp_axis`, `sequence_parallel`,
-`collective_matmul` and `serving`; `use_pallas` is kept for the copy but
-has no effect — on the card the port's kernels always run, on the CPU
-their plain versions (`kernels/ops.py`).
+Copy of `repro/configs/base.py`, field for field (the port imports
+nothing of the reference package, its jax-free modules included). Every
+assigned architecture is an `ArchConfig` in its own module
+(src/repro_torch/configs/<id>.py, copied from the reference's);
+`get_config(name)` resolves them. The parallelism knobs live in
+`ParallelConfig`. The port serves the `dense` and `vlm` families
+(`models/serve.py`); the other families' layers wait for later slices
+(ROADMAP Queue 1 item 6b), and training for item 6c. `use_pallas`,
+`remat`, `scan_layers`, `microbatches` and `async_grad_sync` are kept for
+the copy and have no effect in the port: on the card the port's kernels
+always run and on the CPU their plain versions (`kernels/ops.py`); the
+layers run in a Python loop (`models/blocks.py`).
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Optional
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int          # 0 for attention-free archs
+    n_kv_heads: int
+    d_ff: int             # dense-MLP hidden (0 = no dense MLP)
+    vocab_size: int
+    head_dim: int = 0     # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-6
+    # attention variants
+    sliding_window: int = 0          # 0 = full attention
+    global_attn_layers: tuple = ()   # hybrid: layers that ignore the window
+    # MoE
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    # SSM (Mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    # encoder-decoder (0 = decoder-only)
+    encoder_layers: int = 0
+    # multimodal prefix stub
+    n_vis_tokens: int = 0
+    # numerics
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+
+    # source provenance (public literature), recorded for the report
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def has_attention(self) -> bool:
+        return self.n_heads > 0
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """Eligible for long_500k decode: SSM state, hybrid, or SWA-bounded."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window > 0
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.d_model * self.ssm_expand
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    def n_params(self) -> int:
+        """Parameter count (for MODEL_FLOPS = 6*N*D and memory budgets)."""
+        d, f, v, hd = self.d_model, self.d_ff, self.vocab_size, self.resolved_head_dim
+        per_layer = 0
+        if self.has_attention:
+            q = d * self.n_heads * hd
+            kv = 2 * d * self.n_kv_heads * hd
+            o = self.n_heads * hd * d
+            per_layer += q + kv + o
+        if self.family == "moe":
+            per_layer += d * self.n_experts  # router
+            per_layer += self.n_experts * 3 * d * self.moe_d_ff
+        elif f:
+            per_layer += 3 * d * f  # SwiGLU
+        if self.family in ("ssm", "hybrid"):
+            di, st, nh = self.ssm_d_inner, self.ssm_state, self.ssm_n_heads
+            ssm = d * (2 * di + 2 * st + nh)   # in_proj (z,x,B,C,dt)
+            ssm += self.ssm_conv * (di + 2 * st)  # conv1d
+            ssm += nh * 2                       # A_log, D
+            ssm += di * d                       # out_proj
+            per_layer += ssm
+        per_layer += 2 * d  # norms
+        emb = v * d if self.tie_embeddings else 2 * v * d
+        total_layers = self.n_layers + self.encoder_layers
+        if self.encoder_layers:  # cross-attention in decoder layers
+            per_layer_x = 2 * d * self.n_kv_heads * hd + d * self.n_heads * hd \
+                + self.n_heads * hd * d + d
+            total = (self.n_layers * (per_layer + per_layer_x)
+                     + self.encoder_layers * per_layer)
+            return total + emb + 2 * d
+        return total_layers * per_layer + emb + 2 * d
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only routed experts)."""
+        if self.family != "moe":
+            return self.n_params()
+        dense = self.n_params()
+        unused = (self.n_experts - self.experts_per_token) * \
+            3 * self.d_model * self.moe_d_ff * self.n_layers
+        return dense - unused
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
@@ -50,3 +183,57 @@ class ParallelConfig:
     # drain overlaps independent buckets' latency (bitwise-identical to
     # the blocking path by the queue's coalescing eligibility rule).
     async_grad_sync: bool = True
+
+
+ASSIGNED_ARCHS = (
+    "internvl2_26b", "mamba2_1p3b", "qwen3_14b", "smollm_360m",
+    "qwen3_0p6b", "stablelm_12b", "mixtral_8x7b", "qwen3_moe_30b_a3b",
+    "whisper_medium", "hymba_1p5b",
+)
+
+# CLI ids (--arch) use dashes/dots per the assignment table.
+ARCH_IDS = {
+    "internvl2-26b": "internvl2_26b",
+    "mamba2-1.3b": "mamba2_1p3b",
+    "qwen3-14b": "qwen3_14b",
+    "smollm-360m": "smollm_360m",
+    "qwen3-0.6b": "qwen3_0p6b",
+    "stablelm-12b": "stablelm_12b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "whisper-medium": "whisper_medium",
+    "hymba-1.5b": "hymba_1p5b",
+}
+
+
+def get_config(name: str) -> ArchConfig:
+    mod_name = ARCH_IDS.get(name, name)
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    return mod.CONFIG
+
+
+def reduced_config(cfg: ArchConfig, **overrides) -> ArchConfig:
+    """Smoke-test scale: same family/topology, tiny dimensions."""
+    shrink = dict(
+        n_layers=2,
+        d_model=64,
+        n_heads=4 if cfg.n_heads else 0,
+        n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_heads else 0,
+        head_dim=16 if cfg.n_heads else 0,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab_size=256,
+        n_experts=min(cfg.n_experts, 4),
+        experts_per_token=min(cfg.experts_per_token, 2),
+        moe_d_ff=64 if cfg.moe_d_ff else 0,
+        ssm_state=16 if cfg.ssm_state else 0,
+        ssm_head_dim=16 if cfg.ssm_state else 64,
+        ssm_chunk=16,
+        sliding_window=min(cfg.sliding_window, 32) if cfg.sliding_window else 0,
+        global_attn_layers=tuple(l for l in cfg.global_attn_layers if l < 2),
+        encoder_layers=2 if cfg.encoder_layers else 0,
+        n_vis_tokens=4 if cfg.n_vis_tokens else 0,
+        param_dtype="float32",
+        compute_dtype="float32",
+    )
+    shrink.update(overrides)
+    return dataclasses.replace(cfg, **shrink)

@@ -1,26 +1,31 @@
 """Carry state across from the JAX package, as numpy.
 
-The engine's state is its inputs and its tuning tables; the DLRM's is
-its params. This module moves them between the reference package's
-forms and the port's, through numpy only (it imports no jax):
+The engine's state is its inputs and its tuning tables; the DLRM's and
+the LM's are their params (and the LM's caches). This module moves them
+between the reference package's forms and the port's, through numpy
+only (it imports no jax):
 
   * a global array as the reference shards it over a mesh (a numpy copy
     of the jax array, plus its PartitionSpec entries) <-> the port's
     MESH-STACKED tensor, whose leading dims are the mesh axes in mesh
     order and whose trailing dims are one device's local shard
-    (`unstack` is the same inverse in torch, on the tensor's device);
+    (`stack_global` and its inverse `unstack` do the same in torch, on
+    the tensor's device);
   * the reference `dlrm_params` pytree <-> the port's stacked params;
+  * the reference LM param tree (`parallel/stages.py::init_params`), its
+    decode caches and its prefill caches <-> the port's (layer-stacked
+    leaves lead with the layer dim, `models/blocks.py`);
   * the reference `Selector.table_rows()` artifact <-> rows the port's
     `Selector.apply_table` takes (and its own `table_rows` emits).
 """
 from __future__ import annotations
 
-import itertools
-
 import numpy as np
 import torch
 
 from repro_torch.models.dlrm import dlrm_specs
+from repro_torch.models.serve import prefill_cache_specs
+from repro_torch.parallel.stages import cache_specs, dp_axes, param_specs
 
 _ROW_TYPES = {"collective": str, "msg_bytes": int, "nranks": int,
               "algorithm": str, "protocol": str, "segments": int,
@@ -33,39 +38,41 @@ def _dim_axes(entry) -> tuple:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def _blocks(global_shape, mesh_shape: dict, spec):
-    """Yield (mesh coords, index of that device's shard in the global)."""
-    spec = tuple(spec) + (None,) * (len(global_shape) - len(tuple(spec)))
+def stack_global(g, mesh_shape: dict, spec):
+    """A global torch tensor sharded by `spec` (an axis name, a tuple of
+    names or None per dim) -> the mesh-stacked tensor of every device's
+    local shard, on g's device (the inverse of `unstack`; replicated
+    axes hold copies)."""
     names = list(mesh_shape)
-    for coords in itertools.product(*(range(s) for s in mesh_shape.values())):
-        at = dict(zip(names, coords))
-        index = []
-        for dim, entry in zip(global_shape, spec):
-            axes = _dim_axes(entry)
-            parts, shard = 1, 0
-            for a in axes:              # the first axis is the major one
-                parts *= mesh_shape[a]
-                shard = shard * mesh_shape[a] + at[a]
-            if dim % parts:
-                raise ValueError(f"dim {dim} does not split over {axes}")
-            size = dim // parts
-            index.append(slice(shard * size, (shard + 1) * size))
-        yield coords, tuple(index)
+    spec = tuple(spec) + (None,) * (g.ndim - len(tuple(spec)))
+    shape, where, local = [], {}, []
+    for dim, entry in zip(g.shape, spec):
+        axes = _dim_axes(entry)             # the first axis is the major one
+        parts = int(np.prod([mesh_shape[a] for a in axes]))
+        if dim % parts:
+            raise ValueError(f"dim {dim} does not split over {axes}")
+        for a in axes:
+            where[a] = len(shape)
+            shape.append(mesh_shape[a])
+        local.append(len(shape))
+        shape.append(dim // parts)
+    t = g.reshape(shape)
+    perm = []
+    for a in names:
+        if a not in where:                  # replicated: a new size-1 dim
+            t = t.unsqueeze(-1)
+            where[a] = t.ndim - 1
+        perm.append(where[a])
+    t = t.permute(perm + local)
+    lead = tuple(mesh_shape.values())
+    return t.expand(lead + tuple(t.shape[len(names):])).contiguous()
 
 
 def to_stacked(global_array, mesh_shape: dict, spec, device="cpu"):
-    """A global array sharded by `spec` (PartitionSpec entries: an axis
-    name, a tuple of names, or None per dim) -> the mesh-stacked tensor
-    of every device's local shard."""
-    g = np.asarray(global_array)
-    lead = tuple(mesh_shape.values())
-    out = None
-    for coords, index in _blocks(g.shape, dict(mesh_shape), spec):
-        local = g[index]
-        if out is None:
-            out = np.empty(lead + local.shape, dtype=g.dtype)
-        out[coords] = local
-    return torch.from_numpy(out).to(device)
+    """A global numpy array sharded by `spec` -> the mesh-stacked tensor
+    of every device's local shard, on `device`."""
+    g = torch.from_numpy(np.array(global_array)).to(device)
+    return stack_global(g, dict(mesh_shape), spec)
 
 
 def unstack(stacked, mesh_shape: dict, spec):
@@ -132,3 +139,91 @@ def table_rows(rows) -> list:
         row["codec"] = None if r.get("codec") is None else str(r["codec"])
         out.append(row)
     return out
+
+
+# --------------------------------------------------------------------------
+# The LM: params and caches
+# --------------------------------------------------------------------------
+
+def _tree(fn, values, specs):
+    """fn(leaf, spec) over a tree of dicts, lists and tuples (walked by
+    its values, so a spec's tuple is never taken for a subtree)."""
+    if isinstance(values, dict):
+        return {k: _tree(fn, v, specs[k]) for k, v in values.items()}
+    if isinstance(values, (list, tuple)):
+        return type(values)(_tree(fn, v, s) for v, s in zip(values, specs))
+    return fn(values, specs)
+
+
+def _tree_to_stacked(values, specs, mesh_shape: dict, device,
+                     layered: bool = False):
+    """Global numpy leaves -> mesh-stacked tensors; `layered` leaves
+    (spec (None, ...)) keep their layer dim in front: (L, *mesh, ...)."""
+    D = len(mesh_shape)
+
+    def put(g, spec):
+        t = to_stacked(g, mesh_shape, spec, device)
+        return t.movedim(D, 0).contiguous() if layered else t
+    return _tree(put, values, specs)
+
+
+def _tree_from_stacked(values, specs, mesh_shape: dict,
+                       layered: bool = False):
+    D = len(mesh_shape)
+
+    def get(t, spec):
+        return from_stacked(t.movedim(0, D) if layered else t, mesh_shape,
+                            spec)
+    return _tree(get, values, specs)
+
+
+def lm_params_from_jax(params_np, cfg, mesh_shape: dict, serve: bool = False,
+                       device="cpu"):
+    """The reference LM param tree (numpy leaves, global arrays) -> the
+    port's mesh-stacked params, in the FSDP layout or (serve=True) the
+    serving layout."""
+    specs = param_specs(cfg, mesh_shape.get("model", 1), serve=serve)
+    return {k: _tree_to_stacked(v, specs[k], mesh_shape, device,
+                                layered=k == "layers")
+            for k, v in params_np.items()}
+
+
+def lm_params_to_jax(params, cfg, mesh_shape: dict, serve: bool = False):
+    """Inverse of `lm_params_from_jax`: the reference tree as numpy."""
+    specs = param_specs(cfg, mesh_shape.get("model", 1), serve=serve)
+    return {k: _tree_from_stacked(v, specs[k], mesh_shape,
+                                  layered=k == "layers")
+            for k, v in params.items()}
+
+
+def _decode_specs(cfg, pcfg, mesh_shape: dict, batch: int, s_max: int,
+                  s_enc: int):
+    return cache_specs(cfg, pcfg, mesh_shape.get("model", 1), s_max,
+                       s_enc=s_enc, dp=dp_axes(mesh_shape, batch))
+
+
+def decode_caches_from_jax(caches_np, cfg, pcfg, mesh_shape: dict,
+                           batch: int, s_max: int, s_enc: int = 0,
+                           device="cpu"):
+    """The reference decode caches (a list of per-layer dicts of global
+    numpy arrays) -> the port's mesh-stacked caches."""
+    return _tree_to_stacked(
+        caches_np, _decode_specs(cfg, pcfg, mesh_shape, batch, s_max, s_enc),
+        mesh_shape, device)
+
+
+def decode_caches_to_jax(caches, cfg, pcfg, mesh_shape: dict, batch: int,
+                         s_max: int, s_enc: int = 0):
+    """Inverse of `decode_caches_from_jax`."""
+    return _tree_from_stacked(
+        caches, _decode_specs(cfg, pcfg, mesh_shape, batch, s_max, s_enc),
+        mesh_shape)
+
+
+def prefill_caches_to_jax(caches, cfg, pcfg, mesh_shape: dict, batch: int,
+                          s: int):
+    """The port's layer-stacked prefill caches -> the reference's global
+    (L, B, S, ...) numpy arrays (`serve.prefill_cache_specs`)."""
+    specs = prefill_cache_specs(cfg, pcfg, mesh_shape.get("model", 1), s,
+                                dp=dp_axes(mesh_shape, batch))
+    return _tree_from_stacked(caches, specs, mesh_shape, layered=True)

@@ -2,6 +2,8 @@
 
   dlrm_serve          the distributed DLRM server and its CLI
   distributed_vecmat  use case 1: the vector-matrix offload and its CLI
+  serve               LM serving: the teacher-forced decode loop and its CLI
+  mesh                make_mesh_for, the launchers' (pod, data, model) mesh
 
 and `median_ms`, the timing helper they and `chip_smoke.py` share.
 """

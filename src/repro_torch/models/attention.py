@@ -1,0 +1,301 @@
+"""Attention: GQA with RoPE/qk-norm/SWA, flash-style blocked attention,
+sequence-sharded decode with the engine flash-combine.
+
+Port of `repro/models/attention.py`, forward only: the flash backward
+(the reference's custom VJP) waits for training, ROADMAP Queue 1 item 6c.
+The blocked algorithm is the reference's, op for op, in torch: an outer
+loop over q blocks, an inner loop over kv blocks carrying the running
+(max, sum, acc) in fp32, so scores never exist beyond one
+(q_block, kv_block) tile. Every product the reference writes with
+`preferred_element_type=float32` upcasts its operands here, so scores
+and `acc` are never rounded to the compute dtype before the softmax and
+the combine; the probabilities are rounded to v's dtype before the
+second product, as there.
+
+Activations are mesh-stacked (`parallel/ops.py`); the blocked attention
+and the decode attention act on trailing dims only, so their leading
+dims may be the mesh's. Decode over a sequence-sharded cache merges the
+partial softmax statistics (m, l, acc) across the TP group with engine
+allreduces — a distributed flash-combine.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.common import Builder, rms_norm, rope
+from repro_torch.parallel.ops import ParCtx, local_matmul
+
+NEG_INF = -1e30
+
+
+def padded_heads(cfg: ArchConfig, tp: int) -> int:
+    """Q heads padded to a TP multiple (dead heads are masked out)."""
+    h = cfg.n_heads
+    return ((h + tp - 1) // tp) * tp
+
+
+def kv_layout(cfg: ArchConfig, tp: int):
+    """(kv_heads_local, sharded?) — replicate KV when tp > n_kv.
+
+    KV sharding additionally requires unpadded Q heads, so that the local
+    q-head block aligns with the local kv-head block (GQA grouping).
+    """
+    if (cfg.n_kv_heads >= tp and cfg.n_kv_heads % tp == 0
+            and cfg.n_heads % tp == 0):
+        return cfg.n_kv_heads // tp, True
+    return cfg.n_kv_heads, False
+
+
+def attn_params(b: Builder, cfg: ArchConfig, tp: int):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    hp = padded_heads(cfg, tp)
+    _, kv_sharded = kv_layout(cfg, tp)
+    kv_spec = ("data", "model") if kv_sharded else ("data", None)
+    p = {
+        "wq": b.param((d, hp * hd), ("data", "model")),
+        "wk": b.param((d, cfg.n_kv_heads * hd), kv_spec),
+        "wv": b.param((d, cfg.n_kv_heads * hd), kv_spec),
+        "wo": b.param((hp * hd, d), ("model", "data")),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = b.param((hd,), (None,), init="ones")
+        p["k_norm"] = b.param((hd,), (None,), init="ones")
+    return p
+
+
+# --------------------------------------------------------------------------
+# Flash-style blocked attention (prefill)
+# --------------------------------------------------------------------------
+
+def _flash_fwd_blocks(q, k, v, window: int, *, causal: bool, qb: int,
+                      kb: int, q_offset: int):
+    """Returns (out, lse). Shapes as the reference's (already grouped):
+    q: (b, nq, qb, kv, g, hd); k, v: (nk, b, kb, kv, hd); out
+    (b, nq, kv, g, qb, hd), lse (b, nq, kv, g, qb)."""
+    b, nq, qbs, kv, g, hd = q.shape
+    nk = k.shape[0]
+    dev = q.device
+    scale = 1.0 / math.sqrt(hd)
+    eff_w = window if window > 0 else 1 << 30     # 0 means unlimited
+    outs, lses = [], []
+    for qi in range(nq):
+        qblk = q[:, qi].float()
+        q_pos = q_offset + qi * qbs + torch.arange(qbs, device=dev)
+        m = torch.full((b, kv, g, qbs), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, kv, g, qbs), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, kv, g, qbs, hd), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            kblk, vblk = k[ki], v[ki]
+            k_pos = ki * kb + torch.arange(kb, device=dev)
+            s = torch.einsum("bqkgh,bskh->bkgqs", qblk, kblk.float()) * scale
+            mask = k_pos[None, :] > q_pos[:, None] - eff_w
+            if causal:
+                mask &= k_pos[None, :] <= q_pos[:, None]
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bkgqs,bskh->bkgqh",
+                              p.to(vblk.dtype).float(), vblk.float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        lc = torch.clamp_min(l, 1e-30)
+        outs.append((acc / lc[..., None]).to(q.dtype))
+        lses.append(m + torch.log(lc))
+    return torch.stack(outs, 1), torch.stack(lses, 1)
+
+
+def _blocked(q, k, v, causal, window, q_block, kv_block, q_offset):
+    """q: (..., Sq, H, hd); k, v: (..., Skv, KV, hd); the leading dims
+    (batch and any mesh dims) fold into one batch dim."""
+    lead = tuple(q.shape[:-3])
+    sq, h, hd = q.shape[-3:]
+    skv, kv = k.shape[-3], k.shape[-2]
+    b = math.prod(lead)
+    g = h // kv
+    qb = min(q_block, sq)
+    kb = min(kv_block, skv)
+    nq, nk = sq // qb, skv // kb
+    if sq % qb or skv % kb:
+        raise ValueError(f"blocks do not tile: {(sq, qb, skv, kb)}")
+    qr = q.reshape(b, nq, qb, kv, g, hd)
+    kr = k.reshape(b, nk, kb, kv, hd).movedim(1, 0)
+    vr = v.reshape(b, nk, kb, kv, hd).movedim(1, 0)
+    out, _lse = _flash_fwd_blocks(qr, kr, vr, int(window), causal=causal,
+                                  qb=qb, kb=kb, q_offset=q_offset)
+    out = out.permute(0, 1, 4, 2, 3, 5)   # (b,nq,kv,g,qb,hd)->(b,nq,qb,..)
+    return out.reshape(lead + (sq, h, hd))
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      q_block: int = 512, kv_block: int = 1024,
+                      q_offset: int = 0):
+    """q: (..., Sq, H, hd); k, v: (..., Skv, KV, hd); H % KV == 0.
+
+    Returns (..., Sq, H, hd). `window` > 0 masks keys older than `window`
+    positions (0 = unlimited); `q_offset` is the absolute position of
+    q[0] (for caches)."""
+    return _blocked(q, k, v, causal, window, q_block, kv_block, q_offset)
+
+
+def flash_attention(q, k, v, *, causal: bool, window: int = 0,
+                    q_block: int = 512, kv_block: int = 1024):
+    """Memory-efficient attention (the prefill path): the same contract
+    as `chunked_attention` at offset 0, through the flash forward."""
+    return _blocked(q, k, v, causal, window, q_block, kv_block, 0)
+
+
+# --------------------------------------------------------------------------
+# Decode attention (single new token over a cache)
+# --------------------------------------------------------------------------
+
+def decode_attention(q, k_cache, v_cache, *, slot_positions, cur_pos,
+                     combine_axis: Optional[str] = None, engine=None):
+    """q: (..., B, H, hd); caches: (..., B, Sc, KV, hd) (a local slice
+    when combine_axis is set). slot_positions: (Sc,) or stacked (*mesh,
+    Sc): the absolute position held by each cache slot (< 0 =
+    unwritten); slots with position <= cur_pos attend.
+
+    With combine_axis, partial (m, l, acc) merge across the TP group via
+    engine allreduces — distributed flash-combine (the leading dims of q
+    must then be the engine's mesh dims).
+    """
+    h, hd = q.shape[-2:]
+    kv = k_cache.shape[-2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    qr = q.reshape(tuple(q.shape[:-2]) + (kv, g, hd))
+    mask = (slot_positions >= 0) & (slot_positions <= cur_pos)
+    mask = mask[..., None, None, None, :]         # (..., 1, 1, 1, Sc)
+
+    s = torch.einsum("...bkgh,...bskh->...bkgs", qr.float(),
+                     k_cache.float()) * scale
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("...bkgs,...bskh->...bkgh",
+                       p.to(v_cache.dtype).float(), v_cache.float())
+
+    if combine_axis is not None and engine is not None \
+            and engine.mesh_shape[combine_axis] > 1:
+        m_g = engine.allreduce(m, combine_axis, op="max")
+        w = torch.exp(m - m_g)
+        l = engine.allreduce(l * w, combine_axis)
+        acc = engine.allreduce(acc * w[..., None], combine_axis)
+
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(q.shape).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# Full attention layer (projections + cache plumbing)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class AttnConfig:
+    causal: bool = True
+    cross: bool = False       # cross-attention (kv from encoder output)
+
+
+def head_mask(cfg: ArchConfig, ctx: ParCtx, local_heads: int, local: bool):
+    """Mask padded Q heads: global head index >= n_heads contributes 0.
+    Local: stacked (*mesh, local_heads), each rank's own heads."""
+    hp = padded_heads(cfg, ctx.tp)
+    if hp == cfg.n_heads:
+        return None
+    dev = ctx.engine.device
+    if local:
+        idx = ctx.tp_rank(1) * local_heads + torch.arange(local_heads,
+                                                          device=dev)
+    else:
+        idx = torch.arange(hp, device=dev)
+    return idx < cfg.n_heads
+
+
+def kv_owner(cfg: ArchConfig, ctx: ParCtx, n_q: int, base):
+    """The kv head each of `n_q` q heads reads when KV heads replicate:
+    clip((base + j) // group, 0, n_kv - 1); `base` an int or a stacked
+    per-rank offset."""
+    group = max(cfg.n_heads // cfg.n_kv_heads, 1)
+    j = torch.arange(n_q, device=ctx.engine.device)
+    return torch.clamp((base + j) // group, 0, cfg.n_kv_heads - 1)
+
+
+def attention_block(params, x, cfg: ArchConfig, ctx: ParCtx,
+                    acfg: AttnConfig, positions, kv_source=None,
+                    window: int = 0, q_block: int = 512,
+                    kv_block: int = 1024, return_kv: bool = False):
+    """Prefill attention over local Q heads.
+
+    x: stacked (*mesh, B, S, D) (seq-sharded under SP). Returns the
+    stacked (*mesh, B, S, D) output, finished via row_parallel_finish
+    (and, with return_kv, the (k, v) cache this layer emits)."""
+    if kv_source is not None or acfg.cross:
+        raise NotImplementedError(
+            "cross-attention (the audio family's encoder stack) is not "
+            "ported yet: ROADMAP Queue 1 item 6b")
+    L = ctx.lead
+    hd = cfg.resolved_head_dim
+    hp = padded_heads(cfg, ctx.tp)
+    hl = hp // ctx.tp
+    kv_l, kv_sharded = kv_layout(cfg, ctx.tp)
+
+    # fused QKV projection: ONE sequence gather / collective matmul feeds
+    # all three heads
+    w_q = ctx.gather_fsdp(params["wq"])
+    w_k = ctx.gather_fsdp(params["wk"])
+    w_v = ctx.gather_fsdp(params["wv"])
+    w_qkv = torch.cat([w_q, w_k, w_v], dim=-1)
+    qkv = ctx.col_parallel_matmul(x, w_qkv, pregathered=True)
+    d_q, d_k = w_q.shape[-1], w_k.shape[-1]
+    lead = tuple(qkv.shape[:L])
+    b, s = qkv.shape[L], qkv.shape[L + 1]
+    q = qkv[..., :d_q].reshape(lead + (b, s, hl, hd))
+    k = qkv[..., d_q:d_q + d_k].reshape(lead + (b, s, kv_l, hd))
+    v = qkv[..., d_q + d_k:].reshape(lead + (b, s, kv_l, hd))
+
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    # GQA group alignment: when KV heads replicate, every rank has all kv
+    # heads and its local q heads belong to global groups: repeat kv to
+    # the local q heads (each rank its own owners)
+    if not kv_sharded:
+        owner = kv_owner(cfg, ctx, hl, ctx.tp_rank(1) * hl)
+        k = ctx.take(k, owner, dim=2)               # (B, S, hl, hd)
+        v = ctx.take(v, owner, dim=2)
+
+    out = flash_attention(q, k, v, causal=acfg.causal, window=window,
+                          q_block=q_block, kv_block=kv_block)
+    hm = head_mask(cfg, ctx, hl, local=True)
+    if hm is not None:
+        out = out * hm[..., None, None, :, None].to(out.dtype)
+    out = out.reshape(lead + (b, s, hl * hd))
+    wo = ctx.gather_fsdp(params["wo"], dim=1)
+    y = ctx.row_parallel_finish(local_matmul(out, wo.to(out.dtype), L))
+    if not return_kv:
+        return y
+    # prefill cache emission, decode layout: seq-shard the cache over the
+    # TP axis when KV heads replicate (the flash-combine decode path),
+    # else keep the full sequence with local KV heads. As in the
+    # reference, a replicated-KV cache holds each rank's owner-gathered
+    # heads.
+    if (not kv_sharded) and ctx.pcfg.decode_seq_shard and ctx.tp > 1 \
+            and s % ctx.tp == 0:
+        sl = s // ctx.tp
+        kc, vc = ctx.tp_slice(k, sl, dim=1), ctx.tp_slice(v, sl, dim=1)
+    else:
+        kc, vc = k, v
+    return y, (kc, vc)

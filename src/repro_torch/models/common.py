@@ -1,7 +1,7 @@
-"""Shared model machinery: the param builder.
+"""Shared model machinery: param builder, norms, rope, activations.
 
-Port of `repro/models/common.py::Builder`. One definition per param
-produces, by mode,
+Port of `repro/models/common.py`. One definition per param produces, by
+mode,
   mode='init'   a real MESH-STACKED tensor over `mesh_shape`
                 (leading dims the mesh axes in mesh order,
                 trailing dims one rank's shard; `convert.py`), drawn from
@@ -13,18 +13,24 @@ Spec conventions are the reference's over the mesh (pod, data, model):
 an axis absent from a spec means the param is replicated over it.
 
 Init laws are the reference's: "normal" is N(0, 1) * scale with a
-default scale of 1/sqrt(shape[0]) (1 for a 1-D param), and "zeros"
-(the reference's other laws serve the LM stack). A stacked param draws one shard per distinct position on the
-axes its spec names and copies it over the axes it does not, so replicas
-are equal; the draw is made in place on the device, so a large table is
-never staged on the host. Norms, rope and the rest wait for the LM
-stack.
+default scale of 1/sqrt(shape[0]) (1 for a 1-D param), "zeros" and
+"ones" (the SSM laws wait for `models/ssm.py`, ROADMAP Queue 1 item 6b).
+A stacked param draws one shard per distinct position on the axes its
+spec names and copies it over the axes it does not, so replicas are
+equal; the draw is made in place on the device, so a large table is
+never staged on the host. `spec_map`, when set, rewrites every spec
+before it is used (the serving layout drops 'data', `parallel/stages.py`).
+
+The numerics (`rms_norm`, `rope`, `silu`, `gelu`,
+`sinusoidal_positions`) take mesh-stacked activations and act on their
+trailing dims only, as the reference's act on one rank's local arrays; a
+norm weight may be stacked (its leading dims the mesh's).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -53,10 +59,13 @@ class Builder:
     mesh_shape: Optional[dict] = None     # needed in 'init' mode
     device: object = "cpu"
     dtype: torch.dtype = torch.float32
+    spec_map: Optional[Callable] = None
 
     def param(self, shape, spec, init: str = "normal",
               scale: Optional[float] = None, dtype=None):
         spec = tuple(spec)
+        if self.spec_map is not None:
+            spec = tuple(self.spec_map(spec))
         if self.mode == "spec":
             return spec
         if self.mode != "init":
@@ -70,6 +79,8 @@ class Builder:
         local = local_shape(shape, spec, self.mesh_shape)
         if init == "zeros":
             return torch.zeros(lead + local, dtype=dtype, device=self.device)
+        if init == "ones":
+            return torch.ones(lead + local, dtype=dtype, device=self.device)
         if init != "normal":
             raise ValueError(init)
         if scale is None:
@@ -78,3 +89,68 @@ class Builder:
                         device=self.device)
         t.normal_(0.0, scale, generator=self.generator)
         return t.to(dtype).expand(lead + local).contiguous()
+
+
+# --------------------------------------------------------------------------
+# Numerics
+# --------------------------------------------------------------------------
+
+def dt(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+def _trailing(w, ndim: int):
+    """A stacked 1-D weight (*mesh, d) viewed to broadcast against an
+    activation of `ndim` dims: (*mesh, 1, ..., 1, d)."""
+    if w.ndim == 1:
+        return w
+    lead = tuple(w.shape[:-1])
+    return w.reshape(lead + (1,) * (ndim - w.ndim) + (w.shape[-1],))
+
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    """RMSNorm over the last dim (the reference's TP-sharded variant,
+    `psum_axis`, serves the SSM mixer and waits for ROADMAP Queue 1 item
+    6b)."""
+    xf = x.float()
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps)
+    return (y * _trailing(weight, x.ndim).float()).to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """Rotary embeddings. x: (..., S, H, hd); positions: (S,) (every rank
+    holds the same positions)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=x.device) / half)
+    angles = positions.to(x.device).float()[..., None] * freqs  # (S, half)
+    cos = torch.cos(angles)[..., None, :]       # (S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+def gelu(x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, offset=0,
+                         device="cpu"):
+    """Whisper-style absolute sinusoidal embeddings, computed on the fly."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device) + offset
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=device) / half)
+    ang = pos[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -1,0 +1,162 @@
+"""LM assembly: embeddings, the vocab-parallel greedy head, the forward.
+
+Port of `repro/models/lm.py` for serving (the loss, `lm_head_ce` and
+`loss_fn`, waits for training, ROADMAP Queue 1 item 6c; the audio
+encoder stack for item 6b).
+
+Sharding summary (mesh pod x data x model), as the reference's:
+  embedding/head (V, D): V over 'model' (vocab-parallel), D over 'data'
+  activations: batch over ('pod','data'); optionally seq over 'model' (SP)
+  caches (decode): KV-sequence over 'model' + engine flash-combine, or KV
+  heads over 'model' when n_kv >= tp
+
+Every tensor is mesh-stacked (`parallel/ops.py`); a rank's vocab shard
+offset is its `tp_rank()` times the shard size, one per stacked row.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.blocks import layer_params, stack_forward, stacked
+from repro_torch.models.common import Builder, rms_norm
+from repro_torch.parallel.ops import ParCtx
+
+# the greedy head carries token ids through the engine's fp32 max
+# allreduce (K1 computes in fp32): exact for ids below 2^24
+_MAX_EXACT_ID = 1 << 24
+
+
+def padded_vocab(cfg: ArchConfig, tp: int) -> int:
+    return ((cfg.vocab_size + tp - 1) // tp) * tp
+
+
+# --------------------------------------------------------------------------
+# Params
+# --------------------------------------------------------------------------
+
+def model_params(b: Builder, cfg: ArchConfig, tp: int):
+    vp = padded_vocab(cfg, tp)
+    d = cfg.d_model
+    p = {
+        "embed": b.param((vp, d), ("model", "data"), scale=0.02),
+        "final_norm": b.param((d,), (None,), init="ones"),
+        "layers": stacked(b, cfg.n_layers,
+                          lambda bb: layer_params(
+                              bb, cfg, tp, cross=bool(cfg.encoder_layers))),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = b.param((vp, d), ("model", "data"), scale=0.02)
+    return p
+
+
+def batch_specs(cfg: ArchConfig, kind: str, dp=("pod", "data")):
+    """Spec entries for the input batch dict. dp=None replicates the
+    batch dim (global batch smaller than the DP group, e.g. B=1 decode)."""
+    if kind not in ("train", "prefill"):
+        raise ValueError(kind)
+    spec = {"tokens": (dp, None)}
+    if kind == "train":
+        spec["labels"] = (dp, None)
+    if cfg.family == "vlm":
+        spec["vis_embed"] = (dp, None, None)
+    if cfg.encoder_layers:
+        spec["frames"] = (dp, None, None)
+    return spec
+
+
+# --------------------------------------------------------------------------
+# Embedding + head (vocab-parallel)
+# --------------------------------------------------------------------------
+
+def _rank_rows(table, idx, lead: int):
+    """Each rank's rows `idx` of its own table: table (*mesh, V, D), idx
+    (*mesh, ...) -> (*mesh, ..., D)."""
+    G = 1
+    for n in table.shape[:lead]:
+        G *= n
+    flat = table.reshape((G,) + tuple(table.shape[lead:]))
+    fi = idx.reshape(G, -1)
+    rows = flat[torch.arange(G, device=idx.device)[:, None], fi]
+    return rows.reshape(tuple(idx.shape) + (table.shape[-1],))
+
+
+def embed_tokens(params, tokens, cfg: ArchConfig, ctx: ParCtx):
+    """tokens: stacked (*mesh, B, S) global ids -> (*mesh, B, S, D).
+    Vocab-parallel gather + allreduce."""
+    vp = padded_vocab(cfg, ctx.tp)
+    v_l = vp // ctx.tp
+    emb = ctx.gather_fsdp(params["embed"], dim=1)     # (V_l, D)
+    lo = ctx.tp_rank(tokens.ndim - ctx.lead) * v_l
+    local = tokens - lo
+    hit = (local >= 0) & (local < v_l)
+    rows = _rank_rows(emb, torch.clamp(local, 0, v_l - 1), ctx.lead)
+    rows = torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                         device=rows.device))
+    if ctx.tp > 1:
+        rows = ctx.engine.allreduce(rows, ctx.tp_axis)
+    return rows
+
+
+def lm_head_sample(params, x, cfg: ArchConfig, ctx: ParCtx):
+    """Greedy next-token over the vocab-parallel head. x: stacked
+    (*mesh, B, D) -> (*mesh, B) int32, the same on every TP rank. Ties go
+    to the lowest id: each rank's first maximum, then the lowest id among
+    the ranks within 1e-6 of the global maximum."""
+    vp = padded_vocab(cfg, ctx.tp)
+    if vp > _MAX_EXACT_ID:
+        raise ValueError(f"vocab {vp} exceeds the head's exact id range")
+    v_l = vp // ctx.tp
+    w = params["embed"] if cfg.tie_embeddings else params["head"]
+    w = ctx.gather_fsdp(w, dim=1)
+    logits = torch.matmul(x.float(), w.float().transpose(-1, -2))
+    lo = ctx.tp_rank(1) * v_l                           # (*mesh, 1)
+    vocab_ok = (lo + torch.arange(v_l, device=lo.device)) < cfg.vocab_size
+    logits = torch.where(vocab_ok.unsqueeze(-2), logits, -1e30)
+    val = logits.amax(-1)
+    idx = lo + logits.argmax(-1)
+    if ctx.tp > 1:
+        best = ctx.engine.allreduce(val, ctx.tp_axis, op="max")
+        cand = torch.where(val >= best - 1e-6, idx.float(), float(2 ** 30))
+        idx = -ctx.engine.allreduce(-cand, ctx.tp_axis, op="max")  # min
+    return idx.to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Forward
+# --------------------------------------------------------------------------
+
+def _input_stream(params, batch, cfg: ArchConfig, ctx: ParCtx):
+    """Token embeddings with family-specific prefixes; returns (x, enc_out)."""
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            "the audio encoder stack is not ported yet: ROADMAP Queue 1 "
+            "item 6b")
+    x = embed_tokens(params, batch["tokens"], cfg, ctx)
+    if cfg.family == "vlm" and "vis_embed" in batch:
+        L = ctx.lead
+        vis = batch["vis_embed"]
+        nv = vis.shape[L + 1]
+        x = torch.cat([vis.to(x.dtype), x[..., nv:, :]], dim=L + 1)
+    return x, None
+
+
+def sp_slice(x, ctx: ParCtx):
+    """Under sequence parallelism, each TP rank's slice of the sequence
+    (local dim 1) of the input stream."""
+    s = x.shape[ctx.lead + 1]
+    if ctx.pcfg.sequence_parallel and ctx.tp > 1 and s % ctx.tp == 0:
+        return ctx.tp_slice(x, s // ctx.tp, dim=1)
+    return x
+
+
+def forward(params, batch, cfg: ArchConfig, ctx: ParCtx):
+    """Stacked (*mesh, B, S) tokens -> (*mesh, B, S, D) final hidden +
+    moe aux."""
+    x, enc_out = _input_stream(params, batch, cfg, ctx)
+    positions = torch.arange(x.shape[ctx.lead + 1], device=x.device)
+    x, aux, _ = stack_forward(params["layers"], sp_slice(x, ctx), cfg, ctx,
+                              positions, causal=True, enc_out=enc_out)
+    x = ctx.sp_allgather_seq(x)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, aux

@@ -1,0 +1,319 @@
+"""Serving: prefill + single-token decode over sharded caches.
+
+Port of `repro/models/serve.py` for the dense and VLM families (the SSM
+state and the audio cross-attention cache wait for ROADMAP Queue 1 item
+6b: `make_cache` and `decode_step` raise for those families and MoE).
+
+Decode cache layouts (per attention layer), as the reference's:
+  seq-sharded   (B, len/tp, KV, hd) over 'model' — every rank computes all
+                (padded) Q heads on its slice; partial softmax stats merge
+                via engine flash-combine. Used when KV heads replicate
+                (n_kv < tp) — the long-context path.
+  head-sharded  (B, len, KV/tp, hd) when n_kv >= tp.
+  SWA layers    rolling cache of length `window` (slot = pos % W), layout
+                as above; slot->position recovered arithmetically for the
+                mask, so RoPE is applied before caching and slot order
+                never matters.
+
+Every tensor is mesh-stacked; a cache leaf is (*mesh, B_local, len_local,
+KV_local, hd). Where the reference takes a per-rank offset
+(`tp_rank()`) — the slot a sequence-sharded cache writes, its slots'
+positions, the head slice — each stacked row gets its own offset from
+`ParCtx.tp_rank`. `decode_step` writes the new token's k/v into the
+caches IN PLACE (the reference returns new arrays and donates the old
+ones) and returns the same cache dicts.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.attention import (
+    decode_attention, kv_layout, kv_owner, padded_heads,
+)
+from repro_torch.models.blocks import (
+    check_family, layer_slice, stack_forward, window_per_layer,
+)
+from repro_torch.models.common import Builder, rms_norm, rope
+from repro_torch.models.lm import (
+    _input_stream, embed_tokens, lm_head_sample, sp_slice,
+)
+from repro_torch.parallel.ops import ParCtx, local_matmul
+
+
+def layer_cache_len(cfg: ArchConfig, layer: int, s_max: int) -> int:
+    w = cfg.sliding_window
+    if w and layer not in cfg.global_attn_layers:
+        return min(w, s_max)
+    return s_max
+
+
+def attn_cache_params(b: Builder, cfg: ArchConfig, tp: int, b_local_axis,
+                      length: int, decode_seq_shard: bool):
+    """(global shape with a None batch dim, spec) of one attention layer's
+    k (or v) cache."""
+    hd = cfg.resolved_head_dim
+    _kv_l, kv_sharded = kv_layout(cfg, tp)
+    dp = b_local_axis
+    if kv_sharded:
+        spec = (dp, None, "model", None)
+    elif decode_seq_shard and tp > 1 and length % tp == 0:
+        spec = (dp, "model", None, None)
+    else:
+        spec = (dp, None, None, None)
+    return (None, length, cfg.n_kv_heads, hd), spec
+
+
+def make_cache(b: Builder, cfg: ArchConfig, tp: int, batch: int,
+               s_max: int, pcfg, s_enc: int = 0, dp=("pod", "data")):
+    """Full decode-cache tree (list per layer): stacked zero tensors
+    (init mode) or their specs. Shapes are GLOBAL before the Builder
+    shards them; dp=None replicates the batch dim."""
+    check_family(cfg.family)
+    caches = []
+    for layer in range(cfg.n_layers):
+        length = layer_cache_len(cfg, layer, s_max)
+        shp, spec = attn_cache_params(b, cfg, tp, dp, length,
+                                      pcfg.decode_seq_shard)
+        shp = (batch,) + shp[1:]
+        q8 = pcfg.kv_cache_dtype == "int8"
+        kdt = torch.int8 if q8 else None
+        entry = {"k": b.param(shp, spec, init="zeros", dtype=kdt),
+                 "v": b.param(shp, spec, init="zeros", dtype=kdt)}
+        if q8:
+            # one symmetric scale per (slot, kv head) — the unary
+            # compression plugin applied to cache storage
+            sshp, sspec = shp[:3], spec[:3]
+            entry["k_scale"] = b.param(sshp, sspec, init="zeros",
+                                       dtype=torch.float32)
+            entry["v_scale"] = b.param(sshp, sspec, init="zeros",
+                                       dtype=torch.float32)
+        caches.append(entry)
+    return caches
+
+
+def prefill_cache_specs(cfg: ArchConfig, pcfg, tp: int, s: int,
+                        dp=("pod", "data")):
+    """Specs of the layer-stacked caches prefill emits (leading layer dim;
+    uniform full-sequence layout across layers)."""
+    check_family(cfg.family)
+    _kv_l, kv_sharded = kv_layout(cfg, tp)
+    if kv_sharded:
+        kv = (None, dp, None, "model", None)
+    elif pcfg.decode_seq_shard and tp > 1 and s % tp == 0:
+        kv = (None, dp, "model", None, None)
+    else:
+        kv = (None, dp, None, None, None)
+    return (kv, kv)
+
+
+# --------------------------------------------------------------------------
+# Decode
+# --------------------------------------------------------------------------
+
+def _slot_and_positions(length_total: int, rolling: bool, pos: int,
+                        local_len: int, rank, tp_sharded: bool):
+    """Write slot + per-slot absolute positions for the mask.
+
+    rolling caches hold the last `length_total` positions at slot
+    p % length_total; slot i therefore holds position
+    pos - ((pos - i) mod length_total) (negative = not yet written).
+    `rank` is the stacked per-rank TP rank (`ParCtx.tp_rank(1)`); the
+    positions are stacked (*mesh, local_len)."""
+    slot = pos % length_total if rolling else pos
+    idx = rank * (local_len if tp_sharded else 0) \
+        + torch.arange(local_len, device=rank.device)
+    if rolling:
+        slot_pos = pos - torch.remainder(pos - idx, length_total)
+    else:
+        slot_pos = idx
+    return slot, slot_pos
+
+
+def quantize_kv(x):
+    """int8 KV-cache quantizer: one symmetric scale per (slot, kv head)
+    over the last dim: (codes int8, scales fp32). Round half to even,
+    IEEE division, the clip before the cast — the reference's."""
+    xf = x.float()
+    s = torch.clamp_min(xf.abs().amax(-1) / 127.0, 1e-8)
+    qv = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return qv.to(torch.int8), s
+
+
+def _write(buf, new, cl, ok, lead: int) -> None:
+    """In place, each rank's `dynamic_update_slice_in_dim(buf, new, cl,
+    1)` where `ok` (else unchanged): buf (*mesh, B, L, ...), new (*mesh,
+    B, 1, ...) (its trailing dims may be smaller: they land at offset 0),
+    cl / ok stacked per-rank scalars."""
+    mesh = tuple(buf.shape[:lead])
+    G = 1
+    for n in mesh:
+        G *= n
+    bf = buf.view((G,) + tuple(buf.shape[lead:]))
+    nw = new.reshape((G,) + tuple(new.shape[lead:]))[:, :, 0]
+    g = torch.arange(G, device=buf.device)
+    cl = cl.expand(mesh).reshape(G)
+    ok = ok.expand(mesh).reshape(G)
+    cur = bf[g, :, cl]                                   # (G, B, ...)
+    upd = cur.clone()
+    upd[(slice(None), slice(None))
+        + tuple(slice(0, n) for n in nw.shape[2:])] = nw.to(buf.dtype)
+    okv = ok.reshape((G,) + (1,) * (cur.ndim - 1))
+    bf[g, :, cl] = torch.where(okv, upd, cur)
+
+
+def attn_decode(lp, h, cache, cfg: ArchConfig, ctx: ParCtx, pos: int,
+                window: int, s_max: int, cross: bool = False):
+    """h: stacked (*mesh, B, 1, D) normed input. Returns (y (*mesh, B, 1,
+    D), the cache dict with this token's k/v written in place)."""
+    if cross:
+        raise NotImplementedError(
+            "the cross-attention cache is not ported yet: ROADMAP Queue 1 "
+            "item 6b")
+    L = ctx.lead
+    hd = cfg.resolved_head_dim
+    tp = ctx.tp
+    hp = padded_heads(cfg, tp)
+    hl = hp // tp
+    kv_l, kv_sharded = kv_layout(cfg, tp)
+    lead = tuple(h.shape[:L])
+    bsz = h.shape[L]
+    params = lp["attn"]
+    rank = ctx.tp_rank(1)                              # (*mesh, 1)
+    positions = torch.tensor([pos], device=h.device)
+
+    q = ctx.dense(h, params["wq"]).reshape(lead + (bsz, 1, hl, hd))
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)[..., 0, :, :]  # (B, hl, hd)
+
+    k_cache, v_cache = cache["k"], cache["v"]
+    local_len = k_cache.shape[L + 1]
+    # mirror make_cache's layout decision exactly
+    length_total = min(window, s_max) if (window and window < s_max) \
+        else s_max
+    seq_sharded = (not kv_sharded) and ctx.pcfg.decode_seq_shard \
+        and tp > 1 and (length_total % tp == 0)
+    if local_len != (length_total // tp if seq_sharded else length_total):
+        raise ValueError(f"cache of local length {local_len} does not fit "
+                         f"{length_total} slots (seq-sharded: "
+                         f"{seq_sharded})")
+
+    quant = k_cache.dtype == torch.int8
+    k_new = ctx.dense(h, params["wk"]).reshape(lead + (bsz, 1, kv_l, hd))
+    v_new = ctx.dense(h, params["wv"]).reshape(lead + (bsz, 1, kv_l, hd))
+    if cfg.qk_norm:
+        k_new = rms_norm(k_new, params["k_norm"], cfg.norm_eps)
+    k_new = rope(k_new, positions, cfg.rope_theta)
+    rolling = bool(window) and window < s_max   # cache len == window
+    slot, slot_pos = _slot_and_positions(length_total, rolling, pos,
+                                         local_len, rank, seq_sharded)
+    local_slot = slot - rank[..., 0] * (local_len if seq_sharded else 0)
+    ok = (local_slot >= 0) & (local_slot < local_len)
+    cl = torch.clamp(local_slot, 0, local_len - 1)
+    if quant:
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        _write(k_cache, kq, cl, ok, L)
+        _write(v_cache, vq, cl, ok, L)
+        _write(cache["k_scale"], ks, cl, ok, L)
+        _write(cache["v_scale"], vs, cl, ok, L)
+    else:
+        _write(k_cache, k_new, cl, ok, L)
+        _write(v_cache, v_new, cl, ok, L)
+
+    # flash-combine path needs all (padded) q heads on every rank
+    if seq_sharded:
+        qf = ctx.engine.allgather(q.transpose(-3, -2), ctx.tp_axis)
+        qf = qf.reshape(lead + (hp, bsz, hd)).transpose(-3, -2)
+        n_q = hp
+    else:
+        qf = q
+        n_q = hl
+
+    # GQA owner-gather (g=1 einsum)
+    if kv_sharded:
+        owner = torch.arange(n_q, device=h.device) \
+            // (n_q // k_cache.shape[L + 2])
+    else:
+        owner = kv_owner(cfg, ctx, n_q, 0 if seq_sharded else rank * hl)
+    k_sel = ctx.take(k_cache, owner, dim=2)
+    v_sel = ctx.take(v_cache, owner, dim=2)
+    if quant:
+        # dequantize on read
+        ks_sel = ctx.take(cache["k_scale"], owner, dim=2)
+        vs_sel = ctx.take(cache["v_scale"], owner, dim=2)
+        k_sel = (k_sel.float() * ks_sel[..., None]).to(h.dtype)
+        v_sel = (v_sel.float() * vs_sel[..., None]).to(h.dtype)
+
+    out = decode_attention(
+        qf, k_sel, v_sel, slot_positions=slot_pos, cur_pos=pos,
+        combine_axis=ctx.tp_axis if seq_sharded else None,
+        engine=ctx.engine)
+
+    # mask padded heads, take local rows for the row-parallel o_proj
+    if seq_sharded:
+        head_idx = torch.arange(hp, device=h.device)
+        out = out * (head_idx < cfg.n_heads)[:, None].to(out.dtype)
+        out = ctx.tp_slice(out, hl, dim=1)
+    else:
+        head_idx = rank * hl + torch.arange(hl, device=h.device)
+        out = out * (head_idx < cfg.n_heads)[..., None, :, None].to(
+            out.dtype)
+    out = out.reshape(lead + (bsz, 1, hl * hd))
+    wo = ctx.gather_fsdp(params["wo"], dim=1)
+    y = local_matmul(out, wo.to(out.dtype), L)
+    if tp > 1:
+        y = ctx.engine.allreduce(y, ctx.tp_axis)
+    return y, cache
+
+
+def decode_step(params, caches, tokens, pos: int, cfg: ArchConfig,
+                ctx: ParCtx, s_max: int):
+    """One greedy decode step. tokens: stacked (*mesh, B, 1); pos: the
+    position being written.
+
+    Returns (next_tokens stacked (*mesh, B), caches written in place).
+    """
+    check_family(cfg.family)
+    windows = window_per_layer(cfg, cfg.n_layers)
+    x = embed_tokens(params, tokens, cfg, ctx)
+    for i in range(cfg.n_layers):
+        lp = layer_slice(params["layers"], i)
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        y, caches[i] = attn_decode(lp, h, caches[i], cfg, ctx, pos,
+                                   windows[i], s_max)
+        x = x + y
+        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + mlp_mod.mlp_block(lp["mlp"], h2, cfg, ctx)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    nxt = lm_head_sample(params, x[..., 0, :], cfg, ctx)
+    return nxt, caches
+
+
+# --------------------------------------------------------------------------
+# Prefill
+# --------------------------------------------------------------------------
+
+def prefill(params, batch, cfg: ArchConfig, ctx: ParCtx,
+            collect_cache: bool = True):
+    """Forward over the prompt; emit next token + caches.
+
+    Caches come back layer-stacked, (L, *mesh, ...), in uniform
+    full-sequence layout (SWA layers included at full length);
+    runtime/serve_session converts them to per-layer decode layouts on
+    handoff. Under sequence parallelism the input stream is cut to each
+    TP rank's slice of the sequence first, as `lm.forward` does (the
+    reference's prefill does not, and raises there: ROADMAP Queue 3).
+    """
+    x, enc_out = _input_stream(params, batch, cfg, ctx)
+    positions = torch.arange(x.shape[ctx.lead + 1], device=x.device)
+    x, _, caches = stack_forward(params["layers"], sp_slice(x, ctx), cfg,
+                                 ctx, positions, causal=True,
+                                 enc_out=enc_out,
+                                 collect_cache=collect_cache)
+    x = ctx.sp_allgather_seq(x)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    nxt = lm_head_sample(params, x[..., -1, :], cfg, ctx)
+    return nxt, caches

@@ -8,6 +8,9 @@ communication:
   row_parallel_finish  allreduce (baseline) or seq reduce-scatter (SP)
   sp_allgather_seq     SP re-gather of sequence-sharded activations
   col_parallel_matmul  optionally the streaming collective matmul
+  tp_slice, take       a per-rank slice / gather along a local dim (the
+                       reference's `dynamic_slice_in_dim` and `take` at
+                       an offset of `tp_rank()`)
 
 Every tensor here is MESH-STACKED (`convert.py`): its leading dims are
 the engine's mesh axes in mesh order and its trailing dims one rank's
@@ -32,10 +35,11 @@ def local_matmul(x, w, lead: int):
     stacked (*mesh, ..., d), w stacked (*mesh, d, f), `lead` mesh dims."""
     if x.ndim - lead == 1:
         return local_matmul(x.unsqueeze(-2), w, lead).squeeze(-2)
-    extra = x.ndim - lead - 2          # x's batch dims beyond its rows
-    wv = w.reshape(tuple(w.shape[:lead]) + (1,) * extra
-                   + tuple(w.shape[lead:]))
-    return torch.matmul(x, wv)
+    if x.ndim - lead > 2:              # fold x's batch dims into its rows
+        rows = x.reshape(tuple(x.shape[:lead]) + (-1, x.shape[-1]))
+        return torch.matmul(rows, w).reshape(tuple(x.shape[:-1])
+                                             + (w.shape[-1],))
+    return torch.matmul(x, w)
 
 
 @dataclasses.dataclass
@@ -72,14 +76,32 @@ class ParCtx:
     def fsdp_axis(self) -> str:
         return self.pcfg.fsdp_axis
 
-    def tp_rank(self):
+    def tp_rank(self, local_ndim: int = 0):
         """Each stacked row's rank along the TP axis: an int64 tensor of
         the mesh's rank (1 on every dim but the TP axis's), broadcastable
-        against the leading dims of a stacked tensor."""
+        against the leading dims of a stacked tensor — and, with
+        `local_ndim` trailing 1s, against the whole of one with that many
+        local dims."""
         shape = [1] * self.lead
         if self.pcfg.tp_axis in self.mesh_shape:
             shape[list(self.mesh_shape).index(self.pcfg.tp_axis)] = self.tp
-        return torch.arange(self.tp, device=self.engine.device).reshape(shape)
+        return torch.arange(self.tp, device=self.engine.device).reshape(
+            shape + [1] * local_ndim)
+
+    def take(self, x, index, dim: int):
+        """Each rank's `take(x, index, axis=dim)` along local `dim`.
+        `index` is 1-D (the same on every rank) or stacked (broadcastable
+        over the mesh dims, e.g. built from `tp_rank(1)`) with one local
+        dim of indices."""
+        d = self._dim(x, dim)
+        if index.ndim == 1:
+            return x.index_select(d, index)
+        idx = index.reshape(tuple(index.shape[:self.lead])
+                            + (1,) * (d - self.lead) + (index.shape[-1],)
+                            + (1,) * (x.ndim - d - 1))
+        shape = list(x.shape)
+        shape[d] = index.shape[-1]
+        return torch.gather(x, d, idx.expand(shape))
 
     def tp_slice(self, x, size: int, dim: int = -1):
         """Each rank's slice [rank * size, (rank + 1) * size) of local dim

@@ -1,0 +1,125 @@
+"""Serving session: prefill -> decode cache handoff.
+
+Port of `repro/runtime/serve_session.py`. prefill emits layer-stacked
+caches in a uniform full-prompt-length layout; decode wants per-layer
+caches at s_max with SWA windows rolled. The conversion works on GLOBAL
+views of the caches, as the reference's does, but on the caches' own
+device: each layer's stacked prefill cache is unstacked
+(`convert.unstack`), rearranged, and stacked again with the decode
+layout (`convert.stack_global`) — no trip through the host.
+
+With `kv_cache_dtype="int8"` (which the reference's session refuses)
+the handoff quantizes each prompt slot with the decode write's own
+quantizer (`serve.quantize_kv`), so the decode caches hold what a decode
+that had written those slots would hold.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, ParallelConfig
+from repro_torch.convert import stack_global, unstack
+from repro_torch.models.blocks import window_per_layer
+from repro_torch.models.serve import (
+    layer_cache_len, prefill_cache_specs, quantize_kv,
+)
+from repro_torch.parallel import stages
+
+
+def convert_prefill_caches(prefill_caches, cfg: ArchConfig,
+                           pcfg: ParallelConfig, mesh_shape: dict, tp: int,
+                           batch: int, s_prompt: int, s_max: int,
+                           s_enc: int = 0):
+    """Rearrange prefill's layer-stacked caches into decode's per-layer
+    layout (int8 with its scales when pcfg.kv_cache_dtype says so)."""
+    windows = window_per_layer(cfg, cfg.n_layers)
+    dp = stages.dp_axes(mesh_shape, batch)
+    decode_specs = stages.cache_specs(cfg, pcfg, tp, s_max, s_enc=s_enc,
+                                      dp=dp)
+    pf_spec = prefill_cache_specs(cfg, pcfg, tp, s_prompt, dp=dp)[0][1:]
+    q8 = pcfg.kv_cache_dtype == "int8"
+    k_all, v_all = prefill_caches
+    caches = []
+    for layer in range(cfg.n_layers):
+        length = layer_cache_len(cfg, layer, s_max)
+        w = windows[layer]
+        if w and w < s_max:
+            # rolling window: position p lives at slot p % length
+            take = min(length, s_prompt)
+            pos = torch.arange(s_prompt - take, s_prompt)
+            slots = pos % length
+        else:
+            pos = slots = torch.arange(s_prompt)
+        entry = {}
+        for name, stack in (("k", k_all), ("v", v_all)):
+            g = unstack(stack[layer], mesh_shape, pf_spec)  # (B, S_p, ..)
+            src = g[:, pos.to(g.device)]
+            shape = (batch, length) + tuple(g.shape[2:])
+            spec = decode_specs[layer][name]
+            if q8:
+                codes, scales = quantize_kv(src)
+                out = torch.zeros(shape, dtype=torch.int8, device=g.device)
+                sc = torch.zeros(shape[:3], dtype=torch.float32,
+                                 device=g.device)
+                sc[:, slots.to(g.device)] = scales
+                entry[f"{name}_scale"] = stack_global(
+                    sc, mesh_shape, decode_specs[layer][f"{name}_scale"])
+                src = codes
+            else:
+                out = torch.zeros(shape, dtype=g.dtype, device=g.device)
+            out[:, slots.to(g.device)] = src
+            entry[name] = stack_global(out, mesh_shape, spec)
+        caches.append(entry)
+    return caches
+
+
+@dataclasses.dataclass
+class ServeSession:
+    """Prefill + decode pair with automatic cache handoff, on `device`."""
+
+    cfg: ArchConfig
+    pcfg: ParallelConfig
+    mesh_shape: dict
+    tp: int
+    batch: int
+    s_prompt: int
+    s_max: int
+    device: object = "cuda"
+
+    def __post_init__(self):
+        self.mesh_shape = dict(self.mesh_shape)
+        self.prefill_fn, self.prefill_ctx, _, self.bspec = \
+            stages.build_prefill(self.cfg, self.pcfg, self.mesh_shape,
+                                 self.batch, self.s_prompt,
+                                 device=self.device)
+        self.decode_fn, self.decode_ctx, _, _ = stages.build_decode_step(
+            self.cfg, self.pcfg, self.mesh_shape, s_max=self.s_max,
+            global_batch=self.batch, device=self.device)
+        self.out_spec = (self.bspec["tokens"][0],)
+
+    def stack_batch(self, batch: dict) -> dict:
+        """A batch of GLOBAL tensors (tokens (B, s_prompt), ...) ->
+        mesh-stacked on the session's device."""
+        dev = self.prefill_ctx.engine.device
+        return {k: stack_global(torch.as_tensor(v, device=dev),
+                                self.mesh_shape, self.bspec[k])
+                for k, v in batch.items()}
+
+    def generate(self, params, tokens, n_new: int):
+        """tokens: (B, s_prompt) -> (B, n_new) greedy continuation, a CPU
+        int32 tensor."""
+        batch = self.stack_batch({"tokens": tokens})
+        nxt, pf_caches = self.prefill_fn(params, batch)
+        caches = convert_prefill_caches(
+            pf_caches, self.cfg, self.pcfg, self.mesh_shape, self.tp,
+            self.batch, self.s_prompt, self.s_max)
+        del pf_caches
+        out = [nxt]
+        for i in range(n_new - 1):
+            nxt, caches = self.decode_fn(params, caches, nxt[..., None],
+                                         self.s_prompt + i)
+            out.append(nxt)
+        gen = torch.stack(out, dim=-1)                 # (*mesh, B_l, n)
+        return unstack(gen, self.mesh_shape, self.out_spec + (None,)).cpu()

@@ -549,3 +549,43 @@ def test_vecmat_4096_on_card(card):
     want = x.double() @ w.double()
     bound = gamma * (x.double().abs() @ w.double().abs())
     assert bool(((y.double() - want).abs() <= bound).all())
+
+
+def test_lm_decode_on_card_equals_cpu(card):
+    """The LM serving path on the card: 8 teacher-forced decode steps of
+    reduced qwen3-0.6b (fp32) on the (1, 2, 2) mesh give the CPU port's
+    tokens, with K1 launched once per engine allreduce (2 L + 3 per
+    step: the embedding, two per layer, the head's max and min)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.convert import stack_global, unstack
+    from repro_torch.parallel import stages
+    cfg = reduced_config(get_config("qwen3-0.6b"))
+    mesh = {"pod": 1, "data": 2, "model": 2}
+    pcfg = ParallelConfig()
+    params = stages.init_params(cfg, mesh, 2, seed=3, device="cpu",
+                                serve=True)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 8)).astype(np.int32))
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+
+    out = {}
+    for dev in ("cpu", card):
+        dstep, _, _, _ = stages.build_decode_step(
+            cfg, pcfg, mesh, s_max=8, global_batch=4, device=dev)
+        cache = stages.init_cache(cfg, pcfg, mesh, 2, 4, 8, device=dev)
+        p = to(params, dev)
+        before = fused_reduce.fused_combine.launches
+        preds = []
+        for t in range(8):
+            nxt, cache = dstep(p, cache, stack_global(
+                toks[:, t:t + 1].to(dev), mesh, (("data",), None)), t)
+            preds.append(unstack(nxt, mesh, (("data",),)).cpu())
+        out[str(dev)] = torch.stack(preds, 1)
+        launched = fused_reduce.fused_combine.launches - before
+        assert launched == (0 if dev == "cpu"
+                            else 8 * (2 * cfg.n_layers + 3))
+    assert torch.equal(out["cpu"], out[str(card)])

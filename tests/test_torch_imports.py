@@ -1,0 +1,53 @@
+"""The port stays free of jax and of the reference package.
+
+In a fresh interpreter with `jax` and `repro` blocked in `sys.modules`
+(any import of them raises), every module under `src/repro_torch/`
+(found by walking the package, so new modules are covered) and every
+module `chip_smoke.py` imports (found in its syntax tree, the imports
+inside its functions included) must import, and `chip_smoke` itself.
+"""
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_CHECK = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path[:0] = [{src!r}, {root!r}]
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names + {smoke!r} + ["chip_smoke"]:
+    importlib.import_module(name)
+leaked = [m for m, mod in sys.modules.items() if mod is not None and
+          m.split(".")[0] in ("jax", "jaxlib", "repro")]
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def _chip_smoke_imports() -> list:
+    """Absolute modules chip_smoke.py imports anywhere in its body."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+    return sorted(mods)
+
+
+def test_port_imports_without_jax_or_reference():
+    smoke = _chip_smoke_imports()
+    assert "repro_torch.runtime" in smoke and "torch" in smoke
+    code = _CHECK.format(src=str(ROOT / "src"), root=str(ROOT), smoke=smoke)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    # the package's modules, the LM stack's included
+    assert int(r.stdout.split()[-1]) >= 50
