@@ -7,7 +7,9 @@ of `seg_sweep` / `hier_sweep` in benchmarks/figures.py), distributed
 DLRM inference (the paper's use case 2) at the full width of the paper's
 Table 2 model, the offload queue with the paper's use case 1
 (distributed vector-matrix multiply), and LM serving (prefill and
-decode of qwen3-0.6b at full width) — ranks stacked on the card, and
+decode of qwen3-0.6b at full width, then of the MoE, SSM, hybrid and
+audio families: qwen3-moe-30b-a3b, mamba2-1.3b, hymba-1.5b and
+whisper-medium at full width) — ranks stacked on the card, and
 holds every kernel on those paths against its plain PyTorch version.
 Phases, one line each:
 
@@ -85,15 +87,47 @@ Phases, one line each:
      The tokens of runs A and B against a float64 single-copy forward
      (plain torch, weights unstacked): equal to its argmax wherever its
      top-1 leads its top-2 by more than 4 sqrt(2) eps rms(logits), eps =
-     2^-8 sqrt(10 L + 2) (`lm_eps`); run C's token by the same rule and
+     2^-8 sqrt(10 L + 2) (`lm_eps`), and everywhere a token whose logit
+     there lies within that margin of its best; run C's token by the
+     same rule and
      its caches within 4 eps of run A's; run D's tokens equal run A's on
      >= 85% of positions. Then prefill ms, the median decode step (CUDA
      events) and tokens/s at (4, 16, 8) and (32, 512, 32), with one
      step's and one prefill's device time by kernel group, idle share
      and top kernels.
+  9. lm_families: LM serving for the MoE, SSM, hybrid and audio
+     families at full width, params drawn on the card from --seed, each
+     model built, served, checked and timed, then freed: 9a
+     qwen3-moe-30b-a3b (12 of its 48 layers; 128 experts top-8 over EP
+     8 on the (1, 1, 8) mesh: two engine all-to-alls per layer, KV
+     replicated so the decode cache is sequence-sharded and merged by
+     the flash-combine), 9b mamba2-1.3b (48 layers), 9c hymba-1.5b (32
+     layers, 25 heads padded to 26, windowed and global layers), 9d
+     whisper-medium (24 + 24 layers over 1500 stub frames drawn from
+     --seed, through build_prefill, convert_prefill_caches and
+     build_decode_step with s_enc, as its session prefills tokens only),
+     9b-9d on the (1, 4, 2) mesh, all at (4, 16, 8) with the launcher's
+     moe_capacity_factor 8. Every K1 call BITWISE as it runs and
+     replayed on normal values; per decode step K1 launches equal to the
+     programs' count and the engine's collectives equal to the layouts'
+     (`fam_step_collectives`); tokens against a single-copy forward
+     through the port's own modules on the (1, 1, 1) mesh (float64;
+     float32 for 9a) by phase 8's margin rule with eps = 2^-8
+     sqrt(n_r), n_r counted per family (`lm_eps`); 9a's reference routes
+     as the served run did (its dropped assignments reported per layer)
+     and its own top-8 must equal the served choices wherever its
+     8th/9th logit gap clears the margin of the roundings up to that
+     layer (eps_i = `lm_eps(cfg, i + 1)`); 9b and 9c's prefill
+     conv/state within 4 sqrt(2) eps_i of layer i's largest entry of the
+     state teacher-forced decode reaches over the same prompt, reported
+     per layer. Then the phase 8 timings per model at (4, 16, 8) and at
+     a second shape whose 1024 generated tokens are held to the
+     reference by the same rules: (32, 512, 32) for 9a and 9b, (32, 16,
+     32) for 9c and 9d.
 
 Then one JSON line of the five kernels with their launches on every
-path (in total and by path: collectives, dlrm, vecmat, queue, lm), time, plain time, bound and library time (K4 also with the tile
+path (in total and by path: collectives, dlrm, vecmat, queue, lm,
+lm_families), time, plain time, bound and library time (K4 also with the tile
 configuration that ran and its achieved rate; K5 also its `lookup` entry
 at B = 32 and 2048, beside the device time of the sequence of PyTorch
 ops and `gather_rows` it replaced, `sequence_ms`). The last line is
@@ -1282,16 +1316,52 @@ _LM_GROUPS = (("fused_combine_kernel", "K1 fused_combine"),
               ("elementwise", "elementwise"), ("reduce", "reductions"))
 
 
-def lm_eps(cfg) -> float:
+# bf16 roundings of the residual stream per layer, by family (`lm_eps`)
+LM_ROUNDINGS = {"dense": 10, "vlm": 10, "moe": 11, "ssm": 16, "hybrid": 28,
+                "audio": 14}
+# families whose layers carry the stream's error forward with a gain, so
+# that the layers' errors add along the depth, not in quadrature (`lm_eps`)
+LM_COHERENT = ("moe",)
+
+
+def lm_eps(cfg, layers: int = None) -> float:
     """Relative error of the bf16 path's final hidden state against the
     float64 reference, as this script derives it: the residual stream
-    takes n_r = 10 L + 2 roundings to bf16 (per layer the outputs of the
-    q, k, v and o projections, of the attention, of the gate, up and down
-    projections and of the two residual adds; the embedding rows and the
-    final norm), each counted at the stream's full magnitude and at most
-    u = 2^-8 relative; as independent errors they add in quadrature:
-    eps = u sqrt(n_r) (0.0656 at 28 layers)."""
-    return BF16_U * (10 * cfg.n_layers + 2) ** 0.5
+    takes n_r roundings to bf16, each counted at the stream's full
+    magnitude and at most u = 2^-8 relative; as independent errors they
+    add in quadrature: eps = u sqrt(n_r). Per layer (`LM_ROUNDINGS`):
+    dense/vlm 10 — the outputs of the q, k, v and o projections, of the
+    attention, of the gate, up and down projections and of the two
+    residual adds; moe 11 — the experts' gate, up and down products
+    where the MLP's were, and the routed combine; ssm 16 — the
+    in-projection, the causal conv's 2 cw - 1 = 7 tap products and sums,
+    its silu, the SSD output, the skip add, silu(z), the gate product,
+    the gated norm, the out-projection and the residual add; hybrid 28 —
+    the attention's 5, the SSM's 15 (no add of its own), the two branch
+    norms and their mix, the MLP's 3 and two adds; audio 14 per decoder
+    layer (self-attention 5, the cross-attention's q and o projections
+    and attention 3, the MLP's 3, three adds) and 10 per encoder layer
+    (the decoder reads the encoder's output through every cross-attention
+    layer) plus 2 (the frames' positions, the encoder's norm). Plus 2 for
+    the embedding rows and the final norm: 10 L + 2 = 282 (eps 0.0656)
+    for qwen3-0.6b's 28 layers. With `layers` = i + 1, the error of a
+    quantity inside decoder layer i (an SSM carry, a router's logits): the
+    embedding's rounding and layers 0..i's, layer i counted whole (the
+    encoder's too, where there is one), no final norm.
+
+    A MoE layer (`LM_COHERENT`) carries the error it is handed forward
+    with a gain: its gates are a softmax of router logits, so a relative
+    error eps in the stream moves each gate, and the routed output with
+    it, by about eps rms(logits). The layers' errors then add along the
+    depth: eps = u (sqrt(11) L + sqrt(2)), each layer's u sqrt(11) summed
+    (PERF.md section 6 has the router gap errors that show it)."""
+    n = cfg.n_layers if layers is None else layers
+    rest = (2 if layers is None else 1) + (
+        LM_ROUNDINGS["dense"] * cfg.encoder_layers + 2
+        if cfg.encoder_layers else 0)
+    if cfg.family in LM_COHERENT:
+        return BF16_U * (LM_ROUNDINGS[cfg.family] ** 0.5 * n + rest ** 0.5)
+    return BF16_U * (LM_ROUNDINGS[cfg.family] * n + rest) ** 0.5
 
 
 def lm_margins(logits, cfg):
@@ -1307,17 +1377,10 @@ def lm_margins(logits, cfg):
 
 def lm_global(params, cfg, convert, stages):
     """The served params as single-copy float64 tensors on the card:
-    every leaf unstacked (`convert.unstack`) from the serving layout."""
-    specs = stages.param_specs(cfg, LM_TP, serve=True)
-
-    def walk(t, spec, layered):
-        if isinstance(t, dict):
-            return {k: walk(v, spec[k], layered) for k, v in t.items()}
-        if layered:
-            return torch.stack([convert.unstack(t[i], LM_MESH, spec[1:])
-                                for i in range(t.shape[0])]).double()
-        return convert.unstack(t, LM_MESH, spec).double()
-    return {k: walk(v, specs[k], k == "layers") for k, v in params.items()}
+    every leaf unstacked from the serving layout (`fam_single_copy`; of
+    its cuts only the vocab rows' applies at qwen3-0.6b's widths)."""
+    return fam_single_copy(params, cfg, LM_MESH, LM_TP, convert, stages,
+                           torch.float64, lead=False)
 
 
 def lm_reference_logits(G, cfg, toks):
@@ -1368,18 +1431,29 @@ def lm_reference_logits(G, cfg, toks):
 
 def lm_token_check(name, tokens, logits, cfg) -> dict:
     """tokens[b, t] must be the reference's argmax at position t wherever
-    the reference's top-1 beats its top-2 by more than the margin."""
+    the reference's top-1 beats its top-2 by more than the margin, and
+    everywhere a token whose reference logit lies within the margin of
+    the reference's best (the same noise bound: the served run picked
+    it, so the reference can rank it lower by no more than the gap
+    error)."""
     best, gap, margin = lm_margins(logits, cfg)
     clear = gap > margin
-    bad = clear & (tokens.to(best.device).long() != best)
+    toks = tokens.to(best.device).long()
+    bad = clear & (toks != best)
     if bool(bad.any()):
-        fail(f"lm {name}: {int(bad.sum())} tokens differ from the float64 "
+        fail(f"lm {name}: {int(bad.sum())} tokens differ from the "
              f"reference's argmax where its top-1 leads by more than the "
              f"margin")
-    agree = tokens.to(best.device).long() == best
+    deficit = (logits.gather(-1, best[..., None])
+               - logits.gather(-1, toks[..., None]))[..., 0] / margin
+    if bool((deficit > 1).any()):
+        fail(f"lm {name}: {int((deficit > 1).sum())} tokens rank more than "
+             f"the margin below the reference's best")
+    agree = toks == best
     return {"positions": int(gap.numel()), "compared": int(clear.sum()),
             "skipped": int((~clear).sum()),
             "agree_where_skipped": int((agree & ~clear).sum()),
+            "max_deficit_over_margin": float(deficit.max()),
             "median_gap_over_margin": float((gap / margin).median())}
 
 
@@ -1501,7 +1575,8 @@ def implied_k1(prog, shape) -> int:
 
 def lm_counted_steps(dstep, engine, ops, steps):
     """`dstep` wrapped to log, per call, (K1 launches, the K1 launches the
-    compiled programs it executed imply, allreduces among them)."""
+    compiled programs it executed imply, the engine's collectives among
+    them by name)."""
     real = engine._execute
     progs = []
 
@@ -1516,27 +1591,25 @@ def lm_counted_steps(dstep, engine, ops, steps):
         launched = ops.launch_counts()["fused_combine"] - k0
         implied = sum(implied_k1(s.compile(codec=c, verify=engine.verify),
                                  shape) for s, shape, c in progs)
-        steps.append((launched, implied,
-                      sum(s.collective == "allreduce" for s, _sh, _c in
-                          progs)))
+        colls: dict = {}
+        for s, _sh, _c in progs:
+            colls[s.collective] = colls.get(s.collective, 0) + 1
+        steps.append((launched, implied, colls))
         return out
 
     engine._execute = execute
     return step
 
 
-def lm_check_steps(name, steps, cfg) -> dict:
+def lm_check_steps(name, steps, want: dict) -> dict:
     """Each decode step launched K1 exactly as often as its programs
-    imply, and made 1 + 2 L + 2 allreduces (embedding, the attention and
-    MLP finishes of every layer, the head's max and min: KV heads shard
-    at tp 2, so no flash-combine)."""
-    want_ar = 1 + 2 * cfg.n_layers + 2
-    for t, (launched, implied, n_ar) in enumerate(steps):
-        if launched != implied or n_ar != want_ar:
+    imply and ran exactly the engine collectives `want` counts."""
+    for t, (launched, implied, colls) in enumerate(steps):
+        if launched != implied or colls != want:
             fail(f"lm {name} step {t}: {launched} K1 launches, {implied} "
-                 f"implied by its programs, {n_ar} allreduces "
-                 f"(want {want_ar})")
-    return {"steps": len(steps), "allreduces_per_step": want_ar,
+                 f"implied by its programs, collectives {colls} "
+                 f"(want {want})")
+    return {"steps": len(steps), "collectives_per_step": want,
             "k1_per_step": sorted({s[0] for s in steps}),
             "k1_implied_per_step": sorted({s[1] for s in steps})}
 
@@ -1717,8 +1790,12 @@ def phase_lm_serve(cfg, params, mods, ops, ref, counts, gen, seed: int):
           "launches": {k: counts[k] for k in ("lm_session", "lm_loop",
                                               "lm_prefill_sp",
                                               "lm_session_int8")},
-          "decode_steps": {k: lm_check_steps(k, v, cfg)
-                           for k, v in steps.items()},
+          # 1 + 2 L + 2 allreduces: the embedding, the attention and MLP
+          # finishes of every layer, the head's max and min (KV heads
+          # shard at tp 2, so no flash-combine)
+          "decode_steps": {k: lm_check_steps(
+              k, v, {"allreduce": 1 + 2 * cfg.n_layers + 2})
+              for k, v in steps.items()},
           "k1_checked_bitwise": len(log["k1"]),
           "k1_replayed_normal": replayed, "k4_checked": len(log["k4"]),
           "k4_max_abs_err": max(log["k4"]) if log["k4"] else None,
@@ -1733,53 +1810,643 @@ def phase_lm_serve(cfg, params, mods, ops, ref, counts, gen, seed: int):
     torch.cuda.empty_cache()
 
 
-def phase_lm_times(cfg, params, mods, reps: int, smi: str) -> None:
-    """Phase 8c: prefill ms, the median decode step (CUDA events) and
-    tokens/s = B / step at (4, 16, 8) and (32, 512, 32); one decode
-    step's device time by kernel group with the idle share."""
-    convert, stages, ServeSession, convert_prefill_caches, _launch = mods
-    from repro_torch.configs import ParallelConfig
-    pcfg = ParallelConfig()
+# --------------------------------------------------------------------------
+# Phase 9: LM serving for the MoE, SSM, hybrid and audio families
+# --------------------------------------------------------------------------
+
+FAM_WIDE = (32, 16, 32)      # 1024 generated positions, short prompt
+# run, arch, mesh, tp, depth (None: the config's), ParallelConfig fields,
+# the single-copy reference's dtype, the second (batch, prompt, gen) that
+# is timed and whose tokens are held to the reference too
+FAM_RUNS = (
+    # 12 of 48 layers: the full 61 GB model leaves no room for the
+    # single-copy reference beside it
+    ("9a", "qwen3-moe-30b-a3b", {"pod": 1, "data": 1, "model": 8}, 8, 12,
+     {}, torch.float32, LM_LARGE),
+    ("9b", "mamba2-1.3b", LM_MESH, LM_TP, None, {}, torch.float64,
+     LM_LARGE),
+    ("9c", "hymba-1.5b", LM_MESH, LM_TP, None, {}, torch.float64, FAM_WIDE),
+    # the reference's blocked attention needs blocks that divide S
+    ("9d", "whisper-medium", LM_MESH, LM_TP, None,
+     {"attn_q_block": 500, "attn_kv_block": 1500}, torch.float64, FAM_WIDE),
+)
+FAM_FRAMES = 1500            # Whisper's 30 s window of encoder positions
+FAM_MOE_CF = 8.0             # launch/serve.py's moe_capacity_factor
+FAM_REF_TOKENS = 4096        # positions per chunk of the reference forward
+_ONE = {"pod": 1, "data": 1, "model": 1}
+_FAM_GROUPS = _LM_GROUPS + (("sort", "sort (routing)"),
+                            ("scan", "scans (cumsum, cummax)"))
+
+
+def fam_step_collectives(cfg, tp: int, s_max: int, pcfg) -> dict:
+    """The engine collectives one decode step runs, from the layouts: per
+    attention layer an allreduce finishing the o-projection, plus, over a
+    sequence-sharded cache, the q allgather and the flash-combine's
+    three allreduces (max, sum, acc); per cross-attention one allreduce;
+    per SSM mixer two (the gated norm's mean-square, the out-projection);
+    per MLP one; per MoE layer two all-to-alls (dispatch, return); the
+    embedding one, the head's max and min two."""
+    from repro_torch.models.attention import kv_layout
+    from repro_torch.models.serve import layer_cache_len
+    _kv_l, kv_sharded = kv_layout(cfg, tp)
+    want = {"allreduce": 3}
+    for layer in range(cfg.n_layers):
+        n = 0
+        if cfg.family in ("ssm", "hybrid"):
+            n += 2
+        if cfg.family != "ssm":
+            length = layer_cache_len(cfg, layer, s_max)
+            n += 1 + (cfg.family != "moe") + bool(cfg.encoder_layers)
+            if (not kv_sharded) and pcfg.decode_seq_shard and \
+                    length % tp == 0:
+                n += 3
+                want["allgather"] = want.get("allgather", 0) + 1
+        if cfg.family == "moe":
+            want["alltoall"] = want.get("alltoall", 0) + 2
+        want["allreduce"] += n
+    return want
+
+
+def fam_single_copy(params, cfg, mesh, tp, convert, stages, dtype,
+                    lead: bool = True):
+    """The served params as one rank's model on the (1, 1, 1) mesh in
+    `dtype`: every leaf unstacked (`convert.unstack`), then the serving
+    layout's paddings cut (vocab rows, padded q heads, padded SSM
+    heads). lead=False: without the (1, 1, 1) mesh dims."""
+    from repro_torch.models.mlp import moe_factor
+    if cfg.family == "moe" and moe_factor(cfg, tp) > 1:
+        fail("a single copy of pseudo-experts would drop differently")
+    specs = stages.param_specs(cfg, tp, serve=True)
+    V, qd = cfg.vocab_size, cfg.n_heads * cfg.resolved_head_dim
+    di, nh = cfg.ssm_d_inner, cfg.ssm_n_heads
+    # (parent, leaf) -> (dim of the padded axis in the (L, ...) stack, size)
+    cut = {("attn", "wq"): (2, qd), ("attn", "wo"): (1, qd),
+           ("xattn", "wq"): (2, qd), ("xattn", "wo"): (1, qd),
+           ("ssm", "w_z"): (2, di), ("ssm", "w_x"): (2, di),
+           ("ssm", "w_dt"): (2, nh), ("ssm", "conv_x"): (2, di),
+           ("ssm", "a_log"): (1, nh), ("ssm", "dt_bias"): (1, nh),
+           ("ssm", "d_skip"): (1, nh), ("ssm", "norm"): (1, di),
+           ("ssm", "out_proj"): (1, di)}
+    one = (1, 1, 1) if lead else ()
+
+    def walk(t, spec, layered, name="", parent=""):
+        if isinstance(t, dict):
+            return {k: walk(v, spec[k], layered, k, name)
+                    for k, v in t.items()}
+        if layered:
+            g = torch.stack([convert.unstack(t[i], mesh, spec[1:])
+                             for i in range(t.shape[0])])
+            if (parent, name) in cut:
+                dim, size = cut[parent, name]
+                g = g.narrow(dim, 0, size)
+            return g.to(dtype).reshape(g.shape[:1] + one + g.shape[1:])
+        g = convert.unstack(t, mesh, spec)
+        if name in ("embed", "head"):
+            g = g[:V]
+        return g.to(dtype).reshape(one + g.shape)
+    return {k: walk(v, specs[k], k in ("layers", "enc_layers"), k)
+            for k, v in params.items()}
+
+
+def fam_reference_logits(G, cfg, pcfg, stages, lm_mod, toks, frames=None,
+                         start: int = 0, routes=None, routing=None):
+    """The single-copy forward through the port's own modules on the
+    (1, 1, 1) mesh (no collective, no kernel): logits (B, T - start,
+    vocab) at positions start.. of `toks` (B, T). Rows go through in
+    chunks of about FAM_REF_TOKENS positions (encoder frames included);
+    the causal forward of a row needs no other row. Its attention is one
+    block and its SSD one chunk over T where T exceeds them (both exact
+    rewrites; the served run keeps its blocks and chunks). With `routes`
+    (`moe_served_routes`), each chunk's MoE layers route as the served
+    run did (`moe_forced`), their routing tallies summed into
+    `routing`."""
+    from repro_torch.models import mlp as mlp_mod
+    dtype = G["final_norm"].dtype
+    B, T = toks.shape
+    pcfg = dataclasses.replace(pcfg, serving=True,
+                               attn_q_block=max(pcfg.attn_q_block, T),
+                               attn_kv_block=max(pcfg.attn_kv_block, T))
+    cfg = dataclasses.replace(cfg, ssm_chunk=max(cfg.ssm_chunk, T))
+    ctx = stages.make_ctx(cfg, pcfg, _ONE, "cuda")
+    w = (G["embed"] if cfg.tie_embeddings else G["head"])[0, 0, 0]
+    per_row = T + (0 if frames is None else frames.shape[1])
+    rows = max(1, FAM_REF_TOKENS // per_row)
+    out = []
+    for r0 in range(0, B, rows):
+        r = slice(r0, min(B, r0 + rows))
+        batch = {"tokens": toks[r][None, None, None]}
+        if frames is not None:
+            batch["frames"] = frames[r].to(dtype)[None, None, None]
+        forced = contextlib.nullcontext() if routes is None else moe_forced(
+            mlp_mod, [tuple(t[r] for t in lr) for lr in routes], cfg,
+            routing)
+        with torch.inference_mode(), forced:
+            x, _ = lm_mod.forward(G, batch, cfg, ctx)
+        out.append(x[0, 0, 0, :, start:] @ w.T)
+        del x
+    return torch.cat(out)[..., :cfg.vocab_size]
+
+
+@contextlib.contextmanager
+def moe_recording(mlp_mod, rec):
+    """While the block runs, log each routing of `moe_block`: its router
+    probabilities and expert choices (`top_k`) and its dispatch slots
+    (`_dispatch_indices`, -1 = dropped), stacked per rank."""
+    real_top, real_disp = mlp_mod.top_k, mlp_mod._dispatch_indices
+
+    def top_k(x, k):
+        vals, idx = real_top(x, k)
+        rec.append({"probs": x.clone(), "top_e": idx.clone()})
+        return vals, idx
+
+    def dispatch(ids, n, capacity):
+        slots = real_disp(ids, n, capacity)
+        rec[-1]["slots"] = slots.clone()
+        return slots
+    mlp_mod.top_k, mlp_mod._dispatch_indices = top_k, dispatch
+    try:
+        yield rec
+    finally:
+        mlp_mod.top_k, mlp_mod._dispatch_indices = real_top, real_disp
+
+
+def moe_served_routes(rec, cfg, mesh, B, P, steps, convert, stages):
+    """The served run's routing per layer in the single copy's token order:
+    expert choices and kept (not dropped) assignments (B, T, k) and
+    router probabilities (B, T, E) — the prefill's token-sharded
+    routings put back in sequence order, then one replicated routing per
+    decode step — and the dropped assignments per layer."""
+    L, k = cfg.n_layers, cfg.experts_per_token
+    if len(rec) != L * (1 + steps):
+        fail(f"lm 9a: {len(rec)} routings logged, want {L * (1 + steps)}")
+    dp = stages.dp_axes(mesh, B)
+    lead = tuple(mesh.values())
+    tp = mesh["model"]
+    routes, dropped = [], []
+    for layer in range(L):
+        parts, probs = [], []
+        for j in range(1 + steps):
+            r = rec[j * L + layer]
+            kept = (r["slots"] >= 0).reshape(r["top_e"].shape)
+            s_l = (P // tp) if j == 0 else 1
+            spec = (dp, "model" if j == 0 else None, None)
+            both = torch.stack([r["top_e"], kept.long()], dim=-1)
+            parts.append(convert.unstack(
+                both.reshape(lead + (-1, s_l, k, 2)), mesh, spec + (None,)))
+            probs.append(convert.unstack(
+                r["probs"].reshape(lead + (-1, s_l, cfg.n_experts)), mesh,
+                spec))
+        g = torch.cat(parts, dim=1)                    # (B, T, k, 2)
+        routes.append((g[..., 0], g[..., 1].bool(), torch.cat(probs, 1)))
+        dropped.append(int((~routes[-1][1]).sum()))
+    return routes, dropped
+
+
+@contextlib.contextmanager
+def moe_forced(mlp_mod, routes, cfg, stats):
+    """While the block runs, each `moe_block` (one per layer, in order)
+    routes as the served run did: the served expert choices, gated by
+    this run's own probabilities, and the served run's dropped
+    assignments dropped. `stats` (one dict per layer) sums, per layer,
+    this run's own top-k set against the served one wherever its k-th /
+    (k+1)-th logit gap clears the bf16 noise margin of the roundings up
+    to that layer (`lm_eps(cfg, layer + 1)`), and keeps the largest
+    error of the served run's gap between the same two experts and the
+    largest gap where the sets differ, both over the margin."""
+    real_top, real_disp = mlp_mod.top_k, mlp_mod._dispatch_indices
+    layer = [0]
+    k = cfg.experts_per_token
+
+    def top_k(probs, kk):
+        te, _keep, served = routes[layer[0]]
+        te = te.reshape(tuple(probs.shape[:-1]) + (kk,))
+        own_v, own_i = real_top(probs, kk + 1)
+        lp = torch.log(probs.double())
+        rms = (lp - lp.mean(-1, keepdim=True)).pow(2).mean(-1).sqrt()
+        gap = torch.log(own_v[..., k - 1].double()) \
+            - torch.log(own_v[..., k].double())
+        margin = LM_Z * 2 ** 0.5 * lm_eps(cfg, layer[0] + 1) * rms
+        clear = gap > margin
+        same_set = (own_i[..., :k].sort(-1).values
+                    == te.sort(-1).values).all(-1)
+        lps = torch.log(served.reshape(probs.shape).double())
+        served_gap = (lps.gather(-1, own_i[..., k - 1:k])
+                      - lps.gather(-1, own_i[..., k:k + 1]))[..., 0]
+        tally = stats[layer[0]]
+        for key, n in (("tokens", gap.numel()), ("compared", clear.sum()),
+                       ("equal_where_compared", (same_set & clear).sum()),
+                       ("equal_where_skipped", (same_set & ~clear).sum())):
+            tally[key] = tally.get(key, 0) + int(n)
+        for key, v in (("max_gap_err_over_margin",
+                        (served_gap - gap).abs() / margin),
+                       ("max_unequal_gap_over_margin",
+                        torch.where(same_set, 0.0, gap / margin))):
+            tally[key] = max(tally.get(key, 0.0), float(v.max()))
+        return torch.gather(probs, -1, te), te
+
+    def dispatch(ids, n, capacity):
+        slots = real_disp(ids, n, capacity)
+        keep = routes[layer[0]][1].reshape(slots.shape)
+        layer[0] += 1
+        return torch.where(keep, slots, -1)
+    mlp_mod.top_k, mlp_mod._dispatch_indices = top_k, dispatch
+    try:
+        yield
+    finally:
+        mlp_mod.top_k, mlp_mod._dispatch_indices = real_top, real_disp
+
+
+class FamServer:
+    """One family's serving entry points on the card: `ServeSession`
+    (prefill, handoff, decode) for 9a-9c, and the audio family through
+    its pieces — `stages.build_prefill` with frames,
+    `convert_prefill_caches(..., s_enc)` and
+    `stages.build_decode_step(s_enc=...)` — since the session prefills
+    tokens only (ROADMAP Queue 3)."""
+
+    def __init__(self, mods, cfg, pcfg, mesh, tp, B, P, Gn, frames=None):
+        convert, stages, ServeSession, convert_prefill_caches, _ = mods
+        self.mods, self.cfg, self.pcfg = mods, cfg, pcfg
+        self.mesh, self.tp, self.B, self.P, self.Gn = mesh, tp, B, P, Gn
+        self.frames = frames
+        self.s_enc = 0 if frames is None else frames.shape[1]
+        self.sess = None
+        if frames is None:
+            self.sess = ServeSession(cfg, pcfg, mesh, tp, B, P, P + Gn,
+                                     device="cuda")
+            self.prefill_fn = self.sess.prefill_fn
+            self.decode_fn = self.sess.decode_fn
+            self.decode_ctx, self.bspec = self.sess.decode_ctx, \
+                self.sess.bspec
+        else:
+            self.prefill_fn, _, _, self.bspec = stages.build_prefill(
+                cfg, pcfg, mesh, B, P, device="cuda")
+            self.decode_fn, self.decode_ctx, _, _ = \
+                stages.build_decode_step(cfg, pcfg, mesh, s_max=P + Gn,
+                                         global_batch=B, s_enc=self.s_enc,
+                                         device="cuda")
+
+    def wrap(self, prefill=None, decode=None):
+        if prefill is not None:
+            self.prefill_fn = prefill(self.prefill_fn)
+        if decode is not None:
+            self.decode_fn = decode(self.decode_fn)
+        if self.sess is not None:
+            self.sess.prefill_fn = self.prefill_fn
+            self.sess.decode_fn = self.decode_fn
+
+    def batch(self, prompt):
+        convert = self.mods[0]
+        b = {"tokens": prompt}
+        if self.frames is not None:
+            b["frames"] = self.frames
+        return {k: convert.stack_global(v, self.mesh, self.bspec[k])
+                for k, v in b.items()}
+
+    def handoff(self, pf_caches):
+        return self.mods[3](pf_caches, self.cfg, self.pcfg, self.mesh,
+                            self.tp, self.B, self.P, self.P + self.Gn,
+                            s_enc=self.s_enc)
+
+    def generate(self, params, prompt, n: int):
+        """(B, n) greedy tokens on the CPU."""
+        if self.sess is not None:
+            return self.sess.generate(params, prompt, n)
+        nxt, pf_caches = self.prefill_fn(params, self.batch(prompt))
+        caches = self.handoff(pf_caches)
+        del pf_caches
+        out = [nxt]
+        for i in range(n - 1):
+            nxt, caches = self.decode_fn(params, caches, nxt[..., None],
+                                         self.P + i)
+            out.append(nxt)
+        dp = self.bspec["tokens"][0]
+        return self.mods[0].unstack(torch.stack(out, dim=-1), self.mesh,
+                                    (dp, None)).cpu()
+
+
+def fam_frames(cfg, B, seed: int):
+    """Stub encoder frames (B, 1500, d) in bf16, drawn on the card
+    (`configs/whisper_medium.py` stubs the conv front end)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 9)
+    return torch.randn((B, FAM_FRAMES, cfg.d_model), generator=g,
+                       device="cuda").to(torch.bfloat16)
+
+
+def phase_fam_build(run, arch, mesh, tp, depth, get_config, stages,
+                    seed: int):
+    """Phase 9 (per model): the config, cut in depth where the row says
+    so, and its params drawn on the card from --seed."""
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    free0, total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    params = stages.init_params(cfg, mesh, tp, seed=seed, device="cuda",
+                                serve=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        else:
+            leaves.append(t)
+    walk(params)
+    free1, _ = torch.cuda.mem_get_info()
+    emit({"phase": "lm_families_build", "run": run, "arch": arch,
+          "reduced": None if depth is None else
+          {"n_layers": [get_config(arch).n_layers, depth]},
+          "config": dataclasses.asdict(cfg), "mesh": mesh, "tp": tp,
+          "stacked_param_bytes": sum(t.numel() * t.element_size()
+                                     for t in leaves),
+          "init_seconds": init_s, "mem_free_before": free0,
+          "mem_free_after": free1, "mem_total": total})
+    return cfg, params
+
+
+def fam_tokens(run, cfg, G, pcfg, mesh, mods, prompt, out, frames, rec,
+               start: int):
+    """`out` (B, Gn), served greedily from `prompt` (B, P), held to the
+    single copy `G`'s logits over prompt + out[:, :-1] from position
+    `start` (<= P - 1) by the margin rule (`lm_token_check`). The MoE
+    family's reference routes as the served run did (`rec`, logged by
+    `moe_recording`): its dropped assignments are reported per layer, and
+    its own top-k must equal the served one wherever its k-th / (k+1)-th
+    gap clears the margin of the roundings up to that layer. Returns (the
+    line's entries, the reference's logits)."""
+    convert, stages = mods[0], mods[1]
+    from repro_torch.models import lm as lm_mod
+    B, P = prompt.shape
+    Gn = out.shape[1]
+    seq = torch.cat([prompt, out[:, :-1].to("cuda")], dim=1)
+    line, routes, routing = {}, None, None
+    if cfg.family == "moe":
+        routes, dropped = moe_served_routes(rec, cfg, mesh, B, P, Gn - 1,
+                                            convert, stages)
+        # capacity = all tokens at factor E / k: the single copy drops
+        # only what the served run dropped
+        pcfg = dataclasses.replace(
+            pcfg, moe_capacity_factor=cfg.n_experts / cfg.experts_per_token)
+        routing = [{"layer": i} for i in range(cfg.n_layers)]
+    logits = fam_reference_logits(G, cfg, pcfg, stages, lm_mod, seq, frames,
+                                  start, routes, routing)
+    if routes is not None:
+        bad = [r for r in routing
+               if r["equal_where_compared"] != r["compared"]]
+        if bad:
+            fail(f"lm {run}: routing differs from the single copy's where "
+                 f"its top-k gap clears the margin: {bad}")
+        line["moe"] = {"dropped_per_layer": dropped,
+                       "assignments_per_layer":
+                           B * (P + Gn - 1) * cfg.experts_per_token,
+                       "routing": routing}
+    line["tokens"] = lm_token_check(f"{run} at B={B}", out,
+                                    logits[:, P - 1 - start:], cfg)
+    return line, logits
+
+
+def phase_fam_serve(run, cfg, params, mesh, tp, pcfg, ref_dtype, mods, ops,
+                    ref, counts, gen, seed: int):
+    """Phase 9 (per model) at (4, 16, 8): the session (or the audio
+    pieces), every K1 call held BITWISE as it runs and replayed on
+    normal values, K1 launches and collectives per decode step against
+    the programs and the layouts; tokens against the single-copy
+    reference by the margin rule (`fam_tokens`); the SSM handoff (9b,
+    9c) held as derived below."""
+    convert, stages, _sess, _conv, _launch = mods
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models import mlp as mlp_mod
+    B, P, Gn = LM_SMALL
+    dp = stages.dp_axes(mesh, B)
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                           device="cuda", dtype=torch.int32)
+    frames = fam_frames(cfg, B, seed) if cfg.encoder_layers else None
+    server = FamServer(mods, cfg, pcfg, mesh, tp, B, P, Gn, frames)
+    log = {"k1": [], "k4": []}
+    steps: dict = {"session": []}
+    seen: dict = {}
+
+    def keep_prefill(fn):
+        def pf(*a):
+            seen["nxt"], seen["caches"] = res = fn(*a)
+            return res
+        return pf
+    server.wrap(prefill=keep_prefill, decode=lambda fn: lm_counted_steps(
+        fn, server.decode_ctx.engine, ops, steps["session"]))
+    rec: list = []
+    ops.reset_launch_counts()
+    with lm_checked(ops, ref, log), moe_recording(mlp_mod, rec):
+        out = server.generate(params, prompt, Gn)
+        torch.cuda.synchronize()
+    counts[f"lm_families_{run}"] = ops.launch_counts()
+    del server.decode_ctx.engine._execute
+    if counts[f"lm_families_{run}"]["fused_combine"] < 1:
+        fail(f"lm {run}: no K1 launch")
+    line = {"phase": "lm_families_serve", "run": run,
+            "shape": {"batch": B, "prompt": P, "gen": Gn},
+            "path": "ServeSession" if frames is None else
+            "build_prefill(frames) + convert_prefill_caches(s_enc) + "
+            "build_decode_step(s_enc)"}
+
+    # the SSM handoff: prefill's conv/state against teacher-forced decode
+    # over the same prompt from zero carries. Both paths round the same
+    # stream differently from the embedding on, so layer i's carries
+    # differ by the noise of the roundings up to layer i: at most
+    # LM_Z sqrt(2) eps_i of the layer's largest entry, eps_i =
+    # lm_eps(cfg, i + 1). What the bound would let through is measured
+    # too: per layer, the carries decode held a token early and the
+    # handed-off ones halved, each against the same bound.
+    if cfg.family in ("ssm", "hybrid"):
+        dstep, dctx, _, _ = stages.build_decode_step(
+            cfg, pcfg, mesh, s_max=P + Gn, global_batch=B, device="cuda")
+        cache = stages.init_cache(cfg, pcfg, mesh, tp, B, P + Gn,
+                                  device="cuda")
+        steps["handoff"] = []
+        counted = lm_counted_steps(dstep, dctx.engine, ops, steps["handoff"])
+        ops.reset_launch_counts()
+        with lm_checked(ops, ref, log):
+            for t in range(P):
+                _nxt, cache = counted(params, cache, convert.stack_global(
+                    prompt[:, t:t + 1], mesh, (dp, None)), t)
+                if t == P - 2:
+                    early = [{k: c[k].double() for k in ("conv", "state")}
+                             for c in cache]
+            torch.cuda.synchronize()
+        counts[f"lm_families_{run}_handoff"] = ops.launch_counts()
+        del dctx.engine._execute
+        per_layer: dict = {"bound": [], "conv": [], "state": []}
+        caught = {f"{name}_{m}": 0 for name in ("conv", "state")
+                  for m in ("token_early", "halved")}
+        for i in range(cfg.n_layers):
+            bound = LM_Z * 2 ** 0.5 * lm_eps(cfg, i + 1)
+            per_layer["bound"].append(bound)
+            for name, stack in (("conv", seen["caches"][-2]),
+                                ("state", seen["caches"][-1])):
+                dec = cache[i][name].double()
+                got = stack[i].double()
+                d = float((got - dec).abs().max())
+                top = float(dec.abs().max())
+                if d > bound * top:
+                    fail(f"lm {run}: layer {i} prefill {name} differs from "
+                         f"teacher-forced decode's by {d} (largest entry "
+                         f"{top}, bound {bound * top})")
+                per_layer[name].append(d / top)
+                for m, wrong in (("token_early", early[i][name]),
+                                 ("halved", got / 2)):
+                    caught[f"{name}_{m}"] += bool(
+                        (wrong - dec).abs().max() > bound * top)
+        line["ssm_handoff"] = {
+            "bound": f"{LM_Z} sqrt(2) eps_i of layer i's largest entry, "
+                     f"eps_i = 2^-8 sqrt({LM_ROUNDINGS[cfg.family]} (i + 1) "
+                     f"+ 1)",
+            "max_rel_err": {k: max(per_layer[k]) for k in ("conv", "state")},
+            "max_err_over_bound": max(
+                e / b for k in ("conv", "state")
+                for e, b in zip(per_layer[k], per_layer["bound"])),
+            "layers_that_would_reject": caught, "per_layer": per_layer}
+        del cache, early
+    replayed = lm_replay_normal(ops, ref, log, gen)
+    want = fam_step_collectives(cfg, tp, P + Gn, pcfg)
+    line["decode_steps"] = {k: lm_check_steps(f"{run} {k}", v, want)
+                            for k, v in steps.items()}
+
+    # the single-copy reference on the session's own sequence
+    G = fam_single_copy(params, cfg, mesh, tp, convert, stages, ref_dtype)
+    checked, logits = fam_tokens(run, cfg, G, pcfg, mesh, mods, prompt, out,
+                                 frames, rec, 0)
+    line.update(checked)
+    if cfg.family != "moe":
+        # the bf16 forward's logit-gap error, against the margin
+        seq = torch.cat([prompt, out[:, :-1].to("cuda")], dim=1)
+        ctx = stages.make_ctx(cfg, dataclasses.replace(pcfg, serving=True),
+                              mesh, "cuda")
+        batch = {"tokens": convert.stack_global(seq, mesh, (dp, None))}
+        if frames is not None:
+            batch["frames"] = convert.stack_global(frames, mesh,
+                                                   (dp, None, None))
+        with torch.inference_mode():
+            x, _ = lm_mod.forward(params, batch, cfg, ctx)
+        x = convert.unstack(x, mesh, (dp, None, None)).to(logits.dtype)
+        w = G["embed"] if cfg.tie_embeddings else G["head"]
+        mine = (x @ w[0, 0, 0].T)[..., :cfg.vocab_size]
+        best, _gap, margin = lm_margins(logits, cfg)
+        top10 = logits.topk(10, dim=-1).indices
+        d_gap = ((mine.gather(-1, top10) - mine.gather(-1, best[..., None]))
+                 - (logits.gather(-1, top10)
+                    - logits.gather(-1, best[..., None]))).abs().amax(-1)
+        line["bf16_forward_gap_err_over_margin"] = float(
+            (d_gap / margin).max())
+        del x, mine
+    line.update({
+        "launches": counts[f"lm_families_{run}"],
+        "k1_checked_bitwise": len(log["k1"]), "k1_replayed_normal": replayed,
+        "margin": f"{LM_Z} sqrt(2) eps rms(logits), eps = 2^-8 sqrt(n_r) = "
+                  f"{lm_eps(cfg):.4f}",
+        "reference": f"the port's modules on the (1, 1, 1) mesh, "
+                     f"{str(ref_dtype).split('.')[-1]} weights",
+        "generated": out.tolist()})
+    emit(line)
+    del G, logits, seen, server
+    torch.cuda.empty_cache()
+
+
+def phase_fam_times(phase, run, cfg, params, mesh, tp, pcfg, shapes, mods,
+                    ops, reps: int, smi: str, check=None) -> None:
+    """Phases 8c and 9 (per model): prefill ms, the median decode step
+    (CUDA events, >= 10 steps), tokens/s = B / step and generate seconds
+    at each (batch, prompt, gen) of `shapes`, through `FamServer`, with
+    one decode step's and one prefill's device time by kernel group, the
+    idle share and the kernel launches of each. With `check` (prompt,
+    out, frames, rec) -> the row's entries, the tokens generated at
+    every shape after the first are held to the reference (the first's
+    were in the serve phase); a MoE model's routings are logged
+    (`moe_recording`) during that generate, which its seconds include."""
+    from repro_torch.models import mlp as mlp_mod
     rows = []
-    for B, P, Gn in (LM_SMALL, LM_LARGE):
-        sess = ServeSession(cfg, pcfg, LM_MESH, LM_TP, B, P, P + Gn,
-                            device="cuda")
+    for i, (B, P, Gn) in enumerate(shapes):
+        frames = fam_frames(cfg, B, B) if cfg.encoder_layers else None
+        server = FamServer(mods, cfg, pcfg, mesh, tp, B, P, Gn, frames)
         g = torch.Generator(device="cuda").manual_seed(B + P)
         prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
                                device="cuda", dtype=torch.int32)
-        batch = sess.stack_batch({"tokens": prompt})
+        batch = server.batch(prompt)
         torch.cuda.reset_peak_memory_stats()
-        pf_ms = median_ms(lambda: sess.prefill_fn(params, batch),
+        pf_ms = median_ms(lambda: server.prefill_fn(params, batch),
                           max(3, reps // 2))
-        nxt, pf_caches = sess.prefill_fn(params, batch)
-        caches = convert_prefill_caches(pf_caches, cfg, pcfg, LM_MESH,
-                                        LM_TP, B, P, P + Gn)
+        nxt, pf_caches = server.prefill_fn(params, batch)
+        caches = server.handoff(pf_caches)
         del pf_caches
         tok = nxt[..., None]
 
         def step():
-            return sess.decode_fn(params, caches, tok, P)
+            return server.decode_fn(params, caches, tok, P)
         step_ms = median_ms(step, max(reps, 10))
+        k0 = ops.launch_counts()["fused_combine"]
+        step()
+        k1_per_step = ops.launch_counts()["fused_combine"] - k0
+        checked = check is not None and i > 0
+        rec: list = []
         t0 = time.perf_counter()
-        gen = sess.generate(params, prompt, Gn)
+        with (moe_recording(mlp_mod, rec) if checked
+              else contextlib.nullcontext()):
+            out = server.generate(params, prompt, Gn)
         gen_s = time.perf_counter() - t0
-        if gen.shape != (B, Gn) or not bool(((gen >= 0)
-                                             & (gen < cfg.vocab_size)).all()):
-            fail(f"lm at B={B}: generated tokens {tuple(gen.shape)} out of "
-                 f"range")
+        if out.shape != (B, Gn) or not bool(((out >= 0)
+                                             & (out < cfg.vocab_size)).all()):
+            fail(f"lm {run} at B={B}: generated tokens {tuple(out.shape)} "
+                 f"out of range")
         rows.append({"batch": B, "prompt": P, "gen": Gn,
                      "prefill_ms": pf_ms, "decode_step_ms": step_ms,
                      "tokens_per_s": B / (step_ms / 1e3),
-                     "generate_s": gen_s,
+                     "generate_s": gen_s, "k1_per_step": k1_per_step,
                      "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                      "profile": busy_and_idle(device_split(
-                         step, _LM_GROUPS, top=8), step_ms),
+                         step, _FAM_GROUPS, top=8), step_ms),
                      "prefill_profile": busy_and_idle(device_split(
-                         lambda: sess.prefill_fn(params, batch), _LM_GROUPS,
-                         top=8), pf_ms)})
-        del sess, caches, batch, nxt, tok
+                         lambda: server.prefill_fn(params, batch),
+                         _FAM_GROUPS, top=8), pf_ms)})
+        del server, caches, batch, nxt, tok
         torch.cuda.empty_cache()
-    emit({"phase": "lm_times", "rows": rows, "card": smi})
+        if checked:
+            rows[-1].update(check(prompt, out, frames, rec))
+    emit({"phase": phase, "run": run, "arch": cfg.name, "rows": rows,
+          "card": smi})
+
+
+def phase_lm_families(get_config, mods, ops, ref, counts, gen, seed: int,
+                      reps: int, smi: str) -> None:
+    """Phase 9: each model of FAM_RUNS built, served and checked, timed
+    (its second shape's tokens checked too), then freed before the
+    next."""
+    convert, stages = mods[0], mods[1]
+    from repro_torch.configs import ParallelConfig
+    for run, arch, mesh, tp, depth, extra, ref_dtype, wide in FAM_RUNS:
+        t0 = time.perf_counter()
+        cfg, params = phase_fam_build(run, arch, mesh, tp, depth,
+                                      get_config, stages, seed)
+        pcfg = ParallelConfig(moe_capacity_factor=FAM_MOE_CF, **extra)
+        phase_fam_serve(run, cfg, params, mesh, tp, pcfg, ref_dtype, mods,
+                        ops, ref, counts, gen, seed)
+
+        def check(prompt, out, frames, rec):
+            G = fam_single_copy(params, cfg, mesh, tp, convert, stages,
+                                ref_dtype)
+            line, _logits = fam_tokens(run, cfg, G, pcfg, mesh, mods,
+                                       prompt, out, frames, rec,
+                                       prompt.shape[1] - 1)
+            del G, _logits
+            torch.cuda.empty_cache()
+            return line
+        phase_fam_times("lm_families_times", run, cfg, params, mesh, tp,
+                        pcfg, (LM_SMALL, wide), mods, ops, reps, smi, check)
+        del params, check
+        torch.cuda.empty_cache()
+        emit({"phase": "lm_families_done", "run": run,
+              "seconds": time.perf_counter() - t0})
 
 
 def main() -> int:
@@ -1799,7 +2466,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import convert
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ParallelConfig, get_config
     from repro_torch.configs.dlrm import CONFIG
     from repro_torch.core import CollectiveEngine, Sequencer
     from repro_torch.kernels import _build, ops, ref
@@ -1827,11 +2494,13 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_seconds": build_s,
           "built_now": _build.BUILD_SECONDS is not None})
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    mods = (convert, stages, ServeSession, convert_prefill_caches,
+            serve_launch)
+    counts: dict = {}
 
     err = phase_kernels(ops, ref, gen)                      # phase 2
     L = args.mib * 2**20 // 4
     X = int_inputs((NRANKS, L), gen)
-    counts: dict = {}
     runs = phase_main_fp32(CollectiveEngine, X, counts, ops)   # phase 3
     runs.update(phase_main_int8(CollectiveEngine, X, counts, ops, gen))
 
@@ -1862,20 +2531,25 @@ def main() -> int:
     # phase 8: LM serving, qwen3-0.6b at full width
     torch.cuda.empty_cache()
     lm_cfg = get_config(LM_ARCH)
-    mods = (convert, stages, ServeSession, convert_prefill_caches,
-            serve_launch)
     params = phase_lm_build(lm_cfg, stages, args.seed)
     phase_lm_serve(lm_cfg, params, mods, ops, ref, counts, gen, args.seed)
-    phase_lm_times(lm_cfg, params, mods, args.reps, smi)
+    phase_fam_times("lm_times", "8", lm_cfg, params, LM_MESH, LM_TP,
+                    ParallelConfig(), (LM_SMALL, LM_LARGE), mods, ops,
+                    args.reps, smi)
     del params
     torch.cuda.empty_cache()
+
+    # phase 9: LM serving for the MoE, SSM, hybrid and audio families
+    phase_lm_families(get_config, mods, ops, ref, counts, gen, args.seed,
+                      args.reps, smi)
     for row in rows:      # launches on every path's runs (K1 runs on all)
         row["launches"] = sum(c[row["name"]] for c in counts.values())
         if not row["launches"]:
             fail(f"the main path launched no {row['name']}")
         by_path: dict = {}
         for key, c in counts.items():
-            path = next((p for p in ("dlrm", "vecmat", "queue", "lm")
+            path = next((p for p in ("dlrm", "vecmat", "queue",
+                                     "lm_families", "lm")
                          if key.startswith(p)), "collectives")
             by_path[path] = by_path.get(path, 0) + c[row["name"]]
         row["launches_by_path"] = by_path

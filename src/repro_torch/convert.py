@@ -27,6 +27,7 @@ from repro_torch.models.dlrm import dlrm_specs
 from repro_torch.models.serve import prefill_cache_specs
 from repro_torch.parallel.stages import cache_specs, dp_axes, param_specs
 
+_LAYERED = ("layers", "enc_layers")     # param subtrees with a layer dim
 _ROW_TYPES = {"collective": str, "msg_bytes": int, "nranks": int,
               "algorithm": str, "protocol": str, "segments": int,
               "compressed": bool, "predicted_s": float}
@@ -184,7 +185,7 @@ def lm_params_from_jax(params_np, cfg, mesh_shape: dict, serve: bool = False,
     serving layout."""
     specs = param_specs(cfg, mesh_shape.get("model", 1), serve=serve)
     return {k: _tree_to_stacked(v, specs[k], mesh_shape, device,
-                                layered=k == "layers")
+                                layered=k in _LAYERED)
             for k, v in params_np.items()}
 
 
@@ -192,7 +193,7 @@ def lm_params_to_jax(params, cfg, mesh_shape: dict, serve: bool = False):
     """Inverse of `lm_params_from_jax`: the reference tree as numpy."""
     specs = param_specs(cfg, mesh_shape.get("model", 1), serve=serve)
     return {k: _tree_from_stacked(v, specs[k], mesh_shape,
-                                  layered=k == "layers")
+                                  layered=k in _LAYERED)
             for k, v in params.items()}
 
 

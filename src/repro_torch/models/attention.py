@@ -236,39 +236,50 @@ def attention_block(params, x, cfg: ArchConfig, ctx: ParCtx,
                     kv_block: int = 1024, return_kv: bool = False):
     """Prefill attention over local Q heads.
 
-    x: stacked (*mesh, B, S, D) (seq-sharded under SP). Returns the
-    stacked (*mesh, B, S, D) output, finished via row_parallel_finish
-    (and, with return_kv, the (k, v) cache this layer emits)."""
-    if kv_source is not None or acfg.cross:
-        raise NotImplementedError(
-            "cross-attention (the audio family's encoder stack) is not "
-            "ported yet: ROADMAP Queue 1 item 6b")
+    x: stacked (*mesh, B, S, D) (seq-sharded under SP); kv_source
+    (*mesh, B, S_kv, D) overrides the kv input (cross-attention: no rope
+    on either side). Returns the stacked (*mesh, B, S, D) output,
+    finished via row_parallel_finish (and, with return_kv, the (k, v)
+    cache this layer emits)."""
     L = ctx.lead
     hd = cfg.resolved_head_dim
     hp = padded_heads(cfg, ctx.tp)
     hl = hp // ctx.tp
     kv_l, kv_sharded = kv_layout(cfg, ctx.tp)
 
-    # fused QKV projection: ONE sequence gather / collective matmul feeds
-    # all three heads
-    w_q = ctx.gather_fsdp(params["wq"])
-    w_k = ctx.gather_fsdp(params["wk"])
-    w_v = ctx.gather_fsdp(params["wv"])
-    w_qkv = torch.cat([w_q, w_k, w_v], dim=-1)
-    qkv = ctx.col_parallel_matmul(x, w_qkv, pregathered=True)
-    d_q, d_k = w_q.shape[-1], w_k.shape[-1]
-    lead = tuple(qkv.shape[:L])
-    b, s = qkv.shape[L], qkv.shape[L + 1]
-    q = qkv[..., :d_q].reshape(lead + (b, s, hl, hd))
-    k = qkv[..., d_q:d_q + d_k].reshape(lead + (b, s, kv_l, hd))
-    v = qkv[..., d_q + d_k:].reshape(lead + (b, s, kv_l, hd))
+    if kv_source is None:
+        # fused QKV projection: ONE sequence gather / collective matmul
+        # feeds all three heads
+        w_q = ctx.gather_fsdp(params["wq"])
+        w_k = ctx.gather_fsdp(params["wk"])
+        w_v = ctx.gather_fsdp(params["wv"])
+        w_qkv = torch.cat([w_q, w_k, w_v], dim=-1)
+        qkv = ctx.col_parallel_matmul(x, w_qkv, pregathered=True)
+        d_q, d_k = w_q.shape[-1], w_k.shape[-1]
+        q = qkv[..., :d_q]
+        k = qkv[..., d_q:d_q + d_k]
+        v = qkv[..., d_q + d_k:]
+    else:
+        q = ctx.col_parallel_matmul(x, params["wq"])
+        k = ctx.dense(kv_source, params["wk"])
+        v = ctx.dense(kv_source, params["wv"])
+    lead = tuple(q.shape[:L])
+    b, s = q.shape[L], q.shape[L + 1]
+    skv = k.shape[L + 1]
+    q = q.reshape(lead + (b, s, hl, hd))
+    k = k.reshape(lead + (b, skv, kv_l, hd))
+    v = v.reshape(lead + (b, skv, kv_l, hd))
 
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if not acfg.cross:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
+    # the decode cache holds this layer's own kv heads (before any owner
+    # gather), the layout decode writes and reads
+    kc, vc = k, v
     # GQA group alignment: when KV heads replicate, every rank has all kv
     # heads and its local q heads belong to global groups: repeat kv to
     # the local q heads (each rank its own owners)
@@ -289,13 +300,15 @@ def attention_block(params, x, cfg: ArchConfig, ctx: ParCtx,
         return y
     # prefill cache emission, decode layout: seq-shard the cache over the
     # TP axis when KV heads replicate (the flash-combine decode path),
-    # else keep the full sequence with local KV heads. As in the
-    # reference, a replicated-KV cache holds each rank's owner-gathered
-    # heads.
-    if (not kv_sharded) and ctx.pcfg.decode_seq_shard and ctx.tp > 1 \
-            and s % ctx.tp == 0:
-        sl = s // ctx.tp
-        kc, vc = ctx.tp_slice(k, sl, dim=1), ctx.tp_slice(v, sl, dim=1)
-    else:
-        kc, vc = k, v
+    # else keep the full sequence with local KV heads. A replicated-KV
+    # cache holds the n_kv heads themselves, as decode's does; the
+    # reference's holds each rank's owner-gathered heads, which decode
+    # then misreads (ROADMAP Queue 3). The static cross cache stays whole:
+    # decode reads it full-length (the reference seq-shards it too, Queue
+    # 3).
+    if (not kv_sharded) and kv_source is None \
+            and ctx.pcfg.decode_seq_shard and ctx.tp > 1 \
+            and skv % ctx.tp == 0:
+        sl = skv // ctx.tp
+        kc, vc = ctx.tp_slice(kc, sl, dim=1), ctx.tp_slice(vc, sl, dim=1)
     return y, (kc, vc)

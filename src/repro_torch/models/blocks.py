@@ -1,4 +1,4 @@
-"""Transformer blocks for the dense and VLM families + the layer stack.
+"""Transformer blocks per family + the layer stack.
 
 Port of `repro/models/blocks.py`. Where the layer dim sits: a
 layer-stacked param leaf is (L, *mesh, *local) — the layer dim leads,
@@ -12,12 +12,14 @@ The reference scans the stack with `lax.scan` under remat and
 `checkpoint_name` so its compiled body stays O(1) in depth; PyTorch runs
 eagerly, so the port loops over the layers in Python (remat is a
 training concern, ROADMAP Queue 1 item 6c). Per-layer windows are Python
-ints (`window_per_layer`).
+ints (`window_per_layer`): hymba's global layers ignore the window.
 
-The `moe`, `ssm`, `hybrid` and `audio` families' layers wait for ROADMAP
-Queue 1 item 6b: `layer_params` and `layer_forward` raise
-`NotImplementedError` for them (`check_family`), so such an arch never
-falls through to a dense layer.
+Families: dense and vlm (attention + SwiGLU), moe (attention + the
+routed experts, `mlp.moe_block`), ssm (the Mamba2 mixer alone,
+`models/ssm.py`), hybrid (attention and the Mamba2 mixer in parallel on
+the same normed input, mixed as 0.5 x (norm(attn) + norm(ssm)), then
+the MLP), audio (a dense decoder whose layers add cross-attention to
+the encoder output) and its encoder (dense, non-causal).
 """
 from __future__ import annotations
 
@@ -29,27 +31,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnConfig, attention_block
 from repro_torch.models.common import Builder, rms_norm
 from repro_torch.parallel.ops import ParCtx
-
-SERVED_FAMILIES = ("dense", "vlm")
-_DEFERRED = {
-    "moe": "the MoE layer and its engine all-to-all dispatch",
-    "ssm": "the Mamba2 mixer (models/ssm.py)",
-    "hybrid": "the Mamba2 mixer (models/ssm.py)",
-    "audio": "the encoder stack and cross-attention",
-    "encoder": "the encoder stack and cross-attention",
-}
-
-
-def check_family(family: str) -> None:
-    """Raise unless the port runs this family's layers."""
-    if family not in SERVED_FAMILIES:
-        what = _DEFERRED.get(family, f"family {family!r}")
-        raise NotImplementedError(
-            f"family {family!r} is not ported yet: {what} waits for "
-            f"ROADMAP Queue 1 item 6b")
 
 
 def _map_tree(fn, tree):
@@ -86,14 +71,25 @@ def layer_slice(stack_params, i: int):
 def layer_params(b: Builder, cfg: ArchConfig, tp: int, cross: bool = False,
                  family: Optional[str] = None):
     family = family or cfg.family
-    check_family("audio" if cross else family)
     d = cfg.d_model
-    return {
-        "norm1": b.param((d,), (None,), init="ones"),
-        "attn": attn_mod.attn_params(b, cfg, tp),
-        "norm2": b.param((d,), (None,), init="ones"),
-        "mlp": mlp_mod.mlp_params(b, cfg),
-    }
+    p = {"norm1": b.param((d,), (None,), init="ones")}
+    if family == "ssm":
+        p["ssm"] = ssm_mod.ssm_params(b, cfg, tp)
+        return p
+    p["attn"] = attn_mod.attn_params(b, cfg, tp)
+    p["norm2"] = b.param((d,), (None,), init="ones")
+    if family == "moe":
+        p["moe"] = mlp_mod.moe_params(b, cfg, tp)
+    else:
+        p["mlp"] = mlp_mod.mlp_params(b, cfg)
+    if family == "hybrid":
+        p["ssm"] = ssm_mod.ssm_params(b, cfg, tp)
+        p["norm_attn_out"] = b.param((d,), (None,), init="ones")
+        p["norm_ssm_out"] = b.param((d,), (None,), init="ones")
+    if cross:
+        p["xattn"] = attn_mod.attn_params(b, cfg, tp)
+        p["norm_x"] = b.param((d,), (None,), init="ones")
+    return p
 
 
 # --------------------------------------------------------------------------
@@ -112,19 +108,50 @@ def layer_forward(lp, x, cfg: ArchConfig, ctx: ParCtx, io: LayerIO,
                   collect_cache: bool = False):
     """One block. Returns (x, moe_probs_or_None, cache_tuple)."""
     family = family or cfg.family
-    check_family(family)
     pc = ctx.pcfg
+    aux = None
     cache = ()
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if family == "ssm":
+        y, (conv, st) = ssm_mod.ssm_mixer(lp["ssm"], h, cfg, ctx)
+        if collect_cache:
+            cache = (conv, st)
+        return x + y, aux, cache
+
+    acfg = AttnConfig(causal=causal)
     y = attention_block(
-        lp["attn"], h, cfg, ctx, AttnConfig(causal=causal), io.positions,
-        window=io.window, q_block=pc.attn_q_block,
-        kv_block=pc.attn_kv_block, return_kv=collect_cache)
+        lp["attn"], h, cfg, ctx, acfg, io.positions, window=io.window,
+        q_block=pc.attn_q_block, kv_block=pc.attn_kv_block,
+        return_kv=collect_cache)
     if collect_cache:
         y, cache = y
+    if family == "hybrid":
+        s_out, (conv, st) = ssm_mod.ssm_mixer(lp["ssm"], h, cfg, ctx)
+        if collect_cache:
+            cache = cache + (conv, st)
+        y = 0.5 * (rms_norm(y, lp["norm_attn_out"], cfg.norm_eps)
+                   + rms_norm(s_out, lp["norm_ssm_out"], cfg.norm_eps))
     x = x + y
+
+    if "xattn" in lp:
+        hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
+        y = attention_block(
+            lp["xattn"], hx, cfg, ctx, AttnConfig(causal=False, cross=True),
+            io.positions, kv_source=io.enc_out,
+            q_block=pc.attn_q_block, kv_block=pc.attn_kv_block,
+            return_kv=collect_cache)
+        if collect_cache:
+            y, xkv = y
+            cache = cache + xkv
+        x = x + y
+
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + mlp_mod.mlp_block(lp["mlp"], h, cfg, ctx), None, cache
+    if family == "moe":
+        y, aux = mlp_mod.moe_block(lp["moe"], h, cfg, ctx,
+                                   pc.moe_capacity_factor)
+    else:
+        y = mlp_mod.mlp_block(lp["mlp"], h, cfg, ctx)
+    return x + y, aux, cache
 
 
 def window_per_layer(cfg: ArchConfig, n_layers: int) -> list:
@@ -141,23 +168,31 @@ def window_per_layer(cfg: ArchConfig, n_layers: int) -> list:
 def stack_forward(stack_params, x, cfg: ArchConfig, ctx: ParCtx,
                   positions, *, causal=True, enc_out=None,
                   family: Optional[str] = None, collect_cache: bool = False):
-    """Run the layer stack, one layer after another.
+    """Run the layer stack, one layer after another (family "encoder":
+    the audio encoder's dense layers).
 
     Returns (x, moe_aux_loss, caches) — caches is a tuple of layer-stacked
     (L, *mesh, *local) tensors when collect_cache (prefill), else ().
-    The aux loss is 0: no served family routes experts.
+    The aux loss is stacked per rank (*mesh,): the switch-style balance
+    term E * sum(mean router prob ** 2) of each rank's routed tokens,
+    averaged over the layers (0 without experts).
     """
     family = family or cfg.family
-    check_family(family)
-    windows = window_per_layer(cfg, cfg.n_layers)
-    cache_list = []
-    for i in range(cfg.n_layers):
+    n_layers = cfg.encoder_layers if family == "encoder" else cfg.n_layers
+    fam = "dense" if family == "encoder" else family
+    windows = window_per_layer(cfg, n_layers)
+    cache_list, aux_terms = [], []
+    for i in range(n_layers):
         io = LayerIO(window=windows[i], positions=positions, enc_out=enc_out)
-        x, _aux, cache = layer_forward(layer_slice(stack_params, i), x, cfg,
-                                       ctx, io, causal=causal, family=family,
-                                       collect_cache=collect_cache)
+        x, aux, cache = layer_forward(layer_slice(stack_params, i), x, cfg,
+                                      ctx, io, causal=causal, family=fam,
+                                      collect_cache=collect_cache)
         cache_list.append(cache)
+        if aux is not None:
+            pe = aux.mean(-2)          # (*mesh, E) mean router prob
+            aux_terms.append(cfg.n_experts * torch.sum(pe * pe, dim=-1))
     caches = tuple(torch.stack(leaves) for leaves in zip(*cache_list)) \
         if collect_cache else ()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux, caches
+    aux_loss = torch.stack(aux_terms).mean(0) if aux_terms else \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux_loss, caches

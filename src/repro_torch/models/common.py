@@ -13,8 +13,9 @@ Spec conventions are the reference's over the mesh (pod, data, model):
 an axis absent from a spec means the param is replicated over it.
 
 Init laws are the reference's: "normal" is N(0, 1) * scale with a
-default scale of 1/sqrt(shape[0]) (1 for a 1-D param), "zeros" and
-"ones" (the SSM laws wait for `models/ssm.py`, ROADMAP Queue 1 item 6b).
+default scale of 1/sqrt(shape[0]) (1 for a 1-D param), "zeros", "ones",
+and the Mamba2 laws: "ssm_a" (A_log = log U(1, 16)) and "ssm_dt" (dt_bias
+= softplus^-1 U(1e-3, 1e-1) = log expm1 U(1e-3, 1e-1)), both fp32.
 A stacked param draws one shard per distinct position on the axes its
 spec names and copies it over the axes it does not, so replicas are
 equal; the draw is made in place on the device, so a large table is
@@ -81,13 +82,19 @@ class Builder:
             return torch.zeros(lead + local, dtype=dtype, device=self.device)
         if init == "ones":
             return torch.ones(lead + local, dtype=dtype, device=self.device)
-        if init != "normal":
-            raise ValueError(init)
-        if scale is None:
-            scale = 1.0 / math.sqrt(shape[0] if len(shape) > 1 else 1.0)
         t = torch.empty(draw_lead + local, dtype=torch.float32,
                         device=self.device)
-        t.normal_(0.0, scale, generator=self.generator)
+        if init == "normal":
+            if scale is None:
+                scale = 1.0 / math.sqrt(shape[0] if len(shape) > 1 else 1.0)
+            t.normal_(0.0, scale, generator=self.generator)
+        elif init == "ssm_a":      # mamba A_log in [log 1, log 16]
+            t = t.uniform_(1.0, 16.0, generator=self.generator).log_()
+        elif init == "ssm_dt":     # dt bias ~ softplus^-1(U(1e-3, 1e-1))
+            t = t.uniform_(1e-3, 1e-1, generator=self.generator).expm1_()
+            t = t.log_()
+        else:
+            raise ValueError(init)
         return t.to(dtype).expand(lead + local).contiguous()
 
 
@@ -111,8 +118,8 @@ def _trailing(w, ndim: int):
 
 def rms_norm(x, weight, eps: float = 1e-6):
     """RMSNorm over the last dim (the reference's TP-sharded variant,
-    `psum_axis`, serves the SSM mixer and waits for ROADMAP Queue 1 item
-    6b)."""
+    `psum_axis`, has no caller there: the SSM's gated norm reduces its own
+    mean-square, `models/ssm.py`)."""
     xf = x.float()
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(ms + eps)

@@ -1,8 +1,8 @@
 """LM assembly: embeddings, the vocab-parallel greedy head, the forward.
 
-Port of `repro/models/lm.py` for serving (the loss, `lm_head_ce` and
-`loss_fn`, waits for training, ROADMAP Queue 1 item 6c; the audio
-encoder stack for item 6b).
+Port of `repro/models/lm.py` for serving, the audio family's encoder
+stack included (the loss, `lm_head_ce` and `loss_fn`, waits for
+training, ROADMAP Queue 1 item 6c).
 
 Sharding summary (mesh pod x data x model), as the reference's:
   embedding/head (V, D): V over 'model' (vocab-parallel), D over 'data'
@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.blocks import layer_params, stack_forward, stacked
-from repro_torch.models.common import Builder, rms_norm
+from repro_torch.models.common import Builder, rms_norm, sinusoidal_positions
 from repro_torch.parallel.ops import ParCtx
 
 # the greedy head carries token ids through the engine's fp32 max
@@ -47,6 +47,11 @@ def model_params(b: Builder, cfg: ArchConfig, tp: int):
     }
     if not cfg.tie_embeddings:
         p["head"] = b.param((vp, d), ("model", "data"), scale=0.02)
+    if cfg.encoder_layers:
+        p["enc_layers"] = stacked(
+            b, cfg.encoder_layers,
+            lambda bb: layer_params(bb, cfg, tp, family="dense"))
+        p["enc_norm"] = b.param((d,), (None,), init="ones")
     return p
 
 
@@ -127,18 +132,30 @@ def lm_head_sample(params, x, cfg: ArchConfig, ctx: ParCtx):
 # --------------------------------------------------------------------------
 
 def _input_stream(params, batch, cfg: ArchConfig, ctx: ParCtx):
-    """Token embeddings with family-specific prefixes; returns (x, enc_out)."""
+    """Token embeddings with family-specific prefixes; returns (x, enc_out).
+    The audio family's stub frames (*mesh, B, S_enc, D) run the encoder
+    stack (sinusoidal positions, non-causal dense layers) into enc_out,
+    full-sequence on every rank."""
+    enc_out = None
     if cfg.encoder_layers:
-        raise NotImplementedError(
-            "the audio encoder stack is not ported yet: ROADMAP Queue 1 "
-            "item 6b")
+        frames = batch["frames"]
+        s_enc = frames.shape[ctx.lead + 1]
+        pe = sinusoidal_positions(s_enc, cfg.d_model, device=frames.device)
+        h = frames + pe.to(frames.dtype)
+        # the encoder stream is sequence-sharded under SP exactly like the
+        # decoder stream (blocks re-gather at their boundaries)
+        h, _, _ = stack_forward(params["enc_layers"], sp_slice(h, ctx), cfg,
+                                ctx, torch.arange(s_enc, device=h.device),
+                                causal=False, family="encoder")
+        h = ctx.sp_allgather_seq(h)   # cross-attention needs full seq
+        enc_out = rms_norm(h, params["enc_norm"], cfg.norm_eps)
     x = embed_tokens(params, batch["tokens"], cfg, ctx)
     if cfg.family == "vlm" and "vis_embed" in batch:
         L = ctx.lead
         vis = batch["vis_embed"]
         nv = vis.shape[L + 1]
         x = torch.cat([vis.to(x.dtype), x[..., nv:, :]], dim=L + 1)
-    return x, None
+    return x, enc_out
 
 
 def sp_slice(x, ctx: ParCtx):

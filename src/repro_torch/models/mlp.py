@@ -1,10 +1,20 @@
-"""Dense SwiGLU MLP.
+"""Dense SwiGLU MLP and MoE layer with engine all-to-all dispatch.
 
-Port of `repro/models/mlp.py::mlp_params` and `mlp_block`. The MoE layer
-and its engine all-to-all dispatch (`mlp.py:50-178` of the reference)
-wait for ROADMAP Queue 1 item 6b.
+Port of `repro/models/mlp.py`. MoE expert parallelism rides the TP axis.
+When n_experts < ep ranks, each expert is split into f = ep/n_experts
+*pseudo-experts* along d_ff — exact for SwiGLU because silu/mul act
+elementwise per hidden unit and the w2 partial products sum linearly.
+
+Dispatch is sort-based with a capacity limit (assignments beyond
+capacity drop, Switch-style), then one engine all-to-all over the EP
+axis each way. Routing and dispatch run batched over the stacked ranks:
+each rank's router, sort and capacity slots are rows of one tensor, and
+`ctx.engine.alltoall` takes the stacked dispatch buffer. The top-k keeps
+`jax.lax.top_k`'s tie order explicitly (`top_k`).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -34,3 +44,152 @@ def mlp_block(params, x, cfg: ArchConfig, ctx: ParCtx):
     w2 = ctx.gather_fsdp(params["w2"], dim=1)
     y = local_matmul(h, w2.to(h.dtype), ctx.lead)
     return ctx.row_parallel_finish(y)
+
+
+# --------------------------------------------------------------------------
+# MoE
+# --------------------------------------------------------------------------
+
+def moe_factor(cfg: ArchConfig, ep: int) -> int:
+    """Pseudo-expert split factor f (Mixtral on 16 ranks: f=2)."""
+    if cfg.n_experts >= ep:
+        if cfg.n_experts % ep:
+            raise ValueError(f"{cfg.n_experts} experts on {ep} ranks")
+        return 1
+    if ep % cfg.n_experts:
+        raise ValueError(f"{cfg.n_experts} experts on {ep} ranks")
+    return ep // cfg.n_experts
+
+
+def moe_params(b: Builder, cfg: ArchConfig, ep: int):
+    d, f_ff, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    fac = moe_factor(cfg, ep)
+    e_eff, f_eff = e * fac, f_ff // fac
+    return {
+        "router": b.param((d, e), ("data", None)),
+        "w1": b.param((e_eff, d, f_eff), ("model", "data", None)),
+        "w3": b.param((e_eff, d, f_eff), ("model", "data", None)),
+        "w2": b.param((e_eff, f_eff, d), ("model", None, "data")),
+    }
+
+
+def top_k(x, k: int):
+    """`jax.lax.top_k` over the last dim: the k largest values and their
+    indices, largest first, the LOWER index first among equal values
+    (`torch.topk` promises no order among ties): a stable descending
+    sort keeps the original order of equal values. jax also orders -0
+    below +0, which this sort takes as equal: the router's softmax
+    probabilities are never -0."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _dispatch_indices(expert_ids, n_experts: int, capacity: int):
+    """Sort-based capacity dispatch, batched over leading dims.
+
+    expert_ids: (..., A) integer assignment slots. Returns
+    slot_for_assignment (..., A) in [0, n_experts*capacity) or -1 if
+    dropped: within each expert, assignments keep their order and the
+    first `capacity` are kept.
+    """
+    a = expert_ids.shape[-1]
+    order = torch.argsort(expert_ids, dim=-1, stable=True)
+    sorted_e = torch.gather(expert_ids, -1, order)
+    # position within each expert group = idx - (running max of
+    # group-start idx)
+    seg_start = torch.zeros_like(sorted_e, dtype=torch.bool)
+    seg_start[..., 1:] = sorted_e[..., 1:] != sorted_e[..., :-1]
+    idx = torch.arange(a, device=expert_ids.device).expand_as(sorted_e)
+    start_idx = torch.where(seg_start, idx, 0)
+    start_idx = torch.cummax(start_idx, dim=-1).values
+    pos_in_group = idx - start_idx
+    keep = pos_in_group < capacity
+    slot_sorted = torch.where(keep, sorted_e * capacity + pos_in_group, -1)
+    return torch.empty_like(slot_sorted).scatter_(-1, order, slot_sorted)
+
+
+def moe_block(params, x, cfg: ArchConfig, ctx: ParCtx,
+              capacity_factor: float = 1.25, dropless: bool = False):
+    """x: stacked (*mesh, B, S, D) -> (the same, router probs (*mesh, T,
+    E)). EP all-to-all over the TP axis.
+
+    Tokens are sequence-sharded across the EP group before dispatch so
+    each token is routed exactly once (no TP-redundant expert compute);
+    outputs are re-gathered unless SP already keeps the stream sharded.
+    Falls back to replicated dispatch when S doesn't divide (tiny decode
+    steps): every rank then routes all of its tokens, as the reference's
+    does.
+    """
+    L = ctx.lead
+    ep = ctx.tp
+    fac = moe_factor(cfg, ep)
+    e, k = cfg.n_experts, cfg.experts_per_token
+    e_eff = e * fac
+    s_in = x.shape[L + 1]
+    token_sharded = ctx.pcfg.sequence_parallel
+    regather = False
+    if not token_sharded and ep > 1 and s_in % ep == 0:
+        x = ctx.tp_slice(x, s_in // ep, dim=1)
+        token_sharded, regather = True, True
+    lead = tuple(x.shape[:L])
+    b, s, d = x.shape[L:]
+    t = b * s
+    xt = x.reshape(lead + (t, d))
+
+    router = ctx.gather_fsdp(params["router"])
+    logits = local_matmul(xt.float(), router.float(), L)
+    probs = torch.softmax(logits, dim=-1)
+    gate, top_e = top_k(probs, k)                       # (*mesh, t, k)
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+
+    # pseudo-expert expansion: token -> f slots per routed expert
+    top_pe = (top_e[..., None] * fac + torch.arange(fac, device=x.device)
+              ).reshape(lead + (t, k * fac))
+    gate_pe = torch.repeat_interleave(gate, fac, dim=-1)
+
+    if dropless:
+        # serving: 4x-expected headroom, capped at the true-dropless bound
+        expected = -(-t * k * fac // e_eff)  # ceil
+        capacity = min(t * k * fac, max(1, expected * 4))
+    else:
+        capacity = int(max(1, round(t * k * capacity_factor / e)))
+    # per-rank buffer (e_eff * capacity, d)
+    slots = _dispatch_indices(top_pe.reshape(lead + (-1,)), e_eff, capacity)
+    valid = slots >= 0
+    G = math.prod(lead)
+    ec = e_eff * capacity
+    base = torch.arange(G, device=x.device).reshape(lead + (1,)) * ec
+    rows = (base + torch.where(valid, slots, ec - 1)).reshape(-1)
+    src = torch.repeat_interleave(xt, k * fac, dim=-2)
+    src = torch.where(valid[..., None], src, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+    buf = x.new_zeros((G * ec, d)).index_add_(0, rows, src.reshape(-1, d))
+    buf = buf.reshape(lead + (ec, d))
+
+    # EP all-to-all: (e_eff*cap, d) -> rows grouped by source rank
+    recv = ctx.engine.alltoall(buf, ctx.tp_axis)       # (ep * el * cap, d)
+    el = e_eff // ep
+    recv = recv.reshape(lead + (ep, el, capacity, d)).transpose(L, L + 1)
+    recv = recv.reshape(lead + (el, ep * capacity, d))
+
+    w1 = ctx.gather_fsdp(params["w1"], 1)
+    w3 = ctx.gather_fsdp(params["w3"], 1)
+    w2 = ctx.gather_fsdp(params["w2"], 2)
+    h = silu(torch.matmul(recv, w1.to(recv.dtype)))
+    h = h * torch.matmul(recv, w3.to(recv.dtype))
+    out = torch.matmul(h, w2.to(h.dtype))
+
+    # reverse all-to-all
+    out = out.reshape(lead + (el, ep, capacity, d)).transpose(L, L + 1)
+    back = ctx.engine.alltoall(out.reshape(lead + (ec, d)), ctx.tp_axis)
+
+    # combine: gather each assignment's slot, weight, sum over k*fac
+    safe = torch.where(valid, slots, 0)
+    picked = ctx.take(back, safe, dim=0) * valid[..., None].to(back.dtype)
+    picked = picked.reshape(lead + (t, k * fac, d))
+    y = torch.einsum("...tkd,...tk->...td", picked.float(), gate_pe.float())
+    y = y.to(x.dtype).reshape(lead + (b, s, d))
+    if regather:  # non-SP callers expect the full sequence back
+        flat = ctx.engine.allgather(y.transpose(L, L + 1), ctx.tp_axis)
+        y = flat.reshape(lead + (s_in, b, d)).transpose(L, L + 1)
+    return y, probs

@@ -1,8 +1,6 @@
 """Serving: prefill + single-token decode over sharded caches.
 
-Port of `repro/models/serve.py` for the dense and VLM families (the SSM
-state and the audio cross-attention cache wait for ROADMAP Queue 1 item
-6b: `make_cache` and `decode_step` raise for those families and MoE).
+Port of `repro/models/serve.py`, every family.
 
 Decode cache layouts (per attention layer), as the reference's:
   seq-sharded   (B, len/tp, KV, hd) over 'model' — every rank computes all
@@ -14,14 +12,22 @@ Decode cache layouts (per attention layer), as the reference's:
                 as above; slot->position recovered arithmetically for the
                 mask, so RoPE is applied before caching and slot order
                 never matters.
+  cross (audio) the static encoder k/v `xk`/`xv` (B, S_enc, KV, hd),
+                written by prefill, never sequence-sharded.
+
+SSM layers carry (conv_state, ssm_state) — O(1) in the sequence; their
+global layout is the reference's: `conv` the concatenation of the
+per-rank channel blocks (each rank's x part, then the replicated bc
+part) sharded over 'model', `state` (B, H, n, P) fp32 with H sharded.
 
 Every tensor is mesh-stacked; a cache leaf is (*mesh, B_local, len_local,
 KV_local, hd). Where the reference takes a per-rank offset
 (`tp_rank()`) — the slot a sequence-sharded cache writes, its slots'
 positions, the head slice — each stacked row gets its own offset from
 `ParCtx.tp_rank`. `decode_step` writes the new token's k/v into the
-caches IN PLACE (the reference returns new arrays and donates the old
-ones) and returns the same cache dicts.
+caches IN PLACE and replaces the SSM carries in each layer's dict (the
+reference returns new arrays and donates the old ones); it returns the
+same cache dicts.
 """
 from __future__ import annotations
 
@@ -29,11 +35,12 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
     decode_attention, kv_layout, kv_owner, padded_heads,
 )
 from repro_torch.models.blocks import (
-    check_family, layer_slice, stack_forward, window_per_layer,
+    layer_slice, stack_forward, window_per_layer,
 )
 from repro_torch.models.common import Builder, rms_norm, rope
 from repro_torch.models.lm import (
@@ -70,42 +77,79 @@ def make_cache(b: Builder, cfg: ArchConfig, tp: int, batch: int,
     """Full decode-cache tree (list per layer): stacked zero tensors
     (init mode) or their specs. Shapes are GLOBAL before the Builder
     shards them; dp=None replicates the batch dim."""
-    check_family(cfg.family)
     caches = []
     for layer in range(cfg.n_layers):
-        length = layer_cache_len(cfg, layer, s_max)
-        shp, spec = attn_cache_params(b, cfg, tp, dp, length,
-                                      pcfg.decode_seq_shard)
-        shp = (batch,) + shp[1:]
-        q8 = pcfg.kv_cache_dtype == "int8"
-        kdt = torch.int8 if q8 else None
-        entry = {"k": b.param(shp, spec, init="zeros", dtype=kdt),
-                 "v": b.param(shp, spec, init="zeros", dtype=kdt)}
-        if q8:
-            # one symmetric scale per (slot, kv head) — the unary
-            # compression plugin applied to cache storage
-            sshp, sspec = shp[:3], spec[:3]
-            entry["k_scale"] = b.param(sshp, sspec, init="zeros",
-                                       dtype=torch.float32)
-            entry["v_scale"] = b.param(sshp, sspec, init="zeros",
-                                       dtype=torch.float32)
+        entry = {}
+        if cfg.has_attention:
+            length = layer_cache_len(cfg, layer, s_max)
+            shp, spec = attn_cache_params(b, cfg, tp, dp, length,
+                                          pcfg.decode_seq_shard)
+            shp = (batch,) + shp[1:]
+            q8 = pcfg.kv_cache_dtype == "int8"
+            kdt = torch.int8 if q8 else None
+            entry["k"] = b.param(shp, spec, init="zeros", dtype=kdt)
+            entry["v"] = b.param(shp, spec, init="zeros", dtype=kdt)
+            if q8:
+                # one symmetric scale per (slot, kv head) — the unary
+                # compression plugin applied to cache storage
+                sshp, sspec = shp[:3], spec[:3]
+                entry["k_scale"] = b.param(sshp, sspec, init="zeros",
+                                           dtype=torch.float32)
+                entry["v_scale"] = b.param(sshp, sspec, init="zeros",
+                                           dtype=torch.float32)
+            if cfg.encoder_layers and s_enc:
+                xshp, xspec = attn_cache_params(b, cfg, tp, dp, s_enc,
+                                                False)
+                xshp = (batch,) + xshp[1:]
+                entry["xk"] = b.param(xshp, xspec, init="zeros")
+                entry["xv"] = b.param(xshp, xspec, init="zeros")
+        if cfg.family in ("ssm", "hybrid"):
+            nh_p = ssm_mod.padded_ssm_heads(cfg, tp)
+            di_l = nh_p * cfg.ssm_head_dim // tp
+            # conv channels are TP-local (x-part sharded, bc-part
+            # replicated); globally the cache is the concat of the
+            # per-rank local states, sharded back out on use.
+            chan_global = tp * (di_l + 2 * cfg.ssm_state)
+            m = "model" if tp > 1 else None
+            entry["conv"] = b.param(
+                (batch, cfg.ssm_conv - 1, chan_global), (dp, None, m),
+                init="zeros")
+            entry["state"] = b.param(
+                (batch, nh_p, cfg.ssm_state, cfg.ssm_head_dim),
+                (dp, m, None, None), init="zeros", dtype=torch.float32)
         caches.append(entry)
     return caches
+
+
+def prefill_cache_names(cfg: ArchConfig) -> tuple:
+    """The caches prefill emits, in order, by family (each a layer-stacked
+    leaf of its decode cache's name)."""
+    if cfg.family == "ssm":
+        return ("conv", "state")
+    if cfg.family == "hybrid":
+        return ("k", "v", "conv", "state")
+    if cfg.encoder_layers:
+        return ("k", "v", "xk", "xv")
+    return ("k", "v")
 
 
 def prefill_cache_specs(cfg: ArchConfig, pcfg, tp: int, s: int,
                         dp=("pod", "data")):
     """Specs of the layer-stacked caches prefill emits (leading layer dim;
-    uniform full-sequence layout across layers)."""
-    check_family(cfg.family)
+    uniform full-sequence layout across layers), in the order of
+    `prefill_cache_names`."""
     _kv_l, kv_sharded = kv_layout(cfg, tp)
+    m = "model" if tp > 1 else None
     if kv_sharded:
         kv = (None, dp, None, "model", None)
     elif pcfg.decode_seq_shard and tp > 1 and s % tp == 0:
         kv = (None, dp, "model", None, None)
     else:
         kv = (None, dp, None, None, None)
-    return (kv, kv)
+    xkv = (None, dp, None, "model" if kv_sharded else None, None)
+    specs = {"k": kv, "v": kv, "conv": (None, dp, None, m),
+             "state": (None, dp, m, None, None), "xk": xkv, "xv": xkv}
+    return tuple(specs[name] for name in prefill_cache_names(cfg))
 
 
 # --------------------------------------------------------------------------
@@ -166,11 +210,9 @@ def _write(buf, new, cl, ok, lead: int) -> None:
 def attn_decode(lp, h, cache, cfg: ArchConfig, ctx: ParCtx, pos: int,
                 window: int, s_max: int, cross: bool = False):
     """h: stacked (*mesh, B, 1, D) normed input. Returns (y (*mesh, B, 1,
-    D), the cache dict with this token's k/v written in place)."""
-    if cross:
-        raise NotImplementedError(
-            "the cross-attention cache is not ported yet: ROADMAP Queue 1 "
-            "item 6b")
+    D), the cache dict with this token's k/v written in place). cross:
+    attend over the static encoder cache `xk`/`xv` (no rope, no write,
+    every slot visible)."""
     L = ctx.lead
     hd = cfg.resolved_head_dim
     tp = ctx.tp
@@ -179,49 +221,58 @@ def attn_decode(lp, h, cache, cfg: ArchConfig, ctx: ParCtx, pos: int,
     kv_l, kv_sharded = kv_layout(cfg, tp)
     lead = tuple(h.shape[:L])
     bsz = h.shape[L]
-    params = lp["attn"]
+    params = lp["xattn"] if cross else lp["attn"]
+    kname, vname = ("xk", "xv") if cross else ("k", "v")
     rank = ctx.tp_rank(1)                              # (*mesh, 1)
     positions = torch.tensor([pos], device=h.device)
 
     q = ctx.dense(h, params["wq"]).reshape(lead + (bsz, 1, hl, hd))
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)[..., 0, :, :]  # (B, hl, hd)
+    if not cross:
+        q = rope(q, positions, cfg.rope_theta)
+    q = q[..., 0, :, :]                                # (B, hl, hd)
 
-    k_cache, v_cache = cache["k"], cache["v"]
+    k_cache, v_cache = cache[kname], cache[vname]
     local_len = k_cache.shape[L + 1]
-    # mirror make_cache's layout decision exactly
-    length_total = min(window, s_max) if (window and window < s_max) \
-        else s_max
-    seq_sharded = (not kv_sharded) and ctx.pcfg.decode_seq_shard \
-        and tp > 1 and (length_total % tp == 0)
-    if local_len != (length_total // tp if seq_sharded else length_total):
-        raise ValueError(f"cache of local length {local_len} does not fit "
-                         f"{length_total} slots (seq-sharded: "
-                         f"{seq_sharded})")
-
-    quant = k_cache.dtype == torch.int8
-    k_new = ctx.dense(h, params["wk"]).reshape(lead + (bsz, 1, kv_l, hd))
-    v_new = ctx.dense(h, params["wv"]).reshape(lead + (bsz, 1, kv_l, hd))
-    if cfg.qk_norm:
-        k_new = rms_norm(k_new, params["k_norm"], cfg.norm_eps)
-    k_new = rope(k_new, positions, cfg.rope_theta)
-    rolling = bool(window) and window < s_max   # cache len == window
-    slot, slot_pos = _slot_and_positions(length_total, rolling, pos,
-                                         local_len, rank, seq_sharded)
-    local_slot = slot - rank[..., 0] * (local_len if seq_sharded else 0)
-    ok = (local_slot >= 0) & (local_slot < local_len)
-    cl = torch.clamp(local_slot, 0, local_len - 1)
-    if quant:
-        kq, ks = quantize_kv(k_new)
-        vq, vs = quantize_kv(v_new)
-        _write(k_cache, kq, cl, ok, L)
-        _write(v_cache, vq, cl, ok, L)
-        _write(cache["k_scale"], ks, cl, ok, L)
-        _write(cache["v_scale"], vs, cl, ok, L)
+    quant = (not cross) and k_cache.dtype == torch.int8
+    if cross:
+        # static cross-attention cache: its own length, never seq-sharded
+        seq_sharded = False
+        slot_pos = torch.arange(local_len, device=h.device)
+        pos = 2 ** 30
     else:
-        _write(k_cache, k_new, cl, ok, L)
-        _write(v_cache, v_new, cl, ok, L)
+        # mirror make_cache's layout decision exactly
+        length_total = min(window, s_max) if (window and window < s_max) \
+            else s_max
+        seq_sharded = (not kv_sharded) and ctx.pcfg.decode_seq_shard \
+            and tp > 1 and (length_total % tp == 0)
+        if local_len != (length_total // tp if seq_sharded
+                         else length_total):
+            raise ValueError(f"cache of local length {local_len} does not "
+                             f"fit {length_total} slots (seq-sharded: "
+                             f"{seq_sharded})")
+        k_new = ctx.dense(h, params["wk"]).reshape(lead + (bsz, 1, kv_l, hd))
+        v_new = ctx.dense(h, params["wv"]).reshape(lead + (bsz, 1, kv_l, hd))
+        if cfg.qk_norm:
+            k_new = rms_norm(k_new, params["k_norm"], cfg.norm_eps)
+        k_new = rope(k_new, positions, cfg.rope_theta)
+        rolling = bool(window) and window < s_max   # cache len == window
+        slot, slot_pos = _slot_and_positions(length_total, rolling, pos,
+                                             local_len, rank, seq_sharded)
+        local_slot = slot - rank[..., 0] * (local_len if seq_sharded else 0)
+        ok = (local_slot >= 0) & (local_slot < local_len)
+        cl = torch.clamp(local_slot, 0, local_len - 1)
+        if quant:
+            kq, ks = quantize_kv(k_new)
+            vq, vs = quantize_kv(v_new)
+            _write(k_cache, kq, cl, ok, L)
+            _write(v_cache, vq, cl, ok, L)
+            _write(cache["k_scale"], ks, cl, ok, L)
+            _write(cache["v_scale"], vs, cl, ok, L)
+        else:
+            _write(k_cache, k_new, cl, ok, L)
+            _write(v_cache, v_new, cl, ok, L)
 
     # flash-combine path needs all (padded) q heads on every rank
     if seq_sharded:
@@ -274,19 +325,41 @@ def decode_step(params, caches, tokens, pos: int, cfg: ArchConfig,
     """One greedy decode step. tokens: stacked (*mesh, B, 1); pos: the
     position being written.
 
-    Returns (next_tokens stacked (*mesh, B), caches written in place).
+    Returns (next_tokens stacked (*mesh, B), caches updated in place).
     """
-    check_family(cfg.family)
     windows = window_per_layer(cfg, cfg.n_layers)
     x = embed_tokens(params, tokens, cfg, ctx)
     for i in range(cfg.n_layers):
         lp = layer_slice(params["layers"], i)
+        cache = caches[i]
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        y, caches[i] = attn_decode(lp, h, caches[i], cfg, ctx, pos,
-                                   windows[i], s_max)
+        if cfg.family == "ssm":
+            y, (cache["conv"], cache["state"]) = ssm_mod.ssm_mixer(
+                lp["ssm"], h, cfg, ctx, conv_state=cache["conv"],
+                ssm_state=cache["state"], decode=True)
+            x = x + y
+            continue
+        y, _ = attn_decode(lp, h, cache, cfg, ctx, pos, windows[i], s_max)
+        if cfg.family == "hybrid":
+            s_out, (cache["conv"], cache["state"]) = ssm_mod.ssm_mixer(
+                lp["ssm"], h, cfg, ctx, conv_state=cache["conv"],
+                ssm_state=cache["state"], decode=True)
+            y = 0.5 * (rms_norm(y, lp["norm_attn_out"], cfg.norm_eps)
+                       + rms_norm(s_out, lp["norm_ssm_out"], cfg.norm_eps))
         x = x + y
+        if "xattn" in lp:
+            hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
+            y, _ = attn_decode(lp, hx, cache, cfg, ctx, pos, 0, s_max,
+                               cross=True)
+            x = x + y
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + mlp_mod.mlp_block(lp["mlp"], h2, cfg, ctx)
+        if cfg.family == "moe":
+            y, _ = mlp_mod.moe_block(lp["moe"], h2, cfg, ctx,
+                                     ctx.pcfg.moe_capacity_factor,
+                                     dropless=True)
+        else:
+            y = mlp_mod.mlp_block(lp["mlp"], h2, cfg, ctx)
+        x = x + y
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     nxt = lm_head_sample(params, x[..., 0, :], cfg, ctx)
     return nxt, caches

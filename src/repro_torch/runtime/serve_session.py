@@ -8,6 +8,14 @@ device: each layer's stacked prefill cache is unstacked
 (`convert.unstack`), rearranged, and stacked again with the decode
 layout (`convert.stack_global`) — no trip through the host.
 
+The SSM carries and the audio family's cross cache come out of prefill
+in decode's own layout and carry over as they are. As the reference's,
+the session prefills tokens only and builds decode without an encoder
+cache, so it serves every family but audio (whose prefill needs
+`frames`): that family is served through `stages.build_prefill`, this
+module's `convert_prefill_caches(..., s_enc=...)` and
+`stages.build_decode_step(..., s_enc=...)` (ROADMAP Queue 3).
+
 With `kv_cache_dtype="int8"` (which the reference's session refuses)
 the handoff quantizes each prompt slot with the decode write's own
 quantizer (`serve.quantize_kv`), so the decode caches hold what a decode
@@ -23,7 +31,7 @@ from repro_torch.configs.base import ArchConfig, ParallelConfig
 from repro_torch.convert import stack_global, unstack
 from repro_torch.models.blocks import window_per_layer
 from repro_torch.models.serve import (
-    layer_cache_len, prefill_cache_specs, quantize_kv,
+    layer_cache_len, prefill_cache_names, prefill_cache_specs, quantize_kv,
 )
 from repro_torch.parallel import stages
 
@@ -33,16 +41,25 @@ def convert_prefill_caches(prefill_caches, cfg: ArchConfig,
                            batch: int, s_prompt: int, s_max: int,
                            s_enc: int = 0):
     """Rearrange prefill's layer-stacked caches into decode's per-layer
-    layout (int8 with its scales when pcfg.kv_cache_dtype says so)."""
+    layout (int8 with its scales when pcfg.kv_cache_dtype says so). Per
+    family, as the reference's: the attention k/v are placed at s_max
+    (SWA windows rolled); the SSM `conv`/`state` and the audio cross
+    cache `xk`/`xv` carry over as they are (prefill emits them in
+    decode's layout)."""
     windows = window_per_layer(cfg, cfg.n_layers)
     dp = stages.dp_axes(mesh_shape, batch)
     decode_specs = stages.cache_specs(cfg, pcfg, tp, s_max, s_enc=s_enc,
                                       dp=dp)
     pf_spec = prefill_cache_specs(cfg, pcfg, tp, s_prompt, dp=dp)[0][1:]
     q8 = pcfg.kv_cache_dtype == "int8"
-    k_all, v_all = prefill_caches
+    stacks = dict(zip(prefill_cache_names(cfg), prefill_caches))
     caches = []
     for layer in range(cfg.n_layers):
+        entry = {name: stacks[name][layer].clone()
+                 for name in ("conv", "state", "xk", "xv") if name in stacks}
+        if "k" not in stacks:
+            caches.append(entry)
+            continue
         length = layer_cache_len(cfg, layer, s_max)
         w = windows[layer]
         if w and w < s_max:
@@ -52,10 +69,9 @@ def convert_prefill_caches(prefill_caches, cfg: ArchConfig,
             slots = pos % length
         else:
             pos = slots = torch.arange(s_prompt)
-        entry = {}
-        for name, stack in (("k", k_all), ("v", v_all)):
-            g = unstack(stack[layer], mesh_shape, pf_spec)  # (B, S_p, ..)
-            src = g[:, pos.to(g.device)]
+        for name in ("k", "v"):
+            g = unstack(stacks[name][layer], mesh_shape, pf_spec)
+            src = g[:, pos.to(g.device)]                  # (B, S_p, ...)
             shape = (batch, length) + tuple(g.shape[2:])
             spec = decode_specs[layer][name]
             if q8:

@@ -589,3 +589,36 @@ def test_lm_decode_on_card_equals_cpu(card):
         assert launched == (0 if dev == "cpu"
                             else 8 * (2 * cfg.n_layers + 3))
     assert torch.equal(out["cpu"], out[str(card)])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "mixtral-8x7b"])
+def test_lm_families_served_on_card_equal_cpu(card, arch):
+    """The SSM and MoE families served on the card (reduced, fp32, the
+    (1, 2, 2) mesh): ServeSession's tokens (prefill, the SSM carries' or
+    the KV handoff, dropless MoE decode through the engine's
+    all-to-alls) equal the same session on the CPU, and K1 launches on
+    the card only."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.parallel import stages
+    from repro_torch.runtime import ServeSession
+    cfg = reduced_config(get_config(arch))
+    mesh = {"pod": 1, "data": 2, "model": 2}
+    pcfg = ParallelConfig(moe_capacity_factor=8.0)
+    params = stages.init_params(cfg, mesh, 2, seed=4, device="cpu",
+                                serve=True)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 8)).astype(np.int32))
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+
+    out = {}
+    for dev in ("cpu", card):
+        sess = ServeSession(cfg, pcfg, mesh, 2, 4, 8, 14, device=dev)
+        before = fused_reduce.fused_combine.launches
+        out[str(dev)] = sess.generate(to(params, dev), prompt, 6)
+        launched = fused_reduce.fused_combine.launches - before
+        assert (launched == 0) == (dev == "cpu")
+    assert torch.equal(out["cpu"], out[str(card)])
