@@ -9,7 +9,8 @@ Table 2 model, the offload queue with the paper's use case 1
 (distributed vector-matrix multiply), and LM serving (prefill and
 decode of qwen3-0.6b at full width, then of the MoE, SSM, hybrid and
 audio families: qwen3-moe-30b-a3b, mamba2-1.3b, hymba-1.5b and
-whisper-medium at full width) — ranks stacked on the card, and
+whisper-medium at full width) and LM training (qwen3-0.6b at full
+width: the train step and the `Trainer`) — ranks stacked on the card, and
 holds every kernel on those paths against its plain PyTorch version.
 Phases, one line each:
 
@@ -124,10 +125,36 @@ Phases, one line each:
      a second shape whose 1024 generated tokens are held to the
      reference by the same rules: (32, 512, 32) for 9a and 9b, (32, 16,
      32) for 9c and 9d.
+ 10. train: qwen3-0.6b trained at full width and depth (28 layers, bf16
+     params, fp32 AdamW state: 9.6 GB stacked) on `launch/train.py`'s
+     (1, 4, 2) mesh (FSDP over data, TP 2), params drawn on the card from
+     --seed, AdamW at lr 3e-4 under `cosine_warmup`, batches from the
+     port's `SyntheticLM`, deterministic algorithms on. 10a: one step at
+     (8, 64) (remat none, the queue): ce_mean within 4 sqrt(2) eps
+     rms(logits) (`lm_eps`) and every synced gradient leaf within a
+     relative L2 error eps_g (`train_eps`) of a single copy through the
+     port's modules on the (1, 1, 1) mesh over float64 weights; the
+     grads x 2, x 0.5 and one data rank's contribution each rejected by
+     that bound; every K1 call BITWISE as it runs and replayed on normal
+     values; the engine collectives of the forward, backward, sync and
+     clip equal to the layout's (`train_layout_collectives`,
+     `train_bucket_collectives`) and K1 per phase to the programs'; the
+     synced replicas equal; the AdamW update within TRAIN_ADAMW_ULPS of
+     the plain update on the CPU. 10b: int8 grad compression, one K2 and
+     one K3 launch per compressed exchange, synced grads within the
+     codec's bound of 10a's. 10c: sequence parallelism + the collective
+     matmul, every K4 call within its bound, grads within eps_g of the
+     reference. 10d: remat full, grads BITWISE 10a's and the forward /
+     backward peak lower. 10e: the `Trainer` through `launch/train.py`'s
+     code path, 8 steps, checkpoints every 4, a failure injected at step
+     6: the ce_mean trajectory equal to an uninterrupted run's within
+     1e-5. Then the median step, tokens/s, peak memory, launches, one
+     step's device time by kernel group and by phase and the idle share
+     at (8, 64) and (8, 512).
 
 Then one JSON line of the five kernels with their launches on every
 path (in total and by path: collectives, dlrm, vecmat, queue, lm,
-lm_families), time, plain time, bound and library time (K4 also with the tile
+lm_families, train), time, plain time, bound and library time (K4 also with the tile
 configuration that ran and its achieved rate; K5 also its `lookup` entry
 at B = 32 and 2048, beside the device time of the sequence of PyTorch
 ops and `gather_rows` it replaced, `sequence_ms`). The last line is
@@ -2449,6 +2476,744 @@ def phase_lm_families(get_config, mods, ops, ref, counts, gen, seed: int,
               "seconds": time.perf_counter() - t0})
 
 
+# --------------------------------------------------------------------------
+# Phase 10: LM training
+# --------------------------------------------------------------------------
+
+TRAIN_SMALL = (8, 64)         # launch/train.py's (batch, seq)
+TRAIN_LARGE = (8, 512)
+TRAIN_LR = 3e-4               # launch/train.py's --lr
+TRAIN_WARMUP = 20             # launch/train.py's cosine_warmup(s, 20, steps)
+TRAIN_STEPS = 8               # 10e: the Trainer's total_steps
+TRAIN_CKPT_EVERY = 4
+TRAIN_FAIL_AT = 6
+TRAIN_RECOVERY_TOL = 1e-5     # tests/test_runtime.py::test_failure_recovery_exact
+TRAIN_SYNC_ROUNDINGS = 4      # bf16 roundings of a synced gradient (`train_eps`)
+# master/m/v on the card vs the CPU update, in ulps of the larger of the
+# old and new master: m and v come from the same grads by the same IEEE
+# ops; the master's step = (m / b1c) / (sqrt(v / b2c) + eps) takes 5
+# roundings, each of which a device may round differently by <= 1 ulp
+# (a pow, a division by reciprocal), each carried with a gain <= 1 into
+# lr * step, then 3 more (lr * step, master * (1 - lr wd), the
+# difference): <= 8
+TRAIN_ADAMW_ULPS = 8
+_TRAIN_GROUPS = _LM_GROUPS + (("sort", "sort (deterministic scatter)"),)
+_OPT_NAMES = ("master", "m", "v")
+
+
+def train_eps(cfg) -> float:
+    """eps_g, the bound on each synced gradient leaf's relative L2 error
+    against the single-copy reference: the forward's bf16 roundings as
+    `lm_eps` counts them (10 L + 2 for a dense model), as many again in the
+    backward (each bf16 activation's cotangent is rounded to bf16 where
+    the activation was), and TRAIN_SYNC_ROUNDINGS for the gradient itself
+    (its bf16 output and the bf16 hops of its sync), each at most
+    u = 2^-8 relative, independent, so eps_g = u sqrt(2 (10 L + 2) + 4);
+    a relative L2 norm is an RMS over the leaf, so no z-factor:
+    0.0931 for qwen3-0.6b's 28 layers."""
+    n = 2 * (LM_ROUNDINGS[cfg.family] * cfg.n_layers + 2) \
+        + TRAIN_SYNC_ROUNDINGS
+    return BF16_U * n ** 0.5
+
+
+def train_unstack(tree, specs, convert, mesh) -> dict:
+    """{path: global tensor} of a stacked param-shaped tree (replicated
+    axes read the first copy)."""
+    from repro_torch.tree import flatten
+    spec_of = dict(flatten(specs))
+    out = {}
+    for path, t in flatten(tree):
+        if path[0] in ("layers", "enc_layers"):
+            t = t.movedim(0, len(mesh))
+        out[path] = convert.unstack(t, mesh, spec_of[path])
+    return out
+
+
+def train_replicas_equal(tree, specs, mesh) -> int:
+    """Fail unless every synced leaf's copies along the mesh axes its
+    spec does not name are bitwise equal; returns the leaves checked."""
+    from repro_torch.tree import flatten
+    from repro_torch.parallel.ops import spec_axes
+    spec_of = dict(flatten(specs))
+    n = 0
+    for path, t in flatten(tree):
+        lay = int(path[0] in ("layers", "enc_layers"))
+        for i, (a, size) in enumerate(mesh.items()):
+            if size > 1 and a not in spec_axes(spec_of[path]):
+                d = lay + i
+                if not torch.equal(t, t.narrow(d, 0, 1).expand_as(t)):
+                    fail(f"train: synced {'/'.join(path)} differs along "
+                         f"{a}")
+        n += 1
+    return n
+
+
+def train_single_copy(G):
+    """The global float64 params {path: tensor} as the one rank of the
+    (1, 1, 1) mesh, each layer-stacked leaf as a list of its layers (the
+    train step's own layout for the backward)."""
+    from repro_torch.tree import unflatten
+    from repro_torch.parallel import stages
+    one = (1, 1, 1)
+    pairs = []
+    for path, g in G.items():
+        if path[0] in ("layers", "enc_layers"):
+            pairs.append((path, [t.reshape(one + t.shape).requires_grad_()
+                                 for t in g.unbind(0)]))
+        else:
+            pairs.append((path, g.reshape(one + g.shape).requires_grad_()))
+    return unflatten(pairs)
+
+
+def train_reference(G, cfg, batch, rows=None):
+    """The single-copy reference of one step's loss and gradient: the
+    port's own modules on the (1, 1, 1) mesh over float64 params (their
+    products and norms compute in fp32 where the port's modules cast to
+    it; 2^-24 against eps_g). Returns (ce_mean, rms of the logits,
+    {path: gradient}). With `rows`, only those batch rows enter the loss,
+    still divided by the whole batch's token count: one data rank's
+    contribution."""
+    from repro_torch.tree import flatten
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.parallel import stages
+    ctx = stages.make_ctx(cfg, ParallelConfig(remat="none"), _ONE, "cuda")
+    P1 = train_single_copy(G)
+    tokens = batch["tokens"] if rows is None else batch["tokens"][rows]
+    labels = batch["labels"] if rows is None else batch["labels"][rows]
+    t_total = batch["labels"].numel()
+    b1 = {"tokens": tokens.reshape((1, 1, 1) + tokens.shape).cuda(),
+          "labels": labels.reshape((1, 1, 1) + labels.shape).cuda()}
+    x, _aux = lm_mod.forward(P1, b1, cfg, ctx)
+    ce_sum, _ = lm_mod.lm_head_ce(P1, x, b1["labels"], cfg, ctx)
+    loss = ce_sum.sum() / t_total
+    leaves = [(p, l) for p, l in flatten(
+        {k: v for k, v in P1.items()})]
+    flat = []
+    for path, l in leaves:
+        flat.extend(l if isinstance(l, list) else [l])
+    grads = iter(torch.autograd.grad(loss, flat))
+    out = {}
+    for path, l in leaves:
+        if isinstance(l, list):
+            out[path] = torch.stack([next(grads)[0, 0, 0] for _ in l])
+        else:
+            out[path] = next(grads)[0, 0, 0]
+    with torch.no_grad():
+        xf = x.detach()[0, 0, 0].double()
+        logits = xf @ G[("embed",)].T
+        rms = float(logits[..., :cfg.vocab_size].pow(2).mean().sqrt())
+    return float(loss.detach()), rms, out
+
+
+def train_rel_errors(got: dict, want: dict) -> dict:
+    """{path: ||got - want|| / ||want||} in float64."""
+    return {p: float((got[p].double() - want[p]).norm()
+                     / want[p].norm().clamp_min(1e-300)) for p in want}
+
+
+def train_bucket_collectives(eng, grads_pre, specs) -> dict:
+    """The programs the gradient sync runs, from the layout: the sync
+    groups (leaves by their set of live mesh axes missing from the spec),
+    the engine's own buckets over each group, and per bucket the
+    programs of one allreduce over the group's axes as the engine
+    resolves it: one two-level program, or reduce_scatter, allreduce,
+    allgather over the inner and outer axes."""
+    from repro_torch.tree import flatten
+    from repro_torch.core import engine as em
+    from repro_torch.parallel.ops import spec_axes
+    mesh = eng.mesh_shape
+    live = [a for a in mesh if mesh[a] > 1]
+    spec_of = dict(flatten(specs))
+    groups: dict = {}
+    for path, g in flatten(grads_pre):
+        miss = tuple(a for a in live if a not in spec_axes(spec_of[path]))
+        if miss:
+            if path[0] in ("layers", "enc_layers"):
+                g = g.movedim(0, len(mesh))
+            groups.setdefault(miss, []).append(g)
+    lead = tuple(mesh.values())
+    want: dict = {}
+    for miss, leaves in groups.items():
+        order = [a for a in ("data", "model") if a in miss] + \
+                [a for a in miss if a not in ("data", "model")]
+        for idxs in em._bucket_leaves(leaves, eng.BUCKET_BYTES, lead):
+            n = sum(em._local_numel(leaves[i], lead) for i in idxs)
+            x = torch.empty((n,), dtype=leaves[idxs[0]].dtype, device="meta")
+            if len(order) == 1:
+                names = ("allreduce",)
+            else:
+                sched = eng._resolve("allreduce", x, (order[1], order[0]),
+                                     "auto")
+                eng.trace_log.pop()
+                names = ("allreduce",) if sched.level_sizes is not None \
+                    else ("reduce_scatter", "allreduce", "allgather")
+            for name in names:
+                want[name] = want.get(name, 0) + 1
+    return want
+
+
+def train_layout_collectives(cfg, mesh, pcfg) -> dict:
+    """The engine collectives of one train step's forward, backward and
+    clip, from the layout (a dense model, FSDP over 'data', TP over
+    'model', no SP): forward, per layer the FSDP allgathers of wq, wk,
+    wv, wo, w1, w3, w2 and the attention and MLP finishes' allreduces;
+    the embedding's gather and allreduce; the head's gather and the CE's
+    three allreduces (max, denominator, picked logit); the ce_mean
+    metric's allreduce over 'data'. Backward: each gather's adjoint
+    reduce-scatter and each allreduce's adjoint allreduce, but for the
+    CE's max (detached) and the metric's (no gradient). Clip: one
+    scalar allreduce per live mesh axis."""
+    if cfg.family != "dense" or pcfg.sequence_parallel:
+        fail("train: the layout count covers a dense model without SP")
+    L = cfg.n_layers
+    return {"forward": {"allgather": 7 * L + 2,
+                        "allreduce": 2 * L + 1 + 3 + 1},
+            "backward": {"reduce_scatter": 7 * L + 2,
+                         "allreduce": 2 * L + 1 + 2},
+            "clip": {"allreduce": sum(1 for s in mesh.values() if s > 1)}}
+
+
+class TrainProbe:
+    """Instruments one train step's phases: CUDA events at the forward's
+    start and end (`lm.loss_fn`), the grad sync's start and end
+    (`stages.grad_sync`), and the optimizer's start and end
+    (`adamw.adamw_update` .. `adamw.apply_updates`); the K1 launches and
+    the programs the step's engine executes in each phase (forward,
+    backward, sync, clip, optimizer); the grads going into and coming out
+    of the sync; the peak memory of the forward and backward (read at the
+    sync's entry; `train_run` makes it relative to the memory allocated
+    when the step started). Launches nothing itself."""
+
+    PHASES = ("forward", "backward", "sync", "clip", "optimizer")
+
+    def __init__(self, mods, ops, engine):
+        self.stages, self.adamw, self.lm = mods
+        self.ops, self.engine = ops, engine
+        self.steps = []
+
+    def __enter__(self):
+        st, aw, lm, ops = self.stages, self.adamw, self.lm, self.ops
+        self.real = (st.grad_sync, aw.adamw_update, aw.apply_updates,
+                     lm.loss_fn, self.engine._execute)
+        r_sync, r_upd, r_apply, r_loss, r_exec = self.real
+
+        def mark(phase):
+            cur = self.cur
+            k1 = ops.launch_counts()["fused_combine"]
+            if cur["phase"] is not None:
+                cur["k1"][cur["phase"]] += k1 - cur["k1_mark"]
+            cur["phase"], cur["k1_mark"] = phase, k1
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            cur["events"].append((phase, ev))
+
+        def loss_fn(*a, **k):
+            self.cur = {"phase": None, "events": [], "progs": [],
+                        "k1": dict.fromkeys(self.PHASES + ("end",), 0)}
+            self.steps.append(self.cur)
+            mark("forward")
+            out = r_loss(*a, **k)
+            mark("backward")
+            return out
+
+        def grad_sync(grads, *a, **k):
+            self.cur["peak_fwd_bwd"] = torch.cuda.max_memory_allocated()
+            mark("sync")
+            out = r_sync(grads, *a, **k)
+            self.cur["pre"], self.cur["synced"] = grads, out[0]
+            mark("clip")
+            return out
+
+        def adamw_update(*a, **k):
+            mark("optimizer")
+            return r_upd(*a, **k)
+
+        def apply_updates(*a, **k):
+            out = r_apply(*a, **k)
+            mark("end")
+            return out
+
+        def execute(sched, rows, groups, compression=None):
+            self.cur["progs"].append((self.cur["phase"], sched,
+                                      tuple(rows.shape), compression))
+            return r_exec(sched, rows, groups, compression)
+
+        st.grad_sync, aw.adamw_update, aw.apply_updates = \
+            grad_sync, adamw_update, apply_updates
+        lm.loss_fn = loss_fn
+        self.engine._execute = execute
+        return self
+
+    def __exit__(self, *exc):
+        st, aw, lm = self.stages, self.adamw, self.lm
+        (st.grad_sync, aw.adamw_update, aw.apply_updates, lm.loss_fn,
+         _exec) = self.real
+        del self.engine._execute
+        return False
+
+    def phase_ms(self, step) -> dict:
+        """Device time between the step's phase boundaries."""
+        torch.cuda.synchronize()
+        ev = step["events"]
+        return {ev[i][0]: ev[i][1].elapsed_time(ev[i + 1][1])
+                for i in range(len(ev) - 1)}
+
+    def collectives(self, step) -> dict:
+        out: dict = {}
+        for phase, sched, _shape, _c in step["progs"]:
+            d = out.setdefault(phase, {})
+            d[sched.collective] = d.get(sched.collective, 0) + 1
+        return out
+
+    def implied_k1(self, step) -> dict:
+        out = dict.fromkeys(self.PHASES, 0)
+        for phase, sched, shape, c in step["progs"]:
+            out[phase] += implied_k1(
+                sched.compile(codec=c, verify=self.engine.verify), shape)
+        return out
+
+
+def train_restore(params, opt, backup) -> None:
+    """Params back to `backup` and the optimizer state to its init, in
+    place."""
+    from repro_torch.tree import tree_map
+    tree_map(lambda p, b: p.copy_(b), params, backup)
+    tree_map(lambda l, p: (l["master"].copy_(p), l["m"].zero_(),
+                                 l["v"].zero_()),
+                   opt["leaves"], params,
+                   is_leaf=lambda x: isinstance(x, dict) and "master" in x)
+    opt["count"].zero_()
+
+
+def train_adamw_cpu(ts, backup, synced, gnorm, adamw, schedules,
+                    step_idx: int, opt_cfg) -> tuple:
+    """The plain AdamW update on the CPU for the same synced grads, on a
+    sample of the state (every leaf but the embedding whole, layer 0 of
+    each layer-stacked leaf, the embedding's first 4096 rows), from the
+    state `adamw_init` makes of the params `backup` (count 0): the clip
+    scale from the step's norm, then `adamw_update` with its clip off."""
+    from repro_torch.tree import flatten, unflatten
+    def sample(path, t):
+        if path[0] in ("layers", "enc_layers"):
+            return t[:1]
+        if path[0] == "embed":
+            return t[..., :4096, :]
+        return t
+    cfg_noclip = dataclasses.replace(opt_cfg, grad_clip=1e30)
+    scale = torch.clamp(opt_cfg.grad_clip / torch.clamp_min(
+        gnorm.cpu(), 1e-9), max=1.0)
+    D = len(ts.ctx.mesh_shape)
+    grads, leaves = [], []
+    for path, g in flatten(synced):
+        lay = int(path[0] in ("layers", "enc_layers"))
+        s = scale.reshape((1,) * lay + scale.shape
+                          + (1,) * (g.ndim - D - lay))
+        grads.append((path, sample(path, g).cpu().float() * s))
+    for path, p in flatten(backup):
+        master = sample(path, p).cpu().float()
+        leaves.append((path, {"master": master,
+                              "m": torch.zeros_like(master),
+                              "v": torch.zeros_like(master)}))
+    state = {"leaves": unflatten(leaves),
+             "count": torch.zeros((), dtype=torch.int32)}
+    lr_scale = schedules.cosine_warmup(step_idx, TRAIN_WARMUP, TRAIN_STEPS)
+    new, _ = adamw.adamw_update(cfg_noclip, unflatten(grads), state,
+                                lr_scale=lr_scale)
+    return new, sample
+
+
+def train_ulps(got, want, scale=None) -> float:
+    """Largest distance between two fp32 tensors in ulps of `scale`
+    (default `want`): the master update subtracts lr * step from the old
+    master, so where the two nearly cancel, a one-ulp difference of an
+    operand is many ulps of the result; its ulps are counted at the
+    larger of the old and the new master."""
+    got, want = got.double(), want.double()
+    ref_mag = want.abs() if scale is None else torch.maximum(
+        want.abs(), scale.double().abs())
+    ulp = torch.finfo(torch.float32).eps * ref_mag.clamp_min(
+        torch.finfo(torch.float32).tiny) / 2
+    return float(((got - want).abs() / ulp).max())
+
+
+def phase_train_build(cfg, stages, adamw, seed: int):
+    """Phase 10 set-up: qwen3-0.6b's params drawn on the card from
+    `seed` in the FSDP layout over the (1, 4, 2) mesh, a copy of them for
+    each variant's restart, and the AdamW state."""
+    from repro_torch.tree import leaves, tree_map
+    free0, total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    params = stages.init_params(cfg, LM_MESH, LM_TP, seed=seed,
+                                device="cuda")
+    backup = tree_map(lambda t: t.clone(), params)
+    opt = adamw.adamw_init(params)
+    torch.cuda.synchronize()
+    emit({"phase": "train_build", "mesh": LM_MESH,
+          "stacked_param_bytes": sum(t.numel() * t.element_size()
+                                     for t in leaves(params)),
+          "opt_state_bytes": sum(t.numel() * t.element_size()
+                                 for t in leaves(opt["leaves"])),
+          "init_seconds": time.perf_counter() - t0,
+          "mem_free_before": free0, "mem_total": total})
+    return params, backup, opt
+
+
+def train_batch(data_mod, cfg, B: int, S: int, seed: int, step: int = 0):
+    """Rows [0, B) of the port's SyntheticLM batch at `step`, as torch."""
+    src = data_mod.SyntheticLM(data_mod.DataConfig(global_batch=B,
+                                                   seq_len=S, seed=seed),
+                               cfg)
+    return {k: torch.from_numpy(v) for k, v in src.batch_at(step, 0,
+                                                            B).items()}
+
+
+def train_run(ts, params, opt, batch_t, probe_mods, ops, ref, log,
+              step_idx: int = 0, checked: bool = True):
+    """One train step under `TrainProbe` (and, `checked`, `lm_checked`:
+    every K1 call bitwise, every K4 call within its bound, as it runs);
+    returns (probe, the step's record, metrics)."""
+    probe = TrainProbe(probe_mods, ops, ts.ctx.engine)
+    batch = ts.put_batch(batch_t)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with probe, (lm_checked(ops, ref, log) if checked
+                 else contextlib.nullcontext()):
+        _p, _o, metrics = ts.fn(params, opt, batch, step_idx)
+        torch.cuda.synchronize()
+    step = probe.steps[-1]
+    # the step's own memory above what was allocated when it started
+    step["peak_fwd_bwd"] -= base
+    step["peak_step"] = torch.cuda.max_memory_allocated() - base
+    return probe, step, {k: float(v) for k, v in metrics.items()}
+
+
+def phase_train(cfg, mods, ops, ref, counts, gen, seed: int, reps: int,
+                smi: str) -> None:
+    """Phase 10: qwen3-0.6b trained at full width on the (1, 4, 2) mesh
+    (10a-10e, then the times)."""
+    from repro_torch.tree import flatten
+    (convert, stages, adamw, schedules, lm_mod, data_mod,
+     train_launch) = mods
+    from repro_torch.configs import ParallelConfig
+    t_phase = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR)
+
+    def sched(s):
+        return schedules.cosine_warmup(s, TRAIN_WARMUP, TRAIN_STEPS)
+    probe_mods = (stages, adamw, lm_mod)
+    params, backup, opt = phase_train_build(cfg, stages, adamw, seed)
+    B, S = TRAIN_SMALL
+    batch = train_batch(data_mod, cfg, B, S, seed)
+    specs = stages.param_specs(cfg, LM_TP)
+    eps_g = train_eps(cfg)
+    log = {"k1": [], "k4": []}
+    out: dict = {"eps_g": eps_g, "shape": {"batch": B, "seq": S}}
+
+    # 10a: one step, remat none, the queue
+    pcfg_a = ParallelConfig(remat="none", async_grad_sync=True)
+    ts = stages.build_train_step(cfg, pcfg_a, LM_MESH, opt_cfg, sched,
+                                 device="cuda")
+    ops.reset_launch_counts()
+    probe, st_a, m_a = train_run(ts, params, opt, batch, probe_mods, ops,
+                                 ref, log)
+    counts["train_10a"] = ops.launch_counts()
+    k1_step = counts["train_10a"]["fused_combine"]
+    implied = probe.implied_k1(st_a)
+    colls = probe.collectives(st_a)
+    want = train_layout_collectives(cfg, LM_MESH, pcfg_a)
+    want["sync"] = train_bucket_collectives(ts.ctx.engine, st_a["pre"],
+                                            specs)
+    want["optimizer"] = {}
+    got = {p: colls.get(p, {}) for p in ("forward", "backward", "sync",
+                                         "clip", "optimizer")}
+    if got != want:
+        fail(f"train 10a: collectives per phase {got}, the layout "
+             f"implies {want}")
+    if sum(implied.values()) != k1_step or any(
+            st_a["k1"][p] != implied[p] for p in implied):
+        fail(f"train 10a: K1 launches per phase {st_a['k1']}, the "
+             f"programs imply {implied}")
+    q = ts.ctx.engine.queue.stats
+    replicas = train_replicas_equal(st_a["synced"], specs, LM_MESH)
+    # the AdamW update on the card against the plain update on the CPU
+    gnorm = torch.full(tuple(LM_MESH.values()), m_a["grad_norm"],
+                       dtype=torch.float32)
+    new_cpu, sample = train_adamw_cpu(ts, backup, st_a["synced"], gnorm,
+                                      adamw, schedules, 0, opt_cfg)
+    ulps = {n: 0.0 for n in _OPT_NAMES}
+    old_master = dict(flatten(backup))
+    for path, leaf in flatten(new_cpu["leaves"]):
+        node = opt["leaves"]
+        for k in path[:-1]:
+            node = node[k]
+        card = sample(path[:-1], node[path[-1]]).cpu()
+        prev = sample(path[:-1], old_master[path[:-1]]).cpu().float() \
+            if path[-1] == "master" else None
+        ulps[path[-1]] = max(ulps[path[-1]], train_ulps(card, leaf, prev))
+    if max(ulps.values()) > TRAIN_ADAMW_ULPS:
+        fail(f"train 10a: AdamW on the card differs from the CPU update by "
+             f"{ulps} ulps")
+    del new_cpu
+    # against the single-copy reference (float64 weights)
+    G = {p: g.double() for p, g in train_unstack(backup, specs,
+                                                 convert, LM_MESH).items()}
+    ce_ref, rms_ref, g_ref = train_reference(G, cfg, batch)
+    g_a = train_unstack(st_a["synced"], specs, convert, LM_MESH)
+    err_a = train_rel_errors(g_a, g_ref)
+    ce_bound = LM_Z * 2 ** 0.5 * lm_eps(cfg) * rms_ref
+    if abs(m_a["ce_mean"] - ce_ref) > ce_bound:
+        fail(f"train 10a: ce_mean {m_a['ce_mean']} vs the reference's "
+             f"{ce_ref} (bound {ce_bound})")
+    worst = max(err_a, key=err_a.get)
+    if err_a[worst] > eps_g:
+        fail(f"train 10a: {'/'.join(worst)} grad off the reference by "
+             f"{err_a[worst]} (relative L2; eps_g {eps_g})")
+    # the check must be able to fail: three faulted grads
+    faults = {"x2 (1/tp scale missing)": {p: 2 * g for p, g in g_a.items()},
+              "x0.5": {p: 0.5 * g for p, g in g_a.items()}}
+    _ce0, _rms0, g_r0 = train_reference(G, cfg, batch,
+                                        rows=slice(0, B // LM_MESH["data"]))
+    from repro_torch.parallel.ops import spec_axes
+    fsdp = [p for p, s in flatten(specs) if "data" in spec_axes(s)]
+    faults["one data rank (reduce-scatter missing)"] = {
+        p: g_r0[p] for p in fsdp}
+    caught = {}
+    for name, fg in faults.items():
+        errs = train_rel_errors(fg, {p: g_ref[p] for p in fg})
+        if min(errs.values()) <= eps_g:
+            fail(f"train 10a: the faulted grads '{name}' pass the bound")
+        caught[name] = min(errs.values())
+    del g_r0, faults
+    out["10a"] = {
+        "ce_mean": m_a["ce_mean"], "ce_ref": ce_ref, "ce_bound": ce_bound,
+        "loss": m_a["loss"], "grad_norm": m_a["grad_norm"],
+        "grad_rel_err_max": err_a[worst], "grad_rel_err_worst":
+        "/".join(worst), "grad_rel_err": {"/".join(p): e
+                                          for p, e in err_a.items()},
+        "faults_min_rel_err": caught, "collectives": got,
+        "k1_per_phase": {p: st_a["k1"][p] for p in implied},
+        "k1_implied": implied, "k1_per_step": k1_step,
+        "k4_per_step": counts["train_10a"]["matmul_tiled"],
+        "queue_issued": q["issued"], "queue_coalesced":
+        q["coalesced_requests"], "replicas_checked": replicas,
+        "adamw_max_ulps": ulps, "adamw_ulp_bound": TRAIN_ADAMW_ULPS,
+        "peak_fwd_bwd_bytes": st_a["peak_fwd_bwd"],
+        "peak_step_bytes": st_a["peak_step"],
+        "device_ms_by_phase": probe.phase_ms(st_a)}
+    synced_a = st_a["synced"]
+    pre_a = st_a["pre"]
+    del st_a, probe
+
+    # 10b: int8 gradient compression
+    train_restore(params, opt, backup)
+    ts_b = stages.build_train_step(
+        cfg, dataclasses.replace(pcfg_a, grad_compression="int8"), LM_MESH,
+        opt_cfg, sched, device="cuda")
+    calls = []
+    with recording(ops, ("quantize_int8_at", "dequantize_int8_at")) as (
+            rec, _items):
+        ops.reset_launch_counts()
+        _pb, st_b, m_b = train_run(ts_b, params, opt, batch, probe_mods,
+                                   ops, ref, log)
+        counts["train_10b"] = c_b = ops.launch_counts()
+        calls = [r[0] for r in rec]
+    if not calls or calls != ["quantize_int8_at",
+                              "dequantize_int8_at"] * (len(calls) // 2):
+        fail(f"train 10b: indexed K2/K3 calls do not pair: {calls[:6]}")
+    n_ex = len(calls) // 2
+    if not c_b["quantize_blocks"] == c_b["dequantize_blocks"] == n_ex:
+        fail(f"train 10b: {c_b} launches for {n_ex} compressed exchanges")
+    # per synced leaf: within the codec's bound of 10a's (phase 4's rule
+    # over the leaf's sync group, plus a bf16 rounding of each side)
+    from repro_torch.parallel.ops import spec_axes as _axes
+    codec = {}
+    for (path, g_b), (_p, g_a0), (_q, pre) in zip(
+            flatten(st_b["synced"]), flatten(synced_a),
+            flatten(pre_a)):
+        spec = dict(flatten(specs))[path]
+        lay = int(path[0] in ("layers", "enc_layers"))
+        dims = tuple(lay + i for i, a in enumerate(LM_MESH)
+                     if LM_MESH[a] > 1 and a not in _axes(spec))
+        if not dims:
+            same(f"train 10b: unsynced {'/'.join(path)}", g_b, g_a0)
+            continue
+        n = math.prod(pre.shape[d] for d in dims)
+        M = float(pre.float().abs().sum(dims).max())
+        bound = (n - 1) * M * (1.0 / 254.0 + 2 * BF16_U)
+        err = float((g_b.float() - g_a0.float()).abs().max())
+        if not err <= bound:
+            fail(f"train 10b: {'/'.join(path)} off 10a's by {err} "
+                 f"(bound {bound})")
+        codec["/".join(path)] = err / bound
+    out["10b"] = {"ce_mean": m_b["ce_mean"], "compressed_exchanges": n_ex,
+                  "launches": c_b, "err_over_bound_max": max(codec.values()),
+                  "leaves_compressed": len(codec)}
+    del st_b, ts_b, pre_a, _pb
+
+    # 10c: sequence parallelism + the collective matmul (K4)
+    train_restore(params, opt, backup)
+    ts_c = stages.build_train_step(
+        cfg, dataclasses.replace(pcfg_a, sequence_parallel=True,
+                                 collective_matmul=True), LM_MESH, opt_cfg,
+        sched, device="cuda")
+    n_k4 = len(log["k4"])
+    ops.reset_launch_counts()
+    _pc, st_c, m_c = train_run(ts_c, params, opt, batch, probe_mods, ops,
+                               ref, log)
+    counts["train_10c"] = c_c = ops.launch_counts()
+    if c_c["matmul_tiled"] < 1:
+        fail("train 10c: the SP step launched no K4")
+    err_c = train_rel_errors(train_unstack(st_c["synced"], specs,
+                                           convert, LM_MESH), g_ref)
+    worst_c = max(err_c, key=err_c.get)
+    if err_c[worst_c] > eps_g or abs(m_c["ce_mean"] - ce_ref) > ce_bound:
+        fail(f"train 10c: ce {m_c['ce_mean']} (ref {ce_ref}), "
+             f"{'/'.join(worst_c)} rel err {err_c[worst_c]}")
+    out["10c"] = {"ce_mean": m_c["ce_mean"], "launches": c_c,
+                  "k4_checked": len(log["k4"]) - n_k4,
+                  "k4_max_abs_err": max(log["k4"][n_k4:]),
+                  "grad_rel_err_max": err_c[worst_c]}
+    del st_c, ts_c, G, g_ref, _pc
+
+    # 10d: remat="full"
+    train_restore(params, opt, backup)
+    ts_d = stages.build_train_step(
+        cfg, dataclasses.replace(pcfg_a, remat="full"), LM_MESH, opt_cfg,
+        sched, device="cuda")
+    ops.reset_launch_counts()
+    _pd, st_d, m_d = train_run(ts_d, params, opt, batch, probe_mods, ops,
+                               ref, log)
+    counts["train_10d"] = c_d = ops.launch_counts()
+    # the recomputed forward re-issues its collectives (blocking, in the
+    # backward phase); the K1 count still matches the programs run
+    implied_d = _pd.implied_k1(st_d)
+    if sum(implied_d.values()) != c_d["fused_combine"]:
+        fail(f"train 10d: {c_d['fused_combine']} K1 launches, the programs "
+             f"imply {implied_d}")
+    bitwise = all(torch.equal(a, b) for (_p, a), (_q, b) in zip(
+        flatten(st_d["synced"]), flatten(synced_a)))
+    if not bitwise:
+        fail("train 10d: remat='full' grads differ from remat='none'")
+    if not st_d["peak_fwd_bwd"] < out["10a"]["peak_fwd_bwd_bytes"]:
+        fail(f"train 10d: peak {st_d['peak_fwd_bwd']} not below 10a's "
+             f"{out['10a']['peak_fwd_bwd_bytes']}")
+    out["10d"] = {"grads_bitwise_equal_10a": bitwise,
+                  "peak_fwd_bwd_bytes": st_d["peak_fwd_bwd"],
+                  "k1_per_step": c_d["fused_combine"],
+                  "k1_implied": implied_d,
+                  "collectives": _pd.collectives(st_d),
+                  "ce_mean": m_d["ce_mean"]}
+    del st_d, ts_d, synced_a, _pd
+    replayed = lm_replay_normal(ops, ref, log, gen)
+    out["k1_checked_bitwise"] = len(log["k1"])
+    out["k1_replayed_normal"] = replayed
+    out["k4_checked"] = len(log["k4"])
+    del params, backup, opt, ts
+    torch.cuda.empty_cache()
+
+    # 10e: the Trainer through launch/train.py's code path
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    trajectories, events = {}, {}
+    try:
+        for name, inj in (("uninterrupted", None),
+                          ("fail_at_6", (TRAIN_FAIL_AT,))):
+            trainer, _args = train_launch.build([
+                "--arch", cfg.name, "--full", "--steps", str(TRAIN_STEPS),
+                "--batch", str(B), "--seq", str(S), "--ckpt",
+                f"{tmp}/{name}", "--ckpt-every", str(TRAIN_CKPT_EVERY),
+                "--seed", str(seed)])
+            if inj is not None:
+                from repro_torch.runtime import FailureInjector
+                trainer.injector = FailureInjector(fail_at=inj)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            log_t = trainer.run()
+            counts[f"train_trainer_{name}"] = ops.launch_counts()
+            trajectories[name] = {r["step"]: r["ce_mean"] for r in log_t
+                                  if "step" in r}
+            events[name] = {"events": [r["event"] for r in log_t
+                                       if "event" in r],
+                            "seconds": time.perf_counter() - t0,
+                            "disk_free": shutil.disk_usage(tmp).free,
+                            "last": {k: v for k, v in log_t[-1].items()
+                                     if k != "dt"}}
+            del trainer
+            shutil.rmtree(f"{tmp}/{name}", ignore_errors=True)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref_t, rec_t = trajectories["uninterrupted"], trajectories["fail_at_6"]
+    # the failed attempt's rows are lost with it (as the reference's);
+    # the restart resumes after the checkpoint of step 3
+    if events["fail_at_6"]["events"] != ["failure"] or \
+            sorted(rec_t) != list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS)):
+        fail(f"train 10e: events {events}, steps {sorted(rec_t)}")
+    gap = max(abs(ref_t[s] - rec_t[s]) for s in rec_t)
+    if not gap <= TRAIN_RECOVERY_TOL:
+        fail(f"train 10e: the recovered trajectory is off by {gap}")
+    out["10e"] = {"ce_mean": ref_t, "max_gap": gap, "runs": events,
+                  "deterministic_algorithms": True}
+    out["seconds_checks"] = time.perf_counter() - t_phase
+    emit({"phase": "train", **out})
+    torch.use_deterministic_algorithms(False)
+    phase_train_times(cfg, mods, ops, counts, seed, reps, smi)
+
+
+def phase_train_times(cfg, mods, ops, counts, seed: int, reps: int,
+                      smi: str) -> None:
+    """Phase 10f: the median step (CUDA events, >= 5 steps after a
+    warm-up) and tokens/s at (8, 64) and (8, 512), the peak memory, the
+    launches per step, one step's device time by kernel group and by
+    phase (forward, backward, grad sync, clip, optimizer) and the idle
+    share."""
+    (_convert, stages, adamw, schedules, lm_mod, data_mod,
+     _train_launch) = mods
+    from repro_torch.configs import ParallelConfig
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR)
+    params = stages.init_params(cfg, LM_MESH, LM_TP, seed=seed,
+                                device="cuda")
+    opt = adamw.adamw_init(params)
+    ts = stages.build_train_step(
+        cfg, ParallelConfig(remat="none"), LM_MESH, opt_cfg,
+        lambda s: schedules.cosine_warmup(s, TRAIN_WARMUP, TRAIN_STEPS),
+        device="cuda")
+    rows = []
+    for B, S in (TRAIN_SMALL, TRAIN_LARGE):
+        batch = ts.put_batch(train_batch(data_mod, cfg, B, S, seed))
+        i = [0]
+
+        def step():
+            i[0] += 1
+            return ts.fn(params, opt, batch, i[0])
+        torch.cuda.reset_peak_memory_stats()
+        ms = median_ms(step, max(reps // 2, 5))
+        peak = torch.cuda.max_memory_allocated()
+        probe = TrainProbe((stages, adamw, lm_mod), ops, ts.ctx.engine)
+        ops.reset_launch_counts()
+        with probe:
+            step()
+        phases = probe.phase_ms(probe.steps[-1])
+        counts[f"train_times_{B}x{S}"] = c = ops.launch_counts()
+        rows.append({"batch": B, "seq": S, "step_ms": ms,
+                     "tokens_per_s": B * S / (ms / 1e3),
+                     "peak_mem_bytes": peak, "k1_per_step":
+                     c["fused_combine"], "k4_per_step": c["matmul_tiled"],
+                     "device_ms_by_phase": phases,
+                     "profile": busy_and_idle(device_split(
+                         step, _TRAIN_GROUPS, top=8), ms)})
+        del batch
+        torch.cuda.empty_cache()
+    emit({"phase": "train_times", "arch": cfg.name, "mesh": LM_MESH,
+          "rows": rows, "card": smi})
+    del params, opt, ts
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2476,8 +3241,12 @@ def main() -> int:
     from repro_torch.kernels import quantize as qz
     from repro_torch.launch import distributed_vecmat as vm
     from repro_torch.launch import serve as serve_launch
+    from repro_torch import data as data_mod
+    from repro_torch.launch import train as train_launch
     from repro_torch.launch.dlrm_serve import DLRMServer
     from repro_torch.models import dlrm as dlrm_mod
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.optim import adamw, schedules
     from repro_torch.parallel import stages
     from repro_torch.runtime import ServeSession, convert_prefill_caches
 
@@ -2542,6 +3311,12 @@ def main() -> int:
     # phase 9: LM serving for the MoE, SSM, hybrid and audio families
     phase_lm_families(get_config, mods, ops, ref, counts, gen, args.seed,
                       args.reps, smi)
+
+    # phase 10: LM training, qwen3-0.6b at full width
+    torch.cuda.empty_cache()
+    phase_train(lm_cfg, (convert, stages, adamw, schedules, lm_mod,
+                         data_mod, train_launch), ops, ref, counts, gen,
+                args.seed, args.reps, smi)
     for row in rows:      # launches on every path's runs (K1 runs on all)
         row["launches"] = sum(c[row["name"]] for c in counts.values())
         if not row["launches"]:
@@ -2549,7 +3324,7 @@ def main() -> int:
         by_path: dict = {}
         for key, c in counts.items():
             path = next((p for p in ("dlrm", "vecmat", "queue",
-                                     "lm_families", "lm")
+                                     "lm_families", "lm", "train")
                          if key.startswith(p)), "collectives")
             by_path[path] = by_path.get(path, 0) + c[row["name"]]
         row["launches_by_path"] = by_path

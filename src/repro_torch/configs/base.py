@@ -5,10 +5,11 @@ nothing of the reference package, its jax-free modules included). Every
 assigned architecture is an `ArchConfig` in its own module
 (src/repro_torch/configs/<id>.py, copied from the reference's);
 `get_config(name)` resolves them. The parallelism knobs live in
-`ParallelConfig`. The port serves every family (`models/serve.py`);
-training waits for ROADMAP Queue 1 item 6c. `use_pallas`,
-`remat`, `scan_layers`, `microbatches` and `async_grad_sync` are kept for
-the copy and have no effect in the port: on the card the port's kernels
+`ParallelConfig`. The port serves and trains every family
+(`models/serve.py`, `parallel/stages.py`); `remat`, `microbatches` and
+`async_grad_sync` act as the reference's (`models/blocks.py`,
+`parallel/stages.py`). `use_pallas` and `scan_layers` are kept for the
+copy and have no effect in the port: on the card the port's kernels
 always run and on the CPU their plain versions (`kernels/ops.py`); the
 layers run in a Python loop (`models/blocks.py`).
 """

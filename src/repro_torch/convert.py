@@ -13,8 +13,9 @@ only (it imports no jax):
     the tensor's device);
   * the reference `dlrm_params` pytree <-> the port's stacked params;
   * the reference LM param tree (`parallel/stages.py::init_params`), its
-    decode caches and its prefill caches <-> the port's (layer-stacked
-    leaves lead with the layer dim, `models/blocks.py`);
+    AdamW state (`optim/adamw.py`), its decode caches and its prefill
+    caches <-> the port's (layer-stacked leaves lead with the layer dim,
+    `models/blocks.py`);
   * the reference `Selector.table_rows()` artifact <-> rows the port's
     `Selector.apply_table` takes (and its own `table_rows` emits).
 """
@@ -228,3 +229,50 @@ def prefill_caches_to_jax(caches, cfg, pcfg, mesh_shape: dict, batch: int,
     specs = prefill_cache_specs(cfg, pcfg, mesh_shape.get("model", 1), s,
                                 dp=dp_axes(mesh_shape, batch))
     return _tree_from_stacked(caches, specs, mesh_shape, layered=True)
+
+
+# --------------------------------------------------------------------------
+# The optimizer state
+# --------------------------------------------------------------------------
+
+_OPT = ("master", "m", "v")
+
+
+def _split_opt(leaves):
+    """A state-leaf tree ({path: {"master", "m", "v"}}) -> one
+    param-shaped tree per state name."""
+    if isinstance(leaves, dict) and "master" in leaves:
+        return {n: leaves[n] for n in _OPT}
+    parts = {k: _split_opt(v) for k, v in leaves.items()}
+    return {n: {k: parts[k][n] for k in parts} for n in _OPT}
+
+
+def _join_opt(trees):
+    """Inverse of `_split_opt`."""
+    first = trees[_OPT[0]]
+    if not isinstance(first, dict):
+        return dict(trees)
+    return {k: _join_opt({n: trees[n][k] for n in _OPT}) for k in first}
+
+
+def opt_state_from_jax(state_np, cfg, mesh_shape: dict, device="cpu"):
+    """The reference AdamW state (`repro.optim.adamw_init`'s tree of
+    global numpy arrays: {"leaves": {path: {"master", "m", "v"}},
+    "count"}) -> the port's, each leaf mesh-stacked like its param (the
+    FSDP layout)."""
+    split = _split_opt(state_np["leaves"])
+    leaves = _join_opt({n: lm_params_from_jax(split[n], cfg, mesh_shape,
+                                              device=device)
+                        for n in _OPT})
+    count = torch.tensor(int(np.asarray(state_np["count"])),
+                         dtype=torch.int32, device=device)
+    return {"leaves": leaves, "count": count}
+
+
+def opt_state_to_jax(state, cfg, mesh_shape: dict):
+    """Inverse of `opt_state_from_jax`: the reference state as numpy."""
+    split = _split_opt(state["leaves"])
+    leaves = _join_opt({n: lm_params_to_jax(split[n], cfg, mesh_shape)
+                        for n in _OPT})
+    return {"leaves": leaves,
+            "count": np.asarray(int(state["count"]), np.int32)}

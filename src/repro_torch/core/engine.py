@@ -40,6 +40,12 @@ over `(outer, inner)` uses the reference's inner-major flat rank
 `r = intra * P + pod`. `backend="native"` computes the same results with
 torch reductions over the rank dim — the software-MPI baseline role.
 
+Training differentiates through the engine: `allreduce`,
+`reduce_scatter`, `allgather`, `alltoall`, `allgather_matmul` and
+`matmul_reduce_scatter` enter a `torch.autograd.Function`
+(`core/autograd.py`) whenever grad is enabled and an input requires it,
+whose backward issues the adjoint collective through this engine.
+
 The non-blocking request API (`issue`, the `i*` helpers, `issue_multi`,
 `itree_allreduce`) defers these same calls through the engine's
 `Sequencer` (`core/sequencer.py`, the offload queue), on the same
@@ -55,6 +61,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import autograd as _autograd
 from repro_torch.core import hierarchical, plugins, telemetry
 from repro_torch.core.algorithms import GENERATORS
 from repro_torch.core.hw_spec import HwSpec, TPU_V5E
@@ -869,6 +876,11 @@ class CollectiveEngine:
                   algorithm: str = "auto",
                   compression: Optional[str] = None,
                   segments: Optional[int] = None):
+        if _autograd.needed(x):
+            return _autograd.AllReduce.apply(
+                self, x, axis, op, dict(algorithm=algorithm,
+                                        compression=compression,
+                                        segments=segments))
         if isinstance(axis, tuple):
             return self._product_collective(
                 "allreduce", x, axis, op=op, algorithm=algorithm,
@@ -894,6 +906,11 @@ class CollectiveEngine:
                        segments: Optional[int] = None):
         """Tiled semantics on the flattened array: rank r gets slice r of
         the reduction. Input size must be divisible by the rank count."""
+        if _autograd.needed(x):
+            return _autograd.ReduceScatter.apply(
+                self, x, axis, op, dict(algorithm=algorithm,
+                                        compression=compression,
+                                        segments=segments))
         if isinstance(axis, tuple):
             return self._product_collective(
                 "reduce_scatter", x, axis, op=op, algorithm=algorithm,
@@ -921,6 +938,9 @@ class CollectiveEngine:
                   segments: Optional[int] = None):
         """Tiled: returns concat of every rank's flat x (own shard at
         position rank)."""
+        if _autograd.needed(x):
+            return _autograd.AllGather.apply(
+                self, x, axis, dict(algorithm=algorithm, segments=segments))
         if isinstance(axis, tuple):
             return self._product_collective(
                 "allgather", x, axis, algorithm=algorithm,
@@ -998,6 +1018,9 @@ class CollectiveEngine:
     def alltoall(self, x, axis: str, algorithm: str = "auto",
                  segments: Optional[int] = None):
         """Tiled on leading dim: block j of the output came from rank j."""
+        if _autograd.needed(x):
+            return _autograd.AllToAll.apply(
+                self, x, axis, dict(algorithm=algorithm, segments=segments))
         rows, lay = self._layout(x, axis)
         n = lay.n
         if n == 1:
@@ -1241,6 +1264,9 @@ class CollectiveEngine:
         mesh-stacked (n*m, p). segments > 1 row-splits the shard into
         independent segment pipelines, as the reference does.
         """
+        if _autograd.needed(x, w):
+            return _autograd.AllGatherMatmul.apply(self, x, w, axis,
+                                                   segments)
         x = self._tensor(x)
         w = self._tensor(w)
         rows, lay = self._layout(x, axis)
@@ -1278,6 +1304,9 @@ class CollectiveEngine:
         local chunk), so equal partials give bitwise equal results.
         segments > 1 splits the rotating accumulator into independent
         row-segment pipelines."""
+        if _autograd.needed(x, w):
+            return _autograd.MatmulReduceScatter.apply(self, x, w, axis,
+                                                       segments)
         x = self._tensor(x)
         w = self._tensor(w)
         partial = self._matmul(x, w)

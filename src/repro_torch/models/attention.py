@@ -1,16 +1,18 @@
 """Attention: GQA with RoPE/qk-norm/SWA, flash-style blocked attention,
 sequence-sharded decode with the engine flash-combine.
 
-Port of `repro/models/attention.py`, forward only: the flash backward
-(the reference's custom VJP) waits for training, ROADMAP Queue 1 item 6c.
-The blocked algorithm is the reference's, op for op, in torch: an outer
+Port of `repro/models/attention.py`. The blocked algorithm is the
+reference's, op for op, in torch: an outer
 loop over q blocks, an inner loop over kv blocks carrying the running
 (max, sum, acc) in fp32, so scores never exist beyond one
 (q_block, kv_block) tile. Every product the reference writes with
 `preferred_element_type=float32` upcasts its operands here, so scores
 and `acc` are never rounded to the compute dtype before the softmax and
 the combine; the probabilities are rounded to v's dtype before the
-second product, as there.
+second product, as there. Its backward is the reference's custom VJP
+(`_make_flash`) as a `torch.autograd.Function` (`_Flash`): it saves only
+(q, k, v, out, lse), O(S) residuals, and recomputes each P tile in the
+backward with the same mask, accumulating dq, dk, dv in fp32.
 
 Activations are mesh-stacked (`parallel/ops.py`); the blocked attention
 and the decode attention act on trailing dims only, so their leading
@@ -113,6 +115,66 @@ def _flash_fwd_blocks(q, k, v, window: int, *, causal: bool, qb: int,
     return torch.stack(outs, 1), torch.stack(lses, 1)
 
 
+def _flash_bwd_blocks(q, k, v, out, lse, dout, window: int, *,
+                      causal: bool, kb: int):
+    """The reference's flash backward (`_make_flash.bwd`): for every
+    (kv block, q block) pair, P recomputed from lse under the forward's
+    mask, then dv += P^T dO, dS = P (dO V^T - delta) scale, dq += dS K,
+    dk += dS^T Q, all in fp32. Shapes as `_flash_fwd_blocks`'s (dout
+    like out); returns (dq, dk, dv) in fp32."""
+    b, nq, qbs, kv, g, hd = q.shape
+    nk = k.shape[0]
+    dev = q.device
+    scale = 1.0 / math.sqrt(hd)
+    eff_w = window if window > 0 else 1 << 30
+    doutf = dout.float()
+    delta = torch.sum(doutf * out.float(), dim=-1)     # (b,nq,kv,g,qb)
+    dq = torch.zeros((b, nq, qbs, kv, g, hd), dtype=torch.float32,
+                     device=dev)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=dev)
+    for ki in range(nk):
+        kblk, vblk = k[ki].float(), v[ki].float()
+        k_pos = ki * kb + torch.arange(kb, device=dev)
+        for qi in range(nq):
+            qblk = q[:, qi].float()
+            q_pos = qi * qbs + torch.arange(qbs, device=dev)
+            s = torch.einsum("bqkgh,bskh->bkgqs", qblk, kblk) * scale
+            mask = k_pos[None, :] > q_pos[:, None] - eff_w
+            if causal:
+                mask &= k_pos[None, :] <= q_pos[:, None]
+            s = torch.where(mask, s, NEG_INF)
+            p = torch.exp(s - lse[:, qi][..., None])   # (b,kv,g,qb,kb)
+            do = doutf[:, qi]                          # (b,kv,g,qb,hd)
+            dv[ki] += torch.einsum("bkgqs,bkgqh->bskh", p, do)
+            dp = torch.einsum("bkgqh,bskh->bkgqs", do, vblk)
+            ds = p * (dp - delta[:, qi][..., None]) * scale
+            dq[:, qi] += torch.einsum("bkgqs,bskh->bqkgh", ds, kblk)
+            dk[ki] += torch.einsum("bkgqs,bqkgh->bskh", ds, qblk)
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with the reference's custom VJP: the forward is
+    `_flash_fwd_blocks`, the residuals (q, k, v, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, causal: bool, qb: int, kb: int):
+        out, lse = _flash_fwd_blocks(q, k, v, window, causal=causal, qb=qb,
+                                     kb=kb, q_offset=0)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.causal, ctx.kb = window, causal, kb
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_blocks(q, k, v, out, lse, dout, ctx.window,
+                                       causal=ctx.causal, kb=ctx.kb)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
+
+
 def _blocked(q, k, v, causal, window, q_block, kv_block, q_offset):
     """q: (..., Sq, H, hd); k, v: (..., Skv, KV, hd); the leading dims
     (batch and any mesh dims) fold into one batch dim."""
@@ -129,8 +191,13 @@ def _blocked(q, k, v, causal, window, q_block, kv_block, q_offset):
     qr = q.reshape(b, nq, qb, kv, g, hd)
     kr = k.reshape(b, nk, kb, kv, hd).movedim(1, 0)
     vr = v.reshape(b, nk, kb, kv, hd).movedim(1, 0)
-    out, _lse = _flash_fwd_blocks(qr, kr, vr, int(window), causal=causal,
-                                  qb=qb, kb=kb, q_offset=q_offset)
+    if q_offset == 0 and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        out = _Flash.apply(qr, kr, vr, int(window), causal, qb, kb)
+    else:
+        out, _lse = _flash_fwd_blocks(qr, kr, vr, int(window),
+                                      causal=causal, qb=qb, kb=kb,
+                                      q_offset=q_offset)
     out = out.permute(0, 1, 4, 2, 3, 5)   # (b,nq,kv,g,qb,hd)->(b,nq,qb,..)
     return out.reshape(lead + (sq, h, hd))
 
@@ -148,8 +215,9 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
 
 def flash_attention(q, k, v, *, causal: bool, window: int = 0,
                     q_block: int = 512, kv_block: int = 1024):
-    """Memory-efficient attention (the prefill path): the same contract
-    as `chunked_attention` at offset 0, through the flash forward."""
+    """Memory-efficient attention (the training and prefill path): the
+    same contract as `chunked_attention` at offset 0, through the flash
+    forward; with grad enabled, through `_Flash` (O(S) residuals)."""
     return _blocked(q, k, v, causal, window, q_block, kv_block, 0)
 
 

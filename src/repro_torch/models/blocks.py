@@ -8,11 +8,17 @@ contiguous block of memory, and `layer_slice` hands one layer to the
 layer code unchanged. `convert.py` moves the layer dim across when it
 carries params to and from the reference's layout.
 
-The reference scans the stack with `lax.scan` under remat and
-`checkpoint_name` so its compiled body stays O(1) in depth; PyTorch runs
-eagerly, so the port loops over the layers in Python (remat is a
-training concern, ROADMAP Queue 1 item 6c). Per-layer windows are Python
-ints (`window_per_layer`): hymba's global layers ignore the window.
+The reference scans the stack with `lax.scan`; PyTorch runs eagerly, so
+the port loops over the layers in Python. With grad enabled each layer
+runs under `ParallelConfig.remat` as the reference's scan body does:
+'full' recomputes the layer in the backward (`torch.utils.checkpoint`,
+non-reentrant), 'dots' saves only the products without batch dims (each
+rank's x @ w, `parallel/ops.py::local_matmul`) and 'names' only the
+outputs marked `mixer_out` and `mlp_out` (`checkpoint_name`), both by
+selective checkpoint policies; remat changes memory, never values. A
+recomputed layer re-issues its engine collectives (blocking calls, never
+the queue). Per-layer windows are Python ints (`window_per_layer`):
+hymba's global layers ignore the window.
 
 Families: dense and vlm (attention + SwiGLU), moe (attention + the
 routed experts, `mlp.moe_block`), ssm (the Mamba2 mixer alone,
@@ -24,9 +30,11 @@ the encoder output) and its encoder (dense, non-causal).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
@@ -34,6 +42,7 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnConfig, attention_block
 from repro_torch.models.common import Builder, rms_norm
+from repro_torch.parallel import ops as par_ops
 from repro_torch.parallel.ops import ParCtx
 
 
@@ -52,7 +61,7 @@ def _stack_trees(trees):
 def stacked(b: Builder, n: int, fn: Callable):
     """Build n stacked copies of fn(builder): (L, *mesh, *local) tensors,
     or specs with a leading None (the replicated layer dim)."""
-    if b.mode == "init":
+    if b.mode in ("init", "shape"):
         return _stack_trees([fn(b) for _ in range(n)])
     if b.mode == "spec":
         return _map_tree(lambda s: (None,) + tuple(s), fn(b))
@@ -93,6 +102,73 @@ def layer_params(b: Builder, cfg: ArchConfig, tp: int, cross: bool = False,
 
 
 # --------------------------------------------------------------------------
+# Remat
+# --------------------------------------------------------------------------
+
+# `enabled` while a remat='names' layer runs (its recompute included);
+# `name`: the name `checkpoint_name` is marking while its clone runs
+_NAMED = {"enabled": False, "name": None}
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+       torch.ops.aten.addmm.default)
+
+
+def checkpoint_name(x, name: str):
+    """Mark `x` as the named residual `name` (the reference's
+    `checkpoint_name`): inside a remat='names' layer it is a copy of x
+    that the selective policy saves; otherwise x itself."""
+    if not (_NAMED["enabled"] and x.requires_grad):
+        return x
+    _NAMED["name"] = name
+    try:
+        return x.clone()
+    finally:
+        _NAMED["name"] = None
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _MM and par_ops.DOTS["active"]:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _names_policy(ctx, op, *args, **kwargs):
+    if op == torch.ops.aten.clone.default and _NAMED["name"] in (
+            "mixer_out", "mlp_out"):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_POLICIES = {"dots": _dots_policy, "names": _names_policy}
+
+
+def _naming(fn: Callable) -> Callable:
+    def run(*args, **kwargs):
+        _NAMED["enabled"] = True
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _NAMED["enabled"] = False
+    return run
+
+
+def remat_layer(fn: Callable, remat: str) -> Callable:
+    """`fn` (one layer) under the remat mode: 'none' as is, 'full'
+    recomputed whole in the backward, 'dots' / 'names' recomputed but
+    for what their policy saves. Only while grad is enabled."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if remat == "full":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    if remat not in _POLICIES:
+        raise ValueError(f"unknown remat mode {remat!r}")
+    ctx_fn = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                               _POLICIES[remat])
+    return functools.partial(_ckpt.checkpoint,
+                             _naming(fn) if remat == "names" else fn,
+                             use_reentrant=False, context_fn=ctx_fn)
+
+
+# --------------------------------------------------------------------------
 # Forward (prefill, no decode cache)
 # --------------------------------------------------------------------------
 
@@ -114,6 +190,7 @@ def layer_forward(lp, x, cfg: ArchConfig, ctx: ParCtx, io: LayerIO,
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if family == "ssm":
         y, (conv, st) = ssm_mod.ssm_mixer(lp["ssm"], h, cfg, ctx)
+        y = checkpoint_name(y, "mixer_out")
         if collect_cache:
             cache = (conv, st)
         return x + y, aux, cache
@@ -131,7 +208,7 @@ def layer_forward(lp, x, cfg: ArchConfig, ctx: ParCtx, io: LayerIO,
             cache = cache + (conv, st)
         y = 0.5 * (rms_norm(y, lp["norm_attn_out"], cfg.norm_eps)
                    + rms_norm(s_out, lp["norm_ssm_out"], cfg.norm_eps))
-    x = x + y
+    x = x + checkpoint_name(y, "mixer_out")
 
     if "xattn" in lp:
         hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
@@ -151,7 +228,7 @@ def layer_forward(lp, x, cfg: ArchConfig, ctx: ParCtx, io: LayerIO,
                                    pc.moe_capacity_factor)
     else:
         y = mlp_mod.mlp_block(lp["mlp"], h, cfg, ctx)
-    return x + y, aux, cache
+    return x + checkpoint_name(y, "mlp_out"), aux, cache
 
 
 def window_per_layer(cfg: ArchConfig, n_layers: int) -> list:
@@ -181,12 +258,13 @@ def stack_forward(stack_params, x, cfg: ArchConfig, ctx: ParCtx,
     n_layers = cfg.encoder_layers if family == "encoder" else cfg.n_layers
     fam = "dense" if family == "encoder" else family
     windows = window_per_layer(cfg, n_layers)
+    layer = remat_layer(layer_forward, ctx.pcfg.remat)
     cache_list, aux_terms = [], []
     for i in range(n_layers):
         io = LayerIO(window=windows[i], positions=positions, enc_out=enc_out)
-        x, aux, cache = layer_forward(layer_slice(stack_params, i), x, cfg,
-                                      ctx, io, causal=causal, family=fam,
-                                      collect_cache=collect_cache)
+        x, aux, cache = layer(layer_slice(stack_params, i), x, cfg, ctx, io,
+                              causal=causal, family=fam,
+                              collect_cache=collect_cache)
         cache_list.append(cache)
         if aux is not None:
             pe = aux.mean(-2)          # (*mesh, E) mean router prob

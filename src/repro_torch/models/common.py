@@ -6,7 +6,10 @@ mode,
                 (leading dims the mesh axes in mesh order,
                 trailing dims one rank's shard; `convert.py`), drawn from
                 an explicit `torch.Generator` on an explicit device;
-  mode='spec'   the param's PartitionSpec entries as a plain tuple.
+  mode='spec'   the param's PartitionSpec entries as a plain tuple;
+  mode='shape'  an empty stacked tensor of the init shape and dtype on
+                the 'meta' device (no storage; the reference's
+                ShapeDtypeStruct).
 
 Spec conventions are the reference's over the mesh (pod, data, model):
 'data' in a spec is an FSDP shard, 'model' a tensor-parallel shard, and
@@ -55,7 +58,7 @@ def local_shape(shape, spec, mesh_shape: dict) -> tuple:
 class Builder:
     """One param definition -> stacked init tensor | spec tuple."""
 
-    mode: str                      # 'init' | 'spec'
+    mode: str                      # 'init' | 'spec' | 'shape'
     generator: Optional[torch.Generator] = None
     mesh_shape: Optional[dict] = None     # needed in 'init' mode
     device: object = "cpu"
@@ -69,7 +72,7 @@ class Builder:
             spec = tuple(self.spec_map(spec))
         if self.mode == "spec":
             return spec
-        if self.mode != "init":
+        if self.mode not in ("init", "shape"):
             raise ValueError(f"unknown Builder mode {self.mode!r}")
         dtype = dtype or self.dtype
         shape = tuple(shape)
@@ -78,6 +81,8 @@ class Builder:
         draw_lead = tuple(s if a in named else 1
                           for a, s in self.mesh_shape.items())
         local = local_shape(shape, spec, self.mesh_shape)
+        if self.mode == "shape":
+            return torch.empty(lead + local, dtype=dtype, device="meta")
         if init == "zeros":
             return torch.zeros(lead + local, dtype=dtype, device=self.device)
         if init == "ones":

@@ -1,8 +1,7 @@
-"""LM assembly: embeddings, the vocab-parallel greedy head, the forward.
+"""LM assembly: embeddings, the vocab-parallel loss and greedy head, the
+forward.
 
-Port of `repro/models/lm.py` for serving, the audio family's encoder
-stack included (the loss, `lm_head_ce` and `loss_fn`, waits for
-training, ROADMAP Queue 1 item 6c).
+Port of `repro/models/lm.py`, the audio family's encoder stack included.
 
 Sharding summary (mesh pod x data x model), as the reference's:
   embedding/head (V, D): V over 'model' (vocab-parallel), D over 'data'
@@ -12,6 +11,12 @@ Sharding summary (mesh pod x data x model), as the reference's:
 
 Every tensor is mesh-stacked (`parallel/ops.py`); a rank's vocab shard
 offset is its `tp_rank()` times the shard size, one per stacked row.
+
+Loss-scaling contract (the reference's, `core/autograd.py`): the
+backward differentiates the SUM of the per-rank losses; the head input
+is always full-sequence and model-axis replicated, so each rank's loss
+is ce_local_sum / (total_tokens * tp_size), stacked (*mesh,). MoE aux
+stats are token-sharded, scaled by 1 / n_ranks_total.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.blocks import layer_params, stack_forward, stacked
 from repro_torch.models.common import Builder, rms_norm, sinusoidal_positions
-from repro_torch.parallel.ops import ParCtx
+from repro_torch.parallel.ops import ParCtx, local_matmul
 
 # the greedy head carries token ids through the engine's fp32 max
 # allreduce (K1 computes in fp32): exact for ids below 2^24
@@ -103,6 +108,53 @@ def embed_tokens(params, tokens, cfg: ArchConfig, ctx: ParCtx):
     return rows
 
 
+def lm_head_ce(params, x, labels, cfg: ArchConfig, ctx: ParCtx,
+               mask=None):
+    """Vocab-parallel cross-entropy. x: stacked (*mesh, B, S, D); labels:
+    (*mesh, B, S) int.
+
+    Returns (ce_sum, token_count), each stacked (*mesh,): sums over each
+    rank's local batch tokens (the model-replicated partial; the caller
+    applies the 1/(T_total*tp) scale). Padded vocab rows are masked to
+    -1e30; the logsumexp stabiliser is gradient-free (detached) and goes
+    through the engine's max allreduce."""
+    L = ctx.lead
+    vp = padded_vocab(cfg, ctx.tp)
+    v_l = vp // ctx.tp
+    w = params["embed"] if cfg.tie_embeddings else params["head"]
+    w = ctx.gather_fsdp(w, dim=1)                     # (V_l, D)
+    logits = local_matmul(x.float(), w.float().transpose(-1, -2), L)
+    lo = ctx.tp_rank(2) * v_l                         # (*mesh, 1, 1)
+    vocab_ok = (lo[..., None] + torch.arange(v_l, device=lo.device)
+                ) < cfg.vocab_size
+    logits = torch.where(vocab_ok, logits, -1e30)
+
+    m = logits.detach().amax(-1)
+    if ctx.tp > 1:
+        m = ctx.engine.allreduce(m, ctx.tp_axis, op="max",
+                                 algorithm="recursive_doubling"
+                                 if ctx.tp & (ctx.tp - 1) == 0 else "ring")
+    e = torch.exp(logits - m[..., None])
+    denom = e.sum(-1)
+    if ctx.tp > 1:
+        denom = ctx.engine.allreduce(denom, ctx.tp_axis)
+    lse = torch.log(denom) + m
+
+    local_label = labels.long() - lo
+    hit = (local_label >= 0) & (local_label < v_l)
+    picked = torch.gather(logits, -1, torch.clamp(local_label, 0, v_l - 1)
+                          [..., None])[..., 0]
+    picked = torch.where(hit, picked, 0.0)
+    if ctx.tp > 1:
+        picked = ctx.engine.allreduce(picked, ctx.tp_axis)
+
+    ce = lse - picked                                 # (*mesh, B, S)
+    if mask is None:
+        mask = labels >= 0
+    ce = torch.where(mask, ce, 0.0)
+    return ce.sum((-2, -1)), mask.sum((-2, -1))
+
+
 def lm_head_sample(params, x, cfg: ArchConfig, ctx: ParCtx):
     """Greedy next-token over the vocab-parallel head. x: stacked
     (*mesh, B, D) -> (*mesh, B) int32, the same on every TP rank. Ties go
@@ -177,3 +229,29 @@ def forward(params, batch, cfg: ArchConfig, ctx: ParCtx):
     x = ctx.sp_allgather_seq(x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
+
+
+def loss_fn(params, batch, cfg: ArchConfig, ctx: ParCtx,
+            aux_coef: float = 0.01):
+    """Each rank's local loss, stacked (*mesh,), honouring the
+    sum-of-losses contract, and the metrics: `ce_mean` reduced over the
+    dp axes (the same on every rank) and the MoE `aux` term per rank."""
+    x, aux = forward(params, batch, cfg, ctx)
+    ce_sum, _ = lm_head_ce(params, x, batch["labels"], cfg, ctx)
+    sizes = ctx.mesh_shape
+    dp = sizes.get("pod", 1) * sizes.get("data", 1)
+    tp = sizes.get(ctx.pcfg.tp_axis, 1)
+    b_l, s = batch["labels"].shape[-2:]
+    t_total = b_l * s * dp
+    loss = ce_sum / (t_total * tp)
+    if cfg.family == "moe":
+        loss = loss + aux_coef * aux / (dp * tp)
+    # metrics are globally reduced (a local batch mean would be
+    # rank-dependent); they take no gradient
+    ce_global = ce_sum.detach()
+    for ax in ("pod", "data"):
+        if sizes.get(ax, 1) > 1:
+            ce_global = ctx.engine.allreduce(ce_global, ax)
+    metrics = {"ce_mean": ce_global / t_total,
+               "aux": aux.detach().expand(loss.shape)}
+    return loss, metrics

@@ -17,8 +17,11 @@ the engine's mesh axes in mesh order and its trailing dims one rank's
 local array. A `dim` argument names a LOCAL dim, as in the reference,
 where each rank saw only its local array. The rank of a stacked row is
 no longer `lax.axis_index` but its position along the mesh dim
-(`tp_rank`). Gradients (the reference's shard_map autodiff semantics)
-wait for the training stack.
+(`tp_rank`). Gradients follow the reference's shard_map autodiff
+contract through the engine's adjoint Functions (`core/autograd.py`):
+the backward differentiates the sum of the per-rank losses, and a
+param's gradient is allreduced over every mesh axis absent from its
+spec (`stages.grad_sync`).
 """
 from __future__ import annotations
 
@@ -30,11 +33,26 @@ from repro_torch.configs.base import ParallelConfig
 from repro_torch.core.engine import CollectiveEngine
 
 
+# set while `local_matmul` runs: the products `remat="dots"` saves
+# (`models/blocks.py`), each rank's x @ w without batch dims
+DOTS = {"active": False}
+
+
 def local_matmul(x, w, lead: int):
     """Each rank's `x @ w` (the reference's einsum "...d,df->...f"): x is
     stacked (*mesh, ..., d), w stacked (*mesh, d, f), `lead` mesh dims."""
+    if DOTS["active"]:
+        return _local_matmul(x, w, lead)
+    DOTS["active"] = True
+    try:
+        return _local_matmul(x, w, lead)
+    finally:
+        DOTS["active"] = False
+
+
+def _local_matmul(x, w, lead: int):
     if x.ndim - lead == 1:
-        return local_matmul(x.unsqueeze(-2), w, lead).squeeze(-2)
+        return _local_matmul(x.unsqueeze(-2), w, lead).squeeze(-2)
     if x.ndim - lead > 2:              # fold x's batch dims into its rows
         rows = x.reshape(tuple(x.shape[:lead]) + (-1, x.shape[-1]))
         return torch.matmul(rows, w).reshape(tuple(x.shape[:-1])

@@ -1,16 +1,29 @@
-"""Step builders for serving: prefill and decode_step over the mesh.
+"""Step builders: train_step, prefill and decode_step over the mesh.
 
-Port of the serving half of `repro/parallel/stages.py` (gradient sync
-and the train step wait for ROADMAP Queue 1 item 6c). The reference runs
-each step inside ONE shard_map over the mesh and jits it; the port has
-no jit and no shard_map: every rank is a row of a mesh-stacked tensor
-(`parallel/ops.py`), every collective — FSDP gathers, TP reductions —
-is issued by the CollectiveEngine on the whole stack (backend
-'microcode' = the paper's CCLO; 'native' = plain torch reductions), and
-the builders return plain callables over stacked tensors. Params are
-drawn in the layout the step that takes them expects (`serve=True`: the
-serving layout, weights replicated over 'data'); the reference lets jax
-reshard an FSDP-laid param tree at the call.
+Port of `repro/parallel/stages.py`. The reference runs each step inside
+ONE shard_map over the mesh and jits it; the port has no jit and no
+shard_map: every rank is a row of a mesh-stacked tensor
+(`parallel/ops.py`), every collective — FSDP gathers, TP reductions, EP
+all-to-alls, DP gradient sync — is issued by the CollectiveEngine on the
+whole stack (backend 'microcode' = the paper's CCLO; 'native' = plain
+torch reductions), and the builders return plain callables over stacked
+tensors. Params are drawn in the layout the step that takes them expects
+(`serve=True`: the serving layout, weights replicated over 'data'; the
+FSDP layout for training); the reference lets jax reshard an FSDP-laid
+param tree at the call.
+
+Gradient sync rule (tests/test_torch_grad_semantics.py): the backward
+differentiates the sum of the per-rank losses through the engine's
+adjoint Functions (`core/autograd.py`), so a param's gradient must be
+allreduced over every mesh axis absent from its spec. Leaves are
+bucketed by their missing-axis set and synced with fused engine
+allreduces per bucket, optionally int8/bf16-compressed; by default the
+buckets go through the engine's non-blocking request queue
+(`itree_allreduce`): all groups issue before any waits, the paper's
+offload-engine enqueue-then-overlap pattern
+(`ParallelConfig.async_grad_sync`). The train step updates the params and
+the optimizer state IN PLACE (the reference donates both; ROADMAP
+Queue 3).
 """
 from __future__ import annotations
 
@@ -23,7 +36,9 @@ from repro_torch.core.engine import CollectiveEngine
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import serve as serve_mod
 from repro_torch.models.common import Builder, dt
-from repro_torch.parallel.ops import ParCtx
+from repro_torch.optim import adamw
+from repro_torch.parallel.ops import ParCtx, spec_axes
+from repro_torch.tree import flatten, tree_map, unflatten
 
 
 def make_ctx(cfg: ArchConfig, pcfg: ParallelConfig, mesh_shape: dict,
@@ -62,6 +77,236 @@ def init_params(cfg: ArchConfig, mesh_shape: dict, tp: int, seed: int = 0,
                 device=device, dtype=dt(cfg.param_dtype),
                 spec_map=_drop_data_axis if serve else None)
     return lm_mod.model_params(b, cfg, tp)
+
+
+def param_shapes(cfg: ArchConfig, mesh_shape: dict, tp: int, dtype=None,
+                 serve: bool = False):
+    """The param tree as storage-free 'meta' tensors of the stacked shapes
+    and dtypes `init_params` draws (the reference's ShapeDtypeStructs)."""
+    b = Builder("shape", mesh_shape=dict(mesh_shape),
+                dtype=dtype or dt(cfg.param_dtype),
+                spec_map=_drop_data_axis if serve else None)
+    return lm_mod.model_params(b, cfg, tp)
+
+
+# --------------------------------------------------------------------------
+# Gradient sync
+# --------------------------------------------------------------------------
+
+def _layered(path) -> bool:
+    return path[0] in ("layers", "enc_layers")
+
+
+def _mesh_major(leaf, path, D: int):
+    """A leaf with its mesh dims leading: a layer-stacked (L, *mesh, ...)
+    leaf moves its layer dim behind them (one rank's local array is then
+    (L, ...), the reference's)."""
+    return leaf.movedim(0, D).contiguous() if _layered(path) else leaf
+
+
+def _rank_sum_sq(leaf, path, D: int):
+    """Each rank's sum of squares (fp32) of a leaf, stacked (*mesh,)."""
+    lay = int(_layered(path))
+    dims = tuple(d for d in range(leaf.ndim) if not lay <= d < lay + D)
+    return torch.sum(torch.square(leaf.float()), dim=dims)
+
+
+def grad_sync(grads, specs, ctx: ParCtx, compression=None,
+              use_queue: bool = True):
+    """Bucketed, engine-routed gradient synchronization.
+
+    With `use_queue` (`ParallelConfig.async_grad_sync`), every sync
+    group's bucketed allreduces are ISSUED into the engine's request
+    queue first (`itree_allreduce` — the non-blocking CCLO offload path)
+    and only then waited, so small same-dtype buckets coalesce into one
+    program and independent buckets drain back to back; the queue's
+    coalescing eligibility rule makes this bitwise-identical to the
+    blocking path (`tree_allreduce`). Axes are ordered 'data' and
+    'model' first, 'pod' (the slow fabric) last.
+
+    Returns (synced grads, each rank's sum of squares stacked (*mesh,),
+    corrected for replication: each leaf's contribution divided by its
+    replication factor, so one allreduce over the full mesh yields the
+    true norm)."""
+    mesh = ctx.mesh_shape
+    D = ctx.lead
+    mesh_axes = [a for a in mesh if mesh[a] > 1]
+    spec_of = dict(flatten(specs))
+    buckets: dict = {}
+    for path, leaf in flatten(grads):
+        spec = spec_of[path]
+        missing = tuple(a for a in mesh_axes if a not in spec_axes(spec))
+        buckets.setdefault(missing, []).append((path, leaf))
+
+    # issue phase: every sync group's bucket collectives are enqueued
+    # before any is materialized
+    tickets = {}
+    for missing, entries in buckets.items():
+        if not missing:
+            continue
+        leaves = [_mesh_major(l, p, D) for p, l in entries]
+        order = [a for a in ("data", "model") if a in missing] + \
+                [a for a in missing if a not in ("data", "model")]
+        if use_queue:
+            tickets[missing] = ctx.engine.itree_allreduce(
+                leaves, order, compression=compression)
+        else:
+            tickets[missing] = ctx.engine.tree_allreduce(
+                leaves, order, compression=compression)
+
+    if use_queue and tickets:
+        # the mesh-level price of the outstanding gradient exchange (the
+        # trainer logs it per step, `Trainer._queue_stats`)
+        from repro_torch.core.mesh_cost import MeshMakespan
+        ctx.engine.metrics.set("grad_sync_makespan_s",
+                               MeshMakespan.of(ctx.engine.queue).total())
+
+    out = []
+    sq = torch.zeros(tuple(mesh.values()), dtype=torch.float32,
+                     device=ctx.engine.device)
+    for missing, entries in buckets.items():
+        repl = 1
+        for a in missing:
+            repl *= mesh[a]
+        if missing:
+            t = tickets[missing]
+            synced = [g.movedim(D, 0) if _layered(p) else g for (p, _), g
+                      in zip(entries, t.wait() if use_queue else t)]
+        else:
+            synced = [l for _, l in entries]
+        for (path, _), g in zip(entries, synced):
+            sq = sq + _rank_sum_sq(g, path, D) / repl
+            out.append((path, g))
+    return unflatten(out), sq
+
+
+# --------------------------------------------------------------------------
+# Train step
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainStep:
+    fn: object            # step(params, opt_state, batch, step_idx)
+    ctx: ParCtx
+    specs: object         # param spec tree
+    opt_specs: object
+    batch_spec: object
+
+    def put_batch(self, batch) -> dict:
+        """A batch of global arrays (numpy or torch, the loader's) stacked
+        onto the step's device by its batch specs."""
+        from repro_torch.convert import stack_global
+        dev = self.ctx.engine.device
+        return {k: stack_global(torch.as_tensor(v).to(dev),
+                                self.ctx.mesh_shape, self.batch_spec[k])
+                for k, v in batch.items()}
+
+
+def _microbatch(batch, k: int, j: int, D: int) -> dict:
+    """Microbatch j of k: rows [j b/k, (j+1) b/k) of each rank's batch."""
+    out = {}
+    for name, leaf in batch.items():
+        bk = leaf.shape[D] // k
+        out[name] = leaf.narrow(D, j * bk, bk)
+    return out
+
+
+def _rank0(t):
+    """The value of mesh position (0, ..., 0) (the reference's out_specs
+    P() reads one device's copy)."""
+    return t.reshape(-1)[0] if t.ndim else t
+
+
+def build_train_step(cfg: ArchConfig, pcfg: ParallelConfig,
+                     mesh_shape: dict, opt_cfg: adamw.AdamWConfig,
+                     lr_schedule=None, device="cuda") -> TrainStep:
+    """The train step over FSDP-layout params (`init_params`): forward and
+    backward of the stacked per-rank losses (microbatched), `grad_sync`,
+    the global clip through the engine's scalar allreduces, the lr
+    schedule, AdamW with its own clip off, and the compute-dtype params
+    from the masters. `fn(params, opt_state, batch, step_idx)` updates
+    params and opt_state in place and returns (params, opt_state,
+    metrics) with 0-d metrics ce_mean, aux, grad_norm and loss (rank 0's
+    where they differ by rank)."""
+    ctx = make_ctx(cfg, pcfg, mesh_shape, device)
+    specs = param_specs(cfg, ctx.tp)
+    ospecs = adamw.opt_specs(specs)
+    dp = tuple(a for a in ("pod", "data") if a in mesh_shape)
+    bspec = lm_mod.batch_specs(cfg, "train", dp=dp)
+    D = ctx.lead
+    pdtype = dt(cfg.param_dtype)
+    cfg_noclip = dataclasses.replace(opt_cfg, grad_clip=1e30)
+
+    def value_and_grad(params, mb):
+        """(per-rank loss, metrics, grads) of the sum of the per-rank
+        losses. A layer-stacked leaf enters as a list of its layers (the
+        `layer_slice` of each is then a leaf of its own), so its gradient
+        is one stack of the layers' instead of a sum of L full-size
+        select-backward buffers."""
+        pairs, req, tree = flatten(params), [], []
+        for path, p in pairs:
+            if _layered(path):
+                layers = [t.detach().requires_grad_() for t in p.unbind(0)]
+                req.extend(layers)
+                tree.append((path, layers))
+            else:
+                req.append(p.detach().requires_grad_())
+                tree.append((path, req[-1]))
+        loss, metrics = lm_mod.loss_fn(unflatten(tree), mb, cfg, ctx)
+        it = iter(torch.autograd.grad(loss.sum(), req, allow_unused=True,
+                                      materialize_grads=True))
+        grads = [(path, torch.stack([next(it) for _ in range(p.shape[0])])
+                  if _layered(path) else next(it)) for path, p in pairs]
+        return loss.detach(), metrics, unflatten(grads)
+
+    def step(params, opt_state, batch, step_idx):
+        k = pcfg.microbatches
+        if k <= 1:
+            loss, metrics, grads = value_and_grad(params, batch)
+        else:
+            # gradient accumulation: one backward per microbatch, fp32
+            # accumulators, grads / loss / metrics averaged
+            g_acc = loss = metrics = None
+            for j in range(k):
+                l, m, g = value_and_grad(params, _microbatch(batch, k, j, D))
+                g = tree_map(lambda t: t.float(), g)
+                if g_acc is None:
+                    g_acc, loss, metrics = g, l, m
+                else:
+                    g_acc = tree_map(torch.add, g_acc, g)
+                    loss = loss + l
+                    metrics = {n: metrics[n] + m[n] for n in metrics}
+            grads = tree_map(lambda t: t / k, g_acc)
+            loss = loss / k
+            metrics = {n: v / k for n, v in metrics.items()}
+        grads, sq = grad_sync(grads, specs, ctx,
+                              compression=pcfg.grad_compression,
+                              use_queue=pcfg.async_grad_sync)
+        # global clip norm: one scalar allreduce per live mesh axis
+        for a in (a for a in mesh_shape if mesh_shape[a] > 1):
+            sq = ctx.engine.allreduce(sq, a)
+        gnorm = torch.sqrt(sq)                              # (*mesh,)
+        scale = torch.clamp(opt_cfg.grad_clip / torch.clamp_min(gnorm, 1e-9),
+                            max=1.0)
+
+        def clip(path, g):
+            lay = int(_layered(path))
+            s = scale.reshape((1,) * lay + scale.shape
+                              + (1,) * (g.ndim - D - lay))
+            return g.float() * s
+        grads = unflatten([(path, clip(path, g))
+                           for path, g in flatten(grads)])
+        lr_scale = lr_schedule(step_idx) if lr_schedule else 1.0
+        adamw.adamw_update(cfg_noclip, grads, opt_state, lr_scale=lr_scale,
+                           inplace=True)
+        del grads
+        adamw.apply_updates(opt_state, pdtype, params)
+        out = {"ce_mean": metrics["ce_mean"], "aux": metrics["aux"],
+               "grad_norm": gnorm, "loss": loss}
+        return params, opt_state, {n: _rank0(v) for n, v in out.items()}
+
+    return TrainStep(fn=step, ctx=ctx, specs=specs, opt_specs=ospecs,
+                     batch_spec=bspec)
 
 
 # --------------------------------------------------------------------------

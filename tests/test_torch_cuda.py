@@ -622,3 +622,68 @@ def test_lm_families_served_on_card_equal_cpu(card, arch):
         launched = fused_reduce.fused_combine.launches - before
         assert (launched == 0) == (dev == "cpu")
     assert torch.equal(out["cpu"], out[str(card)])
+
+
+# --------------------------------------------------------------------------
+# Training: the flash backward and the collectives' adjoints on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_flash_backward_on_card_matches_cpu(card, window):
+    """The flash Function's dq, dk, dv on the card equal the CPU's (fp32,
+    cuBLAS vs CPU summation orders: 1e-5)."""
+    from repro_torch.models.attention import flash_attention
+    shapes = ((2, 64, 6, 16), (2, 64, 2, 16), (2, 64, 2, 16))
+    cpu = [_randn(s, i, "cpu").requires_grad_() for i, s in
+           enumerate(shapes)]
+    dev = [t.detach().to(card).requires_grad_() for t in cpu]
+    cot = _randn((2, 64, 6, 16), 9, "cpu")
+    grads = []
+    for ts, c in ((cpu, cot), (dev, cot.to(card))):
+        out = flash_attention(*ts, causal=True, window=window, q_block=16,
+                              kv_block=32)
+        grads.append(torch.autograd.grad((out * c).sum(), ts))
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["allreduce", "allgather",
+                                  "reduce_scatter", "alltoall"])
+def test_adjoints_on_card_bitwise_cpu(card, name):
+    """Each collective's adjoint runs through the engine on the card (K1
+    for the reductions) and equals the CPU's plain versions bitwise,
+    forward and backward."""
+    shape = (4, 8, 6)
+    outs = []
+    k1 = fused_reduce.fused_combine.launches
+    for device in ("cpu", card):
+        eng = CollectiveEngine({"m": 4}, device=device)
+        x = _randn(shape, 0, device).requires_grad_()
+        y = getattr(eng, name)(x, "m")
+        assert type(y.grad_fn).__name__.endswith("Backward")
+        cot = _randn(tuple(y.shape), 1, device)
+        (g,) = torch.autograd.grad((y * cot).sum(), [x])
+        outs.append((y.detach().cpu(), g.cpu()))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    if name != "alltoall":
+        assert fused_reduce.fused_combine.launches > k1
+
+
+def test_allgather_matmul_adjoint_on_card(card):
+    """allgather_matmul runs K4 in its forward; its adjoint (a
+    reduce-scatter through the engine, and the gathered x^T dy) matches
+    the CPU's (fp32, 1e-5)."""
+    k4 = matmul.matmul_tiled.launches
+    res = []
+    for device in ("cpu", card):
+        eng = CollectiveEngine({"m": 4}, device=device)
+        x = _randn((4, 8, 16), 2, device).requires_grad_()
+        w = _randn((4, 16, 12), 3, device).requires_grad_()
+        y = eng.allgather_matmul(x, w, "m")
+        cot = _randn(tuple(y.shape), 4, device)
+        res.append([t.detach().cpu() for t in (y,) + torch.autograd.grad(
+            (y * cot).sum(), [x, w])])
+    assert matmul.matmul_tiled.launches > k4
+    for a, b in zip(*res):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-5)

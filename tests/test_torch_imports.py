@@ -23,6 +23,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names + {smoke!r} + ["chip_smoke"]:
     importlib.import_module(name)
+missing = [m for m in {training!r} if m not in names]
+assert not missing, missing
 leaked = [m for m, mod in sys.modules.items() if mod is not None and
           m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not leaked, leaked
@@ -42,12 +44,24 @@ def _chip_smoke_imports() -> list:
     return sorted(mods)
 
 
+# the training stack's modules, each of which must be found and import
+# without jax or the reference package
+TRAINING = ["repro_torch.core.autograd", "repro_torch.optim",
+            "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+            "repro_torch.data", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+            "repro_torch.runtime.trainer", "repro_torch.runtime.health",
+            "repro_torch.launch.train"]
+
+
 def test_port_imports_without_jax_or_reference():
     smoke = _chip_smoke_imports()
     assert "repro_torch.runtime" in smoke and "torch" in smoke
-    code = _CHECK.format(src=str(ROOT / "src"), root=str(ROOT), smoke=smoke)
+    assert "repro_torch.optim" in smoke
+    code = _CHECK.format(src=str(ROOT / "src"), root=str(ROOT), smoke=smoke,
+                         training=TRAINING)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    # the package's modules, the LM stack's included
-    assert int(r.stdout.split()[-1]) >= 50
+    # the package's modules, the LM and training stacks' included
+    assert int(r.stdout.split()[-1]) >= 60
