@@ -151,10 +151,30 @@ Phases, one line each:
      1e-5. Then the median step, tokens/s, peak memory, launches, one
      step's device time by kernel group and by phase and the idle share
      at (8, 64) and (8, 512).
+ 11. ring_attention and dryrun: 11a the engine's `ring_attention` at
+     qwen3-0.6b's attention width (16 q heads, 8 kv heads, head_dim 128,
+     bf16) over prefill_32k's 32768 tokens, context-parallel over 8 ranks
+     (4096 each): causal and full at segments 1, causal at segments 4,
+     each within a derived bound (`ring_bound`) of a float64 exact
+     attention of the same bf16 inputs computed on the card in query
+     blocks and within RING_RMS_LIMIT of the rms error its bf16
+     roundings give (a control with bf16 scores must break it),
+     segments 4 within twice the rounding terms of segments 1, the
+     trace_log entry, the peak memory (against its score tensors), and
+     the median, busy time and idle share beside the port's single-copy
+     `chunked_attention` over the same tokens. 11b `launch/dryrun.py`'s
+     counters on 'meta' against one real step of phase 10's (8, 512)
+     cell on the card, and of its SP + collective-matmul variant (K4),
+     each after a warm-up step whose every K1 call is held bitwise and
+     every K4 call within its bound: FLOPs equal, argument bytes equal,
+     the engine's programs equal in order, K1 per phase as the meta run's
+     programs imply, the meta peak within DRY_PEAK_MARGIN of the card's;
+     then the production cell qwen3-0.6b train_4k on the 16 x 16 mesh on
+     'meta' (per-rank memory, fit, dominant term, host seconds).
 
 Then one JSON line of the five kernels with their launches on every
 path (in total and by path: collectives, dlrm, vecmat, queue, lm,
-lm_families, train), time, plain time, bound and library time (K4 also with the tile
+lm_families, train, dryrun), time, plain time, bound and library time (K4 also with the tile
 configuration that ran and its achieved rate; K5 also its `lookup` entry
 at B = 32 and 2048, beside the device time of the sequence of PyTorch
 ops and `gather_rows` it replaced, `sequence_ms`). The last line is
@@ -3214,6 +3234,375 @@ def phase_train_times(cfg, mods, ops, counts, seed: int, reps: int,
     torch.cuda.empty_cache()
 
 
+RING_RANKS = 8                # context-parallel ranks: 4096 tokens each
+RING_TOKENS = 32768           # SHAPES["prefill_32k"].seq_len
+RING_RUNS = (("causal", True, 1), ("full", False, 1),
+             ("causal_seg4", True, 4))
+RING_Q_BLOCK = 1024           # query rows per block of the float64 reference
+# 11a's rms check: each bf16 rounding (p_j before the PV product, the
+# output) a relative error of mean square u^2 / (3 m^2) at mantissa m,
+# 0.18 u^2 over log-uniform mantissas, so the error's variance is
+# RING_RMS_VAR u^2 (P^2 @ v^2 + out^2) per element; the measured rms over
+# that model's must stay within RING_RMS_LIMIT. The port sits at 0.87-0.97
+# of it on the CPU (2048-4096 tokens), a port whose q @ k is a bf16
+# product at 1.50-1.88, and phase 11a holds that control above the limit.
+RING_RMS_VAR = 0.18
+RING_RMS_LIMIT = 1.2
+# 11a's peak above the inputs: at segments 1 the score tensor, its
+# shifted copy, p and p's bf16 round trip live at once (3.5 stacked fp32
+# score tensors) beside the fp32 state and upcasts (~0.8 GB); at segments
+# 4 every score tensor is a quarter of that, so the peak is within
+# RING_SEG_PEAK_SLACK of a quarter of the segments-1 peak
+RING_PEAK_TENSORS = 4.0
+RING_SEG_PEAK_SLACK = 1.25
+_RING_GROUPS = (("gemm", "cuBLAS"), ("xmma", "cuBLAS"),
+                ("cutlass", "cuBLAS"), ("nvjet", "cuBLAS"),
+                ("index", "gather (rotation)"),
+                ("elementwise", "elementwise"), ("reduce", "reductions"))
+# 11b: the peak of live bytes the meta run counts against the card's
+# allocator, both above the step's start. On 'meta' every kernel entry
+# point makes its output alone, as the kernel does on the card, so both
+# runs make the same storages; the caching allocator rounds each block
+# up to 512 B, at most 2.6 MB over ~5000 blocks live at the peak, 9e-5 of
+# the ~30 GB peak (measured on the card: within 3.2e-7).
+DRY_PEAK_MARGIN = 1e-4
+
+
+def ring_reference(q, k, v, causal: bool) -> tuple:
+    """Exact attention of the bf16 inputs in float64 on the card, in
+    blocks of RING_Q_BLOCK queries: (out, P @ |v|, P^2 @ v^2), each (S, H,
+    hd), P the float64 softmax (the scales of p's roundings: on every
+    rounding at once, and on their sum in mean square)."""
+    S, H, hd = q.shape[1:]
+    g = H // k.shape[2]
+    kh = k[0].double().permute(1, 0, 2).repeat_interleave(g, 0)
+    vh = v[0].double().permute(1, 0, 2).repeat_interleave(g, 0)
+    va, v2 = vh.abs(), vh.square()
+    out = torch.empty((S, H, hd), dtype=torch.float64, device="cuda")
+    mag, pv2 = torch.empty_like(out), torch.empty_like(out)
+    for i0 in range(0, S, RING_Q_BLOCK):
+        cols = i0 + RING_Q_BLOCK if causal else S
+        rows = slice(i0, i0 + RING_Q_BLOCK)
+        qb = q[0, rows].double().permute(1, 0, 2)
+        s = torch.bmm(qb, kh[:, :cols].transpose(1, 2)) / math.sqrt(hd)
+        if causal:
+            pos = torch.arange(i0, i0 + RING_Q_BLOCK, device="cuda")
+            s.masked_fill_(torch.arange(cols, device="cuda")[None, None, :]
+                           > pos[None, :, None], -math.inf)
+        s -= s.amax(-1, keepdim=True)
+        s.exp_()
+        s /= s.sum(-1, keepdim=True)
+        out[rows] = torch.bmm(s, vh[:, :cols]).permute(1, 0, 2)
+        mag[rows] = torch.bmm(s, va[:, :cols]).permute(1, 0, 2)
+        pv2[rows] = torch.bmm(s.square_(), v2[:, :cols]).permute(1, 0, 2)
+        del s
+    return out, mag, pv2
+
+
+def ring_bound(ref, mag, K: int):
+    """Per-element bound on |ring - exact| for bf16 ring attention over K
+    keys: the output's rounding to bf16 (u |out|, u = 2^-8), p's rounding
+    to bf16 before the PV product (u per p_j, so u (P @ |v|) once
+    normalized), and the fp32 sums over K keys of the PV accumulator and
+    of l (K 2^-24 each, on P @ |v|); the fp32 scores (hd = 128 terms) and
+    rescalings add ~2^-20."""
+    return BF16_U * ref.abs() + (BF16_U + 2 * K * 2.0 ** -24
+                                 + 2.0 ** -20) * mag
+
+
+def ring_rms(got, ref, pv2) -> float:
+    """The rms of got - ref over the rms the bf16 roundings of p and of
+    the output give (RING_RMS_VAR): ~0.9 for fp32 scores."""
+    var = RING_RMS_VAR * BF16_U ** 2 * (pv2 + ref.square())
+    return math.sqrt(float((got - ref).square().sum() / var.sum()))
+
+
+@contextlib.contextmanager
+def ring_bf16_scores():
+    """The control of 11a's rms check: ring attention with its scores
+    formed as a bf16 product of the bf16 q and k (rounded to bf16) in
+    place of the fp32 product of their exact upcasts."""
+    real = torch.einsum
+
+    def einsum(eq, *operands):
+        if eq == "rbqkgh,rbskh->rbkgqs":
+            return real(eq, *[t.bfloat16() for t in operands]).float()
+        return real(eq, *operands)
+
+    torch.einsum = einsum
+    try:
+        yield
+    finally:
+        torch.einsum = real
+
+
+def phase_ring_attention(CollectiveEngine, cfg, attn_mod, gen, reps: int,
+                         smi: str) -> None:
+    """Phase 11a: the engine's `ring_attention` at qwen3-0.6b's attention
+    width (16 q heads, 8 kv heads, head_dim 128, bf16) over one sequence
+    of 32768 tokens, context-parallel over 8 ranks; causal and full at
+    segments 1, causal at segments 4. Each run against a float64 exact
+    attention of the same bf16 inputs within `ring_bound` and within
+    RING_RMS_LIMIT of the rms its bf16 roundings give (`ring_rms`; the
+    same run with bf16 scores must break that), segments 4 against
+    segments 1 within twice the rounding terms, the trace_log entry, the
+    peak memory above the inputs (RING_PEAK_TENSORS score tensors at
+    segments 1, about a quarter of that at segments 4), then times
+    (median of >= 5 calls, device busy time and idle share) beside the
+    port's
+    single-copy `chunked_attention` over the same tokens (plain torch
+    both: neither is a kernel's time)."""
+    t_phase = time.perf_counter()
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    dtype = torch.bfloat16
+    S, n = RING_TOKENS, RING_RANKS
+    sl = S // n
+    q, k, v = (torch.randn((1, S, h, hd), generator=gen, device="cuda")
+               .to(dtype) for h in (H, KV, KV))
+
+    def stack(t):       # (1, S, h, hd) -> (n, 1, S / n, h, hd)
+        return t.reshape(1, n, sl, *t.shape[2:]).movedim(1, 0).contiguous()
+
+    def unstack(t):
+        return t.movedim(0, 1).reshape(1, S, *t.shape[3:])
+
+    eng = CollectiveEngine({"x": n}, device="cuda")
+    qs, ks, vs = stack(q), stack(k), stack(v)
+    refs = {c: ring_reference(q, k, v, c) for c in (True, False)}
+    score_bytes = n * H * sl * sl * 4
+    out, runs = {}, {}
+    for name, causal, segs in RING_RUNS:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng.trace_log.clear()
+        y = eng.ring_attention(qs, ks, vs, "x", causal=causal, segments=segs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        want_log = [("ring_attention", "ring", "x", sl * KV * hd * 2)]
+        if eng.trace_log != want_log:
+            fail(f"ring {name}: trace_log {eng.trace_log}, want {want_log}")
+        if y.shape != qs.shape or y.dtype != dtype:
+            fail(f"ring {name}: {tuple(y.shape)} {y.dtype}")
+        g = unstack(y)[0].double()
+        ref, mag, pv2 = refs[causal]
+        err = (g - ref).abs()
+        bound = ring_bound(ref, mag, S)
+        if not bool(torch.isfinite(g).all()) or not bool((err <= bound).all()):
+            fail(f"ring {name}: {int((err > bound).sum())} elements outside "
+                 f"the float64 bound (max err {float(err.max())})")
+        rms = ring_rms(g, ref, pv2)
+        if rms > RING_RMS_LIMIT:
+            fail(f"ring {name}: rms error {rms} x the bf16 roundings' "
+                 f"(limit {RING_RMS_LIMIT})")
+        if segs == 1 and peak > RING_PEAK_TENSORS * score_bytes:
+            fail(f"ring {name}: peak {peak} B above the inputs, over "
+                 f"{RING_PEAK_TENSORS} score tensors of {score_bytes} B")
+        out[name] = y
+        runs[name] = {"causal": causal, "segments": segs,
+                      "max_abs_err": float(err.max()),
+                      "err_over_bound_max": float((err / bound).max()),
+                      "rms_err_over_model": rms,
+                      "peak_bytes": peak, "score_tensor_bytes": score_bytes}
+        del g, err, bound
+    seg4_peak = runs["causal_seg4"]["peak_bytes"]
+    if seg4_peak * 4 > RING_SEG_PEAK_SLACK * runs["causal"]["peak_bytes"]:
+        fail(f"ring: the segments-4 peak {seg4_peak} is not about a quarter "
+             f"of the segments-1 peak {runs['causal']['peak_bytes']}")
+    # the control: bf16 scores must break the rms check
+    control = {}
+    for name, causal, segs in RING_RUNS[:2]:
+        with ring_bf16_scores():
+            y = eng.ring_attention(qs, ks, vs, "x", causal=causal,
+                                   segments=segs)
+        ref, _mag, pv2 = refs[causal]
+        control[name] = ring_rms(unstack(y)[0].double(), ref, pv2)
+        if control[name] <= RING_RMS_LIMIT:
+            fail(f"ring {name}: bf16 scores give {control[name]} x the "
+                 f"model's rms, within the limit: the check cannot see them")
+        del y
+    eng.trace_log.clear()
+    # segments 4 against segments 1: the same sums split otherwise — p's
+    # bf16 roundings and the fp32 sums differ, each side within its share
+    ref, mag, _pv2 = refs[True]
+    d = (unstack(out["causal_seg4"])[0].double()
+         - unstack(out["causal"])[0].double()).abs()
+    seg_bound = 2 * (BF16_U * ref.abs() + (BF16_U + 2 * S * 2.0 ** -24)
+                     * mag)
+    if not bool((d <= seg_bound).all()):
+        fail(f"ring causal_seg4 vs seg1: {int((d > seg_bound).sum())} "
+             f"elements outside the bound (max {float(d.max())})")
+    runs["causal_seg4"]["vs_seg1_max_abs"] = float(d.max())
+    # the single-copy attention over the same tokens (plain torch)
+    single = attn_mod.chunked_attention(q, k, v, causal=True)
+    err = (single[0].double() - ref).abs()
+    single_ok = bool((err <= ring_bound(ref, mag, S)).all())
+    if not single_ok:
+        fail("ring: the single-copy chunked_attention is outside the bound")
+    del out, refs, d, seg_bound, single, ref, mag, err, _pv2, pv2
+    torch.cuda.empty_cache()
+    times = {}
+    fns = {name: (lambda c=c, s=s: eng.ring_attention(
+        qs, ks, vs, "x", causal=c, segments=s))
+        for name, c, s in RING_RUNS}
+    fns["single_copy_chunked_causal"] = lambda: attn_mod.chunked_attention(
+        q, k, v, causal=True)
+    for name, fn in fns.items():
+        ms = median_ms(fn, max(reps // 2, 5))
+        times[name] = busy_and_idle(device_split(fn, _RING_GROUPS, top=4), ms)
+        torch.cuda.empty_cache()
+    emit({"phase": "ring_attention", "arch": cfg.name, "heads": H,
+          "kv_heads": KV, "head_dim": hd, "tokens": S, "ranks": n,
+          "dtype": "bfloat16", "runs": runs,
+          "rms_limit": RING_RMS_LIMIT, "control_bf16_scores_rms": control,
+          "times": times,
+          "single_copy_within_bound": single_ok, "card": smi,
+          "seconds": time.perf_counter() - t_phase})
+    del q, k, v, qs, ks, vs, eng
+    torch.cuda.empty_cache()
+
+
+def dry_phase_k1(probe_step, programs) -> dict:
+    """K1 launches per phase that the meta run's programs imply, each
+    program given the phase the card's run of the same position had."""
+    if len(programs) != len(probe_step["progs"]):
+        fail(f"dryrun: the meta run executed {len(programs)} programs, the "
+             f"card's step {len(probe_step['progs'])}")
+    out: dict = {}
+    for (phase, _s, _shape, _c), (_n, sched, shape, codec, _ax) in zip(
+            probe_step["progs"], programs):
+        out[phase] = out.get(phase, 0) + implied_k1(
+            sched.compile(codec=codec), shape)
+    return out
+
+
+def phase_dryrun(cfg, mods, ops, ref, counts, seed: int, smi: str) -> None:
+    """Phase 11b: `launch/dryrun.py`'s counters on 'meta' against the card.
+    Phase 10's cell (qwen3-0.6b at full width, the (1, 4, 2) mesh, (8,
+    512), remat none) runs once on 'meta' and once for real on the card
+    under the same counters, after a warm-up step under `lm_checked`
+    (every K1 call bitwise, every K4 call within its bound, at these
+    shapes; as many checked as the counted step launches): FLOPs equal
+    exactly, the argument bytes (params, AdamW state, batch) equal the card's, the
+    programs the engine ran equal in order and K1's launches per phase
+    equal what the meta run's programs imply; the meta run's peak of live
+    bytes within DRY_PEAK_MARGIN of the card's allocator peak above the
+    step's start. Then the same with SP + the collective matmul (K4's
+    products counted at its wrapper on the card, as aten products on
+    'meta'), and one production cell, qwen3-0.6b train_4k on the
+    single-pod 16 x 16 mesh, on 'meta' alone."""
+    (convert, stages, adamw, schedules, lm_mod, data_mod, _tl) = mods
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import analysis, dryrun
+    t_phase = time.perf_counter()
+    B, S = TRAIN_LARGE
+    cell = ShapeConfig("phase10", S, B, "train")
+    out: dict = {"cell": {"arch": cfg.name, "mesh": LM_MESH, "batch": B,
+                          "seq": S}}
+    params = stages.init_params(cfg, LM_MESH, LM_TP, seed=seed,
+                                device="cuda")
+    opt = adamw.adamw_init(params)
+    batch_t = train_batch(data_mod, cfg, B, S, seed)
+    for variant, pcfg in (
+            ("base", ParallelConfig(remat="none")),
+            ("sp_collective_matmul", ParallelConfig(
+                remat="none", sequence_parallel=True,
+                collective_matmul=True))):
+        t0 = time.perf_counter()
+        fn, eng_m, args_m = dryrun.build_cell(cfg, cell, LM_MESH, pcfg)
+        res_m, st_m = analysis.count(fn, [eng_m])
+        mem_m = analysis.memory(args_m, res_m, st_m, LM_MESH)
+        meta_s = time.perf_counter() - t0
+        del fn, res_m, args_m
+        ts = stages.build_train_step(cfg, pcfg, LM_MESH, adamw.AdamWConfig(),
+                                     device="cuda")
+        batch = ts.put_batch(batch_t)
+        # warm-up (cuBLAS workspaces), every kernel call checked
+        log = {"k1": [], "k4": []}
+        ops.reset_launch_counts()
+        with lm_checked(ops, ref, log):
+            ts.fn(params, opt, batch, 0)
+            torch.cuda.synchronize()
+        checked = {"fused_combine": len(log["k1"]),
+                   "matmul_tiled": len(log["k4"])}
+        k4_err = max(log["k4"], default=None)
+        del log
+        probe = TrainProbe((stages, adamw, lm_mod), ops, ts.ctx.engine)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        k4_0 = ops.kernel_flops()
+        with probe, analysis.counting([ts.ctx.engine]) as st_c:
+            ts.fn(params, opt, batch, 1)
+            torch.cuda.synchronize()
+        counts[f"dryrun_{variant}"] = c = ops.launch_counts()
+        k4_flops = ops.kernel_flops() - k4_0
+        peak_card = torch.cuda.max_memory_allocated() - base
+        arg_card, _ = analysis.arg_bytes((params, opt, batch), LM_MESH)
+        step = probe.steps[-1]
+        if st_c.flops != st_m.flops:
+            fail(f"dryrun {variant}: FLOPs on the card {st_c.flops}, on "
+                 f"meta {st_m.flops}")
+        if arg_card != mem_m["argument_bytes"]:
+            fail(f"dryrun {variant}: argument bytes per rank on the card "
+                 f"{arg_card}, on meta {mem_m['argument_bytes']}")
+        key = [(p[0], p[2], p[3], p[4]) for p in st_m.programs]
+        if key != [(p[0], p[2], p[3], p[4]) for p in st_c.programs]:
+            fail(f"dryrun {variant}: the programs differ from the card's")
+        implied = dry_phase_k1(step, st_m.programs)
+        k1_meta = {p: implied.get(p, 0) for p in TrainProbe.PHASES}
+        k1_card = {p: step["k1"][p] for p in TrainProbe.PHASES}
+        if k1_meta != k1_card or sum(k1_card.values()) != c["fused_combine"]:
+            fail(f"dryrun {variant}: K1 per phase on the card {k1_card}, "
+                 f"the meta run's programs imply {k1_meta}")
+        if variant != "base" and not c["matmul_tiled"]:
+            fail("dryrun: the SP step launched no K4")
+        if not checked["fused_combine"] or any(
+                checked[k] != c[k] for k in checked):
+            fail(f"dryrun {variant}: the warm-up checked {checked}, the "
+                 f"counted step launched {c}")
+        ratio = peak_card / st_m.peak_bytes
+        if abs(ratio - 1) > DRY_PEAK_MARGIN:
+            fail(f"dryrun {variant}: the card's peak {peak_card} is "
+                 f"{ratio:.4f} x the meta run's {st_m.peak_bytes}")
+        out[variant] = {
+            "flops": st_m.flops, "flops_card": st_c.flops,
+            "k4_flops_card": k4_flops,
+            "argument_bytes_per_rank": arg_card,
+            "memory_meta_per_rank": mem_m,
+            "programs": len(st_m.programs),
+            "coll_by_kind": st_m.coll_by_kind,
+            "coll_wire_bytes_per_rank": st_m.coll_wire_bytes,
+            "k1_per_phase": k1_meta, "launches": c,
+            "k1_checked_bitwise": checked["fused_combine"],
+            "k4_checked": checked["matmul_tiled"], "k4_max_abs_err": k4_err,
+            "peak_meta_bytes": st_m.peak_bytes,
+            "peak_tracked_card_bytes": st_c.peak_bytes,
+            "peak_allocator_card_bytes": peak_card,
+            "peak_card_over_meta": ratio, "peak_margin": DRY_PEAK_MARGIN,
+            "meta_seconds": meta_s}
+        del ts, batch, probe, st_c, st_m
+        torch.cuda.empty_cache()
+    del params, opt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prod = dryrun.run_cell(cfg.name, "train_4k", False, ParallelConfig())
+    if prod.get("status") != "OK":
+        fail(f"dryrun train_4k: {prod.get('status')}")
+    out["production_cell"] = {
+        k: prod[k] for k in ("arch", "shape", "mesh", "chips", "memory",
+                             "fits_hbm", "model_flops_ratio", "hw")}
+    out["production_cell"].update(
+        dominant=prod["roofline"]["dominant"],
+        coll_wire_bytes_per_device=prod["roofline"][
+            "coll_wire_bytes_per_device"],
+        host_seconds=time.perf_counter() - t0)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = smi
+    emit({"phase": "dryrun", **out})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3244,6 +3633,7 @@ def main() -> int:
     from repro_torch import data as data_mod
     from repro_torch.launch import train as train_launch
     from repro_torch.launch.dlrm_serve import DLRMServer
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import dlrm as dlrm_mod
     from repro_torch.models import lm as lm_mod
     from repro_torch.optim import adamw, schedules
@@ -3317,6 +3707,14 @@ def main() -> int:
     phase_train(lm_cfg, (convert, stages, adamw, schedules, lm_mod,
                          data_mod, train_launch), ops, ref, counts, gen,
                 args.seed, args.reps, smi)
+
+    # phase 11: ring attention at full width, the dry run against the card
+    torch.cuda.empty_cache()
+    phase_ring_attention(CollectiveEngine, lm_cfg, attn_mod, gen, args.reps,
+                         smi)
+    phase_dryrun(lm_cfg, (convert, stages, adamw, schedules, lm_mod,
+                          data_mod, train_launch), ops, ref, counts,
+                 args.seed, smi)
     for row in rows:      # launches on every path's runs (K1 runs on all)
         row["launches"] = sum(c[row["name"]] for c in counts.values())
         if not row["launches"]:
@@ -3324,7 +3722,8 @@ def main() -> int:
         by_path: dict = {}
         for key, c in counts.items():
             path = next((p for p in ("dlrm", "vecmat", "queue",
-                                     "lm_families", "lm", "train")
+                                     "lm_families", "lm", "train",
+                                     "dryrun")
                          if key.startswith(p)), "collectives")
             by_path[path] = by_path.get(path, 0) + c[row["name"]]
         row["launches_by_path"] = by_path

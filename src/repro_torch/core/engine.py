@@ -1335,3 +1335,98 @@ class CollectiveEngine:
                                int(rows[0].numel() * rows.element_size())))
         out = accs[0] if segs == 1 else torch.cat(accs, dim=2)
         return lay.restore(out.reshape(G * n, c, p))
+
+    def ring_attention(self, q, k, v, axis: str, *, causal: bool = True,
+                       scale: Optional[float] = None, segments: int = 1):
+        """Context-parallel attention: the streaming API generalized.
+
+        q: mesh-stacked (B, S_local, H, hd); k, v: mesh-stacked (B,
+        S_local, KV, hd), H % KV == 0. The SEQUENCE is sharded over
+        `axis` (rank r holds positions [r S_local, (r + 1) S_local)).
+        KV blocks rotate around the ring (`ring_perm(1)`: rank r receives
+        r - 1's block, so at step s it holds rank (r - s) % n's) while
+        every rank flash-accumulates attention for its local queries —
+        one stacked einsum per step for all ranks. Scores and the PV
+        accumulator are fp32 (q and k upcast exactly, as the reference's
+        `preferred_element_type`); p is rounded to v's dtype before the
+        PV product. `segments` splits each KV block into independent
+        sequence segments, as the reference does. No kernel and no
+        engine program runs: the rotation is an index permutation (the
+        reference's raw `lax.ppermute`). Returns mesh-stacked (B,
+        S_local, H, hd) in q's dtype.
+        """
+        q, k, v = self._tensor(q), self._tensor(k), self._tensor(v)
+        qrows, lay = self._layout(q, axis)
+        krows, _ = self._layout(k, axis)
+        vrows, _ = self._layout(v, axis)
+        n, G = lay.n, lay.groups
+        R, b, sl, h, hd = qrows.shape
+        kv = krows.shape[3]
+        g = h // kv
+        if scale is None:
+            scale = 1.0 / (hd ** 0.5)
+        qr = qrows.reshape(R, b, sl, kv, g, hd).float()
+        if n == 1:
+            s = torch.einsum("rbqkgh,rbskh->rbkgqs", qr,
+                             krows.float()) * scale
+            if causal:
+                mask = torch.ones((sl, sl), dtype=torch.bool,
+                                  device=q.device).tril()
+                s = torch.where(mask, s, -1e30)
+            p = torch.softmax(s, dim=-1)
+            out = torch.einsum("rbkgqs,rbskh->rbkgqh",
+                               p.to(v.dtype).float(), vrows.float())
+            out = out.to(v.dtype).permute(0, 1, 4, 2, 3, 5)
+            return lay.restore(out.reshape(R, b, sl, h, hd))
+
+        rank = lay.rank_of_rows(q.device)                      # (R,)
+        q_pos = rank[:, None] * sl + torch.arange(sl, device=q.device)
+        m = torch.full((R, b, kv, g, sl), -1e30, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((R, b, kv, g, sl), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((R, b, kv, g, sl, hd), dtype=torch.float32,
+                          device=q.device)
+
+        def accumulate(m, l, acc, kb, vb, owner, seg_off):
+            k_pos = owner[:, None] * sl + seg_off + torch.arange(
+                kb.shape[2], device=q.device)                  # (R, sub)
+            s = torch.einsum("rbqkgh,rbskh->rbkgqs", qr, kb.float()) * scale
+            if causal:
+                mask = k_pos[:, None, :] <= q_pos[:, :, None]  # (R, sl, sub)
+                s = torch.where(mask[:, None, None, None], s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("rbkgqs,rbskh->rbkgqh", p.to(vb.dtype).float(),
+                              vb.float())
+            return m_new, l, acc * corr[..., None] + pv
+
+        # KV blocks rotate as independent sequence segments (online
+        # softmax is exact under any block split: only rounding differs)
+        segs = _fit_segments(sl, segments)
+        sub = sl // segs
+        k_parts = list(krows.split(sub, dim=2))
+        v_parts = list(vrows.split(sub, dim=2))
+        src = (torch.arange(n, device=q.device) - 1) % n
+
+        def rotate(t):
+            return t.reshape((G, n) + tuple(t.shape[1:]))[:, src].reshape(
+                t.shape)
+
+        for j in range(segs):
+            m, l, acc = accumulate(m, l, acc, k_parts[j], v_parts[j], rank,
+                                   j * sub)
+        for step in range(1, n):
+            k_parts = [rotate(t) for t in k_parts]
+            v_parts = [rotate(t) for t in v_parts]
+            owner = (rank - step) % n
+            for j in range(segs):
+                m, l, acc = accumulate(m, l, acc, k_parts[j], v_parts[j],
+                                       owner, j * sub)
+        out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+        self.trace_log.append(("ring_attention", "ring", axis,
+                               int(krows[0].numel() * krows.element_size())))
+        out = out.permute(0, 1, 4, 2, 3, 5).reshape(R, b, sl, h, hd)
+        return lay.restore(out)

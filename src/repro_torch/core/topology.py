@@ -16,9 +16,19 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 from repro_torch.core.hw_spec import HwSpec, TPU_V5E
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> dict:
+    """The port's mesh: `{axis: size}` in the order the stacked tensors'
+    leading dims follow (the reference builds a `jax.sharding.Mesh` of
+    the same shape and axis names)."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh shape {shape} does not name axes {axes}")
+    return dict(zip(axes, shape))
 
 
 @dataclasses.dataclass(frozen=True)

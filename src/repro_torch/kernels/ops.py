@@ -3,11 +3,19 @@ plain PyTorch version on the CPU.
 
 A CUDA tensor launches the hand-written kernel (fused_reduce.py,
 quantize.py, matmul.py, embedding_gather.py) or raises; a CPU tensor
-takes the plain version in ref.py. The choice follows the tensor's
-device alone — there is no fallback and no flag. Mirrors `repro/kernels/ops.py`, whose `_interpret` picks the
+takes the plain version in ref.py. A storage-free 'meta' tensor (the dry
+run, `launch/dryrun.py`) gets the kernel's result as the kernel makes it:
+its output alone, by shape and dtype, with none of the plain version's
+temporaries; K4 alone runs its plain version there, so that its products
+are counted as aten products. The choice follows the tensor's device
+alone — there is no fallback and no flag. Mirrors `repro/kernels/ops.py`, whose `_interpret` picks the
 Pallas interpreter off a TPU.
 """
 from __future__ import annotations
+
+import math
+
+import torch
 
 from repro_torch.kernels import embedding_gather as _eg
 from repro_torch.kernels import fused_reduce as _fr
@@ -29,7 +37,7 @@ KERNELS = {
 def _on_card(t) -> bool:
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
@@ -38,13 +46,40 @@ def _into(out, res):
     return res if out is None else out.copy_(res)
 
 
+def _meta(t) -> bool:
+    return t.device.type == "meta"
+
+
+def _meta_out(out, shape, dtype):
+    """A kernel's result on 'meta': `out`, or a new output of its shape
+    and dtype."""
+    if out is not None:
+        return out
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _region_len(t, index) -> int:
+    """Elements of one rank's segment of a region of `t` (`_index.py`)."""
+    unit, _rows, units = index
+    return int(unit) * units.shape[2] * math.prod(t.shape[2:])
+
+
 def fused_combine(x, y, op: str = "add", out_dtype=None, out=None):
     """K1: `op(x.f32, y.f32).to(out_dtype)`, elementwise; written into
     `out` (which may alias x) when given."""
+    if _meta(x):
+        return _meta_out(out, x.shape, out_dtype or x.dtype)
     if _on_card(x):
         return _fr.fused_combine(x.contiguous(), y.contiguous(), op=op,
                                  out_dtype=out_dtype, out=out)
     return _into(out, ref.fused_combine(x, y, op, out_dtype))
+
+
+def fused_add(x, y, out_dtype=None):
+    """K1 with op 'add': `(x.f32 + y.f32).to(out_dtype)` (default
+    x.dtype), any shape — the reference's streaming binary plugin
+    `ops.fused_add`."""
+    return fused_combine(x, y, "add", out_dtype)
 
 
 def fused_combine_at(a, a_index, b, b_index, j: int, op: str = "add",
@@ -53,6 +88,9 @@ def fused_combine_at(a, a_index, b, b_index, j: int, op: str = "add",
     regions of rank-stacked buffers (`core/engine.py::_region_index`
     triples), as a (ranks, seg) tensor; written into `out` (which must
     not overlap a or b) when given."""
+    if _meta(a):
+        return _meta_out(out, (a_index[1].shape[1], _region_len(a, a_index)),
+                         out_dtype or a.dtype)
     if _on_card(a):
         return _fr.fused_combine_at(a, a_index, b, b_index, j, op=op,
                                     out_dtype=out_dtype, out=out)
@@ -86,6 +124,12 @@ def quantize_int8_at(src, index):
     rank-stacked buffer `src` in place (a `core/engine.py::_region_index`
     triple): codes (k*ranks, Lp) and scales (k*ranks, Lp/256), row
     j*ranks + r for segment j of rank r."""
+    if _meta(src):
+        k, ranks = index[2].shape[:2]
+        lp = ref.padded_len(_region_len(src, index))
+        return (_meta_out(None, (k * ranks, lp), torch.int8),
+                _meta_out(None, (k * ranks, lp // ref.QUANT_BLOCK),
+                          torch.float32))
     if _on_card(src):
         return _qz.quantize_blocks_at(src, index)
     return ref.quantize_blocks_at(src, index)
@@ -97,6 +141,10 @@ def dequantize_int8_at(q2d, scales, n_valid: int, old, old_index,
     `old_index` of the rank-stacked buffer `old`, read in place: a (k,
     ranks, n_valid) tensor, written into `out` (which must not overlap
     old) when given. 'copy' reads no `old`."""
+    if _meta(q2d):
+        k, ranks = old_index[2].shape[:2]
+        return _meta_out(out, (k, ranks, n_valid),
+                         old.dtype if old is not None else out_dtype)
     if _on_card(q2d):
         return _qz.dequantize_blocks_at(q2d, scales, n_valid, old, old_index,
                                         op=op, out=out, out_dtype=out_dtype)
@@ -135,6 +183,9 @@ def embedding_lookup_rows(tables, ids, lo):
     (G, B, T) int32 (any strides), `lo` (G,) int64, each stacked rank's
     first row -> (G, B, T*D), each rank's partial concat vector (rows it
     does not hold are +0.0). One K5 launch on the card."""
+    if _meta(tables):
+        G, T, _rows, D = tables.shape
+        return _meta_out(None, (G, ids.shape[1], T * D), tables.dtype)
     if _on_card(tables):
         return _eg.lookup_rows(tables, ids, lo)
     return ref.lookup_rows(tables, ids, lo)
@@ -143,6 +194,13 @@ def embedding_lookup_rows(tables, ids, lo):
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset."""
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def kernel_flops() -> int:
+    """Products of the kernel launches no dispatch mode sees (a ctypes
+    launch): K4's 2 G M N K per launch since import. The other kernels
+    compute no products."""
+    return _mm.matmul_tiled.flops
 
 
 def reset_launch_counts() -> None:

@@ -3,7 +3,12 @@
   dlrm_serve          the distributed DLRM server and its CLI
   distributed_vecmat  use case 1: the vector-matrix offload and its CLI
   serve               LM serving: the teacher-forced decode loop and its CLI
-  mesh                make_mesh_for, the launchers' (pod, data, model) mesh
+  train               LM training: the Trainer and its CLI
+  dryrun              every (arch x shape) cell run once on 'meta' tensors
+                      at production scale, and its CLI
+  analysis            the counters of one eager step the dry run reads
+  mesh                make_mesh_for, the launchers' (pod, data, model)
+                      mesh, and make_production_mesh
 
 and `median_ms`, the timing helper they and `chip_smoke.py` share.
 """

@@ -352,6 +352,18 @@ def cache_specs(cfg: ArchConfig, pcfg: ParallelConfig, tp: int,
                                 s_enc=s_enc, dp=dp)
 
 
+def cache_shapes(cfg: ArchConfig, pcfg: ParallelConfig, mesh_shape: dict,
+                 tp: int, batch: int, s_max: int, s_enc: int = 0,
+                 dp=("pod", "data")):
+    """The decode caches as storage-free 'meta' tensors of the stacked
+    shapes and dtypes `init_cache` makes (the reference's
+    ShapeDtypeStructs); the dry run's decode cells take them."""
+    b = Builder("shape", mesh_shape=dict(mesh_shape),
+                dtype=dt(cfg.param_dtype))
+    return serve_mod.make_cache(b, cfg, tp, batch, s_max, pcfg, s_enc=s_enc,
+                                dp=dp)
+
+
 def init_cache(cfg: ArchConfig, pcfg: ParallelConfig, mesh_shape: dict,
                tp: int, batch: int, s_max: int, s_enc: int = 0,
                device="cuda"):

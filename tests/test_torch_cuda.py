@@ -687,3 +687,97 @@ def test_allgather_matmul_adjoint_on_card(card):
     assert matmul.matmul_tiled.launches > k4
     for a, b in zip(*res):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# Ring attention and the dry run's counters on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_attention_on_card_matches_float64(card, causal):
+    """bf16 ring attention over 8 ranks (4 q heads, 2 kv heads) within
+    `chip_smoke.py::ring_bound` of a float64 attention of the same
+    inputs: u |out| + (u + 2 K 2^-24) (P @ |v|), u = 2^-8; and its rms
+    error within 1.2 x the rms of its bf16 roundings (`chip_smoke.py::
+    ring_rms`: 0.18 u^2 (P^2 @ v^2 + out^2) per element), which the same
+    inputs with bf16 scores break."""
+    S, n = 512, 8
+    q, k, v = (_randn((1, S, h, 32), i, card, torch.bfloat16)
+               for i, h in enumerate((4, 2, 2)))
+    eng = CollectiveEngine({"x": n}, device=card)
+    st = [t.reshape(1, n, S // n, *t.shape[2:]).movedim(1, 0).contiguous()
+          for t in (q, k, v)]
+
+    def run():
+        y = eng.ring_attention(*st, "x", causal=causal, segments=2)
+        return y.movedim(0, 1).reshape(1, S, 4, 32)[0].double()
+
+    got = run()
+    kh, vh = (t[0].double().repeat_interleave(2, 1) for t in (k, v))
+    s = torch.einsum("qhd,khd->hqk", q[0].double(), kh) / 32 ** 0.5
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool,
+                                     device=card).triu(1), -float("inf"))
+    p = torch.softmax(s, -1)
+    want = torch.einsum("hqk,khd->qhd", p, vh)
+    mag = torch.einsum("hqk,khd->qhd", p, vh.abs())
+    u = 2.0 ** -8
+    bound = u * want.abs() + (u + 2 * S * 2.0 ** -24 + 2.0 ** -20) * mag
+    assert bool(((got - want).abs() <= bound).all())
+    var = 0.18 * u * u * (torch.einsum("hqk,khd->qhd", p * p, vh * vh)
+                          + want * want)
+
+    def rms(y):
+        return float(((y - want) ** 2).sum() / var.sum()) ** 0.5
+
+    assert rms(got) <= 1.2
+    assert eng.trace_log == [("ring_attention", "ring", "x",
+                              (S // n) * 2 * 32 * 2)]
+    real = torch.einsum
+
+    def bf16_scores(eq, *operands):
+        if eq == "rbqkgh,rbskh->rbkgqs":
+            return real(eq, *[t.bfloat16() for t in operands]).float()
+        return real(eq, *operands)
+
+    torch.einsum = bf16_scores
+    try:
+        control = run()
+    finally:
+        torch.einsum = real
+    assert rms(control) > 1.2
+
+
+def test_meta_counters_equal_card_step(card):
+    """A reduced qwen3-0.6b train step with SP and the collective matmul
+    on the (1, 4, 2) mesh, once on 'meta' and once on the card under the
+    same counters: FLOPs equal (K4's counted at its wrapper on the card),
+    argument bytes equal, the programs equal in order."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import stages
+    cfg = reduced_config(get_config("qwen3-0.6b"), param_dtype="bfloat16",
+                         compute_dtype="bfloat16")
+    mesh = {"pod": 1, "data": 4, "model": 2}
+    pcfg = ParallelConfig(remat="none", sequence_parallel=True,
+                          collective_matmul=True)
+    fn, eng, args = dryrun.build_cell(cfg, ShapeConfig("t", 32, 8, "train"),
+                                      mesh, pcfg)
+    _, st_m = analysis.count(fn, [eng])
+    ts = stages.build_train_step(cfg, pcfg, mesh, adamw.AdamWConfig(),
+                                 device=card)
+    params = stages.init_params(cfg, mesh, 2, device=card)
+    opt = adamw.adamw_init(params)
+    toks = torch.randint(0, cfg.vocab_size, (8, 32), dtype=torch.int32)
+    batch = ts.put_batch({"tokens": toks, "labels": toks})
+    k4 = matmul.matmul_tiled.launches
+    with analysis.counting([ts.ctx.engine]) as st_c:
+        ts.fn(params, opt, batch, 0)
+    assert matmul.matmul_tiled.launches > k4
+    assert st_c.flops == st_m.flops
+    assert analysis.arg_bytes((params, opt, batch), mesh) == \
+        analysis.arg_bytes(args, mesh)
+    assert [(p[0], p[2], p[4]) for p in st_c.programs] == \
+        [(p[0], p[2], p[4]) for p in st_m.programs]
