@@ -10,8 +10,10 @@ Table 2 model, the offload queue with the paper's use case 1
 decode of qwen3-0.6b at full width, then of the MoE, SSM, hybrid and
 audio families: qwen3-moe-30b-a3b, mamba2-1.3b, hymba-1.5b and
 whisper-medium at full width) and LM training (qwen3-0.6b at full
-width: the train step and the `Trainer`) — ranks stacked on the card, and
-holds every kernel on those paths against its plain PyTorch version.
+width: the train step and the `Trainer`) — ranks stacked on the card — and
+the collectives and use case 1 one rank per process, 8 processes on the
+card, and holds every kernel on those paths against its plain PyTorch
+version.
 Phases, one line each:
 
   1. device: the card (nvidia-smi) and the kernels' build time;
@@ -171,10 +173,27 @@ Phases, one line each:
      programs imply, the meta peak within DRY_PEAK_MARGIN of the card's;
      then the production cell qwen3-0.6b train_4k on the 16 x 16 mesh on
      'meta' (per-rank memory, fit, dominant term, host seconds).
+ 12. procs: one rank per process (`core/procgroup.py`), 8 processes
+     spawned on the card in one gloo group (`launch/procs.py`), every
+     CUDA payload staged through pinned host memory. 12a the executor's
+     grid (every GENERATORS entry at segments 1 and 4, codec None and
+     int8, integer-valued and normal fp32, bf16 for the ring and
+     bidi_ring allreduce) at 1 MiB per rank; 12b the 8 x --mib MiB fp32
+     and int8 allreduce (the selector's pick); 12c `distributed_vecmat`
+     at 4096, each process's partials reduced to rank 0; 12d phase 7b's
+     mix drained BITWISE the same calls blocking. Each child's K1/K2/K3
+     launches in every part equal what its rank's share of the programs
+     it ran implies (`procgroup.implied_launches`); 12a and 12b are
+     BITWISE the stacked executor and engine on the card (as digests),
+     12c's result within gamma_K of float64 and its reduce BITWISE the
+     stacked reduce of the same partials. Per process the median ms,
+     the staged bytes and ms per call, and rank 0's busy share:
+     informational, host staging over gloo is no fabric.
 
 Then one JSON line of the five kernels with their launches on every
 path (in total and by path: collectives, dlrm, vecmat, queue, lm,
-lm_families, train, dryrun), time, plain time, bound and library time (K4 also with the tile
+lm_families, train, dryrun, procs — the children's launches, summed),
+time, plain time, bound and library time (K4 also with the tile
 configuration that ran and its achieved rate; K5 also its `lookup` entry
 at B = 32 and 2048, beside the device time of the sequence of PyTorch
 ops and `gather_rows` it replaced, `sequence_ms`). The last line is
@@ -1567,8 +1586,10 @@ def lm_replay_normal(ops, ref, log, gen) -> int:
 def implied_k1(prog, shape) -> int:
     """K1 launches the executor makes for `prog` on a (rows, L, ...)
     buffer: one per segment of every uncompressed combining exchange
-    (`core/engine.py::_exchange`), walked as `execute_program` walks."""
+    (`core/engine.py::_exchange`), over the exchanges of the program's
+    walk (`core/procgroup.py::batches`)."""
     from repro_torch.core import engine as em
+    from repro_torch.core import procgroup
     from repro_torch.core import program as pm
     from repro_torch.kernels import ops as kops
     length = shape[1]
@@ -1590,34 +1611,8 @@ def implied_k1(prog, shape) -> int:
                                                length, src, step))
         return pm.fit_segments(rows, k_req, row_elems, 1)
 
-    n, ops_, i = 0, prog.ops, 0
-    while i < len(ops_):
-        op = ops_[i]
-        if isinstance(op, pm.Stream):
-            n += sum(body(s, op.segments, op.base + it * op.period + j)
-                     for it in range(op.trip) for j, s in
-                     enumerate(op.slots))
-        elif isinstance(op, pm.Loop):
-            for it in range(op.trip):
-                for j, seq in enumerate(op.slots):
-                    b, k_req = pm.split_exchange(seq)
-                    n += body(b, k_req, op.base + it * op.period + j)
-        elif isinstance(op, pm.StreamChain):
-            n += sum(body(b, op.segments, b[0].step) for b in op.bodies)
-        elif isinstance(op, pm.StackedRecv):
-            n += sum(body(b, 1, b[0].step) for b in op.bodies)
-        elif isinstance(op, pm.SegLoop):
-            n += body(op.body, op.segments, op.body[0].step)
-        elif isinstance(op, pm.Copy) and op.kind == "load":
-            j = i
-            while not isinstance(ops_[j], pm.RecvCombine):
-                j += 1
-            n += body(ops_[i:j + 1], 1, op.step)
-            i = j
-        elif not (isinstance(op, pm.Copy) and op.kind.startswith("bruck")):
-            fail(f"lm: unexpected micro-op {op}")
-        i += 1
-    return n
+    return sum(body(*x) for batch in procgroup.batches(prog)
+               if not isinstance(batch, pm.Copy) for x in batch)
 
 
 def lm_counted_steps(dstep, engine, ops, steps):
@@ -1627,9 +1622,9 @@ def lm_counted_steps(dstep, engine, ops, steps):
     real = engine._execute
     progs = []
 
-    def execute(sched, rows, groups, compression=None):
+    def execute(sched, rows, lay, compression=None):
         progs.append((sched, tuple(rows.shape), compression))
-        return real(sched, rows, groups, compression)
+        return real(sched, rows, lay, compression)
 
     def step(*args, **kwargs):
         progs.clear()
@@ -2754,10 +2749,10 @@ class TrainProbe:
             mark("end")
             return out
 
-        def execute(sched, rows, groups, compression=None):
+        def execute(sched, rows, lay, compression=None):
             self.cur["progs"].append((self.cur["phase"], sched,
                                       tuple(rows.shape), compression))
-            return r_exec(sched, rows, groups, compression)
+            return r_exec(sched, rows, lay, compression)
 
         st.grad_sync, aw.adamw_update, aw.apply_updates = \
             grad_sync, adamw_update, apply_updates
@@ -3603,6 +3598,438 @@ def phase_dryrun(cfg, mods, ops, ref, counts, seed: int, smi: str) -> None:
     emit({"phase": "dryrun", **out})
 
 
+# --------------------------------------------------------------------------
+# Phase 12: one rank per process
+# --------------------------------------------------------------------------
+
+PROC_RANKS = 8
+PROC_GRID_MIB = 1             # 12a: MiB per rank of the executor's grid
+PROC_REPS = 5                 # 12b: timed calls per collective
+PROC_ROOT = 1                 # 12a: the root of rooted generators
+PROC_VECMAT = 4096            # 12c: the example's top size
+PROC_MESH2 = {"pod": 2, "data": 4}
+_PROC_GROUPS = _KERNEL_GROUPS + (("Memcpy", "host staging copies"),)
+
+
+def proc_fail(msg: str) -> None:
+    """A check failed in a child: raise, so that the world fails."""
+    raise RuntimeError(f"chip_smoke phase 12: {msg}")
+
+
+def proc_digest(t) -> str:
+    """sha256 of a tensor's bytes: the children send their results to the
+    parent as digests, and a digest match is a bitwise match."""
+    import hashlib
+    return hashlib.sha256(
+        t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def proc_grid(n: int) -> list:
+    """12a's cases, as `tests/test_torch_procgroup.py`'s grid: (key,
+    schedule, segments, codec, inputs) of every GENERATORS entry that
+    accepts n ranks, segments 1 and 4, codec None and int8, integer-valued
+    and normal fp32, and bf16 for the ring and bidi_ring allreduce."""
+    from repro_torch.core import algorithms
+    from repro_torch.core.topology import Communicator
+    comm = Communicator(axis="x", size=n)
+
+    def sched_of(coll, algo):
+        gen = algorithms.GENERATORS[(coll, algo)]
+        kw = {"root": PROC_ROOT} \
+            if "root" in inspect.signature(gen).parameters else {}
+        return gen(comm, **kw)
+
+    out = []
+    for coll, algo in sorted(algorithms.GENERATORS):
+        try:
+            sched = sched_of(coll, algo)
+        except ValueError:
+            continue
+        for segments in (1, 4):
+            for codec in (None, "int8"):
+                for inputs in ("int", "normal"):
+                    out.append((f"{coll}-{algo}-s{segments}-{codec}-{inputs}",
+                                sched, segments, codec, inputs))
+    for algo in ("ring", "bidi_ring"):
+        out.append((f"allreduce-{algo}-s1-bf16-normal",
+                    sched_of("allreduce", algo), 1, "bf16", "normal"))
+    return out
+
+
+def proc_grid_input(key: str, sched, n: int, codec, inputs: str, L: int):
+    """The stacked (n, L) input of a 12a case, drawn on the card from a
+    seed of its key (own shard at its slot for allgather / gather)."""
+    import zlib
+    g = torch.Generator(device="cuda").manual_seed(zlib.crc32(key.encode()))
+    if inputs == "int":
+        X = torch.randint(-20, 21, (n, L), generator=g, device="cuda",
+                          dtype=torch.int32).float()
+    else:
+        X = torch.randn((n, L), generator=g, device="cuda")
+    if sched.collective in ("allgather", "gather"):
+        sl, own = L // n, torch.zeros_like(X)
+        for r in range(n):
+            slot = r if sched.chunk_coords == "absolute" \
+                else (r - PROC_ROOT) % n
+            own[r, slot * sl:(slot + 1) * sl] = X[r, :sl]
+        X = own
+    return X.bfloat16() if codec == "bf16" else X
+
+
+def proc_main_inputs(seed: int, mib: int):
+    """12b's stacked (8, L) integer-valued fp32 input."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    return int_inputs((PROC_RANKS, mib * 2**20 // 4), gen)
+
+
+def proc_vecmat_inputs(seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    w = torch.randn((PROC_VECMAT, PROC_VECMAT), generator=gen, device="cuda")
+    x = torch.randn((PROC_VECMAT,), generator=gen, device="cuda")
+    return x, w
+
+
+def proc_profile(fn, profiled: bool, median: float) -> dict:
+    """One more call of `fn` on every rank; on the profiled one, its
+    device time by kernel group (torch.profiler sees this process's
+    kernels and copies only) and the busy share of the call's median."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    if not profiled:
+        fn()
+        torch.cuda.synchronize()
+        return {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        key = next((g for pat, g in _PROC_GROUPS if pat in ev.key), "other")
+        split[key] = split.get(key, 0.0) + us / 1e3
+    busy = sum(split.values()) if split else None
+    return {"device_busy_ms": busy,
+            "busy_share": busy / median if split else None,
+            "device_ms_by_group": split}
+
+
+# each K1/K2/K3 entry point of `ops` -> (its kernel, its plain version in
+# `ref`, which takes the same parameters but `out`)
+PROC_CHECKED = {
+    "fused_combine": ("fused_combine", "fused_combine"),
+    "fused_combine_at": ("fused_combine", "fused_combine_at"),
+    "quantize_int8": ("quantize_blocks", "quantize_blocks"),
+    "quantize_int8_at": ("quantize_blocks", "quantize_blocks_at"),
+    "dequantize_int8": ("dequantize_blocks", "dequantize_blocks"),
+    "dequantize_int8_at": ("dequantize_blocks", "dequantize_blocks_at"),
+}
+
+
+@contextlib.contextmanager
+def proc_checked(ops, ref, checked: dict):
+    """While the block runs, hold every K1, K2 and K3 call on the card
+    BITWISE against its plain version on the operands it was given (the
+    plain version runs first: `out` may alias an operand, and it launches
+    no kernel, so the counts are the path's); `checked[kernel]` counts the
+    calls held. Calls on 'meta' (receive buffers shaped by the codec)
+    launch nothing and are not held."""
+    real = {n: getattr(ops, n) for n in PROC_CHECKED}
+
+    def held(name):
+        kernel, plain = PROC_CHECKED[name]
+        sig = inspect.signature(real[name])
+
+        def call(*args, **kwargs):
+            if args[0].device.type == "meta":
+                return real[name](*args, **kwargs)
+            p = sig.bind(*args, **kwargs)
+            p.apply_defaults()
+            p.arguments.pop("out", None)
+            want = getattr(ref, plain)(**p.arguments)
+            res = real[name](*args, **kwargs)
+            for i, (g, w) in enumerate(zip(
+                    res if isinstance(res, tuple) else (res,),
+                    want if isinstance(want, tuple) else (want,))):
+                if g.shape != w.shape or g.dtype != w.dtype or \
+                        not torch.equal(g, w):
+                    proc_fail(f"{name} call {checked[kernel]} output {i} "
+                              f"differs from the plain version")
+            checked[kernel] += 1
+            return res
+        return call
+
+    for n in PROC_CHECKED:
+        setattr(ops, n, held(n))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(ops, n, fn)
+
+
+def phase12_child(rank: int, world: int, tmp: str, seed: int, mib: int,
+                  reps: int) -> None:
+    """One process of phase 12 (12a-12d), one rank on the card. Every
+    program this process runs is recorded; each part's K1/K2/K3 launches,
+    counted from 0, must equal what this rank's share of those programs
+    implies (`procgroup.implied_launches`), and each of them is held
+    bitwise against its plain version (`proc_checked`). Results go to the
+    parent as digests (`proc_digest`), the vecmat partials as tensors."""
+    import torch.distributed as dist
+    from repro_torch.core import procgroup
+    from repro_torch.core.procgroup import ProcessGroupEngine, Transport
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import distributed_vecmat as vm
+    ran = []
+    real = procgroup.execute_program_local
+
+    def recorded(prog, buf, r, transport):
+        ran.append((prog, r, tuple(buf.shape)))
+        return real(prog, buf, r, transport)
+
+    procgroup.execute_program_local = recorded
+    total = dict.fromkeys(ops.KERNELS, 0)
+    checked_total = dict.fromkeys(ops.KERNELS, 0)
+
+    def counted(name, fn):
+        ran.clear()
+        checked = dict.fromkeys(ops.KERNELS, 0)
+        ops.reset_launch_counts()
+        with proc_checked(ops, ref, checked):
+            out = fn()
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        want = dict.fromkeys(ops.KERNELS, 0)
+        for prog, r, shape in ran:
+            for k, v in procgroup.implied_launches(prog, r, shape).items():
+                want[k] += v
+        if got != want or not ran:
+            proc_fail(f"{name}: rank {rank} launched {got}; its "
+                      f"{len(ran)} programs imply {want}")
+        if checked != got:
+            proc_fail(f"{name}: rank {rank} launched {got} but held "
+                      f"{checked} against the plain versions")
+        for k in total:
+            total[k] += got[k]
+            checked_total[k] += checked[k]
+        return out
+
+    res = {"digests": {}, "timing": {}}
+    # 12a: the executor's grid, one program at a time
+    transport = Transport(dist.group.WORLD, range(world))
+    L = PROC_GRID_MIB * 2**20 // 4
+    t0 = time.perf_counter()
+    for key, sched, segments, codec, inputs in proc_grid(world):
+        prog = sched.compile(segments=segments, codec=codec)
+        X = proc_grid_input(key, sched, world, codec, inputs, L)
+        out = counted(key, lambda: procgroup.execute_program_local(
+            prog, X[rank], rank, transport))
+        res["digests"][key] = proc_digest(out)
+    res["grid_s"] = time.perf_counter() - t0
+    res["grid_transport"] = dict(transport.stats)
+    # 12b: the main-path cell, the selector's pick
+    X = proc_main_inputs(seed, mib)
+    eng = ProcessGroupEngine({"x": world})
+    mine = X[rank].clone()
+    del X
+    torch.cuda.empty_cache()
+    for name, fn in (
+            ("allreduce", lambda: eng.allreduce(mine, "x")),
+            ("allreduce_int8", lambda: eng.allreduce(mine, "x",
+                                                      compression="int8"))):
+        res["digests"][name] = proc_digest(counted(name, fn))
+        s0 = dict(eng.transport_stats())
+        ms = median_ms(fn, reps)
+        s1 = dict(eng.transport_stats())
+        calls = reps + 1                      # median_ms warms up once
+        res["timing"][name] = {
+            "median_ms": ms, "staged_bytes_per_call":
+                (s1["staged_bytes"] - s0["staged_bytes"]) / calls,
+            "staged_ms_per_call": (s1["staged_ms"] - s0["staged_ms"]) / calls,
+            "messages_per_call": (s1["messages"] - s0["messages"]) / calls,
+            **proc_profile(fn, rank == 0, ms)}
+    res["picks"] = sorted({(t[0], t[1]) for t in eng.trace_log})
+    del mine
+    # 12c: use case 1, this process's partials reduced to rank 0
+    x, w = proc_vecmat_inputs(seed)
+    xs = x.reshape(world, -1)[rank].clone()
+    ws = w.reshape(world, -1, PROC_VECMAT)[rank].clone()
+    del x, w
+    y = counted("vecmat", lambda: vm.distributed_vecmat(eng, xs, ws,
+                                                         VECMAT_TILES))
+    tile = PROC_VECMAT // VECMAT_TILES
+    parts = torch.stack([torch.matmul(
+        xs.unsqueeze(-2), ws[..., t * tile:(t + 1) * tile]).squeeze(-2)
+        for t in range(VECMAT_TILES)])
+    res["timing"]["vecmat"] = {"median_ms": median_ms(
+        lambda: vm.distributed_vecmat(eng, xs, ws, VECMAT_TILES), reps)}
+    torch.save({"partials": parts.cpu(), "y": y.cpu()},
+               f"{tmp}/vecmat{rank}.pt")
+    # 12d: phase 7b's mix, drained, against the same calls blocking
+    qg = torch.Generator(device="cuda").manual_seed(seed + 14)
+    small = [int_inputs((world, m), qg)[rank] for m in (40, 8, 24)]
+    big = int_inputs((world, 2**20), qg)[rank]
+    mid = int_inputs((world, 2**16), qg)[rank]
+    pos = np.unravel_index(rank, tuple(PROC_MESH2.values()))
+    X2 = int_inputs(tuple(PROC_MESH2.values()) + (2**16,), qg)[pos]
+    qeng = ProcessGroupEngine({"x": world})
+    eng2 = ProcessGroupEngine(PROC_MESH2)
+    reqs = [qeng.iallreduce(v, "x") for v in small]
+    r_mid = qeng.iallreduce(mid, "x")
+    reqs += [r_mid, qeng.ireduce(r_mid, "x", root=2,
+                                 algorithm="binomial_tree"),
+             qeng.iallreduce(big, "x", compression="int8"),
+             eng2.issue_multi(X2, ["data", "pod"])]
+    counted("queue", lambda: (qeng.queue.drain(), eng2.queue.drain()))
+    stats = dict(qeng.queue.stats)
+    if (stats["coalesced_buckets"], stats["coalesced_requests"]) != (1, 3):
+        proc_fail(f"queue: rank {rank} coalescing stats {stats}")
+    b_mid = qeng.allreduce(mid, "x")
+    blocking = [qeng.allreduce(v, "x") for v in small] + [
+        b_mid, qeng.reduce(b_mid, "x", root=2, algorithm="binomial_tree"),
+        qeng.allreduce(big, "x", compression="int8"),
+        eng2.allreduce_multi(X2, ["data", "pod"])]
+    for i, (r, want) in enumerate(zip(reqs, blocking)):
+        if not torch.equal(r.result, want):
+            proc_fail(f"queue: rank {rank} request {i} differs from the "
+                      f"blocking call")
+    res["queue"] = {"stats": stats, "bitwise_vs_blocking": len(reqs)}
+    res["launches"] = total
+    res["checked"] = checked_total
+    res["transport"] = eng.transport_stats()
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def phase_procs(CollectiveEngine, procs, ops, counts, seed: int, mib: int,
+                reps: int, smi: str) -> None:
+    """Phase 12: one rank per process — 8 processes on the card, one
+    gloo group, CUDA payloads staged through pinned host memory. 12a the
+    executor's grid at 1 MiB per rank, 12b the 8 x `mib` MiB fp32 and
+    int8 allreduce (the selector's pick), 12c use case 1 at 4096, 12d
+    phase 7b's mix; each child's launches exact per part and each launch
+    held BITWISE against its plain version (`counted`, `proc_checked`).
+    Here the parent fails unless K1, K2 and K3 were each held at least
+    once, holds 12a and 12b BITWISE against the stacked executor and
+    engine on the card and their integer-valued uncompressed allreduces
+    against X.sum(0), 12c's root result within gamma_K of float64 and its
+    reduce BITWISE the stacked reduce of the children's partials on the
+    CPU (the plain versions). Times are informational: host staging over
+    gloo is no fabric."""
+    import tempfile
+    from repro_torch.core.engine import execute_program
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_procs_") as tmp:
+        procs.spawn(phase12_child, PROC_RANKS, backend="gloo",
+                    device="cuda", args=(tmp, seed, mib,
+                                         min(reps, PROC_REPS)))
+        spawn_s = time.perf_counter() - t0
+        res = []
+        for r in range(PROC_RANKS):
+            with open(f"{tmp}/rank{r}.json") as f:
+                res.append(json.load(f))
+        vec = [torch.load(f"{tmp}/vecmat{r}.pt") for r in range(PROC_RANKS)]
+    # every K1/K2/K3 launch of the children held against its plain version
+    checked = dict.fromkeys(ops.KERNELS, 0)
+    for r in res:
+        for k, v in r["checked"].items():
+            checked[k] += v
+    for k in ("fused_combine", "quantize_blocks", "dequantize_blocks"):
+        if not checked[k]:
+            fail(f"12: no {k} call was held against its plain version")
+    # 12a: every case bitwise the stacked executor's row, and the
+    # integer-valued uncompressed allreduces bitwise X.sum(0) on every rank
+    L = PROC_GRID_MIB * 2**20 // 4
+    cases = proc_grid(PROC_RANKS)
+    oracles = 0
+    for key, sched, segments, codec, inputs in cases:
+        prog = sched.compile(segments=segments, codec=codec)
+        X = proc_grid_input(key, sched, PROC_RANKS, codec, inputs, L)
+        want = execute_program(prog, X)
+        exact = sched.collective == "allreduce" and codec is None and \
+            inputs == "int"
+        sum_digest = proc_digest(X.sum(0)) if exact else None
+        oracles += exact
+        for r in range(PROC_RANKS):
+            if res[r]["digests"][key] != proc_digest(want[r]):
+                fail(f"12a {key}: rank {r} differs from the stacked "
+                     f"executor")
+            if exact and res[r]["digests"][key] != sum_digest:
+                fail(f"12a {key}: rank {r} differs from X.sum(0)")
+        del want, X
+    if not oracles:
+        fail("12a: no allreduce held against X.sum(0)")
+    # 12b: bitwise the stacked engine on the same inputs, the fp32 one
+    # bitwise X.sum(0) too (integer-valued: every order of sums is exact)
+    X = proc_main_inputs(seed, mib)
+    eng = CollectiveEngine({"x": PROC_RANKS}, device="cuda")
+    sum_digest = proc_digest(X.sum(0))
+    for name, kw in (("allreduce", {}), ("allreduce_int8",
+                                         {"compression": "int8"})):
+        want = eng.allreduce(X, "x", **kw)
+        for r in range(PROC_RANKS):
+            if res[r]["digests"][name] != proc_digest(want[r]):
+                fail(f"12b {name}: rank {r} differs from the stacked "
+                     f"engine")
+            if name == "allreduce" and res[r]["digests"][name] != sum_digest:
+                fail(f"12b {name}: rank {r} differs from X.sum(0)")
+        del want
+    stacked_pick = sorted({(t[0], t[1]) for t in eng.trace_log})
+    for r in range(PROC_RANKS):
+        if [tuple(p) for p in res[r]["picks"]] != stacked_pick:
+            fail(f"12b: rank {r} picked {res[r]['picks']}, the stacked "
+                 f"engine {stacked_pick}")
+    choice = eng.selector.choose("allreduce", X.shape[1] * 4, eng.comm("x"))
+    del X, eng
+    torch.cuda.empty_cache()
+    # 12c: root's y against float64, its reduce against the stacked one
+    # of the same partials on the CPU, where every combine is K1's plain
+    # version
+    x, w = proc_vecmat_inputs(seed)
+    y = vec[0]["y"].cuda()
+    err, ratio = check_vecmat(y, x, w)
+    parts = torch.stack([v["partials"] for v in vec])          # (8, T, t)
+    veng = CollectiveEngine({"x": PROC_RANKS}, device="cpu")
+    want = torch.cat([veng.reduce(parts[:, t], "x",
+                                  algorithm="binomial_tree")[0]
+                      for t in range(VECMAT_TILES)])
+    same("12c vecmat reduce vs the plain stacked reduce of the same "
+         "partials", y.cpu(), want)
+    del x, w, y, parts, want
+    torch.cuda.empty_cache()
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for r in res:
+        for k, v in r["launches"].items():
+            total[k] += v
+    counts["procs"] = total
+    emit({"phase": "procs", "ranks": PROC_RANKS, "backend": "gloo",
+          "card": smi, "seconds": time.perf_counter() - t0,
+          "spawn_and_children_s": spawn_s,
+          "checked_vs_plain": checked,
+          "grid": {"cases": len(cases), "mib_per_rank": PROC_GRID_MIB,
+                   "bitwise_vs_stacked": len(cases) * PROC_RANKS,
+                   "bitwise_vs_sum": oracles * PROC_RANKS,
+                   "seconds_rank0": res[0]["grid_s"],
+                   "transport_rank0": res[0]["grid_transport"]},
+          "main": {"mib_per_rank": mib, "bitwise_vs_stacked": True,
+                   "fp32_bitwise_vs_sum": True,
+                   "pick": [choice.algorithm, choice.segments],
+                   "per_rank": [r["timing"] for r in res]},
+          "vecmat": {"size": PROC_VECMAT, "max_abs_err": err,
+                     "err_over_bound": ratio,
+                     "reduce_bitwise_vs_plain_stacked": True},
+          "queue": res[0]["queue"],
+          "launches_per_rank": [r["launches"] for r in res],
+          "launches": total,
+          "transport_per_rank": [r["transport"] for r in res]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3629,6 +4056,7 @@ def main() -> int:
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import quantize as qz
     from repro_torch.launch import distributed_vecmat as vm
+    from repro_torch.launch import procs
     from repro_torch.launch import serve as serve_launch
     from repro_torch import data as data_mod
     from repro_torch.launch import train as train_launch
@@ -3715,6 +4143,12 @@ def main() -> int:
     phase_dryrun(lm_cfg, (convert, stages, adamw, schedules, lm_mod,
                           data_mod, train_launch), ops, ref, counts,
                  args.seed, smi)
+
+    # phase 12: one rank per process, 8 processes on the card
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    phase_procs(CollectiveEngine, procs, ops, counts, args.seed, args.mib,
+                args.reps, smi)
     for row in rows:      # launches on every path's runs (K1 runs on all)
         row["launches"] = sum(c[row["name"]] for c in counts.values())
         if not row["launches"]:
@@ -3723,7 +4157,7 @@ def main() -> int:
         for key, c in counts.items():
             path = next((p for p in ("dlrm", "vecmat", "queue",
                                      "lm_families", "lm", "train",
-                                     "dryrun")
+                                     "dryrun", "procs")
                          if key.startswith(p)), "collectives")
             by_path[path] = by_path.get(path, 0) + c[row["name"]]
         row["launches_by_path"] = by_path

@@ -50,6 +50,11 @@ The non-blocking request API (`issue`, the `i*` helpers, `issue_multi`,
 `itree_allreduce`) defers these same calls through the engine's
 `Sequencer` (`core/sequencer.py`, the offload queue), on the same
 mesh-stacked operands.
+
+`core/procgroup.py` runs the same engine one rank per process: its
+`ProcessGroupEngine` takes each process's local shard (`stack_shape`
+is `()`), and its `execute_program_local` runs the same programs with
+real point-to-point transfers.
 """
 from __future__ import annotations
 
@@ -569,9 +574,13 @@ class _Layout:
         ys = ys.reshape(self.lead + tuple(ys.shape[1:]))
         return ys.movedim(self.dst, self.moved)
 
-    def rank_of_rows(self, device):
+    def row_ranks(self) -> list:
         """Each stacked row's rank inside its collective group."""
-        return torch.arange(self.groups * self.n, device=device) % self.n
+        return list(range(self.n)) * self.groups
+
+    def rank_of_rows(self, device):
+        """`row_ranks` as a tensor on `device`."""
+        return torch.as_tensor(self.row_ranks(), device=device)
 
 
 @dataclasses.dataclass
@@ -640,13 +649,20 @@ class CollectiveEngine:
         return self._queue
 
     @property
+    def stack_shape(self) -> tuple:
+        """The mesh dims that lead every operand and result: the mesh
+        shape, ranks stacked (`core/procgroup.py`'s per-process engine:
+        `()`, one rank's local shard)."""
+        return tuple(self.mesh_shape.values())
+
+    @property
     def stats(self) -> telemetry.StatsView:
         """Read-compatible mapping view over `metrics` (legacy name)."""
         return self.metrics.view()
 
     def _tensor(self, x):
         x = torch.as_tensor(x, device=self.device)
-        lead = tuple(self.mesh_shape.values())
+        lead = self.stack_shape
         if tuple(x.shape[:len(lead)]) != lead:
             raise ValueError(
                 f"input of shape {tuple(x.shape)} is not stacked over the "
@@ -726,15 +742,15 @@ class CollectiveEngine:
         self.trace_log.append((collective, algorithm, axis, int(nbytes)))
         return sched
 
-    def _execute(self, sched: Schedule, rows, groups: int,
+    def _execute(self, sched: Schedule, rows, lay: _Layout,
                  compression: Optional[str] = None):
         """Compile (memoized) and run through the one data plane."""
         prog = sched.compile(codec=compression, verify=self.verify)
-        return execute_program(prog, rows, groups=groups)
+        return execute_program(prog, rows, groups=lay.groups)
 
     def _own_chunks(self, sched: Schedule, out, lay: _Layout):
         """Each rank's owned chunk of a 'shard' result."""
-        own = [sched.owned_chunk(int(r)) for r in range(lay.n)] * lay.groups
+        own = [sched.owned_chunk(r) for r in lay.row_ranks()]
         grp = out.reshape(out.shape[0], sched.chunks, -1)
         rows = torch.arange(out.shape[0], device=out.device)
         return grp[rows, torch.as_tensor(own, device=out.device)]
@@ -756,7 +772,7 @@ class CollectiveEngine:
     def _flatten_pad_mesh(self, x, mult: int):
         """Mesh-stacked x -> mesh-stacked flat local arrays padded to
         `mult`; also the local shape and size."""
-        D = len(self.mesh_shape)
+        D = len(self.stack_shape)
         shape = tuple(x.shape[D:])
         flat = x.reshape(tuple(x.shape[:D]) + (-1,))
         size = flat.shape[-1]
@@ -775,7 +791,7 @@ class CollectiveEngine:
         outer_ax, inner_ax = axis
         P = self.mesh_shape[outer_ax]
         x = self._tensor(x)
-        D = len(self.mesh_shape)
+        D = len(self.stack_shape)
         if collective == "allreduce":
             M = self.mesh_shape[inner_ax]
             flat, shape, size = self._flatten_pad_mesh(x, M)
@@ -860,15 +876,15 @@ class CollectiveEngine:
                     f"reduce_scatter size {rows[0].numel()} % "
                     f"{sched.chunks} != 0")
             flat = rows.reshape(rows.shape[0], -1)
-            out = self._execute(sched, flat, lay.groups, compression)
+            out = self._execute(sched, flat, lay, compression)
             return lay.restore(self._own_chunks(sched, out, lay))
         if collective == "allgather":
             flat = rows.reshape(rows.shape[0], -1)
             buf = self._place_own(flat, lay, lay.rank_of_rows(flat.device))
-            return lay.restore(self._execute(sched, buf, lay.groups))
+            return lay.restore(self._execute(sched, buf, lay))
         # allreduce / bcast: full result, chunk-padded like the flat path
         flat, shape, size = _flatten_pad(rows, sched.chunks)
-        out = self._execute(sched, flat, lay.groups, compression)
+        out = self._execute(sched, flat, lay, compression)
         return lay.restore(out[:, :size].reshape((-1,) + shape))
 
     # -- MPI-like API (paper Listing 1) --------------------------------------
@@ -897,7 +913,7 @@ class CollectiveEngine:
         # and hence the elementwise reduction order — is identical at
         # every segment count.
         flat, shape, size = _flatten_pad(rows, sched.chunks)
-        out = self._execute(sched, flat, lay.groups, compression)
+        out = self._execute(sched, flat, lay, compression)
         return lay.restore(out[:, :size].reshape((-1,) + shape))
 
     def reduce_scatter(self, x, axis, op: str = "add",
@@ -931,7 +947,7 @@ class CollectiveEngine:
         sched = self._resolve("reduce_scatter", rows[0], axis, algorithm,
                               op=op, segments=segments,
                               compression=compression)
-        out = self._execute(sched, flat, lay.groups, compression)
+        out = self._execute(sched, flat, lay, compression)
         return lay.restore(self._own_chunks(sched, out, lay))
 
     def allgather(self, x, axis, algorithm: str = "auto",
@@ -954,7 +970,7 @@ class CollectiveEngine:
         sched = self._resolve("allgather", rows[0], axis, algorithm,
                               segments=segments)
         buf = self._place_own(flat, lay, lay.rank_of_rows(flat.device))
-        return lay.restore(self._execute(sched, buf, lay.groups))
+        return lay.restore(self._execute(sched, buf, lay))
 
     def _native_allgather(self, flat, lay: _Layout):
         g = flat.reshape(lay.groups, 1, lay.n * flat.shape[1])
@@ -977,7 +993,7 @@ class CollectiveEngine:
         sched = self._resolve("bcast", rows[0], axis, algorithm, root=root,
                               segments=segments)
         flat, shape, size = _flatten_pad(rows, sched.chunks)
-        out = self._execute(sched, flat, lay.groups)
+        out = self._execute(sched, flat, lay)
         return lay.restore(out[:, :size].reshape((-1,) + shape))
 
     def reduce(self, x, axis: str, root: int = 0, op: str = "add",
@@ -992,7 +1008,7 @@ class CollectiveEngine:
         sched = self._resolve("reduce", rows[0], axis, algorithm, root=root,
                               op=op, segments=segments)
         flat, shape, size = _flatten_pad(rows, sched.chunks)
-        out = self._execute(sched, flat, lay.groups)
+        out = self._execute(sched, flat, lay)
         return lay.restore(out[:, :size].reshape((-1,) + shape))
 
     def gather(self, x, axis: str, root: int = 0, algorithm: str = "auto"):
@@ -1008,8 +1024,7 @@ class CollectiveEngine:
         rank = lay.rank_of_rows(flat.device)
         slots = rank if sched.chunk_coords == "absolute" \
             else (rank - root) % n
-        out = self._execute(sched, self._place_own(flat, lay, slots),
-                            lay.groups)
+        out = self._execute(sched, self._place_own(flat, lay, slots), lay)
         if sched.chunk_coords == "relative":
             grp = out.reshape(out.shape[0], n, -1)
             out = torch.roll(grp, root, dims=1).reshape(out.shape[0], -1)
@@ -1033,7 +1048,7 @@ class CollectiveEngine:
             return lay.restore(g.transpose(1, 2).reshape(rows.shape))
         sched = self._resolve("alltoall", rows[0], axis, algorithm,
                               segments=segments)
-        return lay.restore(self._execute(sched, rows, lay.groups))
+        return lay.restore(self._execute(sched, rows, lay))
 
     def collective(self, name: str, x, axis: str, *,
                    algorithm: str = "auto", root: int = 0, op: str = "add",
@@ -1061,7 +1076,7 @@ class CollectiveEngine:
                 f"{name} returns shards: input size {size} must be "
                 f"divisible by {sched.chunks} chunks")
         flat, shape, size = _flatten_pad(rows, sched.chunks)
-        out = self._execute(sched, flat, lay.groups, compression)
+        out = self._execute(sched, flat, lay, compression)
         if sched.result == "shard":
             return lay.restore(self._own_chunks(sched, out, lay))
         return lay.restore(out[:, :size].reshape((-1,) + shape))
@@ -1075,9 +1090,8 @@ class CollectiveEngine:
 
     def barrier(self, axis: str):
         """1-element allreduce, like the paper's barrier collective."""
-        lead = tuple(self.mesh_shape.values())
         return self.allreduce(
-            torch.zeros(lead + (1,), dtype=torch.float32,
+            torch.zeros(self.stack_shape + (1,), dtype=torch.float32,
                         device=self.device), axis, algorithm="auto")
 
     def nop(self):
@@ -1186,7 +1200,7 @@ class CollectiveEngine:
                                   algorithm=algorithm,
                                   compression=compression)
         x = self._tensor(x)
-        D = len(self.mesh_shape)
+        D = len(self.stack_shape)
         n0 = self.mesh_shape[axes[0]]
         flat, shape, size = self._flatten_pad_mesh(x, n0)
         shard = self.reduce_scatter(flat, axes[0], op=op,
@@ -1216,7 +1230,7 @@ class CollectiveEngine:
         leaves, unflatten = _tree_leaves(tree)
         if not leaves:
             return tree
-        lead = tuple(self.mesh_shape.values())
+        lead = self.stack_shape
         cap = bucket_bytes if bucket_bytes is not None else self.BUCKET_BYTES
         out: list = [None] * len(leaves)
         for idxs in _bucket_leaves(leaves, cap, lead):
@@ -1236,7 +1250,7 @@ class CollectiveEngine:
         the tree. Tickets collected before any wait share the queue, so
         small same-dtype buckets coalesce into one program."""
         leaves, unflatten = _tree_leaves(tree)
-        lead = tuple(self.mesh_shape.values())
+        lead = self.stack_shape
         cap = bucket_bytes if bucket_bytes is not None else self.BUCKET_BYTES
         plan = []
         for idxs in _bucket_leaves(leaves, cap, lead):

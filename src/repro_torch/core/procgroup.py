@@ -1,0 +1,704 @@
+"""One rank per process: the per-rank data plane over `torch.distributed`.
+
+Port of the reference's per-device execution: `repro/core/engine.py::
+execute_program` runs inside `shard_map`, each device reads its own rank
+(`lax.axis_index`), evaluates its own selectors and moves real bytes
+between devices with `lax.ppermute` (`_send_chain`, `_exec_stacked`); a
+two-level program permutes each level on that level's own mesh axis.
+Here each process holds one rank's shard and runs the same compiled
+`Program` with the same selectors:
+
+  * `Transport` wraps one process group. One call posts every send and
+    receive of an exchange — or of a whole LOOP iteration — as one
+    `dist.batch_isend_irecv`, then waits. On a `gloo` group a CUDA
+    payload is staged through pinned host buffers (gloo has no CUDA
+    send/recv), counted in `stats` (`staged_bytes`, `staged_ms`); a
+    group whose backend takes device tensors (NCCL) sends them as they
+    are. The transport never changes backend. Messages are tagged by
+    their (slot, part) within the call, so two slots of one LOOP
+    iteration between the same pair of ranks never cross.
+  * `execute_program_local(prog, buf, rank, transport)` mirrors the
+    stacked executor (`engine.execute_program`) op for op on one rank's
+    `(L, ...)` shard: Bruck pre/post as a local chunk roll by `rank`, the
+    `orig` / `prev` relay registers, LOOP two-phase (every slot's payload
+    leaves from the iteration-start state; the writes land after all
+    waits), STREAM and STREAM_CHAIN as their unfused per-step SEG_LOOPs,
+    STACKED_RECV's bodies posted together and written in step order,
+    hierarchical programs through their flat perms. A rank sends to `d`
+    where `(rank, d)` is in the SEND's perm and `d` receives, and
+    receives from `src_of[rank]`. Payload spans come from the sender's
+    rank and target spans from the receiver's; both sides compute the
+    exchange's segment count, and a disagreement raises.
+  * Kernels per rank, through the stacked path's entry points: a plain
+    combine launches K1 (`ops.fused_combine_at`) once per segment,
+    reading the local target in place and the arrival from the receive
+    buffer; an int8 exchange launches K2 (`compress_at`) once over the
+    local payload at send and K3 (`consume_at`) once into the local
+    target at receive (a relay exchange adds one K3 copy for its raw
+    arrival); bf16 keeps its per-segment gathered path. Copy receives
+    launch nothing.
+  * `ProcessGroupEngine` is the `CollectiveEngine` of one process: its
+    inputs and outputs are this rank's local shard (no mesh dims lead,
+    `stack_shape == ()`), `_resolve`, the selector, the schedule cache
+    and every blocking and queued collective run unchanged, and
+    `_execute` routes to `execute_program_local`. Every process must
+    issue the same collectives, with the same arguments, in the same
+    order — the SPMD contract of `shard_map`; a program fingerprint,
+    all-gathered once per new program, turns a violation into an error
+    where the programs are new to every rank, and into a failure at the
+    group timeout where they are not.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import itertools
+import math
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import plugins, telemetry
+from repro_torch.core.engine import (
+    CollectiveEngine, _Layout, _codec_of, _gather, _region_index, _scatter,
+    _spans, _split_wire,
+)
+from repro_torch.core.plugins import Compressed
+from repro_torch.core.program import (
+    SRC_ORIGINAL, SRC_RECEIVED, Copy, Loop, Program, RecvCombine, SegLoop,
+    StackedRecv, Stream, StreamChain, fit_segments, split_exchange,
+)
+from repro_torch.kernels import ops as kops
+
+#: what a per-process engine cannot run yet (ROADMAP.md, Queue 1)
+NOT_YET = ("not available one rank per process yet (ROADMAP.md Queue 1: "
+           "the native backend, the streaming matmuls and ring_attention "
+           "in per-process mode)")
+
+
+# --------------------------------------------------------------------------
+# Transport: one process group's point-to-point exchanges
+# --------------------------------------------------------------------------
+
+class Transport:
+    """Point-to-point exchanges among the processes of one communicator.
+
+    `group` is the `torch.distributed` group of those processes and
+    `ranks[i]` the global rank of communicator rank i. `exchange` posts
+    every send and receive it is given as one `batch_isend_irecv` and
+    waits for all of them. `stats` counts calls, messages, bytes and —
+    on a gloo group with CUDA tensors only — the bytes staged through
+    pinned host memory and the host time the staging copies took.
+    """
+
+    def __init__(self, group, ranks):
+        self.group = group
+        self.ranks = tuple(int(r) for r in ranks)
+        self.backend = dist.get_backend(group)
+        self.me = self.ranks.index(dist.get_rank())
+        self.metrics = telemetry.MetricsRegistry()
+        for name in ("exchanges", "messages", "bytes", "staged_bytes"):
+            self.metrics.counter(name)
+        self.metrics.counter("staged_ms", 0.0)
+        self.stats = self.metrics.view()
+
+    def _staged(self, t) -> bool:
+        return self.backend == "gloo" and t.device.type == "cuda"
+
+    def exchange(self, sends, recvs) -> None:
+        """Post `sends` and `recvs` — lists of (communicator rank, tag,
+        tensor) — as one batch, and wait. A receive tensor is filled in
+        place."""
+        if any(p == self.me for p, _tag, _t in sends + recvs):
+            # a verified program never sends to itself (DL_SELF_SEND)
+            raise ValueError(f"rank {self.me} cannot send to itself")
+        if not sends and not recvs:
+            return
+        staged = [t for _p, _tag, t in sends + recvs if self._staged(t)]
+        t0 = time.perf_counter()
+        wire_out = [(p, tag, self._to_host(t)) for p, tag, t in sends]
+        wire_in = [(p, tag, self._host_like(t)) for p, tag, t in recvs]
+        if staged:
+            torch.cuda.current_stream(staged[0].device).synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ops = [dist.P2POp(dist.isend, w, self.ranks[p], self.group, tag)
+               for p, tag, w in wire_out]
+        ops += [dist.P2POp(dist.irecv, w, self.ranks[p], self.group, tag)
+                for p, tag, w in wire_in]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        t0 = time.perf_counter()
+        for (_p, _tag, t), (_q, _tg, w) in zip(recvs, wire_in):
+            if w is not t:
+                t.copy_(w, non_blocking=True)
+        m = self.metrics
+        if staged:
+            torch.cuda.current_stream(staged[0].device).synchronize()
+            m.inc("staged_ms", ms + (time.perf_counter() - t0) * 1e3)
+            m.inc("staged_bytes", sum(t.numel() * t.element_size()
+                                      for t in staged))
+        m.inc("exchanges")
+        m.inc("messages", len(ops))
+        m.inc("bytes", sum(w.numel() * w.element_size()
+                           for _p, _tag, w in wire_out + wire_in))
+
+    def _to_host(self, t):
+        if not self._staged(t):
+            return t.contiguous()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t, non_blocking=True)
+
+    def _host_like(self, t):
+        if not self._staged(t):
+            return t
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+
+# --------------------------------------------------------------------------
+# The per-rank executor
+# --------------------------------------------------------------------------
+
+class _Local:
+    """One rank's registers: its shard plus the relay sources."""
+
+    def __init__(self, prog: Program, buf, rank: int):
+        self.n = prog.nranks
+        self.chunks = prog.chunks
+        self.rank = rank
+        self.relay = prog.relay
+        self.buf = buf
+        self._hold()
+
+    def _hold(self) -> None:
+        """The relay registers take the buffer as it stands before step 0
+        (relay='received': step 0 forwards the input)."""
+        self.orig = self.buf.clone() if self.relay == SRC_ORIGINAL else None
+        self.prev = self.buf.clone() if self.relay == SRC_RECEIVED else None
+
+    def roll(self, kind: str) -> None:
+        """Bruck pre / post: the local chunk rotation by this rank."""
+        c, r = self.chunks, self.rank
+        if kind == "bruck_pre":
+            self.buf = _chunk_roll(self.buf, c, lambda j: (j + r) % c)
+            self._hold()
+        else:
+            self.buf = _chunk_roll(self.buf, c,
+                                   lambda j: c - 1 - ((j - r - 1) % c))
+
+    def source(self, which: str):
+        if which == SRC_ORIGINAL:
+            return self.orig
+        if which == SRC_RECEIVED:
+            return self.prev
+        return self.buf
+
+
+def _chunk_roll(buf, chunks: int, src_chunk):
+    """The local chunk rotation: new chunk j is old chunk src_chunk(j)."""
+    idx = torch.as_tensor([src_chunk(j) for j in range(chunks)],
+                          device=buf.device)
+    return buf.reshape(chunks, -1)[idx].reshape(buf.shape)
+
+
+def _rows_of(t, spans):
+    """The payload of `spans` (row_start, rows) of `t`, in payload order."""
+    parts = [t[s:s + ln] for s, ln in spans]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _meta_rows(t, rows: int):
+    return torch.empty((1, rows) + tuple(t.shape[1:]), dtype=t.dtype,
+                       device="meta")
+
+
+def _whole(rows: int) -> tuple:
+    return (((0, rows),),)
+
+
+@dataclasses.dataclass
+class _Xfer:
+    """One exchange as this rank sees it: what it sends, what it
+    receives, and how the arrival is consumed."""
+
+    recv: RecvCombine
+    codec: object
+    dst: Optional[int] = None            # the rank this one sends to
+    out: tuple = ()                      # the wire tensors it sends
+    src: Optional[int] = None            # the rank it receives from
+    inbox: tuple = ()                    # receive buffers, filled in place
+    k: int = 1                           # segments
+    pay_rows: int = 0
+    seg: int = 0                         # elements per segment
+    tgt_idx: object = None
+
+
+def _indexed(codec) -> bool:
+    """Whether a codec takes a whole exchange in place (int8)."""
+    return codec is not None and codec.compress_at is not None and \
+        codec.consume_at is not None
+
+
+def _segments(rows: int, k_req: int, row_elems: int, codec) -> int:
+    if k_req <= 1:
+        return 1
+    return fit_segments(rows, k_req, row_elems,
+                        codec.block_elems if codec is not None else 1)
+
+
+def _wire(codec, payload, k: int):
+    """The sender's wire of a (k, 1, seg) payload: the payload itself, or
+    each segment's compressed payload and scales stacked in j order."""
+    if codec is None:
+        return (payload,)
+    ws = [codec.compress(payload[j]) for j in range(k)]
+    return tuple(torch.stack([getattr(w, f) for w in ws])
+                 for f in ("payload", "scale"))
+
+
+def _plan(st: _Local, body: tuple, k_req: int, step) -> _Xfer:
+    """This rank's side of one exchange, before anything moves: the wire
+    it sends (read from the current state) and the buffers it receives
+    into."""
+    load, recv = body[0], body[-1]
+    send_ops, _dec_ops = _split_wire(body[1:-1])
+    send = send_ops[-1]
+    codec = _codec_of(send_ops)
+    n, chunks, me = st.n, st.chunks, st.rank
+    src_of = {d: s for (s, d) in send.perm}
+    dst_of = {s: d for (s, d) in send.perm}
+    dsts = sorted(recv.dsts) if recv.dsts is not None else list(range(n))
+    missing = [d for d in dsts if d not in src_of]
+    if missing:
+        raise ValueError(f"step {step}: ranks {missing} receive nothing "
+                         f"but mask_recv=False")
+    if recv.track_recv and len(dsts) != n:
+        raise ValueError("relay='received' needs every rank to receive")
+    src_t, buf = st.source(load.source), st.buf
+    row_elems = math.prod(buf.shape[1:])
+    x = _Xfer(recv=recv, codec=codec)
+
+    if dst_of.get(me) in dsts:                                 # at send
+        spans = _spans(load.sel, chunks, src_t.shape[0], me, step)
+        rows = sum(ln for _s, ln in spans)
+        k = _segments(rows, k_req, row_elems, codec)
+        x.dst = dst_of[me]
+        if _indexed(codec):
+            idx = _region_index((0,), (spans,), k, src_t.device)
+            x.out = tuple(codec.compress_at(src_t.unsqueeze(0), idx))
+        else:
+            x.out = _wire(codec, _rows_of(src_t, spans).reshape(k, 1, -1),
+                          k)
+
+    if me in dsts:                                             # at receive
+        x.src = src_of[me]
+        pay_rows = sum(ln for _s, ln in _spans(load.sel, chunks,
+                                               src_t.shape[0], x.src, step))
+        tgt_spans = _spans(recv.sel, chunks, buf.shape[0], me, step)
+        view_rows = sum(ln for _s, ln in tgt_spans)
+        if pay_rows != view_rows:
+            raise ValueError(f"step {step}: payload of {pay_rows} rows "
+                             f"cannot land in a region of {view_rows} rows")
+        k = _segments(pay_rows, k_req, row_elems, codec)
+        if _segments(view_rows, k_req, row_elems, codec) != k:
+            raise ValueError(f"step {step}: rank {x.src} sends {k} segments "
+                             f"but rank {me} expects another count")
+        seg = pay_rows // k * row_elems
+        x.k, x.pay_rows, x.seg = k, pay_rows, seg
+        x.tgt_idx = _region_index((0,), (tgt_spans,), k, buf.device)
+        if codec is None:
+            tmpl = (_meta_rows(src_t, pay_rows).reshape(k, 1, seg),)
+        elif _indexed(codec):
+            tmpl = codec.compress_at(
+                _meta_rows(src_t, pay_rows),
+                _region_index((0,), _whole(pay_rows), k, "meta"))
+        else:
+            w = codec.compress(torch.empty((1, seg), dtype=src_t.dtype,
+                                           device="meta"))
+            tmpl = tuple(torch.empty((k,) + tuple(t.shape), dtype=t.dtype,
+                                     device="meta") for t in w)
+        x.inbox = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                    device=buf.device) for t in tmpl)
+    return x
+
+
+def _finish(st: _Local, x: _Xfer):
+    """The arrival consumed into new target values, computed from the
+    current state WITHOUT writing it: (new values (k, 1, seg), raw
+    arrival or None). The stacked `_exchange`'s three paths, per rank."""
+    recv, codec, k, seg, buf = x.recv, x.codec, x.k, x.seg, st.buf
+    if codec is None and recv.op in kops.COMBINE_OPS and not recv.track_recv:
+        inc = x.inbox[0].reshape((1, x.pay_rows) + tuple(buf.shape[1:]))
+        inc_idx = _region_index((0,), _whole(x.pay_rows), k, buf.device)
+        out = torch.empty((k, 1, seg), dtype=buf.dtype, device=buf.device)
+        for j in range(k):
+            kops.fused_combine_at(buf.unsqueeze(0), x.tgt_idx, inc, inc_idx,
+                                  j, recv.op, out=out[j])
+        return out, None
+    if _indexed(codec):
+        wire = Compressed(*x.inbox)
+        out = codec.consume_at(wire, buf.unsqueeze(0), x.tgt_idx, recv.op)
+        raw = None
+        if recv.track_recv:
+            raw = codec.decompress(wire, (seg,), buf.dtype).reshape(
+                k, -1, seg)
+        return out, raw
+    if codec is None:
+        inc = x.inbox[0]
+        if recv.op == "copy":
+            return inc, (inc if recv.track_recv else None)
+        out = _gather(buf.unsqueeze(0), x.tgt_idx)
+        for j in range(k):
+            plugins.combine(recv.op, out[j], inc[j], out=out[j])
+        return out, (inc if recv.track_recv else None)
+    payloads, scales = x.inbox
+    out = torch.empty((k, 1, seg), dtype=buf.dtype, device=buf.device) \
+        if recv.op == "copy" else _gather(buf.unsqueeze(0), x.tgt_idx)
+    raw = torch.empty_like(out) if recv.track_recv else None
+    for j in range(k):
+        wire = Compressed(payloads[j], scales[j])              # at consume
+        if raw is not None:
+            raw[j] = codec.decompress(wire, (seg,), buf.dtype)
+        codec.consume(wire, out[j], recv.op, out=out[j])
+    return out, raw
+
+
+def _apply(st: _Local, x: _Xfer, new_val, raw) -> None:
+    _scatter(st.buf.unsqueeze(0), x.tgt_idx, new_val)
+    if raw is not None:
+        # the relay register holds the raw arrival, payload-shaped
+        st.prev = raw.transpose(0, 1).reshape((-1,) + tuple(st.buf.shape[1:]))
+
+
+def _run(st: _Local, transport: Transport, exchanges) -> None:
+    """One batch: every exchange's wire leaves from the current state,
+    everything is posted at once, then each arrival is consumed against
+    the pre-batch state and the writes land in order (a LOOP iteration's
+    two-phase semantics; one exchange alone is the sequential case)."""
+    xs = [_plan(st, body, k_req, step) for body, k_req, step in exchanges]
+    sends = [(x.dst, 2 * s + p, t) for s, x in enumerate(xs)
+             if x.dst is not None for p, t in enumerate(x.out)
+             if t.numel()]
+    recvs = [(x.src, 2 * s + p, t) for s, x in enumerate(xs)
+             if x.src is not None for p, t in enumerate(x.inbox)
+             if t.numel()]
+    transport.exchange(sends, recvs)
+    writes = [(x, *_finish(st, x)) for x in xs if x.src is not None]
+    for x, new_val, raw in writes:
+        _apply(st, x, new_val, raw)
+
+
+def batches(prog: Program):
+    """The per-rank walk of a program, in execution order: a Bruck
+    pre / post `Copy`, or a batch — a list of (body, requested segments,
+    step) exchanges whose wires all leave from one state and whose writes
+    land together after every wait. A LOOP iteration and a STACKED_RECV
+    (write-disjoint copies of the original) are one batch each; any other
+    exchange is a batch of one. STREAM and STREAM_CHAIN run as their
+    unfused per-step SEG_LOOPs (what `fuse_streams` proves
+    value-identical)."""
+    ops = prog.ops
+    i = 0
+    while i < len(ops):
+        op = ops[i]
+        i += 1
+        if isinstance(op, (Loop, Stream)):
+            for it in range(op.trip):
+                yield [(seq, op.segments, op.base + it * op.period + slot)
+                       if isinstance(op, Stream) else
+                       (*split_exchange(seq), op.base + it * op.period + slot)
+                       for slot, seq in enumerate(op.slots)]
+        elif isinstance(op, StreamChain):
+            for body in op.bodies:
+                yield [(body, op.segments, body[0].step)]
+        elif isinstance(op, StackedRecv):
+            yield [(body, 1, body[0].step) for body in op.bodies]
+        elif isinstance(op, SegLoop):
+            yield [(op.body, op.segments, op.body[0].step)]
+        elif isinstance(op, Copy) and (op.kind == "bruck_post" or (
+                op.kind == "bruck_pre" and i == 1)):
+            yield op
+        elif isinstance(op, Copy) and op.kind == "load":
+            j = i
+            while not isinstance(ops[j], RecvCombine):
+                j += 1
+            yield [(ops[i - 1:j + 1], 1, op.step)]
+            i = j + 1
+        else:
+            raise ValueError(f"unexpected micro-op {op}")
+
+
+def execute_program_local(prog: Program, buf, rank: int,
+                          transport: Transport):
+    """Execute a compiled micro-op Program on ONE rank's shard.
+
+    `buf` is this rank's `(L, ...)` buffer (L divisible by prog.chunks),
+    `rank` its rank in the program's communicator (the inner-major flat
+    rank `intra * P + pod` for a two-level program) and `transport` the
+    communicator's processes. Every process of the communicator calls
+    this with the same program at the same time. Returns the final
+    buffer (a new tensor; `buf` is not modified) — bitwise the row
+    `rank` of `engine.execute_program` on the stacked buffers.
+    """
+    if buf.ndim < 1 or buf.shape[0] % prog.chunks:
+        raise ValueError(f"buffer of shape {tuple(buf.shape)} is not cut "
+                         f"into {prog.chunks} chunks")
+    if not 0 <= rank < prog.nranks:
+        raise ValueError(f"rank {rank} outside {prog.nranks} ranks")
+    st = _Local(prog, buf.contiguous().clone(), rank)
+    for item in batches(prog):
+        if isinstance(item, Copy):
+            st.roll(item.kind)
+        else:
+            _run(st, transport, item)
+    return st.buf
+
+
+# --------------------------------------------------------------------------
+# What a rank's share of a program launches
+# --------------------------------------------------------------------------
+
+def implied_launches(prog: Program, rank: int, shape) -> dict:
+    """The kernel launches rank `rank`'s share of `prog` implies on a
+    buffer of local shape `shape`, from the program alone: K1 once per
+    segment of every combining exchange it receives (plain, or bf16 at
+    consume), K2 once per int8 exchange it sends, K3 once per int8
+    exchange it consumes and once more where that exchange is a relay.
+    Keys as `ops.launch_counts()`."""
+    counts = dict.fromkeys(kops.KERNELS, 0)
+    L, row_elems = int(shape[0]), math.prod(shape[1:])
+    chunks, n = prog.chunks, prog.nranks
+    prev_len = L
+    for batch in batches(prog):
+        for body, k_req, step in ([] if isinstance(batch, Copy) else batch):
+            load, recv = body[0], body[-1]
+            send_ops, _dec = _split_wire(body[1:-1])
+            codec = _codec_of(send_ops)
+            send = send_ops[-1]
+            dsts = set(recv.dsts) if recv.dsts is not None else set(range(n))
+            src_of = {d: s for (s, d) in send.perm}
+            dst_of = {s: d for (s, d) in send.perm}
+            length = prev_len if load.source == SRC_RECEIVED else L
+            indexed = _indexed(codec)
+            if indexed and dst_of.get(rank) in dsts:
+                counts["quantize_blocks"] += 1
+            rows = sum(ln for _s, ln in _spans(load.sel, chunks, length,
+                                               src_of.get(rank, rank), step))
+            if recv.track_recv:
+                prev_len = rows
+            if rank not in dsts:
+                continue
+            k = _segments(rows, k_req, row_elems, codec)
+            if indexed:
+                counts["dequantize_blocks"] += 1 + int(recv.track_recv)
+            elif recv.op != "copy":
+                counts["fused_combine"] += k
+    return counts
+
+
+# --------------------------------------------------------------------------
+# The per-process engine
+# --------------------------------------------------------------------------
+
+def _fingerprint(prog: Program, shape, dtype) -> str:
+    """A digest of what every process of a communicator must run alike:
+    the program's metadata and micro-ops (perms, ops, selector kinds,
+    steps; selector closures are pure, so their kinds and steps name
+    them) and the buffer's shape and dtype."""
+    def walk(x):
+        if isinstance(x, (tuple, list)):
+            return tuple(walk(y) for y in x)
+        if dataclasses.is_dataclass(x):
+            fields = []
+            for f in dataclasses.fields(x):
+                v = getattr(x, f.name)
+                if f.name == "sel":
+                    v = None if v is None else v.kind
+                fields.append((f.name, walk(v)))
+            return (type(x).__name__, tuple(fields))
+        return x
+    meta = (prog.name, prog.collective, prog.nranks, prog.chunks,
+            prog.relay, prog.segments, prog.codec, prog.level_sizes,
+            tuple(shape), str(dtype))
+    return hashlib.sha256(repr((meta, walk(prog.ops))).encode()).hexdigest()
+
+
+@dataclasses.dataclass
+class _LocalLayout(_Layout):
+    """One rank's shard as a stack of one row."""
+
+    axis: object = None
+    rank: int = 0
+
+    def restore(self, ys):
+        return ys.reshape(tuple(ys.shape[1:]))
+
+    def row_ranks(self) -> list:
+        return [self.rank]
+
+
+def _default_device():
+    if not torch.cuda.is_available():
+        return "cuda"                         # the base class raises
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    return f"cuda:{local % torch.cuda.device_count()}"
+
+
+@dataclasses.dataclass
+class ProcessGroupEngine(CollectiveEngine):
+    """The CCLO of ONE process: this rank's local shards in, its results
+    out, over the default `torch.distributed` process group.
+
+    The world is the mesh: global rank g sits at mesh position
+    `np.unravel_index(g, mesh sizes)` (row-major, the stacked engine's
+    order), so the world size must equal the mesh's. Each axis's and each
+    axis pair's process groups are created here, in one order on every
+    process. `device` defaults to `cuda:{LOCAL_RANK % device_count}` and
+    raises without a card unless `device='cpu'` is passed. Not yet in
+    this mode (`NotImplementedError`): `backend='native'`, the streaming
+    matmuls and `ring_attention`.
+    """
+
+    device: object = None
+
+    def __post_init__(self):
+        if self.device is None:
+            self.device = _default_device()
+        super().__post_init__()
+        if self.backend == "native":
+            raise NotImplementedError(f"backend='native' is {NOT_YET}")
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "ProcessGroupEngine needs an initialized process group "
+                "(repro_torch.launch.procs.init_from_env or spawn)")
+        names = list(self.mesh_shape)
+        sizes = tuple(self.mesh_shape[a] for a in names)
+        if dist.get_world_size() != math.prod(sizes):
+            raise ValueError(f"{dist.get_world_size()} processes cannot "
+                             f"hold the mesh {self.mesh_shape}")
+        self.global_rank = dist.get_rank()
+        self.coords = dict(zip(names, (int(c) for c in np.unravel_index(
+            self.global_rank, sizes))))
+        self._transports: dict = {}
+        self._checked: set = set()
+        live = [a for a in names if self.mesh_shape[a] > 1]
+        # every process creates every group, in this one order
+        for axes in [(a,) for a in live] + list(
+                itertools.combinations(live, 2)):
+            others = [a for a in names if a not in axes]
+            for rest in itertools.product(
+                    *(range(self.mesh_shape[a]) for a in others)):
+                fixed = dict(zip(others, rest))
+                members = sorted(self._global(dict(fixed, **dict(zip(
+                    axes, c)))) for c in itertools.product(
+                        *(range(self.mesh_shape[a]) for a in axes)))
+                group = dist.new_group(members)
+                if all(fixed[a] == self.coords[a] for a in others):
+                    keys = [axes[0]] if len(axes) == 1 else \
+                        [axes, axes[::-1]]
+                    for key in keys:
+                        self._transports[key] = Transport(
+                            group, [self._global(self._position(key, r))
+                                    for r in range(self._axis_size(key))])
+
+    # -- the process's place in the mesh -----------------------------------
+    def _global(self, coords: dict) -> int:
+        names = list(self.mesh_shape)
+        return int(np.ravel_multi_index(
+            tuple(coords[a] for a in names),
+            tuple(self.mesh_shape[a] for a in names)))
+
+    def _position(self, axis, r: int) -> dict:
+        """Mesh coordinates of communicator rank r of `axis` in this
+        process's group (inner-major for an (outer, inner) pair)."""
+        pos = dict(self.coords)
+        if isinstance(axis, tuple):
+            outer, inner = axis
+            P = self.mesh_shape[outer]
+            pos[inner], pos[outer] = r // P, r % P
+        else:
+            pos[axis] = r
+        return pos
+
+    def comm_rank(self, axis) -> int:
+        """This process's rank in the communicator of `axis` (a name, or
+        an (outer, inner) pair: `intra * P + pod`)."""
+        if isinstance(axis, tuple):
+            outer, inner = axis
+            return self.coords[inner] * self.mesh_shape[outer] + \
+                self.coords[outer]
+        return self.coords[axis]
+
+    def transport_stats(self) -> dict:
+        """Every transport's `stats`, summed."""
+        out: dict = {}
+        for t in self._transports.values():
+            for key, v in t.stats.items():
+                out[key] = out.get(key, 0) + v
+        return out
+
+    @property
+    def stack_shape(self) -> tuple:
+        return ()
+
+    # -- the hooks the collective methods run through -----------------------
+    def _tensor(self, x):
+        return torch.as_tensor(x, device=self.device)
+
+    def _layout(self, x, axis):
+        x = self._tensor(x)
+        lay = _LocalLayout([], [], (), 1, self._axis_size(axis), axis=axis,
+                           rank=self.comm_rank(axis))
+        return x.unsqueeze(0), lay
+
+    def _execute(self, sched, rows, lay, compression=None):
+        prog = sched.compile(codec=compression, verify=self.verify)
+        self._agree(prog, lay.axis, rows[0])
+        out = execute_program_local(prog, rows[0], lay.rank,
+                                    self._transports[lay.axis])
+        return out.unsqueeze(0)
+
+    def _agree(self, prog: Program, axis, buf) -> None:
+        """Raise unless every process of the communicator runs this
+        program on a buffer of this shape. Each process all-gathers a
+        fingerprint the first time it meets one, so a divergence raises
+        only where the programs are new on every rank; where one rank
+        issues a program it has checked before and another a new one, the
+        second waits alone and fails at the group timeout instead."""
+        fp = _fingerprint(prog, buf.shape, buf.dtype)
+        if (axis, fp) in self._checked:
+            return
+        t = self._transports[axis]
+        got = [None] * len(t.ranks)
+        dist.all_gather_object(got, fp, group=t.group)
+        if len(set(got)) != 1:
+            raise RuntimeError(
+                f"ranks of {axis!r} run different programs ({prog.name}, "
+                f"{prog.segments} segments here): every process must issue "
+                f"the same collectives with the same arguments")
+        self._checked.add((axis, fp))
+
+    # -- what differs one rank per process -----------------------------------
+    def send_recv(self, x, axis: str, shift: int = 1):
+        """Rank (r + shift) % n receives rank r's x: one send, one
+        receive, no program."""
+        x = self._tensor(x).contiguous()
+        n, r = self._axis_size(axis), self.comm_rank(axis)
+        if shift % n == 0:
+            return x.clone()
+        out = torch.empty_like(x)
+        self._transports[axis].exchange([((r + shift) % n, 0, x)],
+                                        [((r - shift) % n, 0, out)])
+        return out
+
+    def allgather_matmul(self, *args, **kwargs):
+        raise NotImplementedError(f"allgather_matmul is {NOT_YET}")
+
+    def matmul_reduce_scatter(self, *args, **kwargs):
+        raise NotImplementedError(f"matmul_reduce_scatter is {NOT_YET}")
+
+    def ring_attention(self, *args, **kwargs):
+        raise NotImplementedError(f"ring_attention is {NOT_YET}")

@@ -65,7 +65,12 @@ against one artifact. A sequencer drains either through its engine
 (inside a trace) or through the simulator — not both.
 
 The engine drain runs each request as the blocking engine call it
-defers; results are rank-stacked tensors on the engine's device.
+defers; results are rank-stacked tensors on the engine's device. On a
+per-process engine (`core/procgroup.py`, `stack_shape == ()`) operands
+and results are each process's local shard instead, and the contract is
+SPMD: every process issues the same requests, with the same arguments,
+in the same order, so that the drains plan, coalesce and run the same
+programs on every rank.
 
 Reliability (the ACCL+ fault story): every request ends in exactly one
 typed terminal state — DONE, TIMED_OUT, CANCELLED, or PEER_FAILED —
@@ -277,7 +282,7 @@ class Sequencer:
         a mesh-stacked tensor's shape after its mesh dims."""
         if isinstance(x, Request):
             return tuple(x.shape)
-        return tuple(x.shape[len(self.engine.mesh_shape):])
+        return tuple(x.shape[len(self.engine.stack_shape):])
 
     # -- enqueue -------------------------------------------------------------
     def issue(self, collective: str, x, axis: str, *, after=None,
@@ -381,7 +386,7 @@ class Sequencer:
         n0 = eng.mesh_shape[axes[0]]
         size = _size_of(src_shape)
         pad = (-size) % n0
-        lead = tuple(eng.mesh_shape.values())
+        lead = eng.stack_shape
 
         def pre(v):
             # pad each rank's flat local array, never across ranks
@@ -754,7 +759,7 @@ class Sequencer:
         # priced, and executed at the concatenated size; bitwise-neutral
         # by the ORDER_SAFE eligibility check. Members join along each
         # rank's flat local dims, never across ranks.
-        lead = tuple(self.engine.mesh_shape.values())
+        lead = self.engine.stack_shape
         flats = [self._operand_value(r).reshape(lead + (-1,))
                  for r in item.requests]
         buf = torch.cat(flats, dim=-1)

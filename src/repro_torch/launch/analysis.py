@@ -122,9 +122,9 @@ class _EngineTap:
         self.saved = eng.__dict__.get("_execute")
         real_execute = eng._execute
 
-        def execute(sched, rows, groups, compression=None):
+        def execute(sched, rows, lay, compression=None):
             self._program(sched, rows, compression, eng.trace_log[-1][2])
-            return real_execute(sched, rows, groups, compression)
+            return real_execute(sched, rows, lay, compression)
 
         eng._execute = execute
         return self

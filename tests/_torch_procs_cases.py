@@ -1,0 +1,324 @@
+"""Shared cases of `test_torch_procgroup.py`: what each process of a
+spawned world runs, one rank per process, and the cases the parent
+holds its results against.
+
+This module imports no jax: the spawned children import it (by its
+module path) to find `run`. Every case is built from numpy seeds, so the
+parent and every child make the same inputs and compile the same
+programs. Each child saves its local results with `torch.save`; the
+parent stacks them and compares.
+"""
+import inspect
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import algorithms as A
+from repro_torch.core import hierarchical
+from repro_torch.core.program import compile_schedule
+from repro_torch.core.topology import Communicator, product_comm
+from repro_torch.kernels import ops
+
+ROOT = 1
+TILES = 4
+VECMAT_SIZE = 256
+
+
+# --------------------------------------------------------------------------
+# The CPU path's launch counts
+# --------------------------------------------------------------------------
+
+_COUNTED = {"fused_combine": ("fused_combine", "fused_combine_at"),
+            "quantize_blocks": ("quantize_int8", "quantize_int8_at"),
+            "dequantize_blocks": ("dequantize_int8", "dequantize_int8_at")}
+
+
+def count_calls() -> None:
+    """Make each kernel entry point of `ops` count its calls into the
+    kernel's `.launches`, as the card's wrappers count launches (the
+    plain versions the CPU runs count nothing; a 'meta' call, which
+    launches nothing on the card either, counts nothing)."""
+    for kernel, names in _COUNTED.items():
+        for name in names:
+            fn = getattr(ops, name)
+
+            def counted(*a, _fn=fn, _k=ops.KERNELS[kernel], **kw):
+                if a[0].device.type != "meta":   # shapes only: no launch
+                    _k.launches += 1
+                return _fn(*a, **kw)
+
+            setattr(ops, name, counted)
+
+
+# --------------------------------------------------------------------------
+# The executor's grid
+# --------------------------------------------------------------------------
+
+def _schedule(coll, algo, comm):
+    gen = A.GENERATORS[(coll, algo)]
+    kw = {"root": ROOT} if "root" in inspect.signature(gen).parameters \
+        else {}
+    return gen(comm, **kw)
+
+
+def grid(n: int) -> list:
+    """(key, schedule, segments, codec, inputs) of every GENERATORS entry
+    that accepts n ranks, at segments 1 and 4, codec None and int8, on
+    integer-valued and normal fp32; bf16 at segments 1 for the ring and
+    bidi_ring allreduce; one hierarchical allreduce on a (2, 2) product
+    when n == 4."""
+    comm = Communicator(axis="x", size=n)
+    out = []
+    for coll, algo in sorted(A.GENERATORS):
+        try:
+            sched = _schedule(coll, algo, comm)
+        except ValueError:
+            continue                          # e.g. pow2-only generators
+        for segments in (1, 4):
+            for codec in (None, "int8"):
+                for inputs in ("int", "normal"):
+                    out.append((f"{coll}-{algo}-s{segments}-{codec}-{inputs}",
+                                sched, segments, codec, inputs))
+    for algo in ("ring", "bidi_ring"):
+        sched = _schedule("allreduce", algo, comm)
+        out.append((f"allreduce-{algo}-s1-bf16-normal", sched, 1, "bf16",
+                    "normal"))
+    if n == 4:
+        pc = product_comm({"pod": 2, "data": 2}, "pod", "data")
+        for codec in (None, "int8"):
+            sched = hierarchical.hierarchical_schedule("allreduce", pc)
+            out.append((f"hier-allreduce-2x2-{codec}-normal", sched, 4,
+                        codec, "normal"))
+    return out
+
+
+def program(sched, segments, codec):
+    return compile_schedule(sched, segments=segments, codec=codec)
+
+
+def grid_inputs(key: str, sched, n: int, codec, inputs: str) -> list:
+    """Per-rank flat buffers, staged as the engine stages them (own
+    shard at its slot for allgather / gather)."""
+    seed = sum(map(ord, key)) * 7 + n
+    rng = np.random.default_rng(seed)
+    per_chunk = 256 if codec else 6
+
+    def draw(size):
+        if inputs == "int":
+            return rng.integers(-20, 21, size).astype(np.float32)
+        return rng.normal(size=size).astype(np.float32)
+
+    coll = sched.collective
+    if coll not in ("allgather", "gather"):
+        return [draw(sched.chunks * per_chunk) for _ in range(n)]
+    xs = []
+    for r in range(n):
+        buf = np.zeros((n * per_chunk,), np.float32)
+        slot = r if sched.chunk_coords == "absolute" else (r - ROOT) % n
+        buf[slot * per_chunk:(slot + 1) * per_chunk] = draw(per_chunk)
+        xs.append(buf)
+    return xs
+
+
+# --------------------------------------------------------------------------
+# The engine, the queue and use case 1
+# --------------------------------------------------------------------------
+
+def shift_generator(S, St, Se):
+    """A plugin collective (a one-step ring shift of the original) built
+    from a package's Schedule, Step and Sel classes."""
+    def gen(comm, op="add"):
+        return S(name="shift_exchange", collective="shift_exchange",
+                 nranks=comm.size,
+                 steps=(St(perm=tuple(comm.ring_perm(1)), op=op,
+                           send_sel=Se.all(), recv_sel=Se.all(),
+                           bytes_frac=1.0, uniform=True),),
+                 chunks=1, result="full", relay="original")
+    return gen
+
+
+#: one blocking collective of each kind on {"x": 4}: (name, call, local
+#: input shape); `call(engine, local or stacked input)`
+ENGINE_CALLS = (
+    ("allreduce", lambda e, v: e.allreduce(v, "x"), (96,)),
+    ("allreduce_int8", lambda e, v: e.allreduce(
+        v, "x", algorithm="ring", compression="int8", segments=4), (2048,)),
+    ("reduce_scatter", lambda e, v: e.reduce_scatter(v, "x"), (96,)),
+    ("allgather", lambda e, v: e.allgather(v, "x", algorithm="ring"),
+     (24,)),
+    ("bcast", lambda e, v: e.bcast(v, "x", root=ROOT), (30, 2)),
+    ("reduce", lambda e, v: e.reduce(v, "x", root=2,
+                                     algorithm="binomial_tree"), (50,)),
+    ("gather", lambda e, v: e.gather(v, "x", root=3,
+                                     algorithm="binomial_tree"), (12,)),
+    ("alltoall", lambda e, v: e.alltoall(v, "x", algorithm="bruck"),
+     (8, 3)),
+    ("shift_exchange", lambda e, v: e.collective("shift_exchange", v, "x"),
+     (16,)),
+    ("send_recv", lambda e, v: e.send_recv(v, "x", shift=3), (33,)),
+)
+#: the (2, 2) mesh's calls
+MESH2 = {"pod": 2, "data": 2}
+MESH2_CALLS = (
+    ("allreduce_2x2", lambda e, v: e.allreduce(v, ("pod", "data")), (768,)),
+    ("allreduce_2x2_hier", lambda e, v: e.allreduce(
+        v, ("pod", "data"), algorithm="hierarchical:ring+ring"), (768,)),
+    ("allreduce_data", lambda e, v: e.allreduce(v, "data", algorithm="ring"),
+     (64,)),
+)
+
+
+def int_array(shape, seed: int) -> np.ndarray:
+    """Integer-valued fp32 in [-8, 8]: every sum here is exact."""
+    return np.random.default_rng(seed).integers(
+        -8, 9, size=shape).astype(np.float32)
+
+
+def engine_input(name: str, lead: tuple, local: tuple) -> np.ndarray:
+    return int_array(lead + local, sum(map(ord, name)))
+
+
+def queue_inputs(n: int) -> dict:
+    """Phase 7b's mix, stacked over n ranks: three small allreduces that
+    coalesce, an int8 allreduce, an allreduce a reduce consumes."""
+    return {"small": [int_array((n, m), 100 + m) for m in (40, 8, 24)],
+            "big": int_array((n, 4096), 201), "mid": int_array((n, 1024),
+                                                               202)}
+
+
+def issue_queue(eng, q: dict, at) -> list:
+    """Issue the mix into `eng`'s queue (`at(a)`: this engine's operand
+    of the stacked array a); returns the requests in issue order."""
+    reqs = [eng.iallreduce(at(v), "x") for v in q["small"]]
+    r_mid = eng.iallreduce(at(q["mid"]), "x")
+    reqs += [r_mid, eng.ireduce(r_mid, "x", root=2,
+                                algorithm="binomial_tree"),
+             eng.iallreduce(at(q["big"]), "x", compression="int8")]
+    return reqs
+
+
+def blocking_queue(eng, q: dict, at) -> list:
+    out = [eng.allreduce(at(v), "x") for v in q["small"]]
+    mid = eng.allreduce(at(q["mid"]), "x")
+    return out + [mid, eng.reduce(mid, "x", root=2,
+                                  algorithm="binomial_tree"),
+                  eng.allreduce(at(q["big"]), "x", compression="int8")]
+
+
+def vecmat_inputs(size: int, kind: str) -> tuple:
+    rng = np.random.default_rng(size + (kind == "normal"))
+    if kind == "int":
+        return (rng.integers(-8, 9, size=(size,)).astype(np.float32),
+                rng.integers(-8, 9, size=(size, size)).astype(np.float32))
+    return (rng.normal(size=(size,)).astype(np.float32),
+            rng.normal(size=(size, size)).astype(np.float32))
+
+
+# --------------------------------------------------------------------------
+# A child process
+# --------------------------------------------------------------------------
+
+def _grid_results(rank: int, n: int) -> dict:
+    from repro_torch.core.procgroup import Transport, execute_program_local
+    transport = Transport(dist.group.WORLD, range(n))
+    out = {}
+    for key, sched, segments, codec, inputs in grid(n):
+        prog = program(sched, segments, codec)
+        xs = grid_inputs(key, sched, n, codec, inputs)
+        buf = torch.from_numpy(xs[rank])
+        if codec == "bf16":
+            buf = buf.bfloat16()
+        ops.reset_launch_counts()
+        res = execute_program_local(prog, buf, rank, transport)
+        out[key] = (res, ops.launch_counts())
+    out["transport"] = dict(transport.stats)
+    return out
+
+
+def _engine_results(rank: int) -> dict:
+    from repro_torch.core import plugins
+    from repro_torch.core.procgroup import ProcessGroupEngine
+    from repro_torch.core.schedule import Schedule, Sel, Step
+    from repro_torch.launch import distributed_vecmat as vm
+    plugins.register_collective("shift_exchange",
+                                shift_generator(Schedule, Step, Sel),
+                                algorithm="ring_shift")
+    out = {}
+    eng = ProcessGroupEngine({"x": 4}, device="cpu")
+    for name, call, local in ENGINE_CALLS:
+        x = engine_input(name, (4,), local)[rank]
+        out[name] = call(eng, torch.from_numpy(x))
+    eng2 = ProcessGroupEngine(MESH2, device="cpu")
+    pos = np.unravel_index(rank, (2, 2))
+    for name, call, local in MESH2_CALLS:
+        x = engine_input(name, (2, 2), local)[pos]
+        out[name] = call(eng2, torch.from_numpy(x))
+    # the queue: drained, then the same calls blocking
+    q = queue_inputs(4)
+    qeng = ProcessGroupEngine({"x": 4}, device="cpu")
+
+    def at(a):
+        return torch.from_numpy(a[rank])
+
+    reqs = issue_queue(qeng, q, at)
+    qeng.queue.drain()
+    out["queue"] = [r.result for r in reqs]
+    out["queue_stats"] = dict(qeng.queue.stats)
+    out["queue_blocking"] = blocking_queue(qeng, q, at)
+    # use case 1
+    for kind in ("int", "normal"):
+        x, w = vecmat_inputs(VECMAT_SIZE, kind)
+        xs = torch.from_numpy(x).reshape(4, -1)[rank]
+        ws = torch.from_numpy(w).reshape(4, -1, VECMAT_SIZE)[rank]
+        out[f"vecmat_{kind}"] = vm.distributed_vecmat(eng, xs, ws, TILES)
+    # what waits for a later slice
+    out["not_yet"] = []
+    for attempt in (
+            lambda: ProcessGroupEngine({"x": 4}, backend="native",
+                                       device="cpu"),
+            lambda: eng.allgather_matmul(torch.ones(2, 3), torch.ones(3, 2),
+                                         "x"),
+            lambda: eng.matmul_reduce_scatter(torch.ones(4, 3),
+                                              torch.ones(3, 2), "x"),
+            lambda: eng.ring_attention(*[torch.ones(1, 2, 1, 4)] * 3, "x")):
+        try:
+            attempt()
+        except NotImplementedError as e:
+            out["not_yet"].append(str(e))
+        else:
+            raise AssertionError("ran one rank per process")
+    # a rank that asks for another algorithm than its peers
+    try:
+        eng.allreduce(torch.ones(77), "x",
+                      algorithm="ring" if rank else "bidi_ring")
+    except RuntimeError as e:
+        out["mismatch"] = str(e)
+    return out
+
+
+def run(rank: int, n: int, outdir: str) -> None:
+    """One process of an n-rank world: the grid at every n; at n = 4 also
+    the engine, the queue, use case 1 and a mismatched program."""
+    count_calls()
+    res = {"grid": _grid_results(rank, n)}
+    if n == 4:
+        res.update(_engine_results(rank))
+    torch.save(res, f"{outdir}/rank{rank}.pt")
+
+
+def fail_fast(rank: int, n: int) -> None:
+    """Rank 1 raises at once; rank 0 waits for a message it never
+    gets."""
+    if rank == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    dist.recv(torch.zeros(4), src=1)
+
+
+def hang(rank: int, n: int) -> None:
+    """Rank 1 lives on without sending; rank 0 waits for its message
+    until the group timeout."""
+    if rank == 1:
+        time.sleep(120)
+    dist.recv(torch.zeros(4), src=1)

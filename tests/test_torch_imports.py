@@ -2,7 +2,8 @@
 
 In a fresh interpreter with `jax` and `repro` blocked in `sys.modules`
 (any import of them raises), every module under `src/repro_torch/`
-(found by walking the package, so new modules are covered) and every
+(found by walking the package, so new modules are covered; the
+training stack's and the per-process modules must be among them) and every
 module `chip_smoke.py` imports (found in its syntax tree, the imports
 inside its functions included) must import, and `chip_smoke` itself.
 """
@@ -52,14 +53,17 @@ TRAINING = ["repro_torch.core.autograd", "repro_torch.optim",
             "repro_torch.checkpoint", "repro_torch.checkpoint.store",
             "repro_torch.runtime.trainer", "repro_torch.runtime.health",
             "repro_torch.launch.train"]
+# one rank per process: the per-rank data plane and its launcher
+PROCESSES = ["repro_torch.core.procgroup", "repro_torch.launch.procs"]
 
 
 def test_port_imports_without_jax_or_reference():
     smoke = _chip_smoke_imports()
     assert "repro_torch.runtime" in smoke and "torch" in smoke
     assert "repro_torch.optim" in smoke
+    assert "repro_torch.core.procgroup" in smoke     # phase 12
     code = _CHECK.format(src=str(ROOT / "src"), root=str(ROOT), smoke=smoke,
-                         training=TRAINING)
+                         training=TRAINING + PROCESSES)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]

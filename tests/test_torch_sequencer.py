@@ -286,6 +286,10 @@ class _FakeEngine:
     def comm(self, axis):
         return Communicator(axis=axis, size=self.mesh_shape[axis])
 
+    @property
+    def stack_shape(self):
+        return tuple(self.mesh_shape.values())
+
     def _run(self, x, axis, **_kw):
         return x
 
