@@ -11,9 +11,9 @@ decode of qwen3-0.6b at full width, then of the MoE, SSM, hybrid and
 audio families: qwen3-moe-30b-a3b, mamba2-1.3b, hymba-1.5b and
 whisper-medium at full width) and LM training (qwen3-0.6b at full
 width: the train step and the `Trainer`) — ranks stacked on the card — and
-the collectives and use case 1 one rank per process, 8 processes on the
-card, and holds every kernel on those paths against its plain PyTorch
-version.
+the collectives (both backends), the streaming ops and use cases 1 and 2
+one rank per process, 8 processes on the card, and holds every kernel on
+those paths against its plain PyTorch version.
 Phases, one line each:
 
   1. device: the card (nvidia-smi) and the kernels' build time;
@@ -186,8 +186,30 @@ Phases, one line each:
      it ran implies (`procgroup.implied_launches`); 12a and 12b are
      BITWISE the stacked executor and engine on the card (as digests),
      12c's result within gamma_K of float64 and its reduce BITWISE the
-     stacked reduce of the same partials. Per process the median ms,
-     the staged bytes and ms per call, and rank 0's busy share:
+     stacked reduce of the same partials. 12e the native backend (every
+     collective at 1 MiB per rank and the (2, 4) two-axis allreduce,
+     `torch.distributed`'s own: BITWISE the stacked native engine and
+     X.sum(0) on integer values, the sums within (n - 1) u sum|x| of
+     float64 on normal ones) and `allgather_matmul` /
+     `matmul_reduce_scatter` (segments 1 and 4, fp32 and bf16, K4's
+     small_m32 and large_m plans: BITWISE the stacked engine, K4 n x
+     segments and once per call). 12f `ring_attention` one rank per
+     process (qwen3-0.6b's attention, 8192 tokens, causal and full,
+     segments 1 and 4): each process's queries within `ring_bound` and
+     `ring_rms` of a float64 attention of its block. 12g use case 2 at
+     the full CONFIG, each process drawing its 6.4 GB table slice from
+     --seed (the free memory checked first; only rows_per_table is cut
+     if short): 20 batches of 32 and one of 2048 (shard-edge ids
+     included) through `DLRMServer` on a `ProcessGroupEngine`, then with
+     backend='native' on the same params; per batch one K5 and one K4
+     launch and the K1 its programs imply, each process's concat slots
+     BITWISE direct indexing of its slice and the whole vector BITWISE
+     the owned rows gathered outside the engine, the logits equal on
+     every process and within atol 1e-5 + rtol 1e-4 of float64; at
+     reduced() size the logits BITWISE the stacked server they were
+     carried from. Every K1-K5 launch of 12a-12g held against its plain
+     version in the child (K4 within its bound). Per process the median
+     ms, the staged bytes and ms per call, and rank 0's busy share:
      informational, host staging over gloo is no fabric.
 
 Then one JSON line of the five kernels with their launches on every
@@ -3252,7 +3274,7 @@ RING_PEAK_TENSORS = 4.0
 RING_SEG_PEAK_SLACK = 1.25
 _RING_GROUPS = (("gemm", "cuBLAS"), ("xmma", "cuBLAS"),
                 ("cutlass", "cuBLAS"), ("nvjet", "cuBLAS"),
-                ("index", "gather (rotation)"),
+                ("index", "gather"),
                 ("elementwise", "elementwise"), ("reduce", "reductions"))
 # 11b: the peak of live bytes the meta run counts against the card's
 # allocator, both above the step's start. On 'meta' every kernel entry
@@ -3263,25 +3285,30 @@ _RING_GROUPS = (("gemm", "cuBLAS"), ("xmma", "cuBLAS"),
 DRY_PEAK_MARGIN = 1e-4
 
 
-def ring_reference(q, k, v, causal: bool) -> tuple:
+def ring_reference(q, k, v, causal: bool, lo: int = 0, hi: int = None,
+                   block: int = None) -> tuple:
     """Exact attention of the bf16 inputs in float64 on the card, in
-    blocks of RING_Q_BLOCK queries: (out, P @ |v|, P^2 @ v^2), each (S, H,
-    hd), P the float64 softmax (the scales of p's roundings: on every
-    rounding at once, and on their sum in mean square)."""
+    blocks of `block` (default RING_Q_BLOCK) queries: (out, P @ |v|,
+    P^2 @ v^2), each (S, H, hd), P the float64 softmax (the scales of p's
+    roundings: on every rounding at once, and on their sum in mean
+    square). With `lo` / `hi`: the queries [lo, hi) alone, each
+    (hi - lo, H, hd)."""
+    block = block or RING_Q_BLOCK
     S, H, hd = q.shape[1:]
+    hi = S if hi is None else hi
     g = H // k.shape[2]
     kh = k[0].double().permute(1, 0, 2).repeat_interleave(g, 0)
     vh = v[0].double().permute(1, 0, 2).repeat_interleave(g, 0)
     va, v2 = vh.abs(), vh.square()
-    out = torch.empty((S, H, hd), dtype=torch.float64, device="cuda")
+    out = torch.empty((hi - lo, H, hd), dtype=torch.float64, device="cuda")
     mag, pv2 = torch.empty_like(out), torch.empty_like(out)
-    for i0 in range(0, S, RING_Q_BLOCK):
-        cols = i0 + RING_Q_BLOCK if causal else S
-        rows = slice(i0, i0 + RING_Q_BLOCK)
-        qb = q[0, rows].double().permute(1, 0, 2)
+    for i0 in range(lo, hi, block):
+        cols = i0 + block if causal else S
+        rows = slice(i0 - lo, i0 - lo + block)
+        qb = q[0, i0:i0 + block].double().permute(1, 0, 2)
         s = torch.bmm(qb, kh[:, :cols].transpose(1, 2)) / math.sqrt(hd)
         if causal:
-            pos = torch.arange(i0, i0 + RING_Q_BLOCK, device="cuda")
+            pos = torch.arange(i0, i0 + block, device="cuda")
             s.masked_fill_(torch.arange(cols, device="cuda")[None, None, :]
                            > pos[None, :, None], -math.inf)
         s -= s.amax(-1, keepdim=True)
@@ -3608,7 +3635,29 @@ PROC_REPS = 5                 # 12b: timed calls per collective
 PROC_ROOT = 1                 # 12a: the root of rooted generators
 PROC_VECMAT = 4096            # 12c: the example's top size
 PROC_MESH2 = {"pod": 2, "data": 4}
-_PROC_GROUPS = _KERNEL_GROUPS + (("Memcpy", "host staging copies"),)
+_PROC_GROUPS = _KERNEL_GROUPS + (("matmul_tiled_kernel", "K4 matmul_tiled"),
+                                  ("k5_rows_kernel", "K5 gather_rows"),
+                                  ("gemm", "cuBLAS"), ("xmma", "cuBLAS"),
+                                  ("Memcpy", "host staging copies"))
+# 12e: the native backend's collectives at 1 MiB per rank, and the
+# streaming matmuls: (x rows per rank, K, N) at segments 1 and 4 — rows
+# 32 take K4's small_m32 plan (every segment's rows <= 32), rows 512 and
+# 1024 its large_m plan
+PROC_NATIVE_MIB = 1
+PROC_STREAM_SHAPES = {"allgather_matmul": ((32, 256, 256), (512, 256, 512)),
+                      "matmul_reduce_scatter": ((32, 256, 256),
+                                                (1024, 256, 512))}
+PROC_STREAM_SEGMENTS = (1, 4)
+# 12f: ring attention one rank per process over 8192 tokens, 1024 a
+# process; its float64 reference in blocks of 256 queries. At 32768
+# tokens the 8 processes' float64 references and score tensors at once
+# outgrow the card (out of memory at 78 GB in use)
+PROC_RING_TOKENS = 8192
+PROC_RING_Q_BLOCK = 256
+PROC_RING_RUNS = (("causal", True, 1), ("full", False, 1),
+                  ("causal_seg4", True, 4), ("full_seg4", False, 4))
+# 12g: each process's CUDA context and working set beside its table slice
+PROC_CONTEXT_BYTES = 2**30
 
 
 def proc_fail(msg: str) -> None:
@@ -3719,7 +3768,7 @@ def proc_profile(fn, profiled: bool, median: float) -> dict:
             "device_ms_by_group": split}
 
 
-# each K1/K2/K3 entry point of `ops` -> (its kernel, its plain version in
+# each kernel entry point of `ops` -> (its kernel, its plain version in
 # `ref`, which takes the same parameters but `out`)
 PROC_CHECKED = {
     "fused_combine": ("fused_combine", "fused_combine"),
@@ -3728,15 +3777,30 @@ PROC_CHECKED = {
     "quantize_int8_at": ("quantize_blocks", "quantize_blocks_at"),
     "dequantize_int8": ("dequantize_blocks", "dequantize_blocks"),
     "dequantize_int8_at": ("dequantize_blocks", "dequantize_blocks_at"),
+    "matmul": ("matmul_tiled", "matmul"),
+    "embedding_gather": ("gather_rows", "gather_rows"),
+    "embedding_lookup_rows": ("gather_rows", "lookup_rows"),
 }
+
+
+def k4_within(x, y, got, want) -> bool:
+    """K4 against its plain version: two fp32 sums of K products in two
+    orders differ by at most 2 K 2^-24 (|x| @ |w|) per element; a bf16
+    output adds each side's rounding, 2^-8 of its magnitude."""
+    bound = 2 * x.shape[-1] * 2.0 ** -24 * (x.double().abs()
+                                             @ y.double().abs())
+    if got.dtype != torch.float32:
+        bound += BF16_U * (got.double().abs() + want.double().abs())
+    return bool(((got.double() - want.double()).abs() <= bound).all())
 
 
 @contextlib.contextmanager
 def proc_checked(ops, ref, checked: dict):
-    """While the block runs, hold every K1, K2 and K3 call on the card
-    BITWISE against its plain version on the operands it was given (the
-    plain version runs first: `out` may alias an operand, and it launches
-    no kernel, so the counts are the path's); `checked[kernel]` counts the
+    """While the block runs, hold every K1, K2, K3 and K5 call on the card
+    BITWISE against its plain version on the operands it was given, and
+    every K4 call within its per-element bound (`k4_within`; the plain
+    version runs first: `out` may alias an operand, and it launches no
+    kernel, so the counts are the path's); `checked[kernel]` counts the
     calls held. Calls on 'meta' (receive buffers shaped by the codec)
     launch nothing and are not held."""
     real = {n: getattr(ops, n) for n in PROC_CHECKED}
@@ -3756,8 +3820,10 @@ def proc_checked(ops, ref, checked: dict):
             for i, (g, w) in enumerate(zip(
                     res if isinstance(res, tuple) else (res,),
                     want if isinstance(want, tuple) else (want,))):
-                if g.shape != w.shape or g.dtype != w.dtype or \
-                        not torch.equal(g, w):
+                if g.shape != w.shape or g.dtype != w.dtype or not (
+                        k4_within(p.arguments["x"], p.arguments["y"], g, w)
+                        if name == "matmul"
+                        else torch.equal(g, w)):
                     proc_fail(f"{name} call {checked[kernel]} output {i} "
                               f"differs from the plain version")
             checked[kernel] += 1
@@ -3773,14 +3839,354 @@ def proc_checked(ops, ref, checked: dict):
             setattr(ops, n, fn)
 
 
+def proc_seeded(seed: int, part: int):
+    return torch.Generator(device="cuda").manual_seed(seed + part)
+
+
+#: 12e's native calls on {"x": 8}: (name, call, whether it adds)
+PROC_NATIVE_CALLS = (
+    ("allreduce", lambda e, v: e.allreduce(v, "x"), True),
+    ("allreduce_max", lambda e, v: e.allreduce(v, "x", op="max"), False),
+    ("allreduce_min", lambda e, v: e.allreduce(v, "x", op="min"), False),
+    ("reduce_scatter", lambda e, v: e.reduce_scatter(v, "x"), True),
+    ("allgather", lambda e, v: e.allgather(v, "x"), False),
+    ("bcast", lambda e, v: e.bcast(v, "x", root=PROC_ROOT), False),
+    ("reduce", lambda e, v: e.reduce(v, "x", root=2), True),
+    ("gather", lambda e, v: e.gather(v, "x", root=3), False),
+    ("alltoall", lambda e, v: e.alltoall(v, "x"), False),
+)
+
+
+def proc_native(rank: int, world: int, seed: int, counted) -> dict:
+    """12e, the native backend (`torch.distributed`'s collectives on the
+    axis groups, staged through pinned host memory on gloo): every
+    collective at PROC_NATIVE_MIB MiB per rank and the (2, 4) two-axis
+    allreduce, on integer-valued and normal fp32 drawn (whole, on every
+    process) from the seed. Each result BITWISE the stacked native
+    engine's row on the card where every order of sums is exact
+    (integer values; max, min and the moves on any values), the sums on
+    integer values BITWISE X.sum(0) as well, and the sums on normal
+    values within (n - 1) u sum_r |x_r| (u = 2^-24) of the float64 sum.
+    No kernel launches: the native backend runs no program."""
+    from repro_torch.core import CollectiveEngine
+    from repro_torch.core.procgroup import ProcessGroupEngine
+    L = PROC_NATIVE_MIB * 2**20 // 4
+    eng = ProcessGroupEngine({"x": world}, backend="native")
+    eng2 = ProcessGroupEngine(PROC_MESH2, backend="native")
+    seng = CollectiveEngine({"x": world}, backend="native", device="cuda")
+    seng2 = CollectiveEngine(PROC_MESH2, backend="native", device="cuda")
+    pos = np.unravel_index(rank, tuple(PROC_MESH2.values()))
+    gen = proc_seeded(seed, 15)
+    worst, t0 = 0.0, time.perf_counter()
+    s0 = dict(eng.transport_stats())
+    calls = [(name, call, adds, eng, seng, (world,), rank)
+             for name, call, adds in PROC_NATIVE_CALLS]
+    calls.append(("allreduce_2x4", lambda e, v: e.allreduce(
+        v, ("pod", "data")), True, eng2, seng2,
+        tuple(PROC_MESH2.values()), pos))
+    for kind in ("int", "normal"):
+        for name, call, adds, e, se, lead, at in calls:
+            X = int_inputs(lead + (L,), gen) if kind == "int" else \
+                torch.randn(lead + (L,), generator=gen, device="cuda")
+            got = counted(f"native_{name}_{kind}",
+                          lambda: call(e, X[at].clone()), extra={})
+            want = call(se, X)[at]
+            if kind == "int" or not adds:
+                if got.shape != want.shape or not torch.equal(got, want):
+                    proc_fail(f"12e native {name} ({kind}): rank {rank} "
+                              f"differs from the stacked native engine")
+                continue
+            exact = call(se, X.double())[at]
+            mag = call(se, X.double().abs())[at]
+            n = math.prod(lead)
+            err = (got.double() - exact).abs()
+            if not bool((err <= (n - 1) * 2.0 ** -24 * mag).all()):
+                proc_fail(f"12e native {name}: rank {rank} outside "
+                          f"(n - 1) u sum|x| of the float64 sum")
+            worst = max(worst, float((err / ((n - 1) * 2.0 ** -24 * mag)
+                                      .clamp_min(1e-300)).max()))
+        # integer-valued sums against X.sum(0) itself
+        if kind == "int":
+            X = int_inputs((world, L), gen)
+            for name in ("allreduce", "reduce"):
+                call = dict((c[0], c[1]) for c in PROC_NATIVE_CALLS)[name]
+                if not torch.equal(call(eng, X[rank].clone()), X.sum(0)):
+                    proc_fail(f"12e native {name}: rank {rank} differs "
+                              f"from X.sum(0)")
+            del X
+    s1 = dict(eng.transport_stats())
+    return {"mib_per_rank": PROC_NATIVE_MIB,
+            "calls": 2 * len(calls), "seconds": time.perf_counter() - t0,
+            "normal_sum_err_over_bound_max": worst,
+            "collectives": s1["collectives"] - s0["collectives"],
+            "staged_bytes": s1["staged_bytes"] - s0["staged_bytes"],
+            "staged_ms": s1["staged_ms"] - s0["staged_ms"]}
+
+
+def proc_streams(rank: int, world: int, seed: int, counted) -> dict:
+    """12e, the streaming matmuls one rank per process: `allgather_matmul`
+    and `matmul_reduce_scatter` at PROC_STREAM_SHAPES, segments 1 and 4,
+    fp32 and bf16, on normal operands drawn (whole) from the seed. Each
+    result BITWISE the stacked engine's row on the card (the same K4
+    plan: one rank's launch and the stacked launch have the same M, K
+    and N, and the operands are 16-byte aligned either way), and K4
+    launched n x segments times per `allgather_matmul` and once per
+    `matmul_reduce_scatter`, as the stacked engine launches it per call;
+    every launch within its bound of the plain version."""
+    from repro_torch.core import CollectiveEngine
+    from repro_torch.core.procgroup import ProcessGroupEngine
+    from repro_torch.kernels import matmul as mm
+    eng = ProcessGroupEngine({"x": world})
+    seng = CollectiveEngine({"x": world}, device="cuda")
+    gen = proc_seeded(seed, 16)
+    plans, t0 = {}, time.perf_counter()
+    s0 = dict(eng.transport_stats())
+    for op, shapes in PROC_STREAM_SHAPES.items():
+        for m, k, p in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                X = torch.randn((world, m, k), generator=gen,
+                                device="cuda").to(dtype)
+                W = torch.randn((world, k, p), generator=gen,
+                                device="cuda").to(dtype)
+                for segs in PROC_STREAM_SEGMENTS:
+                    key = f"{op}_{m}x{k}x{p}_{str(dtype)[6:]}_s{segs}"
+                    k4 = world * segs if op == "allgather_matmul" else 1
+                    got = counted(key, lambda: getattr(eng, op)(
+                        X[rank], W[rank], "x", segments=segs),
+                        extra={"matmul_tiled": k4})
+                    want = getattr(seng, op)(X, W, "x", segments=segs)[rank]
+                    if got.shape != want.shape or not torch.equal(got, want):
+                        proc_fail(f"12e {key}: rank {rank} differs from the "
+                                  f"stacked engine")
+                    sub = (m // segs if op == "allgather_matmul" else m)
+                    plans[key] = mm.plan_name(sub, k, p, dtype)
+    s1 = dict(eng.transport_stats())
+    return {"cases": len(plans), "plans": sorted(set(plans.values())),
+            "seconds": time.perf_counter() - t0,
+            "exchanges": s1["exchanges"] - s0["exchanges"],
+            "staged_bytes": s1["staged_bytes"] - s0["staged_bytes"],
+            "staged_ms": s1["staged_ms"] - s0["staged_ms"]}
+
+
+def proc_ring(rank: int, world: int, seed: int, reps: int) -> dict:
+    """12f, `ring_attention` one rank per process at qwen3-0.6b's
+    attention width (16 q heads, 8 kv heads, head_dim 128, bf16), B = 1,
+    PROC_RING_TOKENS tokens over the world: causal and full at segments 1
+    and 4. Every process draws the whole q, k, v from the seed, takes its
+    own block and holds its own queries' output within `ring_bound` of a
+    float64 exact attention of its query block (computed on the card)
+    and within RING_RMS_LIMIT of the rms its bf16 roundings give
+    (`ring_rms`); then its median ms and the bytes it staged per call."""
+    from repro_torch.core.procgroup import ProcessGroupEngine
+    H, KV, hd, S = 16, 8, 128, PROC_RING_TOKENS
+    sl = S // world
+    gen = proc_seeded(seed, 17)
+    q, k, v = (torch.randn((1, S, h, hd), generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (H, KV, KV))
+    mine = [t[:, rank * sl:(rank + 1) * sl].contiguous() for t in (q, k, v)]
+    eng = ProcessGroupEngine({"x": world})
+    refs = {c: ring_reference(q, k, v, c, rank * sl, (rank + 1) * sl,
+                              PROC_RING_Q_BLOCK) for c in (True, False)}
+    torch.cuda.empty_cache()
+    out = {}
+    for name, causal, segs in PROC_RING_RUNS:
+        def fn(c=causal, s=segs):
+            return eng.ring_attention(*mine, "x", causal=c, segments=s)
+        y = fn()
+        torch.cuda.synchronize()
+        if y.shape != mine[0].shape or y.dtype != torch.bfloat16:
+            proc_fail(f"12f ring {name}: {tuple(y.shape)} {y.dtype}")
+        g = y[0].double()
+        ref, mag, pv2 = refs[causal]
+        err = (g - ref).abs()
+        bound = ring_bound(ref, mag, S)
+        if not bool(torch.isfinite(g).all()) or not bool((err <= bound)
+                                                          .all()):
+            proc_fail(f"12f ring {name}: rank {rank}: "
+                      f"{int((err > bound).sum())} elements outside the "
+                      f"float64 bound")
+        rms = ring_rms(g, ref, pv2)
+        if rms > RING_RMS_LIMIT:
+            proc_fail(f"12f ring {name}: rank {rank}: rms error {rms} x "
+                      f"the bf16 roundings' (limit {RING_RMS_LIMIT})")
+        s0 = dict(eng.transport_stats())
+        ms = median_ms(fn, reps)
+        s1 = dict(eng.transport_stats())
+        out[name] = {"median_ms": ms, "err_over_bound_max":
+                     float((err / bound).max()), "rms_err_over_model": rms,
+                     "staged_bytes_per_call": (s1["staged_bytes"]
+                                               - s0["staged_bytes"])
+                     / (reps + 1),
+                     "staged_ms_per_call": (s1["staged_ms"] - s0["staged_ms"])
+                     / (reps + 1)}
+        del y, g, err, bound
+    return out
+
+
+def proc_dlrm_requests(cfg, B: int, gen, edges: bool):
+    """B uniform requests drawn on the card (the same on every process);
+    with `edges`, their first ids are every rank's shard edges, the
+    first and last rows, -1, one past the last row and the int32
+    extremes, as phase 6 puts them."""
+    req = torch.randint(0, cfg.rows_per_table, (B, cfg.n_tables),
+                        generator=gen, device="cuda", dtype=torch.int32)
+    if edges:
+        tp = DLRM_MESH["model"]
+        rows_l = -(-cfg.rows_per_table // tp)
+        e = [x for m in range(tp) for x in (m * rows_l - 1, m * rows_l,
+                                            (m + 1) * rows_l - 1,
+                                            (m + 1) * rows_l)]
+        e += [0, cfg.rows_per_table - 1, -1, cfg.rows_per_table,
+              -2**31, 2**31 - 1]
+        req.view(-1)[:len(e)] = torch.tensor(e, dtype=torch.int32,
+                                             device="cuda")
+    return req
+
+
+def proc_dlrm_serve(server, name: str, batches, counted, rank: int) -> dict:
+    """Serve `batches` through a per-process `DLRMServer`, each counted:
+    exactly one K5 and one K4 launch and the K1 launches its programs
+    imply, every launch held against its plain version. Then, outside
+    the counted window: this process's slots of the concat vector
+    BITWISE direct indexing of its own table slice, the whole vector
+    BITWISE the owned rows of every rank gathered outside the engine,
+    the logits equal on every process and within DLRM_ATOL + DLRM_RTOL
+    |ref| of a float64 reference from the gathered FC weights and that
+    vector."""
+    import torch.distributed as dist
+    from repro_torch.models import dlrm as dlrm_mod
+    fc64 = server.global_fc(torch.float64)
+    err = 0.0
+    for i, batch in enumerate(batches):
+        out = counted(f"{name}_b{batch.shape[0]}", lambda: server(batch),
+                      extra={"gather_rows": 1, "matmul_tiled": 1})
+        if out.shape != (batch.shape[0], server.cfg.out_dim) or \
+                not bool(torch.isfinite(out).all()):
+            proc_fail(f"12g {name}: logits {tuple(out.shape)} or not finite")
+        vec = server.lookup(batch)
+        own = server.own_rows(batch)
+        rows_l = server.model.tables.shape[-2]
+        lo = server.ctx.own_tp_rank() * rows_l
+        held = ((batch.long() >= lo) & (batch.long() < lo + rows_l)
+                ).repeat_interleave(server.cfg.emb_dim, dim=1)
+        if not torch.equal(vec[held], own[held]) or bool(own[~held].any()):
+            proc_fail(f"12g {name} batch {i}: rank {rank}'s slots differ "
+                      f"from direct indexing of its table slice")
+        full = server.assembled_rows(batch)
+        if not torch.equal(vec, full):
+            proc_fail(f"12g {name} batch {i}: the concat vector differs "
+                      f"from the owned rows gathered outside the engine")
+        logits = [None] * dist.get_world_size()
+        dist.all_gather_object(logits, out.cpu())
+        if not all(torch.equal(t, logits[0]) for t in logits):
+            proc_fail(f"12g {name} batch {i}: the logits differ between "
+                      f"processes")
+        want = dlrm_mod.mlp_reference(fc64, full.double())
+        diff = (out.double() - want).abs()
+        if not bool((diff <= DLRM_ATOL + DLRM_RTOL * want.abs()).all()):
+            proc_fail(f"12g {name} batch {i}: logits differ from the "
+                      f"float64 reference by {float(diff.max())}")
+        err = max(err, float(diff.max()))
+    return {"batches": len(batches), "logits_max_abs_err": err,
+            "concat_bitwise": True, "logits_equal_across_processes": True}
+
+
+def proc_dlrm(rank: int, world: int, seed: int, rows: int, counted,
+              reps: int) -> dict:
+    """12g, use case 2 one rank per process: the `CONFIG` DLRM (rows per
+    table `rows`, cut only if the card was short) served by `DLRMServer`
+    on a `ProcessGroupEngine` over the (1, 1, 8) mesh with
+    collective_matmul, each process's params (its 6.4 GB table slice)
+    drawn on the card from the seed by the per-process `Builder`; 20
+    batches of 32 requests and one of 2048 (shard-edge ids in the first
+    small batch and in the large one), then the same with
+    backend='native' on the same params (`proc_dlrm_serve`'s checks both
+    times). At `reduced()` size the logits BITWISE a stacked
+    `DLRMServer` on the card whose params this process's were carried
+    from (`convert.local_params`). Then each backend's median latency and
+    q/s at 32 and 2048, the staged bytes and ms per batch and rank 0's
+    busy share (informational: gloo over the host is no fabric)."""
+    import dataclasses as dc
+    from repro_torch import convert
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.configs.dlrm import CONFIG, reduced
+    from repro_torch.core.procgroup import ProcessGroupEngine
+    from repro_torch.launch.dlrm_serve import DLRMServer
+    t0 = time.perf_counter()
+    # reduced size: bitwise the stacked server it was carried from
+    small = reduced()
+    rgen = proc_seeded(seed, 18)
+    stacked = DLRMServer(small, mesh_shape=DLRM_MESH, device="cuda",
+                         seed=seed)
+    eng = ProcessGroupEngine(DLRM_MESH)
+    local = DLRMServer(small, engine=eng, params=convert.local_params(
+        stacked.model.params(), DLRM_MESH, eng.coords))
+    for i in range(3):
+        batch = proc_dlrm_requests(small, DLRM_SMALL, rgen, edges=i == 0)
+        if not torch.equal(local(batch), stacked(batch)):
+            proc_fail(f"12g reduced: rank {rank}'s logits differ from the "
+                      f"stacked server's")
+    del stacked, local
+    torch.cuda.empty_cache()
+    # the full CONFIG, params drawn per process
+    cfg = dc.replace(CONFIG, rows_per_table=rows)
+    t1 = time.perf_counter()
+    server = DLRMServer(cfg, engine=eng, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    gen = proc_seeded(seed, 19)
+    batches = [proc_dlrm_requests(cfg, DLRM_SMALL, gen, edges=i == 0)
+               for i in range(DLRM_BATCHES)]
+    large = proc_dlrm_requests(cfg, DLRM_LARGE, gen, edges=True)
+    res = {"rows_per_table": rows, "init_seconds": init_s,
+           "table_bytes": server.model.tables.numel() * 4,
+           "reduced_bitwise_vs_stacked": 3}
+    neng = ProcessGroupEngine(DLRM_MESH, backend="native")
+    native = DLRMServer(cfg, engine=neng, params=server.model.params(),
+                        pcfg=ParallelConfig(collective_matmul=True,
+                                            backend="native"))
+    for name, srv in (("microcode", server), ("native", native)):
+        res[name] = proc_dlrm_serve(srv, name, batches + [large], counted,
+                                    rank)
+        it = {"i": 0}
+
+        def nxt():
+            it["i"] = (it["i"] + 1) % len(batches)
+            return batches[it["i"]]
+
+        e = srv.engine
+        s0 = dict(e.transport_stats())
+        t32 = median_ms(lambda: srv(nxt()), max(reps, DLRM_BATCHES))
+        s1 = dict(e.transport_stats())
+        t2k = median_ms(lambda: srv(large), max(3, reps // 4))
+        calls = max(reps, DLRM_BATCHES) + 1
+        res[name].update({
+            "median_ms": {"b32": t32, "b2048": t2k},
+            "queries_per_s": {"b32": DLRM_SMALL / (t32 / 1e3),
+                              "b2048": DLRM_LARGE / (t2k / 1e3)},
+            "b32_staged_bytes_per_batch": (s1["staged_bytes"]
+                                           - s0["staged_bytes"]) / calls,
+            "b32_staged_ms_per_batch": (s1["staged_ms"] - s0["staged_ms"])
+            / calls,
+            "b32_profile": proc_profile(lambda: srv(batches[0]), rank == 0,
+                                        t32)})
+    res["seconds"] = time.perf_counter() - t0
+    del server, native
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase12_child(rank: int, world: int, tmp: str, seed: int, mib: int,
-                  reps: int) -> None:
-    """One process of phase 12 (12a-12d), one rank on the card. Every
-    program this process runs is recorded; each part's K1/K2/K3 launches,
-    counted from 0, must equal what this rank's share of those programs
-    implies (`procgroup.implied_launches`), and each of them is held
-    bitwise against its plain version (`proc_checked`). Results go to the
-    parent as digests (`proc_digest`), the vecmat partials as tensors."""
+                  reps: int, dlrm_rows: int) -> None:
+    """One process of phase 12 (12a-12g), one rank on the card. Every
+    program this process runs is recorded; each part's launches, counted
+    from 0, must equal what this rank's share of those programs implies
+    (`procgroup.implied_launches`) plus the K4 and K5 launches the part
+    makes outside programs, and each of them is held against its plain
+    version (`proc_checked`: bitwise, K4 within its bound). Results of
+    12a-12d go to the parent as digests (`proc_digest`), the vecmat
+    partials as tensors; 12e-12g hold their own results in the child
+    (each process has the whole seeded input) and report numbers."""
     import torch.distributed as dist
     from repro_torch.core import procgroup
     from repro_torch.core.procgroup import ProcessGroupEngine, Transport
@@ -3797,7 +4203,11 @@ def phase12_child(rank: int, world: int, tmp: str, seed: int, mib: int,
     total = dict.fromkeys(ops.KERNELS, 0)
     checked_total = dict.fromkeys(ops.KERNELS, 0)
 
-    def counted(name, fn):
+    def counted(name, fn, extra=None):
+        """Run `fn` with every launch held (`proc_checked`); its launches
+        must be what the programs it ran imply, plus `extra` (K4's and
+        K5's, which no program implies; given, the part may run no
+        program)."""
         ran.clear()
         checked = dict.fromkeys(ops.KERNELS, 0)
         ops.reset_launch_counts()
@@ -3809,7 +4219,9 @@ def phase12_child(rank: int, world: int, tmp: str, seed: int, mib: int,
         for prog, r, shape in ran:
             for k, v in procgroup.implied_launches(prog, r, shape).items():
                 want[k] += v
-        if got != want or not ran:
+        for k, v in (extra or {}).items():
+            want[k] += v
+        if got != want or not (ran or extra is not None):
             proc_fail(f"{name}: rank {rank} launched {got}; its "
                       f"{len(ran)} programs imply {want}")
         if checked != got:
@@ -3900,6 +4312,15 @@ def phase12_child(rank: int, world: int, tmp: str, seed: int, mib: int,
             proc_fail(f"queue: rank {rank} request {i} differs from the "
                       f"blocking call")
     res["queue"] = {"stats": stats, "bitwise_vs_blocking": len(reqs)}
+    del qeng, eng2, reqs, blocking, small, big, mid, X2
+    torch.cuda.empty_cache()
+    res["launches_12a_12d"] = dict(total)
+    res["native"] = proc_native(rank, world, seed, counted)         # 12e
+    res["streams"] = proc_streams(rank, world, seed, counted)
+    res["ring"] = proc_ring(rank, world, seed, reps)                # 12f
+    torch.cuda.empty_cache()
+    res["dlrm"] = proc_dlrm(rank, world, seed, dlrm_rows, counted,  # 12g
+                            reps)
     res["launches"] = total
     res["checked"] = checked_total
     res["transport"] = eng.transport_stats()
@@ -3907,17 +4328,36 @@ def phase12_child(rank: int, world: int, tmp: str, seed: int, mib: int,
         json.dump(res, f)
 
 
+def proc_dlrm_config(CONFIG):
+    """12g's CONFIG: rows_per_table cut only if the card's free memory is
+    short of the tables plus PROC_RANKS processes' contexts and the
+    serving path's headroom (phase 6's rule, `dlrm_config`)."""
+    free, total = torch.cuda.mem_get_info()
+    per_row = CONFIG.n_tables * CONFIG.emb_dim * 4
+    tp = DLRM_MESH["model"]
+    avail = free - PROC_RANKS * PROC_CONTEXT_BYTES - DLRM_HEADROOM
+    rows = CONFIG.rows_per_table
+    if rows * per_row > avail:
+        rows = max(tp, avail // per_row // tp * tp)
+    return rows, free, total
+
+
 def phase_procs(CollectiveEngine, procs, ops, counts, seed: int, mib: int,
-                reps: int, smi: str) -> None:
+                reps: int, smi: str, CONFIG) -> None:
     """Phase 12: one rank per process — 8 processes on the card, one
     gloo group, CUDA payloads staged through pinned host memory. 12a the
     executor's grid at 1 MiB per rank, 12b the 8 x `mib` MiB fp32 and
     int8 allreduce (the selector's pick), 12c use case 1 at 4096, 12d
-    phase 7b's mix; each child's launches exact per part and each launch
-    held BITWISE against its plain version (`counted`, `proc_checked`).
-    Here the parent fails unless K1, K2 and K3 were each held at least
-    once, holds 12a and 12b BITWISE against the stacked executor and
-    engine on the card and their integer-valued uncompressed allreduces
+    phase 7b's mix; 12e the native backend and the streaming matmuls
+    (`proc_native`, `proc_streams`), 12f ring attention (`proc_ring`),
+    12g use case 2 at the full CONFIG, 6.4 GB of tables per process
+    (`proc_dlrm`), each checked in the child; each child's launches exact
+    per part and each launch held against its plain version (`counted`,
+    `proc_checked`). Here the parent checks the card's free memory for
+    12g's tables first (`proc_dlrm_config`), then fails unless K1-K5
+    were each held at least once, holds 12a and 12b BITWISE against the
+    stacked executor and engine on the card and their integer-valued
+    uncompressed allreduces
     against X.sum(0), 12c's root result within gamma_K of float64 and its
     reduce BITWISE the stacked reduce of the children's partials on the
     CPU (the plain versions). Times are informational: host staging over
@@ -3925,10 +4365,11 @@ def phase_procs(CollectiveEngine, procs, ops, counts, seed: int, mib: int,
     import tempfile
     from repro_torch.core.engine import execute_program
     t0 = time.perf_counter()
+    rows, free, total_mem = proc_dlrm_config(CONFIG)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_procs_") as tmp:
         procs.spawn(phase12_child, PROC_RANKS, backend="gloo",
                     device="cuda", args=(tmp, seed, mib,
-                                         min(reps, PROC_REPS)))
+                                         min(reps, PROC_REPS), rows))
         spawn_s = time.perf_counter() - t0
         res = []
         for r in range(PROC_RANKS):
@@ -3940,7 +4381,7 @@ def phase_procs(CollectiveEngine, procs, ops, counts, seed: int, mib: int,
     for r in res:
         for k, v in r["checked"].items():
             checked[k] += v
-    for k in ("fused_combine", "quantize_blocks", "dequantize_blocks"):
+    for k in ops.KERNELS:
         if not checked[k]:
             fail(f"12: no {k} call was held against its plain version")
     # 12a: every case bitwise the stacked executor's row, and the
@@ -4025,6 +4466,17 @@ def phase_procs(CollectiveEngine, procs, ops, counts, seed: int, mib: int,
                      "err_over_bound": ratio,
                      "reduce_bitwise_vs_plain_stacked": True},
           "queue": res[0]["queue"],
+          "native": [r["native"] for r in res],
+          "streams": [r["streams"] for r in res],
+          "ring": {"tokens": PROC_RING_TOKENS, "heads": 16, "kv_heads": 8,
+                   "head_dim": 128, "per_rank": [r["ring"] for r in res]},
+          "dlrm": {"config": dataclasses.asdict(CONFIG),
+                   "rows_per_table_cut": (None if rows == CONFIG.rows_per_table
+                                          else [CONFIG.rows_per_table, rows]),
+                   "mem_free_before_spawn": free, "mem_total": total_mem,
+                   "per_rank": [r["dlrm"] for r in res]},
+          "launches_12a_12d": {k: sum(r["launches_12a_12d"][k] for r in res)
+                               for k in ops.KERNELS},
           "launches_per_rank": [r["launches"] for r in res],
           "launches": total,
           "transport_per_rank": [r["transport"] for r in res]})
@@ -4148,7 +4600,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     phase_procs(CollectiveEngine, procs, ops, counts, args.seed, args.mib,
-                args.reps, smi)
+                args.reps, smi, CONFIG)
     for row in rows:      # launches on every path's runs (K1 runs on all)
         row["launches"] = sum(c[row["name"]] for c in counts.values())
         if not row["launches"]:

@@ -17,7 +17,10 @@ only (it imports no jax):
     caches <-> the port's (layer-stacked leaves lead with the layer dim,
     `models/blocks.py`);
   * the reference `Selector.table_rows()` artifact <-> rows the port's
-    `Selector.apply_table` takes (and its own `table_rows` emits).
+    `Selector.apply_table` takes (and its own `table_rows` emits);
+  * a mesh-stacked tensor (or params tree) -> the LOCAL shard of the one
+    rank a process holds (`local_shard`, `local_params`), the form a
+    per-process model takes (`core/procgroup.py`).
 """
 from __future__ import annotations
 
@@ -100,6 +103,23 @@ def from_stacked(stacked, mesh_shape: dict, spec) -> np.ndarray:
     shards make up under `spec` (replicated dims take any one copy)."""
     g = unstack(stacked.detach(), mesh_shape, spec).cpu()
     return (g.float() if g.dtype == torch.bfloat16 else g).numpy()
+
+
+def local_shard(stacked, mesh_shape: dict, coords: dict):
+    """One rank's local shard of a mesh-stacked tensor: the rank at mesh
+    position `coords` ({axis: index}; a view)."""
+    return stacked[tuple(coords[a] for a in mesh_shape)]
+
+
+def local_params(tree, mesh_shape: dict, coords: dict):
+    """`local_shard` of every tensor of a params tree (dicts and lists of
+    mesh-stacked tensors, as `dlrm_params_from_jax` gives)."""
+    if isinstance(tree, dict):
+        return {k: local_params(v, mesh_shape, coords)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(local_params(v, mesh_shape, coords) for v in tree)
+    return local_shard(tree, mesh_shape, coords)
 
 
 def dlrm_params_from_jax(params_np, cfg, mesh_shape: dict, device="cpu"):

@@ -569,6 +569,7 @@ class _Layout:
     lead: tuple
     groups: int
     n: int
+    axis: object = None          # the collective's axis (or axis pair)
 
     def restore(self, ys):
         ys = ys.reshape(self.lead + tuple(ys.shape[1:]))
@@ -687,7 +688,7 @@ class CollectiveEngine:
         n = self._axis_size(axis)
         groups = math.prod(lead) // n
         rows = xt.reshape((groups * n,) + tuple(xt.shape[D:]))
-        return rows, _Layout(moved, dst, lead, groups, n)
+        return rows, _Layout(moved, dst, lead, groups, n, axis=axis)
 
     def _cached_schedule(self, collective: str, algorithm: str,
                          comm, root: int, op: str) -> Schedule:
@@ -763,10 +764,53 @@ class CollectiveEngine:
         buf[rows, slots] = flat
         return buf.reshape(R, lay.n * F)
 
+    # -- the native backend and the ring step: the hooks a per-process
+    # engine (`core/procgroup.py`) overrides. Each takes and returns
+    # stacked rows; `lay` names the collective's ranks and axis.
     def _native(self, rows, lay: _Layout, op: str):
+        """Native allreduce (the reference's `lax.psum` / `pmax` /
+        `pmin`): every rank ends with the reduction of its group."""
         g = rows.reshape((lay.groups, lay.n) + tuple(rows.shape[1:]))
         red = _NATIVE_REDUCE[op](g)
         return red.unsqueeze(1).expand(g.shape).reshape(rows.shape)
+
+    def _native_reduce_scatter(self, flat, lay: _Layout, op: str):
+        """Native reduce-scatter of flat (R, size) rows: rank r gets slice
+        r of the reduction, (R, size / n) (`lax.psum_scatter`)."""
+        n = lay.n
+        g = flat.reshape(lay.groups, n, n, flat.shape[1] // n)
+        return _NATIVE_REDUCE[op](g).reshape(lay.groups * n, -1)
+
+    def _native_allgather(self, flat, lay: _Layout):
+        """Native all-gather of flat (R, F) rows: every rank ends with the
+        concat of its group's rows, (R, n * F) (`lax.all_gather`)."""
+        g = flat.reshape(lay.groups, 1, lay.n * flat.shape[1])
+        return g.expand(lay.groups, lay.n, g.shape[2]).reshape(
+            lay.groups * lay.n, -1)
+
+    def _native_bcast(self, rows, lay: _Layout, root: int):
+        """Native broadcast: every rank ends with rank `root`'s rows."""
+        g = rows.reshape((lay.groups, lay.n) + tuple(rows.shape[1:]))
+        return g[:, root:root + 1].expand(g.shape).reshape(rows.shape)
+
+    def _native_alltoall(self, rows, lay: _Layout):
+        """Native all-to-all, tiled on each rank's leading dim: block j of
+        rank r's result is block r of rank j's rows (`lax.all_to_all`)."""
+        n = lay.n
+        rest = tuple(rows.shape[2:])
+        g = rows.reshape((lay.groups, n, n, rows.shape[1] // n) + rest)
+        return g.transpose(1, 2).reshape(rows.shape)
+
+    def _ring_pass(self, parts: list, lay: _Layout) -> list:
+        """One step of a streaming op's ring (`ring_perm(1)`): rank r
+        receives rank r - 1's block of every tensor in `parts` (one copy
+        each: rank n - 1's block, then ranks 0 .. n - 2's)."""
+        out = []
+        for t in parts:
+            g = t.reshape((lay.groups, lay.n) + tuple(t.shape[1:]))
+            out.append(torch.cat([g[:, -1:], g[:, :-1]], dim=1)
+                       .reshape(t.shape))
+        return out
 
     # -- two-axis (hierarchical) dispatch ------------------------------------
     def _flatten_pad_mesh(self, x, mult: int):
@@ -941,9 +985,7 @@ class CollectiveEngine:
         flat = rows.reshape(rows.shape[0], -1)
         if self.backend == "native" and algorithm in (None, "auto") \
                 and op in _NATIVE_REDUCE:
-            g = flat.reshape(lay.groups, n, n, size // n)
-            red = _NATIVE_REDUCE[op](g)            # (groups, n, size/n)
-            return lay.restore(red.reshape(lay.groups * n, size // n))
+            return lay.restore(self._native_reduce_scatter(flat, lay, op))
         sched = self._resolve("reduce_scatter", rows[0], axis, algorithm,
                               op=op, segments=segments,
                               compression=compression)
@@ -972,11 +1014,6 @@ class CollectiveEngine:
         buf = self._place_own(flat, lay, lay.rank_of_rows(flat.device))
         return lay.restore(self._execute(sched, buf, lay))
 
-    def _native_allgather(self, flat, lay: _Layout):
-        g = flat.reshape(lay.groups, 1, lay.n * flat.shape[1])
-        return g.expand(lay.groups, lay.n, g.shape[2]).reshape(
-            lay.groups * lay.n, -1)
-
     def bcast(self, x, axis, root: int = 0, algorithm: str = "auto",
               segments: Optional[int] = None):
         if isinstance(axis, tuple):
@@ -987,9 +1024,7 @@ class CollectiveEngine:
         if lay.n == 1:
             return self._tensor(x)
         if self.backend == "native" and algorithm in (None, "auto"):
-            g = rows.reshape((lay.groups, lay.n) + tuple(rows.shape[1:]))
-            out = g[:, root:root + 1].expand(g.shape).reshape(rows.shape)
-            return lay.restore(out)
+            return lay.restore(self._native_bcast(rows, lay, root))
         sched = self._resolve("bcast", rows[0], axis, algorithm, root=root,
                               segments=segments)
         flat, shape, size = _flatten_pad(rows, sched.chunks)
@@ -1043,9 +1078,7 @@ class CollectiveEngine:
         if rows.shape[1] % n:
             raise ValueError(f"alltoall dim0 {rows.shape[1]} % {n} != 0")
         if self.backend == "native" and algorithm in (None, "auto"):
-            rest = tuple(rows.shape[2:])
-            g = rows.reshape((lay.groups, n, n, rows.shape[1] // n) + rest)
-            return lay.restore(g.transpose(1, 2).reshape(rows.shape))
+            return lay.restore(self._native_alltoall(rows, lay))
         sched = self._resolve("alltoall", rows[0], axis, algorithm,
                               segments=segments)
         return lay.restore(self._execute(sched, rows, lay))
@@ -1284,28 +1317,27 @@ class CollectiveEngine:
         x = self._tensor(x)
         w = self._tensor(w)
         rows, lay = self._layout(x, axis)
-        n, G = lay.n, lay.groups
+        n = lay.n
         if n == 1:
             return self._matmul(x, w)
         wrows, _ = self._layout(w, axis)
-        m, p = rows.shape[1], wrows.shape[-1]
+        R, m, p = rows.shape[0], rows.shape[1], wrows.shape[-1]
         segs = _fit_segments(m, segments)
         sub = m // segs
         parts = list(rows.split(sub, dim=1))
-        out = torch.zeros((G, n, n, m, p), dtype=x.dtype, device=x.device)
-        r = torch.arange(n, device=x.device)
-        src = (r - 1) % n            # ring_perm(1): rank r receives r - 1's
+        out = torch.zeros((R, n, m, p), dtype=x.dtype, device=x.device)
+        at = torch.arange(R, device=x.device)
+        rank = lay.rank_of_rows(x.device)
         for s in range(n):
+            # at step s every rank holds rank (r - s) % n's shard
             for j, part in enumerate(parts):
-                seg_out = self._matmul(part, wrows)
-                out[:, r, (r - s) % n, j * sub:(j + 1) * sub] = \
-                    seg_out.reshape(G, n, sub, p)
+                out[at, (rank - s) % n, j * sub:(j + 1) * sub] = \
+                    self._matmul(part, wrows)
             if s < n - 1:
-                parts = [pt.reshape((G, n) + tuple(pt.shape[1:]))[:, src]
-                         .reshape(pt.shape) for pt in parts]
+                parts = self._ring_pass(parts, lay)
         self.trace_log.append(("allgather_matmul", "ring", axis,
                                int(rows[0].numel() * rows.element_size())))
-        return lay.restore(out.reshape(G * n, n * m, p))
+        return lay.restore(out.reshape(R, n * m, p))
 
     def matmul_reduce_scatter(self, x, w, axis: str, segments: int = 1):
         """Row-sharded output of (x @ w) with the partial-sum reduction
@@ -1325,30 +1357,31 @@ class CollectiveEngine:
         w = self._tensor(w)
         partial = self._matmul(x, w)
         rows, lay = self._layout(partial, axis)
-        n, G = lay.n, lay.groups
+        n = lay.n
         if n == 1:
             return partial
-        m, p = rows.shape[1], rows.shape[2]
+        R, m, p = rows.shape[0], rows.shape[1], rows.shape[2]
         if m % n:
             raise ValueError(f"matmul_reduce_scatter rows {m} % {n} != 0")
         c = m // n
         segs = _fit_segments(c, segments)
         sub = c // segs
-        chunks = rows.reshape(G, n, n, c, p)    # [g, rank, chunk]
-        r = torch.arange(n, device=partial.device)
-        src = (r - 1) % n            # ring_perm(1): rank r receives r - 1's
+        chunks = rows.reshape(R, n, c, p)       # [row, chunk]
+        at = torch.arange(R, device=partial.device)
+        rank = lay.rank_of_rows(partial.device)
 
         def chunk(s, j):
             """Every rank's local row-chunk (rank - 1 - s) % n, segment j."""
-            return chunks[:, r, (r - 1 - s) % n, j * sub:(j + 1) * sub]
+            return chunks[at, (rank - 1 - s) % n, j * sub:(j + 1) * sub]
 
         accs = [chunk(0, j) for j in range(segs)]
         for s in range(1, n):
-            accs = [a[:, src] + chunk(s, j) for j, a in enumerate(accs)]
+            accs = [a + chunk(s, j)
+                    for j, a in enumerate(self._ring_pass(accs, lay))]
         self.trace_log.append(("matmul_reduce_scatter", "ring", axis,
                                int(rows[0].numel() * rows.element_size())))
-        out = accs[0] if segs == 1 else torch.cat(accs, dim=2)
-        return lay.restore(out.reshape(G * n, c, p))
+        out = accs[0] if segs == 1 else torch.cat(accs, dim=1)
+        return lay.restore(out.reshape(R, c, p))
 
     def ring_attention(self, q, k, v, axis: str, *, causal: bool = True,
                        scale: Optional[float] = None, segments: int = 1):
@@ -1365,7 +1398,7 @@ class CollectiveEngine:
         `preferred_element_type`); p is rounded to v's dtype before the
         PV product. `segments` splits each KV block into independent
         sequence segments, as the reference does. No kernel and no
-        engine program runs: the rotation is an index permutation (the
+        engine program runs: the rotation is `_ring_pass` (the
         reference's raw `lax.ppermute`). Returns mesh-stacked (B,
         S_local, H, hd) in q's dtype.
         """
@@ -1373,7 +1406,7 @@ class CollectiveEngine:
         qrows, lay = self._layout(q, axis)
         krows, _ = self._layout(k, axis)
         vrows, _ = self._layout(v, axis)
-        n, G = lay.n, lay.groups
+        n = lay.n
         R, b, sl, h, hd = qrows.shape
         kv = krows.shape[3]
         g = h // kv
@@ -1423,18 +1456,12 @@ class CollectiveEngine:
         sub = sl // segs
         k_parts = list(krows.split(sub, dim=2))
         v_parts = list(vrows.split(sub, dim=2))
-        src = (torch.arange(n, device=q.device) - 1) % n
-
-        def rotate(t):
-            return t.reshape((G, n) + tuple(t.shape[1:]))[:, src].reshape(
-                t.shape)
-
         for j in range(segs):
             m, l, acc = accumulate(m, l, acc, k_parts[j], v_parts[j], rank,
                                    j * sub)
         for step in range(1, n):
-            k_parts = [rotate(t) for t in k_parts]
-            v_parts = [rotate(t) for t in v_parts]
+            moved = self._ring_pass(k_parts + v_parts, lay)
+            k_parts, v_parts = moved[:segs], moved[segs:]
             owner = (rank - step) % n
             for j in range(segs):
                 m, l, acc = accumulate(m, l, acc, k_parts[j], v_parts[j],

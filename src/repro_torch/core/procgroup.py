@@ -41,12 +41,29 @@ Here each process holds one rank's shard and runs the same compiled
     inputs and outputs are this rank's local shard (no mesh dims lead,
     `stack_shape == ()`), `_resolve`, the selector, the schedule cache
     and every blocking and queued collective run unchanged, and
-    `_execute` routes to `execute_program_local`. Every process must
-    issue the same collectives, with the same arguments, in the same
-    order — the SPMD contract of `shard_map`; a program fingerprint,
-    all-gathered once per new program, turns a violation into an error
-    where the programs are new to every rank, and into a failure at the
-    group timeout where they are not.
+    `_execute` routes to `execute_program_local`. The engine's hooks
+    become one `torch.distributed` call each: the native backend's
+    (`_native*`: all_reduce, reduce_scatter, all_gather, broadcast,
+    all_to_all_single on the axis's group, staged as the transport
+    stages) and the streaming ops' ring step (`_ring_pass`: one
+    `Transport.exchange` per step, every segment's block, k and v alike,
+    posted in one batch under its own tag), so `allgather_matmul`,
+    `matmul_reduce_scatter` and `ring_attention` run the stacked code on
+    one row — the reference's per-device form, `ppermute` for
+    `ppermute`, K4 once per local product. Every process must issue the
+    same collectives, with the same arguments, in the same order — the
+    SPMD contract of `shard_map`; a fingerprint of each new program, and
+    of each new streaming-op signature, is all-gathered once, which
+    turns a violation into an error where the call is new to every rank,
+    and into a failure at the group timeout where it is not.
+
+Numerics one rank per process: programs and the streaming ops are
+bitwise the stacked engine's (the same kernels on the same operands in
+the same order). A native sum is gloo's or NCCL's, which adds in its own
+order — neither `t.sum(1)`'s nor `lax.psum`'s — so the native backend is
+bitwise only where every order of sums is exact (integer-valued fp32);
+elsewhere each element lies within (n - 1) u sum_r |x_r| of the exact
+sum (u = 2^-24 in fp32), the bound of any order of n - 1 additions.
 """
 from __future__ import annotations
 
@@ -62,6 +79,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import autograd as _autograd
 from repro_torch.core import plugins, telemetry
 from repro_torch.core.engine import (
     CollectiveEngine, _Layout, _codec_of, _gather, _region_index, _scatter,
@@ -75,9 +93,13 @@ from repro_torch.core.program import (
 from repro_torch.kernels import ops as kops
 
 #: what a per-process engine cannot run yet (ROADMAP.md, Queue 1)
-NOT_YET = ("not available one rank per process yet (ROADMAP.md Queue 1: "
-           "the native backend, the streaming matmuls and ring_attention "
-           "in per-process mode)")
+NOT_YET = ("not available one rank per process yet (ROADMAP.md Queue 1 "
+           "item 7: training one rank per process, the adjoints of the "
+           "per-process ring ops)")
+
+#: the native backend's reductions as `torch.distributed` ops
+_DIST_OP = {"add": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+            "min": dist.ReduceOp.MIN}
 
 
 # --------------------------------------------------------------------------
@@ -90,9 +112,11 @@ class Transport:
     `group` is the `torch.distributed` group of those processes and
     `ranks[i]` the global rank of communicator rank i. `exchange` posts
     every send and receive it is given as one `batch_isend_irecv` and
-    waits for all of them. `stats` counts calls, messages, bytes and —
-    on a gloo group with CUDA tensors only — the bytes staged through
-    pinned host memory and the host time the staging copies took.
+    waits for all of them; `collective` runs one collective call on the
+    group (the native backend's). `stats` counts calls, messages, bytes
+    and — on a gloo group with CUDA tensors only — the bytes staged
+    through pinned host memory and the host time the staging copies
+    took.
     """
 
     def __init__(self, group, ranks):
@@ -101,7 +125,8 @@ class Transport:
         self.backend = dist.get_backend(group)
         self.me = self.ranks.index(dist.get_rank())
         self.metrics = telemetry.MetricsRegistry()
-        for name in ("exchanges", "messages", "bytes", "staged_bytes"):
+        for name in ("exchanges", "collectives", "messages", "bytes",
+                     "staged_bytes"):
             self.metrics.counter(name)
         self.metrics.counter("staged_ms", 0.0)
         self.stats = self.metrics.view()
@@ -118,21 +143,45 @@ class Transport:
             raise ValueError(f"rank {self.me} cannot send to itself")
         if not sends and not recvs:
             return
-        staged = [t for _p, _tag, t in sends + recvs if self._staged(t)]
+
+        def post(w_out, w_in):
+            ops = [dist.P2POp(dist.isend, w, self.ranks[p], self.group, tag)
+                   for (p, tag, _t), w in zip(sends, w_out)]
+            ops += [dist.P2POp(dist.irecv, w, self.ranks[p], self.group, tag)
+                    for (p, tag, _t), w in zip(recvs, w_in)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+
+        self._staged_call([t for _p, _tag, t in sends],
+                          [t for _p, _tag, t in recvs], post)
+        self.metrics.inc("exchanges")
+        self.metrics.inc("messages", len(sends) + len(recvs))
+
+    def collective(self, fn, send, recv=None) -> None:
+        """One collective on the group, `fn(wire_send, wire_recv)`; `recv`
+        (default `send`: in place) is filled from its wire after."""
+        self._staged_call([send], [send if recv is None else recv],
+                          lambda w_out, w_in: fn(w_out[0], w_in[0]))
+        self.metrics.inc("collectives")
+
+    def _staged_call(self, sends, recvs, fn) -> None:
+        """`fn(wires of sends, wires of recvs)`, then each receive filled
+        from its wire. On a gloo group a CUDA tensor's wire is a pinned
+        host buffer (a receive that is also a send shares its wire);
+        counts the wire bytes and the staging."""
+        staged = [t for t in {id(t): t for t in sends + recvs}.values()
+                  if self._staged(t)]
         t0 = time.perf_counter()
-        wire_out = [(p, tag, self._to_host(t)) for p, tag, t in sends]
-        wire_in = [(p, tag, self._host_like(t)) for p, tag, t in recvs]
+        wires = {id(t): self._to_host(t) for t in sends}
+        w_out = [wires[id(t)] for t in sends]
+        w_in = [wires[id(t)] if id(t) in wires else self._host_like(t)
+                for t in recvs]
         if staged:
             torch.cuda.current_stream(staged[0].device).synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        ops = [dist.P2POp(dist.isend, w, self.ranks[p], self.group, tag)
-               for p, tag, w in wire_out]
-        ops += [dist.P2POp(dist.irecv, w, self.ranks[p], self.group, tag)
-                for p, tag, w in wire_in]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        fn(w_out, w_in)
         t0 = time.perf_counter()
-        for (_p, _tag, t), (_q, _tg, w) in zip(recvs, wire_in):
+        for t, w in zip(recvs, w_in):
             if w is not t:
                 t.copy_(w, non_blocking=True)
         m = self.metrics
@@ -141,10 +190,8 @@ class Transport:
             m.inc("staged_ms", ms + (time.perf_counter() - t0) * 1e3)
             m.inc("staged_bytes", sum(t.numel() * t.element_size()
                                       for t in staged))
-        m.inc("exchanges")
-        m.inc("messages", len(ops))
-        m.inc("bytes", sum(w.numel() * w.element_size()
-                           for _p, _tag, w in wire_out + wire_in))
+        m.inc("bytes", sum(w.numel() * w.element_size() for w in
+                           {id(w): w for w in w_out + w_in}.values()))
 
     def _to_host(self, t):
         if not self._staged(t):
@@ -530,7 +577,6 @@ def _fingerprint(prog: Program, shape, dtype) -> str:
 class _LocalLayout(_Layout):
     """One rank's shard as a stack of one row."""
 
-    axis: object = None
     rank: int = 0
 
     def restore(self, ys):
@@ -557,9 +603,11 @@ class ProcessGroupEngine(CollectiveEngine):
     order), so the world size must equal the mesh's. Each axis's and each
     axis pair's process groups are created here, in one order on every
     process. `device` defaults to `cuda:{LOCAL_RANK % device_count}` and
-    raises without a card unless `device='cpu'` is passed. Not yet in
-    this mode (`NotImplementedError`): `backend='native'`, the streaming
-    matmuls and `ring_attention`.
+    raises without a card unless `device='cpu'` is passed. Every
+    collective of both backends, the queue and the streaming ops run on
+    local shards; not yet in this mode (`NotImplementedError`,
+    `NOT_YET`): a streaming op's inputs that require grad (training one
+    rank per process).
     """
 
     device: object = None
@@ -568,8 +616,6 @@ class ProcessGroupEngine(CollectiveEngine):
         if self.device is None:
             self.device = _default_device()
         super().__post_init__()
-        if self.backend == "native":
-            raise NotImplementedError(f"backend='native' is {NOT_YET}")
         if not dist.is_initialized():
             raise RuntimeError(
                 "ProcessGroupEngine needs an initialized process group "
@@ -668,7 +714,11 @@ class ProcessGroupEngine(CollectiveEngine):
         only where the programs are new on every rank; where one rank
         issues a program it has checked before and another a new one, the
         second waits alone and fails at the group timeout instead."""
-        fp = _fingerprint(prog, buf.shape, buf.dtype)
+        self._agree_on(axis, _fingerprint(prog, buf.shape, buf.dtype),
+                       f"different programs ({prog.name}, {prog.segments} "
+                       f"segments here)")
+
+    def _agree_on(self, axis, fp: str, what: str) -> None:
         if (axis, fp) in self._checked:
             return
         t = self._transports[axis]
@@ -676,10 +726,29 @@ class ProcessGroupEngine(CollectiveEngine):
         dist.all_gather_object(got, fp, group=t.group)
         if len(set(got)) != 1:
             raise RuntimeError(
-                f"ranks of {axis!r} run different programs ({prog.name}, "
-                f"{prog.segments} segments here): every process must issue "
+                f"ranks of {axis!r} run {what}: every process must issue "
                 f"the same collectives with the same arguments")
         self._checked.add((axis, fp))
+
+    def _streaming(self, name: str, axis, tensors, **args) -> list:
+        """A streaming op's operands on this process's device, after two
+        checks: none requires grad (`NOT_YET`: the ring's adjoints one
+        rank per process are item 7's), and every process of `axis` calls
+        the op with the same signature (op, shapes, dtypes, arguments) —
+        all-gathered the first time a signature is met, as `_agree` does
+        for programs, so a mismatch raises instead of hanging in a ring
+        step."""
+        if _autograd.needed(*tensors):
+            raise NotImplementedError(
+                f"{name} on inputs that require grad is {NOT_YET}")
+        ts = [self._tensor(t) for t in tensors]
+        if self._axis_size(axis) > 1:
+            sig = (name, tuple((tuple(t.shape), str(t.dtype)) for t in ts),
+                   tuple(sorted(args.items())))
+            self._agree_on(axis, hashlib.sha256(repr(sig).encode())
+                           .hexdigest(), f"different {name} calls ({sig} "
+                           f"here)")
+        return ts
 
     # -- what differs one rank per process -----------------------------------
     def send_recv(self, x, axis: str, shift: int = 1):
@@ -694,11 +763,70 @@ class ProcessGroupEngine(CollectiveEngine):
                                         [((r - shift) % n, 0, out)])
         return out
 
-    def allgather_matmul(self, *args, **kwargs):
-        raise NotImplementedError(f"allgather_matmul is {NOT_YET}")
+    def allgather_matmul(self, x, w, axis: str, segments: int = 1):
+        x, w = self._streaming("allgather_matmul", axis, (x, w),
+                               segments=segments)
+        return super().allgather_matmul(x, w, axis, segments)
 
-    def matmul_reduce_scatter(self, *args, **kwargs):
-        raise NotImplementedError(f"matmul_reduce_scatter is {NOT_YET}")
+    def matmul_reduce_scatter(self, x, w, axis: str, segments: int = 1):
+        x, w = self._streaming("matmul_reduce_scatter", axis, (x, w),
+                               segments=segments)
+        return super().matmul_reduce_scatter(x, w, axis, segments)
 
-    def ring_attention(self, *args, **kwargs):
-        raise NotImplementedError(f"ring_attention is {NOT_YET}")
+    def ring_attention(self, q, k, v, axis: str, *, causal: bool = True,
+                       scale: Optional[float] = None, segments: int = 1):
+        q, k, v = self._streaming("ring_attention", axis, (q, k, v),
+                                  causal=causal, scale=scale,
+                                  segments=segments)
+        return super().ring_attention(q, k, v, axis, causal=causal,
+                                      scale=scale, segments=segments)
+
+    def _ring_pass(self, parts: list, lay: _Layout) -> list:
+        """One ring step as one exchange: every block of `parts` (one row
+        each) to rank r + 1 and a fresh block from rank r - 1, each under
+        its own tag."""
+        n, r = lay.n, lay.rank
+        got = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+               for t in parts]
+        self._transports[lay.axis].exchange(
+            [((r + 1) % n, i, t[0]) for i, t in enumerate(parts)],
+            [((r - 1) % n, i, t[0]) for i, t in enumerate(got)])
+        return got
+
+    # -- the native backend: one torch.distributed collective each ----------
+    def _native(self, rows, lay: _Layout, op: str):
+        t = self._transports[lay.axis]
+        out = rows[0].clone(memory_format=torch.contiguous_format)
+        t.collective(lambda w, _w: dist.all_reduce(
+            w, op=_DIST_OP[op], group=t.group), out)
+        return out.unsqueeze(0)
+
+    def _native_reduce_scatter(self, flat, lay: _Layout, op: str):
+        t = self._transports[lay.axis]
+        out = flat.new_empty((flat.shape[1] // lay.n,))
+        t.collective(lambda w, o: dist.reduce_scatter(
+            o, list(w.chunk(lay.n)), op=_DIST_OP[op], group=t.group),
+            flat[0], out)
+        return out.unsqueeze(0)
+
+    def _native_allgather(self, flat, lay: _Layout):
+        t = self._transports[lay.axis]
+        out = flat.new_empty((lay.n * flat.shape[1],))
+        t.collective(lambda w, o: dist.all_gather(
+            list(o.chunk(lay.n)), w, group=t.group), flat[0], out)
+        return out.unsqueeze(0)
+
+    def _native_bcast(self, rows, lay: _Layout, root: int):
+        t = self._transports[lay.axis]
+        out = rows[0].clone(memory_format=torch.contiguous_format)
+        t.collective(lambda w, _w: dist.broadcast(
+            w, src=t.ranks[root], group=t.group), out)
+        return out.unsqueeze(0)
+
+    def _native_alltoall(self, rows, lay: _Layout):
+        t = self._transports[lay.axis]
+        out = torch.empty_like(rows[0],
+                              memory_format=torch.contiguous_format)
+        t.collective(lambda w, o: dist.all_to_all_single(
+            o, w, group=t.group), rows[0], out)
+        return out.unsqueeze(0)

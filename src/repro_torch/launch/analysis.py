@@ -26,10 +26,13 @@ undercount: every layer and every ring step executes.
                them)
   collectives  every program the engine executed (`_execute`), its
                wire bytes per rank by `Program.fabric_wire_bytes` on
-               the executed buffer (ICI and DCN), and the streaming ring
+               the executed buffer (ICI and DCN); the streaming ring
                ops (`allgather_matmul`, `matmul_reduce_scatter`,
                `ring_attention`) from the engine's `trace_log`, whose
-               raw permutations run no program
+               raw permutations run no program; and every native
+               collective (`backend='native'`: the engine's `_native*`
+               hooks) by the reference's ring model of XLA's
+               collectives (`NATIVE_WIRE`)
 
 Every count is of the stacked run, all ranks together; per-rank values
 divide by the rank count (`roofline_terms`).
@@ -55,6 +58,24 @@ RING_WIRE = {
     "allgather_matmul": lambda nbytes, n: (n - 1) * nbytes,
     "matmul_reduce_scatter": lambda nbytes, n: (n - 1) * nbytes / n,
     "ring_attention": lambda nbytes, n: 2 * (n - 1) * nbytes,
+}
+
+
+# wire bytes per rank of a native collective, by the reference's ring
+# model of the HLO collective that `lax` lowers it to
+# (`repro/launch/analysis.py::analyze_hlo`: all-reduce 2 rb (g-1)/g,
+# all-gather and all-to-all rb (g-1)/g, reduce-scatter rb (g-1), with
+# rb one device's result bytes), from the hook's result bytes per rank
+# and the group size g. A native bcast is the reference's all-gather of
+# g copies (`lax.all_gather(x)[root]`), whose result is g times the
+# hook's.
+NATIVE_WIRE = {
+    "_native": ("allreduce", lambda rb, g: 2 * rb * (g - 1) / g),
+    "_native_reduce_scatter": ("reduce_scatter",
+                               lambda rb, g: rb * (g - 1)),
+    "_native_allgather": ("allgather", lambda rb, g: rb * (g - 1) / g),
+    "_native_bcast": ("bcast", lambda rb, g: rb * (g - 1)),
+    "_native_alltoall": ("alltoall", lambda rb, g: rb * (g - 1) / g),
 }
 
 
@@ -108,10 +129,11 @@ class StepStats:
 
 
 class _EngineTap:
-    """Records the programs one engine executes. The engine resolves each
-    program right before executing it, and the resolve appends its
-    (collective, algorithm, axis, bytes) to `trace_log`, so the newest
-    entry names the executed program's axis."""
+    """Records the programs one engine executes and its native
+    collectives. The engine resolves each program right before executing
+    it, and the resolve appends its (collective, algorithm, axis, bytes)
+    to `trace_log`, so the newest entry names the executed program's
+    axis; a native hook's layout names its own."""
 
     def __init__(self, engine, stats: StepStats):
         self.engine, self.stats = engine, stats
@@ -119,7 +141,8 @@ class _EngineTap:
 
     def __enter__(self):
         eng = self.engine
-        self.saved = eng.__dict__.get("_execute")
+        self.saved = {name: eng.__dict__.get(name)
+                      for name in ("_execute",) + tuple(NATIVE_WIRE)}
         real_execute = eng._execute
 
         def execute(sched, rows, lay, compression=None):
@@ -127,14 +150,28 @@ class _EngineTap:
             return real_execute(sched, rows, lay, compression)
 
         eng._execute = execute
+        for name in NATIVE_WIRE:
+            setattr(eng, name, self._native(name, getattr(eng, name)))
         return self
+
+    def _native(self, name: str, real):
+        kind, wire_of = NATIVE_WIRE[name]
+
+        def hook(rows, lay, *args):
+            out = real(rows, lay, *args)
+            wire = wire_of(_nbytes(out[0]), lay.n)
+            self._count(kind, wire,
+                        wire if self.engine.comm(lay.axis).is_dcn else 0.0)
+            return out
+        return hook
 
     def __exit__(self, *exc):
         eng = self.engine
-        if self.saved is not None:
-            eng._execute = self.saved
-        else:
-            del eng._execute
+        for name, saved in self.saved.items():
+            if saved is not None:
+                setattr(eng, name, saved)
+            else:
+                delattr(eng, name)
         for name, _alg, axis, nbytes in eng.trace_log[self.log0:]:
             if name in RING_WIRE:
                 n = eng._axis_size(axis)

@@ -81,8 +81,12 @@ def spawn(fn, nprocs: int, backend: str = "gloo", device: str = "cuda",
     one `backend` process group; return when all have, raise if any
     raised. `fn` must be importable (a module-level function). With
     `device` 'cuda' the kernel library is built here first and process r
-    runs on card `r % device_count`."""
+    runs on card `r % device_count`; without a card that raises before
+    any process starts."""
     if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("procs.spawn: no CUDA device is available; "
+                               "pass device='cpu' to run on the host")
         from repro_torch.kernels import _build
         _build.build()
     with tempfile.TemporaryDirectory(prefix="repro_torch_procs_") as tmp:

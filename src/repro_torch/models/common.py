@@ -25,6 +25,16 @@ equal; the draw is made in place on the device, so a large table is
 never staged on the host. `spec_map`, when set, rewrites every spec
 before it is used (the serving layout drops 'data', `parallel/stages.py`).
 
+With `coords` set (one process's mesh position, `core/procgroup.py`)
+'init' and 'shape' give that process's LOCAL shard alone, no mesh dims
+leading. Each param's shard is then drawn from its own
+`torch.Generator`, seeded by (`seed`, the param's place in the
+definition order, the shard's position on the axes its spec names), so
+a process draws only its own slice — replicas still agree, and no
+process draws the others' shards. These draws are not the stacked
+mode's single stream: a per-process model equals a stacked one only
+when its params are carried across (`convert.local_params`).
+
 The numerics (`rms_norm`, `rope`, `silu`, `gelu`,
 `sinusoidal_positions`) take mesh-stacked activations and act on their
 trailing dims only, as the reference's act on one rank's local arrays; a
@@ -33,6 +43,7 @@ norm weight may be stacked (its leading dims the mesh's).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import Callable, Optional
 
@@ -64,6 +75,9 @@ class Builder:
     device: object = "cpu"
     dtype: torch.dtype = torch.float32
     spec_map: Optional[Callable] = None
+    coords: Optional[dict] = None     # one process's place: local shards
+    seed: int = 0                     # the per-process draws' seed
+    _index: int = dataclasses.field(default=0, init=False, repr=False)
 
     def param(self, shape, spec, init: str = "normal",
               scale: Optional[float] = None, dtype=None):
@@ -77,10 +91,18 @@ class Builder:
         dtype = dtype or self.dtype
         shape = tuple(shape)
         named = spec_axes(spec)
-        lead = tuple(self.mesh_shape.values())
-        draw_lead = tuple(s if a in named else 1
-                          for a, s in self.mesh_shape.items())
         local = local_shape(shape, spec, self.mesh_shape)
+        gen = self.generator
+        if self.coords is not None:
+            lead = draw_lead = ()
+            key = (self.seed, self._index,
+                   tuple(self.coords[a] for a in self.mesh_shape
+                         if a in named))
+            self._index += 1
+        else:
+            lead = tuple(self.mesh_shape.values())
+            draw_lead = tuple(s if a in named else 1
+                              for a, s in self.mesh_shape.items())
         if self.mode == "shape":
             return torch.empty(lead + local, dtype=dtype, device="meta")
         if init == "zeros":
@@ -89,18 +111,28 @@ class Builder:
             return torch.ones(lead + local, dtype=dtype, device=self.device)
         t = torch.empty(draw_lead + local, dtype=torch.float32,
                         device=self.device)
+        if self.coords is not None:
+            gen = _shard_generator(key, self.device)
         if init == "normal":
             if scale is None:
                 scale = 1.0 / math.sqrt(shape[0] if len(shape) > 1 else 1.0)
-            t.normal_(0.0, scale, generator=self.generator)
+            t.normal_(0.0, scale, generator=gen)
         elif init == "ssm_a":      # mamba A_log in [log 1, log 16]
-            t = t.uniform_(1.0, 16.0, generator=self.generator).log_()
+            t = t.uniform_(1.0, 16.0, generator=gen).log_()
         elif init == "ssm_dt":     # dt bias ~ softplus^-1(U(1e-3, 1e-1))
-            t = t.uniform_(1e-3, 1e-1, generator=self.generator).expm1_()
+            t = t.uniform_(1e-3, 1e-1, generator=gen).expm1_()
             t = t.log_()
         else:
             raise ValueError(init)
         return t.to(dtype).expand(lead + local).contiguous()
+
+
+def _shard_generator(key: tuple, device):
+    """The generator of one param's shard in per-process mode, seeded
+    from (seed, param index, shard position)."""
+    digest = hashlib.sha256(repr(key).encode()).digest()
+    return torch.Generator(device=device).manual_seed(
+        int.from_bytes(digest[:8], "little") >> 1)
 
 
 # --------------------------------------------------------------------------

@@ -15,14 +15,21 @@ the reference's:
     the engine — `matmul_reduce_scatter` (K4 + a ring of adds) under
     `collective_matmul`, else a plain product + allreduce;
   * FC2/FC3 column-parallel (plain products, allgathered), the head
-    replicated; requests batch along ('pod', 'data').
+    replicated; requests batch along ('pod', 'data'). Each rank's plain
+    product is its own 2-D product (`rank_matmul`), stacked or not.
 The reference's argument for sharding — 50 GB of embeddings exceed one
 chip's 16 GB HBM — does not hold on one 80 GB H100, which holds the
 whole stacked table set; the port keeps the reference's decomposition,
 which is what the paper measures.
 
 Every tensor is MESH-STACKED (`convert.py`): leading dims the mesh axes
-in mesh order, trailing dims one rank's local array. The reference's
+in mesh order, trailing dims one rank's local array. On an engine of one
+process (`core/procgroup.py`, `ParCtx.local`) the same functions take
+that process's LOCAL shards, the reference's per-device form: K5 looks
+up its own table slice (G = 1, `lo` its own first row), FC1's
+`matmul_reduce_scatter` launches K4 once on its own rows, and every
+collective crosses processes. `local_batch` / `gather_batch` are
+`stack_batch` / `unstack_batch` for one process. The reference's
 `use_pallas` switches are gone: on the card K4 and K5 always run, on the
 CPU their plain versions (`kernels/ops.py`).
 """
@@ -35,7 +42,7 @@ import torch
 from repro_torch.configs.dlrm import DLRMConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import Builder
-from repro_torch.parallel.ops import ParCtx, local_matmul
+from repro_torch.parallel.ops import ParCtx
 
 
 def dlrm_params(b: Builder, cfg: DLRMConfig, tp: int):
@@ -74,7 +81,8 @@ def dlrm_specs(cfg: DLRMConfig, tp: int):
 def lookup_operands(tables, ctx: ParCtx):
     """K5's view of the stacked tables: every rank's (T, rows_local, dim)
     slice as one (G, T, rows_local, dim) stack over the G = prod(mesh)
-    stacked ranks, and `lo` (G,), each one's first global row."""
+    stacked ranks, and `lo` (G,), each one's first global row (on local
+    shards G = 1 and `lo` the process's own first row)."""
     lead = tuple(tables.shape[:ctx.lead])
     rows_l = tables.shape[-2]
     G = math.prod(lead)
@@ -105,6 +113,25 @@ def embedding_lookup(tables, indices, ctx: ParCtx):
     return vec
 
 
+def rank_matmul(x, w, lead: int):
+    """Each rank's `x @ w` as its own 2-D product of contiguous operands:
+    x stacked (*mesh, B, K), w stacked (*mesh, K, N), `lead` mesh dims
+    (0 on local shards). One product per rank, so that a rank's result
+    is the same bits whether its rows are stacked with the others' or
+    alone in its process: a batched product may sum in another order
+    than the unbatched one (the CPU's gemv for N = 1; a BLAS heuristic
+    that weighs the batch count)."""
+    if lead == 0:
+        return torch.mm(x.contiguous(), w.contiguous())
+    xs = x.reshape((-1,) + tuple(x.shape[lead:]))
+    ws = w.reshape((-1,) + tuple(w.shape[lead:]))
+    out = torch.empty((xs.shape[0], xs.shape[1], ws.shape[2]),
+                      dtype=x.dtype, device=x.device)
+    for a, b, o in zip(xs, ws, out):
+        torch.mm(a.contiguous(), b.contiguous(), out=o)
+    return out.reshape(tuple(x.shape[:lead]) + tuple(out.shape[1:]))
+
+
 def dlrm_forward(params, indices, ctx: ParCtx):
     """indices: stacked (B_local, T) -> stacked (B_local, out_dim)
     click-through logits, replicated over 'model'."""
@@ -122,10 +149,10 @@ def dlrm_forward(params, indices, ctx: ParCtx):
                 y = ctx.engine.allgather(y, ctx.tp_axis).reshape(
                     tuple(x.shape[:-1]) + (-1,))
             else:
-                y = local_matmul(x_slice, w, D)
+                y = rank_matmul(x_slice, w, D)
                 y = ctx.engine.allreduce(y, ctx.tp_axis)
         else:
-            y = local_matmul(x, w, D)
+            y = rank_matmul(x, w, D)
             if tp > 1 and 0 < i < n - 1:
                 # column-parallel: out-dim sharded; gather for next layer
                 y = ctx.engine.allgather(y.transpose(-1, -2), ctx.tp_axis)
@@ -227,3 +254,35 @@ def unstack_batch(y, mesh_shape: dict, batch_axes=("pod", "data")):
     order = [sorted(axes, key=names.index).index(a) for a in axes]
     y = y.permute(order + list(range(len(axes), y.ndim)))
     return y.reshape((-1,) + tuple(y.shape[len(axes) + 1:]))
+
+
+# --------------------------------------------------------------------------
+# One process's batch
+# --------------------------------------------------------------------------
+
+def local_batch(x, mesh_shape: dict, coords: dict,
+                batch_axes=("pod", "data")):
+    """`stack_batch` for one process: its own slice of a global batch (a
+    view; the whole batch on a mesh whose batch axes are all 1) — its
+    shard over `batch_axes` at mesh position `coords`, the first axis
+    the major one."""
+    axes = [a for a in batch_axes if a in mesh_shape]
+    n = math.prod(mesh_shape[a] for a in axes)
+    if x.shape[0] % n:
+        raise ValueError(f"batch {x.shape[0]} does not split over {axes}")
+    i = 0
+    for a in axes:
+        i = i * mesh_shape[a] + coords[a]
+    b = x.shape[0] // n
+    return x[i * b:(i + 1) * b]
+
+
+def gather_batch(y, engine, batch_axes=("pod", "data")):
+    """`unstack_batch` for one process: the global batch from every
+    process's slice, through the engine's allgather over each batch axis
+    larger than 1, the minor one first (no collective where there is
+    none)."""
+    axes = [a for a in batch_axes if engine.mesh_shape.get(a, 1) > 1]
+    for a in reversed(axes):
+        y = engine.allgather(y, a).reshape((-1,) + tuple(y.shape[1:]))
+    return y

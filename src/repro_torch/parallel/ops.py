@@ -17,7 +17,10 @@ the engine's mesh axes in mesh order and its trailing dims one rank's
 local array. A `dim` argument names a LOCAL dim, as in the reference,
 where each rank saw only its local array. The rank of a stacked row is
 no longer `lax.axis_index` but its position along the mesh dim
-(`tp_rank`). Gradients follow the reference's shard_map autodiff
+(`tp_rank`). On an engine of one process (`core/procgroup.py`,
+`stack_shape == ()`) the same code takes LOCAL shards: no mesh dim
+leads, `tp_rank` is the process's own rank on the TP axis and
+`tp_slice` a narrow at it — the reference's per-device form. Gradients follow the reference's shard_map autodiff
 contract through the engine's adjoint Functions (`core/autograd.py`):
 the backward differentiates the sum of the per-rank losses, and a
 param's gradient is allreduced over every mesh axis absent from its
@@ -73,8 +76,14 @@ class ParCtx:
 
     @property
     def lead(self) -> int:
-        """Number of mesh dims leading every stacked tensor."""
-        return len(self.engine.mesh_shape)
+        """Number of mesh dims leading every stacked tensor (0 on local
+        shards)."""
+        return len(self.engine.stack_shape)
+
+    @property
+    def local(self) -> bool:
+        """Whether tensors are one process's local shards."""
+        return self.engine.stack_shape == ()
 
     @property
     def tp(self) -> int:
@@ -99,7 +108,12 @@ class ParCtx:
         the mesh's rank (1 on every dim but the TP axis's), broadcastable
         against the leading dims of a stacked tensor — and, with
         `local_ndim` trailing 1s, against the whole of one with that many
-        local dims."""
+        local dims. On local shards: this process's rank, 0-d (with
+        `local_ndim` 1s)."""
+        if self.local:
+            return torch.tensor(self.own_tp_rank(),
+                                device=self.engine.device).reshape(
+                [1] * local_ndim)
         shape = [1] * self.lead
         if self.pcfg.tp_axis in self.mesh_shape:
             shape[list(self.mesh_shape).index(self.pcfg.tp_axis)] = self.tp
@@ -128,11 +142,19 @@ class ParCtx:
         if self.tp == 1:
             return x
         d = self._dim(x, dim)
+        if self.local:
+            return x.narrow(d, self.own_tp_rank() * size, size)
         m = list(self.mesh_shape).index(self.pcfg.tp_axis)
         parts = x.shape[d] // size
         xs = x.reshape(tuple(x.shape[:d]) + (parts, size)
                        + tuple(x.shape[d + 1:]))
         return torch.diagonal(xs, dim1=m, dim2=d).movedim(-1, m)
+
+    def own_tp_rank(self) -> int:
+        """This process's rank on the TP axis (local shards only)."""
+        if self.pcfg.tp_axis not in self.mesh_shape:
+            return 0
+        return self.engine.comm_rank(self.pcfg.tp_axis)
 
     def _dim(self, x, dim: int) -> int:
         """Stacked position of local dim `dim`."""

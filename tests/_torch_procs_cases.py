@@ -273,22 +273,21 @@ def _engine_results(rank: int) -> dict:
         xs = torch.from_numpy(x).reshape(4, -1)[rank]
         ws = torch.from_numpy(w).reshape(4, -1, VECMAT_SIZE)[rank]
         out[f"vecmat_{kind}"] = vm.distributed_vecmat(eng, xs, ws, TILES)
-    # what waits for a later slice
+    # what waits for a later slice: the streaming ops' adjoints
     out["not_yet"] = []
+    g = torch.ones(4, 3, requires_grad=True)
     for attempt in (
-            lambda: ProcessGroupEngine({"x": 4}, backend="native",
-                                       device="cpu"),
-            lambda: eng.allgather_matmul(torch.ones(2, 3), torch.ones(3, 2),
-                                         "x"),
-            lambda: eng.matmul_reduce_scatter(torch.ones(4, 3),
-                                              torch.ones(3, 2), "x"),
-            lambda: eng.ring_attention(*[torch.ones(1, 2, 1, 4)] * 3, "x")):
+            lambda: eng.allgather_matmul(g, torch.ones(3, 2), "x"),
+            lambda: eng.matmul_reduce_scatter(g, torch.ones(3, 2), "x"),
+            lambda: eng.ring_attention(torch.ones(1, 2, 1, 4,
+                                                  requires_grad=True),
+                                       *[torch.ones(1, 2, 1, 4)] * 2, "x")):
         try:
             attempt()
         except NotImplementedError as e:
             out["not_yet"].append(str(e))
         else:
-            raise AssertionError("ran one rank per process")
+            raise AssertionError("ran on inputs that require grad")
     # a rank that asks for another algorithm than its peers
     try:
         eng.allreduce(torch.ones(77), "x",

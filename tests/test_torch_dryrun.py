@@ -240,7 +240,7 @@ def _configs():
             reduced_config(get_config("qwen3-0.6b"), n_layers=LAYERS))
 
 
-def _reference(kind: str, remat: str):
+def _reference(kind: str, remat: str, backend: str = "microcode"):
     """(memory_analysis, analyze_hlo stats) of the reference's step
     lowered and compiled on the (1, 4, 2) mesh of the host devices."""
     jcfg, _ = _configs()
@@ -251,7 +251,7 @@ def _reference(kind: str, remat: str):
         return jax.ShapeDtypeStruct(shape, dtype,
                                     sharding=NamedSharding(mesh, spec))
 
-    pcfg = JaxParallelConfig(remat=remat)
+    pcfg = JaxParallelConfig(remat=remat, backend=backend)
     tokens = sds((B, S), jnp.int32, P(dp, None))
     if kind == "train":
         ts = jax_stages.build_train_step(jcfg, pcfg, mesh,
@@ -274,10 +274,11 @@ def _reference(kind: str, remat: str):
             jax_analysis.analyze_hlo(compiled.as_text()))
 
 
-def _port(kind: str, remat: str):
+def _port(kind: str, remat: str, backend: str = "microcode"):
     _, cfg = _configs()
     fn, eng, args = dryrun.build_cell(cfg, ShapeConfig("cell", S, B, kind),
-                                      MESH, ParallelConfig(remat=remat))
+                                      MESH, ParallelConfig(remat=remat,
+                                                           backend=backend))
     out, st = analysis.count(fn, [eng])
     return analysis.memory(args, out, st, MESH), st
 
@@ -289,6 +290,18 @@ def test_prefill_against_compiled_reference():
     pmem, st = _port("prefill", "none")
     assert pmem["argument_bytes"] == mem.argument_size_in_bytes
     assert st.flops / 8 == hlo.flops
+    assert st.coll_wire_bytes == hlo.coll_wire_bytes
+
+
+def test_native_prefill_against_compiled_reference():
+    """backend='native': the port's native collectives (the engine's
+    `_native*` hooks) counted by the reference's ring model of XLA's
+    collectives give the compiled step's wire bytes; FLOPs as before."""
+    mem, hlo = _reference("prefill", "none", backend="native")
+    pmem, st = _port("prefill", "none", backend="native")
+    assert pmem["argument_bytes"] == mem.argument_size_in_bytes
+    assert st.flops / 8 == hlo.flops
+    assert st.coll_ops > 0 and not st.programs
     assert st.coll_wire_bytes == hlo.coll_wire_bytes
 
 

@@ -5,7 +5,9 @@ In a fresh interpreter with `jax` and `repro` blocked in `sys.modules`
 (found by walking the package, so new modules are covered; the
 training stack's and the per-process modules must be among them) and every
 module `chip_smoke.py` imports (found in its syntax tree, the imports
-inside its functions included) must import, and `chip_smoke` itself.
+inside its functions included) must import, and `chip_smoke` itself —
+and so must the test cases the spawned children import
+(`tests/_torch_*_cases.py` that run without jax).
 """
 import ast
 import pathlib
@@ -18,11 +20,11 @@ _CHECK = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
-sys.path[:0] = [{src!r}, {root!r}]
+sys.path[:0] = [{src!r}, {root!r}, {tests!r}]
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
-for name in names + {smoke!r} + ["chip_smoke"]:
+for name in names + {smoke!r} + ["chip_smoke"] + {cases!r}:
     importlib.import_module(name)
 missing = [m for m in {training!r} if m not in names]
 assert not missing, missing
@@ -53,8 +55,15 @@ TRAINING = ["repro_torch.core.autograd", "repro_torch.optim",
             "repro_torch.checkpoint", "repro_torch.checkpoint.store",
             "repro_torch.runtime.trainer", "repro_torch.runtime.health",
             "repro_torch.launch.train"]
-# one rank per process: the per-rank data plane and its launcher
-PROCESSES = ["repro_torch.core.procgroup", "repro_torch.launch.procs"]
+# one rank per process: the per-rank data plane and its launcher; the
+# native backend, the ring ops, ParCtx and the DLRM on local shards
+PROCESSES = ["repro_torch.core.procgroup", "repro_torch.launch.procs",
+             "repro_torch.core.engine", "repro_torch.parallel.ops",
+             "repro_torch.models.common", "repro_torch.models.dlrm",
+             "repro_torch.convert", "repro_torch.launch.dlrm_serve",
+             "repro_torch.launch.analysis"]
+# the cases spawned children import
+CASES = ["_torch_procs_cases", "_torch_streams_cases"]
 
 
 def test_port_imports_without_jax_or_reference():
@@ -62,8 +71,9 @@ def test_port_imports_without_jax_or_reference():
     assert "repro_torch.runtime" in smoke and "torch" in smoke
     assert "repro_torch.optim" in smoke
     assert "repro_torch.core.procgroup" in smoke     # phase 12
-    code = _CHECK.format(src=str(ROOT / "src"), root=str(ROOT), smoke=smoke,
-                         training=TRAINING + PROCESSES)
+    code = _CHECK.format(src=str(ROOT / "src"), root=str(ROOT),
+                         tests=str(ROOT / "tests"), smoke=smoke,
+                         training=TRAINING + PROCESSES, cases=CASES)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
