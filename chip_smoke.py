@@ -101,12 +101,13 @@ Phases, one line each:
   9. lm_families: LM serving for the MoE, SSM, hybrid and audio
      families at full width, params drawn on the card from --seed, each
      model built, served, checked and timed, then freed: 9a
-     qwen3-moe-30b-a3b (12 of its 48 layers; 128 experts top-8 over EP
+     qwen3-moe-30b-a3b (4 of its 48 layers; 128 experts top-8 over EP
      8 on the (1, 1, 8) mesh: two engine all-to-alls per layer, KV
      replicated so the decode cache is sequence-sharded and merged by
-     the flash-combine), 9b mamba2-1.3b (48 layers), 9c hymba-1.5b (32
-     layers, 25 heads padded to 26, windowed and global layers), 9d
-     whisper-medium (24 + 24 layers over 1500 stub frames drawn from
+     the flash-combine), 9b mamba2-1.3b (12 of 48 layers), 9c hymba-1.5b
+     (8 of 32 layers, 25 heads padded to 26, windowed and global
+     layers), 9d whisper-medium (6 of 24 encoder and 6 of 24 decoder
+     layers over 1500 stub frames drawn from
      --seed, through build_prefill, convert_prefill_caches and
      build_decode_step with s_enc, as its session prefills tokens only),
      9b-9d on the (1, 4, 2) mesh, all at (4, 16, 8) with the launcher's
@@ -148,7 +149,8 @@ Phases, one line each:
      matmul, every K4 call within its bound, grads within eps_g of the
      reference. 10d: remat full, grads BITWISE 10a's and the forward /
      backward peak lower. 10e: the `Trainer` through `launch/train.py`'s
-     code path, 8 steps, checkpoints every 4, a failure injected at step
+     code path at 7 of 28 layers (`depth_cut`; a cut for the time),
+     8 steps, checkpoints every 4, a failure injected at step
      6: the ce_mean trajectory equal to an uninterrupted run's within
      1e-5. Then the median step, tokens/s, peak memory, launches, one
      step's device time by kernel group and by phase and the idle share
@@ -172,7 +174,8 @@ Phases, one line each:
      the engine's programs equal in order, K1 per phase as the meta run's
      programs imply, the meta peak within DRY_PEAK_MARGIN of the card's;
      then the production cell qwen3-0.6b train_4k on the 16 x 16 mesh on
-     'meta' (per-rank memory, fit, dominant term, host seconds).
+     'meta' at 7 of 28 layers (a depth cut for the time; per-rank memory,
+     fit, dominant term, host seconds).
  12. procs: one rank per process (`core/procgroup.py`), 8 processes
      spawned on the card in one gloo group (`launch/procs.py`), every
      CUDA payload staged through pinned host memory. 12a the executor's
@@ -212,9 +215,37 @@ Phases, one line each:
      ms, the staged bytes and ms per call, and rank 0's busy share:
      informational, host staging over gloo is no fabric.
 
+ 13. lm_procs: qwen3-0.6b one rank per process, 8 processes on the
+     card in one gloo group over launch/serve.py's (1, 4, 2) mesh
+     (`phase_lm_procs`). 13a serves at full width and depth, each
+     process drawing its rows of the stacked init from --seed, as the
+     launchers do (`ServeSession` at (4, 16, 8)): tokens by the margin
+     rule against the float64 single copy of the same params, drawn in
+     the parent by one stacked init. 13b one train step at (8, 64),
+     FSDP 4 x TP 2, at 7 of 28 layers, and with int8 buckets and SP +
+     collective_matmul at 4: rank 0's loss and every rank's ce within
+     rtol 1e-5, every rank's grad norm within 1e-3 and updated params
+     within 2e-4 plus one bf16 ulp of the stacked step on the same params
+     and batch. 13c at 2 layers, params
+     carried from a stacked init (`convert.local_params`): decode
+     tokens EQUAL phase 8's stacked loop's, the train step's metrics
+     within rtol 1e-5 and params within 2e-4 plus one bf16 ulp, and
+     every engine collective of a decode step and a train step replayed
+     on the stacked engine on the ranks' own operands, BITWISE. 13d the
+     `Trainer` one rank per process at 2 layers: its checkpoint loads
+     into the stacked port leaf for leaf and back into the processes bit
+     for bit, and the next step from it takes the uninterrupted run's
+     step bitwise. Every child holds every K1-K4
+     launch against its plain version, its launches equal what its
+     programs and the stacked step imply, and its collectives per step
+     (the engine's trace) the stacked step's. Per process: prefill and
+     decode step ms, tokens/s, train step ms, staged bytes a call, rank
+     0's busy share.
+
 Then one JSON line of the five kernels with their launches on every
 path (in total and by path: collectives, dlrm, vecmat, queue, lm,
-lm_families, train, dryrun, procs — the children's launches, summed),
+lm_families, train, dryrun, procs, procs_lm — the children's launches,
+summed),
 time, plain time, bound and library time (K4 also with the tile
 configuration that ran and its achieved rate; K5 also its `lookup` entry
 at B = 32 and 2048, beside the device time of the sequence of PyTorch
@@ -1883,15 +1914,17 @@ FAM_WIDE = (32, 16, 32)      # 1024 generated positions, short prompt
 # the single-copy reference's dtype, the second (batch, prompt, gen) that
 # is timed and whose tokens are held to the reference too
 FAM_RUNS = (
-    # 12 of 48 layers: the full 61 GB model leaves no room for the
-    # single-copy reference beside it
-    ("9a", "qwen3-moe-30b-a3b", {"pod": 1, "data": 1, "model": 8}, 8, 12,
+    # 4 of 48 layers: the full 61 GB model leaves no room for the
+    # single-copy reference beside it (12 would fit), and phase 13 needs
+    # the time under the run's limit
+    ("9a", "qwen3-moe-30b-a3b", {"pod": 1, "data": 1, "model": 8}, 8, 4,
      {}, torch.float32, LM_LARGE),
-    ("9b", "mamba2-1.3b", LM_MESH, LM_TP, None, {}, torch.float64,
-     LM_LARGE),
-    ("9c", "hymba-1.5b", LM_MESH, LM_TP, None, {}, torch.float64, FAM_WIDE),
+    # 9b-9d at a quarter of their depth (12 of 48, 8 of 32, 6 of 24
+    # encoder and decoder layers), for the same reason
+    ("9b", "mamba2-1.3b", LM_MESH, LM_TP, 12, {}, torch.float64, LM_LARGE),
+    ("9c", "hymba-1.5b", LM_MESH, LM_TP, 8, {}, torch.float64, FAM_WIDE),
     # the reference's blocked attention needs blocks that divide S
-    ("9d", "whisper-medium", LM_MESH, LM_TP, None,
+    ("9d", "whisper-medium", LM_MESH, LM_TP, 6,
      {"attn_q_block": 500, "attn_kv_block": 1500}, torch.float64, FAM_WIDE),
 )
 FAM_FRAMES = 1500            # Whisper's 30 s window of encoder positions
@@ -2202,8 +2235,9 @@ def phase_fam_build(run, arch, mesh, tp, depth, get_config, stages,
     """Phase 9 (per model): the config, cut in depth where the row says
     so, and its params drawn on the card from --seed."""
     cfg = get_config(arch)
-    if depth is not None:
-        cfg = dataclasses.replace(cfg, n_layers=depth)
+    if depth is not None:      # an encoder, where there is one, cut alike
+        cfg = dataclasses.replace(cfg, n_layers=depth, encoder_layers=min(
+            cfg.encoder_layers, depth))
     free0, total = torch.cuda.mem_get_info()
     t0 = time.perf_counter()
     params = stages.init_params(cfg, mesh, tp, seed=seed, device="cuda",
@@ -2222,7 +2256,9 @@ def phase_fam_build(run, arch, mesh, tp, depth, get_config, stages,
     free1, _ = torch.cuda.mem_get_info()
     emit({"phase": "lm_families_build", "run": run, "arch": arch,
           "reduced": None if depth is None else
-          {"n_layers": [get_config(arch).n_layers, depth]},
+          {"n_layers": [get_config(arch).n_layers, depth],
+           "encoder_layers": [get_config(arch).encoder_layers,
+                              cfg.encoder_layers]},
           "config": dataclasses.asdict(cfg), "mesh": mesh, "tp": tp,
           "stacked_param_bytes": sum(t.numel() * t.element_size()
                                      for t in leaves),
@@ -2522,6 +2558,7 @@ TRAIN_LARGE = (8, 512)
 TRAIN_LR = 3e-4               # launch/train.py's --lr
 TRAIN_WARMUP = 20             # launch/train.py's cosine_warmup(s, 20, steps)
 TRAIN_STEPS = 8               # 10e: the Trainer's total_steps
+TRAIN_TRAINER_LAYERS = 7      # 10e's depth (a quarter of 28: the time)
 TRAIN_CKPT_EVERY = 4
 TRAIN_FAIL_AT = 6
 TRAIN_RECOVERY_TOL = 1e-5     # tests/test_runtime.py::test_failure_recovery_exact
@@ -2536,6 +2573,19 @@ TRAIN_SYNC_ROUNDINGS = 4      # bf16 roundings of a synced gradient (`train_eps`
 TRAIN_ADAMW_ULPS = 8
 _TRAIN_GROUPS = _LM_GROUPS + (("sort", "sort (deterministic scatter)"),)
 _OPT_NAMES = ("master", "m", "v")
+
+
+@contextlib.contextmanager
+def depth_cut(module, layers: int):
+    """`module.get_config` cut to each architecture's first `layers`
+    layers, at full width: a depth cut for the run's time."""
+    real = module.get_config
+    module.get_config = lambda name: dataclasses.replace(
+        real(name), n_layers=layers)
+    try:
+        yield
+    finally:
+        module.get_config = real
 
 
 def train_eps(cfg) -> float:
@@ -3154,16 +3204,18 @@ def phase_train(cfg, mods, ops, ref, counts, gen, seed: int, reps: int,
     # 10e: the Trainer through launch/train.py's code path
     import shutil
     import tempfile
+    from repro_torch import configs as configs_mod
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     trajectories, events = {}, {}
     try:
         for name, inj in (("uninterrupted", None),
                           ("fail_at_6", (TRAIN_FAIL_AT,))):
-            trainer, _args = train_launch.build([
-                "--arch", cfg.name, "--full", "--steps", str(TRAIN_STEPS),
-                "--batch", str(B), "--seq", str(S), "--ckpt",
-                f"{tmp}/{name}", "--ckpt-every", str(TRAIN_CKPT_EVERY),
-                "--seed", str(seed)])
+            with depth_cut(configs_mod, TRAIN_TRAINER_LAYERS):
+                trainer, _args = train_launch.build([
+                    "--arch", cfg.name, "--full", "--steps",
+                    str(TRAIN_STEPS), "--batch", str(B), "--seq", str(S),
+                    "--ckpt", f"{tmp}/{name}", "--ckpt-every",
+                    str(TRAIN_CKPT_EVERY), "--seed", str(seed)])
             if inj is not None:
                 from repro_torch.runtime import FailureInjector
                 trainer.injector = FailureInjector(fail_at=inj)
@@ -3283,6 +3335,7 @@ _RING_GROUPS = (("gemm", "cuBLAS"), ("xmma", "cuBLAS"),
 # up to 512 B, at most 2.6 MB over ~5000 blocks live at the peak, 9e-5 of
 # the ~30 GB peak (measured on the card: within 3.2e-7).
 DRY_PEAK_MARGIN = 1e-4
+DRY_PROD_LAYERS = 7           # the 16 x 16 cell's depth (of 28: the time)
 
 
 def ring_reference(q, k, v, causal: bool, lo: int = 0, hi: int = None,
@@ -3609,14 +3662,16 @@ def phase_dryrun(cfg, mods, ops, ref, counts, seed: int, smi: str) -> None:
     del params, opt
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    prod = dryrun.run_cell(cfg.name, "train_4k", False, ParallelConfig())
+    with depth_cut(dryrun, DRY_PROD_LAYERS):
+        prod = dryrun.run_cell(cfg.name, "train_4k", False,
+                               ParallelConfig())
     if prod.get("status") != "OK":
         fail(f"dryrun train_4k: {prod.get('status')}")
     out["production_cell"] = {
         k: prod[k] for k in ("arch", "shape", "mesh", "chips", "memory",
                              "fits_hbm", "model_flops_ratio", "hw")}
     out["production_cell"].update(
-        dominant=prod["roofline"]["dominant"],
+        n_layers=DRY_PROD_LAYERS, dominant=prod["roofline"]["dominant"],
         coll_wire_bytes_per_device=prod["roofline"][
             "coll_wire_bytes_per_device"],
         host_seconds=time.perf_counter() - t0)
@@ -3662,15 +3717,15 @@ PROC_CONTEXT_BYTES = 2**30
 
 def proc_fail(msg: str) -> None:
     """A check failed in a child: raise, so that the world fails."""
-    raise RuntimeError(f"chip_smoke phase 12: {msg}")
+    raise RuntimeError(f"chip_smoke, one rank per process: {msg}")
 
 
 def proc_digest(t) -> str:
     """sha256 of a tensor's bytes: the children send their results to the
     parent as digests, and a digest match is a bitwise match."""
     import hashlib
-    return hashlib.sha256(
-        t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+    return hashlib.sha256(t.contiguous().reshape(-1).view(
+        torch.uint8).cpu().numpy()).hexdigest()
 
 
 def proc_grid(n: int) -> list:
@@ -4482,6 +4537,681 @@ def phase_procs(CollectiveEngine, procs, ops, counts, seed: int, mib: int,
           "transport_per_rank": [r["transport"] for r in res]})
 
 
+# --------------------------------------------------------------------------
+# Phase 13: LM serving and training one rank per process
+# --------------------------------------------------------------------------
+
+# 13b's depth per variant (full width; the time of the run's 600 s cuts
+# the base to a quarter of 28 layers and the int8 and SP variants to 4)
+P13_TRAIN_LAYERS = {"base": 7, "int8": 4, "sp": 4}
+P13_PARITY_LAYERS = 2        # 13c and 13d: full width, cut
+P13_REPS = 3                 # timed prefills and decode steps per process
+P13_TRAIN_REPS = 2           # timed train steps per process
+P13_TRAIN = (("base", {}), ("int8", {"grad_compression": "int8"}),
+             ("sp", {"sequence_parallel": True, "collective_matmul": True}))
+P13_TRAINER_STEPS = 3        # 13d: the uninterrupted run's steps
+P13_CKPT_EVERY = 2           # 13d: a checkpoint after step 1, then step 2
+P13_PARAM_ATOL = 2e-4        # tests/_torch_train_cases.py::PARAM_ATOL
+P13_LOSS_RTOL = 1e-5         # tests/_torch_train_cases.py::METRIC_TOL
+P13_GNORM_RTOL = 1e-3        # 13b's grad norm at depth (1.24e-4 measured)
+P13_RECORDED = ("allreduce", "allgather", "reduce_scatter", "alltoall",
+                "allgather_matmul", "matmul_reduce_scatter",
+                "tree_allreduce", "itree_allreduce")
+
+
+def p13_variant_cfg(cfg, key: str):
+    """13b's config of a variant: cut to P13_TRAIN_LAYERS[key] layers."""
+    return dataclasses.replace(cfg, n_layers=P13_TRAIN_LAYERS[key])
+
+
+def p13_pcfg(**kw):
+    """Phase 10a's train configuration (remat none, the queue)."""
+    from repro_torch.configs import ParallelConfig
+    return ParallelConfig(remat="none", async_grad_sync=True, **kw)
+
+
+def p13_prompt(cfg, seed: int):
+    B, P, _Gn = LM_SMALL
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    return torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                         device="cuda", dtype=torch.int32)
+
+
+def p13_sched(schedules):
+    return lambda s: schedules.cosine_warmup(s, TRAIN_WARMUP, TRAIN_STEPS)
+
+
+def p13_digests(tree) -> dict:
+    """{path: digest} of every leaf of a tree of dicts (hashed on host
+    threads: sha256 releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.tree import flatten
+    pairs = flatten(tree)
+    with ThreadPoolExecutor(8) as pool:
+        digests = list(pool.map(proc_digest, [t for _p, t in pairs]))
+    return {"/".join(map(str, p)): d for (p, _t), d in zip(pairs, digests)}
+
+
+def p13_record(engine, log: list) -> dict:
+    """Wrap the engine's collectives (on the instance) so that, while
+    `state["active"]`, each outermost call appends (name, its operands on
+    the host, the digests of its results) to `log`; returns `state`."""
+    depth, state = [0], {"active": False}
+
+    def host(x):
+        if isinstance(x, torch.Tensor):       # a copy: the step writes
+            return x.detach().to("cpu", copy=True)   # params in place
+        if isinstance(x, (list, tuple)):
+            return type(x)(host(v) for v in x)
+        return x
+
+    def digests(out):
+        return [proc_digest(t) for t in
+                (out if isinstance(out, (list, tuple)) else [out])]
+
+    class Ticket:
+        def __init__(self, ticket, entry):
+            self.ticket, self.entry = ticket, entry
+
+        def wait(self):
+            out = self.ticket.wait()
+            self.entry["out"] = digests(out)
+            return out
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            top = depth[0] == 0 and state["active"]
+            depth[0] += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+            if not top:
+                return out
+            entry = {"name": name, "args": host(args),
+                     "kwargs": host(kwargs)}
+            log.append(entry)
+            if name == "itree_allreduce":
+                return Ticket(out, entry)
+            entry["out"] = digests(out)
+            return out
+        return call
+
+    for name in P13_RECORDED:
+        setattr(engine, name, wrap(name, getattr(engine, name)))
+    return state
+
+
+def p13_unrecord(engine) -> None:
+    for name in P13_RECORDED:
+        engine.__dict__.pop(name, None)
+
+
+def p13_replay(name: str, logs: list, CollectiveEngine) -> int:
+    """Replay each recorded collective (the ranks' logs, global rank
+    order) on the stacked engine on the card with every rank's own
+    operands; fail unless each rank's results are BITWISE the stacked
+    rows. Returns the calls replayed."""
+    lead = tuple(LM_MESH.values())
+    eng = CollectiveEngine(dict(LM_MESH), device="cuda")
+
+    def stacked(vals):
+        if isinstance(vals[0], torch.Tensor):
+            return torch.stack(vals).reshape(lead + tuple(
+                vals[0].shape)).cuda()
+        if isinstance(vals[0], (list, tuple)):
+            return type(vals[0])(stacked(list(v)) for v in zip(*vals))
+        if any(v != vals[0] for v in vals[1:]):
+            fail(f"13c {name}: the ranks called with different {vals}")
+        return vals[0]
+
+    if any(len(g) != len(logs[0]) for g in logs):
+        fail(f"13c {name}: the ranks recorded {[len(g) for g in logs]} "
+             f"collectives")
+    for i, calls in enumerate(zip(*logs)):
+        op = calls[0]["name"]
+        args = stacked([c["args"] for c in calls])
+        kwargs = {k: stacked([c["kwargs"][k] for c in calls])
+                  for k in calls[0]["kwargs"]}
+        want = getattr(eng, "tree_allreduce" if op == "itree_allreduce"
+                       else op)(*args, **kwargs)
+        want = want if isinstance(want, (list, tuple)) else [want]
+        for j, w in enumerate(want):
+            rows = w.reshape((-1,) + tuple(w.shape[len(lead):]))
+            for r, c in enumerate(calls):
+                if c["out"][j] != proc_digest(rows[r]):
+                    fail(f"13c {name}: collective {i} ({op}) result {j} "
+                         f"on rank {r} differs from the stacked engine's")
+        del args, kwargs, want
+    torch.cuda.empty_cache()
+    return len(logs[0])
+
+
+def phase13_child(rank: int, world: int, tmp: str, seed: int,
+                  reps: int) -> None:
+    """One process of phase 13 (13a-13d), one rank of qwen3-0.6b on the
+    card. Every part runs `counted`: each launch held against its plain
+    version (`proc_checked`), the K1/K2/K3 launches what this rank's
+    share of the programs it ran implies, K4's the stacked step's, and
+    the engine's collectives (its trace) the stacked step's where the
+    parent measured them. Results go to the parent as tokens, metrics,
+    digests and recorded operands."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch import convert
+    from repro_torch import data as data_mod
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.core import procgroup
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.parallel import stages
+    from repro_torch.runtime import ServeSession, Trainer, TrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    refs = torch.load(f"{tmp}/refs.pt", weights_only=False)
+    cfg = get_config(LM_ARCH)
+    c2 = dataclasses.replace(cfg, n_layers=P13_PARITY_LAYERS)
+    eng = stages.process_engine(LM_MESH, "microcode", "cuda")
+    coords = eng.coords
+    ran = []
+    real = procgroup.execute_program_local
+
+    def recorded(prog, buf, r, transport):
+        ran.append((prog, r, tuple(buf.shape)))
+        return real(prog, buf, r, transport)
+
+    procgroup.execute_program_local = recorded
+    total = dict.fromkeys(ops.KERNELS, 0)
+    checked_total = dict.fromkeys(ops.KERNELS, 0)
+
+    def counted(name, fn, engine=eng, trace=None, k4=0):
+        """Run `fn` with every launch held; its launches must be what its
+        programs imply plus `k4` K4 launches, and its collectives (the
+        engine's trace) `trace` where given. Returns (out, trace)."""
+        ran.clear()
+        checked = dict.fromkeys(ops.KERNELS, 0)
+        ops.reset_launch_counts()
+        t0 = len(engine.trace_log)
+        with proc_checked(ops, ref, checked):
+            out = fn()
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        want = dict.fromkeys(ops.KERNELS, 0)
+        for prog, r, shape in ran:
+            for k, v in procgroup.implied_launches(prog, r, shape).items():
+                want[k] += v
+        want["matmul_tiled"] += k4
+        if got != want:
+            proc_fail(f"13 {name}: rank {rank} launched {got}; its "
+                      f"{len(ran)} programs and the stacked step imply "
+                      f"{want}")
+        if checked != got:
+            proc_fail(f"13 {name}: rank {rank} launched {got} but held "
+                      f"{checked} against the plain versions")
+        colls = [tuple(e) for e in engine.trace_log[t0:]]
+        if trace is not None and colls != [tuple(e) for e in trace]:
+            proc_fail(f"13 {name}: rank {rank} ran {len(colls)} "
+                      f"collectives, not the stacked step's {len(trace)}")
+        for k in total:
+            total[k] += got[k]
+            checked_total[k] += checked[k]
+        return out, colls
+
+    def timed(fn, profiled=False, n=reps):
+        """Median ms of `fn` over `n` calls, the bytes it stages per call,
+        and (rank 0) its busy share."""
+        s0 = eng.transport_stats()
+        ms = median_ms(fn, n)
+        s1 = eng.transport_stats()
+        calls = n + 1
+        out = {"median_ms": ms,
+               "staged_bytes_per_call": (s1["staged_bytes"]
+                                         - s0["staged_bytes"]) / calls,
+               "staged_ms_per_call": (s1["staged_ms"]
+                                      - s0["staged_ms"]) / calls}
+        if profiled:
+            out.update(proc_profile(fn, rank == 0, ms))
+        return out
+
+    res = {"coords": coords, "timing": {}, "part_s": {}}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        res["part_s"][name] = now - t_part[0]
+        t_part[0] = now
+    B, P, Gn = LM_SMALL
+    pcfg = ParallelConfig()
+    prompt = p13_prompt(cfg, seed)
+    # 13a: full width and depth, each process drawing its rows of the
+    # stacked init from the seed, as the launchers do
+    params = stages.init_params(cfg, LM_MESH, LM_TP, seed=seed,
+                                device=eng.device, serve=True,
+                                coords=coords)
+    res["13a_params"] = p13_digests(params)
+    sess = ServeSession(cfg, pcfg, LM_MESH, LM_TP, B, P, P + Gn,
+                        device=eng.device, engine=eng)
+    want_step = fam_step_collectives(cfg, LM_TP, P + Gn, pcfg)
+    real_dec, step_colls = sess.decode_fn, []
+
+    def dec(*a):
+        t0 = len(eng.trace_log)
+        out = real_dec(*a)
+        names: dict = {}
+        for e in eng.trace_log[t0:]:
+            names[e[0]] = names.get(e[0], 0) + 1
+        step_colls.append(names)
+        return out
+    sess.decode_fn = dec
+    toks, _ = counted("13a", lambda: sess.generate(params, prompt, Gn))
+    if any(c != want_step for c in step_colls) or len(step_colls) != Gn - 1:
+        proc_fail(f"13a: rank {rank} decode steps ran {step_colls}, the "
+                  f"stacked step {want_step}")
+    res["13a_tokens"] = toks
+    sess.decode_fn = real_dec
+    batch = sess.stack_batch({"tokens": prompt})
+    res["timing"]["prefill"] = timed(lambda: sess.prefill_fn(params, batch))
+    nxt, pf = sess.prefill_fn(params, batch)
+    from repro_torch.runtime import convert_prefill_caches
+    caches = convert_prefill_caches(pf, cfg, pcfg, LM_MESH, LM_TP, B, P,
+                                    P + Gn, engine=eng)
+    del pf
+    res["timing"]["decode_step"] = step = timed(
+        lambda: sess.decode_fn(params, caches, nxt[..., None], P), True)
+    step["tokens_per_s"] = B / (step["median_ms"] / 1e3)
+    del params, caches, sess, batch
+    torch.cuda.empty_cache()
+    part("13a")
+    # 13b: the train step at (8, 64), FSDP 4 x TP 2
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR)
+    tbatch = train_batch(data_mod, cfg, *TRAIN_SMALL, seed)
+    res["13b"] = {}
+    for key, kw in P13_TRAIN:
+        c = p13_variant_cfg(cfg, key)
+        params = stages.init_params(c, LM_MESH, LM_TP, seed=seed,
+                                    device=eng.device, coords=coords)
+        opt = adamw.adamw_init(params)
+        ts = stages.build_train_step(c, p13_pcfg(**kw), LM_MESH, opt_cfg,
+                                     p13_sched(schedules), engine=eng)
+        want = refs["13b"][key]
+        b = ts.put_batch(tbatch)
+        (_p, _o, m), _ = counted(f"13b {key}", lambda: ts.fn(
+            params, opt, b, 0), trace=want["trace"], k4=want["k4"])
+        res["13b"][key] = {k: float(v) for k, v in m.items()}
+        torch.save({p: t.cpu() for p, t in _flat(params).items()},
+                   f"{tmp}/b13_{key}_{rank}.pt")
+        if key == "base":
+            res["timing"]["train_step"] = timed(
+                lambda: ts.fn(params, opt, b, 1), True, P13_TRAIN_REPS)
+        del params, opt, ts, b
+        torch.cuda.empty_cache()
+        part(f"13b {key}")
+    # 13c: parity with the stacked run, params carried from a stacked init
+    full = stages.init_params(c2, LM_MESH, LM_TP, seed=seed,
+                              device=eng.device, serve=True)
+    params = convert.local_params(full, LM_MESH, coords)
+    del full
+    dp = stages.dp_axes(LM_MESH, B)
+    dstep, _, _, _ = stages.build_decode_step(c2, pcfg, LM_MESH,
+                                              s_max=P + Gn, global_batch=B,
+                                              engine=eng)
+    cache = stages.init_cache(c2, pcfg, LM_MESH, LM_TP, B, P + Gn,
+                              device=eng.device, coords=coords)
+    dlog = []
+    rec = p13_record(eng, dlog)
+
+    def keep(prm, cch, tok, pos):
+        rec["active"] = pos == P
+        return dstep(prm, cch, tok, pos)
+    seq, _ = counted("13c decode", lambda: serve_launch.decode_loop(
+        keep, params, cache, prompt, Gn, LM_MESH, dp, engine=eng))
+    p13_unrecord(eng)
+    res["13c_seq"] = seq.cpu()
+    del params, cache
+    full = stages.init_params(c2, LM_MESH, LM_TP, seed=seed,
+                              device=eng.device)
+    params = convert.local_params(full, LM_MESH, coords)
+    del full
+    opt = adamw.adamw_init(params)
+    ts = stages.build_train_step(c2, p13_pcfg(), LM_MESH, opt_cfg,
+                                 p13_sched(schedules), engine=eng)
+    tlog = []
+    rec = p13_record(eng, tlog)
+    b = ts.put_batch(tbatch)
+    rec["active"] = True
+    (_p, _o, m), _ = counted("13c train", lambda: ts.fn(params, opt, b, 0),
+                             trace=refs["13c"]["trace"],
+                             k4=refs["13c"]["k4"])
+    p13_unrecord(eng)
+    res["13c_metrics"] = {k: float(v) for k, v in m.items()}
+    torch.save({"decode": dlog, "train": tlog,
+                "params": {p: t.cpu() for p, t in
+                           _flat(params).items()}},
+               f"{tmp}/c13_{rank}.pt")
+    del params, opt, ts, b, dlog, tlog
+    torch.cuda.empty_cache()
+    dist.barrier()               # every rank's records written
+    part("13c")
+    # 13d: the Trainer, a checkpoint written by the world, resumed
+    ckpt = f"{tmp}/ckpt13"
+
+    def trainer():
+        return Trainer(c2, p13_pcfg(), LM_MESH, opt_cfg,
+                       data_mod.DataConfig(global_batch=TRAIN_SMALL[0],
+                                           seq_len=TRAIN_SMALL[1],
+                                           seed=seed),
+                       TrainerConfig(total_steps=P13_TRAINER_STEPS,
+                                     ckpt_dir=ckpt,
+                                     ckpt_every=P13_CKPT_EVERY, seed=seed),
+                       lr_schedule=p13_sched(schedules), device="cuda",
+                       engine=eng)
+    ta = trainer()
+    saved = {}
+    real_save = ta.ckpt.save
+
+    def save(step, tree, *a, **k):
+        if step == P13_CKPT_EVERY - 1:
+            saved.update(p13_digests(tree))
+        return real_save(step, tree, *a, **k)
+    ta.ckpt.save = save
+    log_a, _ = counted("13d run", ta.run, engine=ta.ts.ctx.engine)
+    if rank == 0:
+        shutil.rmtree(f"{ckpt}/step_{P13_TRAINER_STEPS - 1:09d}")
+    dist.barrier()
+    # resume: the Trainer's restore, then its next step on the loader's
+    # rows (`_run_once` without the final checkpoint)
+    tb = trainer()
+
+    def resume():
+        params, opt, start = tb.restore_or_init()
+        if p13_digests({"params": params, "opt": opt}) != saved:
+            proc_fail(f"13d: rank {rank} restored another state than it "
+                      f"saved")
+        index, count = tb.ts.data_shard()
+        loader = data_mod.make_loader(tb.data_cfg, tb.arch, start, index,
+                                      count)
+        try:
+            out = []
+            for step, batch in loader:
+                if step >= P13_TRAINER_STEPS:
+                    break
+                _p, _o, m = tb.ts.fn(params, opt, tb.ts.put_rows(batch),
+                                     step)
+                out.append({"step": step,
+                            **{k: float(v) for k, v in m.items()}})
+            return out
+        finally:
+            loader.close()
+    log_b, _ = counted("13d resume", resume, engine=tb.ts.ctx.engine)
+    keys = ("ce_mean", "grad_norm", "loss")
+    a = [[r[k] for k in keys] for r in log_a if r["step"] >= P13_CKPT_EVERY]
+    b_ = [[r[k] for k in keys] for r in log_b]
+    if [r["step"] for r in log_b] != list(range(P13_CKPT_EVERY,
+                                                P13_TRAINER_STEPS)) \
+            or a != b_:
+        proc_fail(f"13d: rank {rank} resumed {b_}, the uninterrupted run "
+                  f"{a}")
+    res["13d"] = {"digests": saved, "log": log_a, "resumed": log_b}
+    part("13d")
+    res["launches"] = total
+    res["checked"] = checked_total
+    res["transport"] = eng.transport_stats()
+    torch.save(res, f"{tmp}/p13_{rank}.pt")
+
+
+def _flat(tree) -> dict:
+    from repro_torch.tree import flatten
+    return {"/".join(map(str, p)): t for p, t in flatten(tree)}
+
+
+def p13_param_gap(name: str, rank: int, at: tuple, got: dict,
+                  want: dict) -> float:
+    """The largest |got - want| over a rank's updated params (`got`,
+    {path: local leaf}) against the stacked step's (`want`) at its mesh
+    position `at`; fails unless each is within P13_PARAM_ATOL plus one
+    bf16 ulp of the stacked step's."""
+    worst = 0.0
+    for path, t in got.items():
+        w = want[path]
+        w = w[(slice(None),) + at] if path.startswith("layers") else w[at]
+        d = (t.double() - w.double()).abs()
+        bound = P13_PARAM_ATOL + 2.0 ** -7 * w.double().abs()
+        if bool((d > bound).any()):
+            fail(f"{name}: rank {rank} updated {path} off the stacked "
+                 f"step's by {float(d.max())}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def p13_stacked_refs(cfg, mods, ops, seed: int, tmp: str) -> dict:
+    """The stacked port's runs phase 13 holds the processes against, on
+    the card before the spawn: 13b each variant's train step from the
+    same init (metrics, the engine's trace, K4 launches); 13c the decode
+    tokens of phase 8's loop and the train step's metrics, trace, K4
+    launches and updated params at P13_PARITY_LAYERS. Returns (refs,
+    {part: the stacked step's updated params on the host})."""
+    (convert, stages, adamw, schedules, lm_mod, data_mod,
+     serve_launch) = mods
+    from repro_torch.configs import ParallelConfig
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR)
+    tbatch = train_batch(data_mod, cfg, *TRAIN_SMALL, seed)
+    refs: dict = {"13b": {}, "13c": {}}
+
+    def step(c, pcfg):
+        params = stages.init_params(c, LM_MESH, LM_TP, seed=seed,
+                                    device="cuda")
+        opt = adamw.adamw_init(params)
+        ts = stages.build_train_step(c, pcfg, LM_MESH, opt_cfg,
+                                     p13_sched(schedules), device="cuda")
+        ops.reset_launch_counts()
+        _p, _o, m = ts.fn(params, opt, ts.put_batch(tbatch), 0)
+        torch.cuda.synchronize()
+        out = {"metrics": {k: float(v) for k, v in m.items()},
+               "trace": [tuple(e) for e in ts.ctx.engine.trace_log],
+               "k4": ops.launch_counts()["matmul_tiled"]}
+        return out, params
+
+    new_params = {}
+    for key, kw in P13_TRAIN:
+        refs["13b"][key], params = step(p13_variant_cfg(cfg, key),
+                                        p13_pcfg(**kw))
+        new_params[key] = {p: t.cpu() for p, t in _flat(params).items()}
+        del params
+        torch.cuda.empty_cache()
+    c2 = dataclasses.replace(cfg, n_layers=P13_PARITY_LAYERS)
+    refs["13c"], params = step(c2, p13_pcfg())
+    new_params["13c"] = {p: t.cpu() for p, t in _flat(params).items()}
+    del params
+    B, P, Gn = LM_SMALL
+    pcfg = ParallelConfig()
+    params = stages.init_params(c2, LM_MESH, LM_TP, seed=seed,
+                                device="cuda", serve=True)
+    dstep, _, _, _ = stages.build_decode_step(c2, pcfg, LM_MESH,
+                                              s_max=P + Gn, global_batch=B,
+                                              device="cuda")
+    cache = stages.init_cache(c2, pcfg, LM_MESH, LM_TP, B, P + Gn,
+                              device="cuda")
+    refs["13c"]["seq"] = serve_launch.decode_loop(
+        dstep, params, cache, p13_prompt(cfg, seed), Gn, LM_MESH,
+        stages.dp_axes(LM_MESH, B)).cpu()
+    del params, cache
+    torch.cuda.empty_cache()
+    torch.save(refs, f"{tmp}/refs.pt")
+    return refs, new_params
+
+
+def phase_lm_procs(cfg, mods, procs, CollectiveEngine, ops, counts,
+                   seed: int, smi: str) -> None:
+    """Phase 13: qwen3-0.6b one rank per process, 8 processes on the card
+    in one gloo group (`phase13_child`), on launch/serve.py's (1, 4, 2)
+    mesh. 13a serves at full width and depth (params drawn per process
+    from --seed as the launchers draw them; `ServeSession` at (4, 16,
+    8)): the tokens on the margin rule against the float64 single-copy
+    forward of the same params, drawn here by one stacked init (the
+    children's digests its rows'). 13b one train step at (8, 64), FSDP 4 x
+    TP 2: the base, int8 buckets and SP + collective_matmul, each cut in
+    depth (P13_TRAIN_LAYERS); rank 0's loss (a rank's own) and every
+    rank's ce within rtol P13_LOSS_RTOL, every rank's grad norm within
+    P13_GNORM_RTOL and its updated params within P13_PARAM_ATOL plus one bf16 ulp of the stacked step on
+    the same params and batch. 13c at
+    P13_PARITY_LAYERS, full width, params carried from a stacked init
+    (`convert.local_params`): the decode tokens EQUAL phase 8's stacked
+    loop's, the train step's loss and grad norm within rtol 1e-5 and every
+    updated param within P13_PARAM_ATOL plus one bf16 ulp of the stacked
+    step's, and every engine collective of a decode step and of the train
+    step replayed on the stacked engine on the ranks' own operands:
+    BITWISE. 13d the `Trainer` one rank per process at P13_PARITY_LAYERS:
+    P13_TRAINER_STEPS steps with a checkpoint after step 1 written by the
+    world, which loads into the stacked port with every leaf equal to the
+    processes' (digests), and back into the processes (`restore_or_init`,
+    each leaf its saved bits) whose next step takes the uninterrupted
+    run's step 2 bitwise. Every child holds every K1-K4
+    launch against its plain version, its launches equal what its
+    programs and the stacked step imply, and its collectives per step
+    the stacked step's (trace)."""
+    import tempfile
+    (convert, stages, adamw, schedules, lm_mod, data_mod,
+     serve_launch) = mods
+    from repro_torch.checkpoint import load_checkpoint
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_procs_") as tmp:
+        refs, new_params = p13_stacked_refs(cfg, mods, ops, seed, tmp)
+        refs_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        procs.spawn(phase13_child, PROC_RANKS, backend="gloo",
+                    device="cuda", args=(tmp, seed, P13_REPS))
+        spawn_s = time.perf_counter() - t1
+        res = [torch.load(f"{tmp}/p13_{r}.pt", weights_only=False)
+               for r in range(PROC_RANKS)]
+        checked = dict.fromkeys(ops.KERNELS, 0)
+        total = dict.fromkeys(ops.KERNELS, 0)
+        for r in res:
+            for k in ops.KERNELS:
+                checked[k] += r["checked"][k]
+                total[k] += r["launches"][k]
+        for k in ("fused_combine", "quantize_blocks", "dequantize_blocks",
+                  "matmul_tiled"):
+            if not checked[k]:
+                fail(f"13: no {k} call was held against its plain version")
+        coords = [r["coords"] for r in res]
+        # 13a: the tokens against the float64 reference of the same params
+        B, P, Gn = LM_SMALL
+        toks = res[0]["13a_tokens"]
+        for r in res[1:]:
+            if not torch.equal(r["13a_tokens"], toks):
+                fail("13a: the processes generated different tokens")
+        stacked = stages.init_params(cfg, LM_MESH, LM_TP, seed=seed,
+                                     device="cuda", serve=True)
+        for r, c in enumerate(coords):
+            if p13_digests(convert.local_params(stacked, LM_MESH, c)) != \
+                    res[r]["13a_params"]:
+                fail(f"13a: rank {r}'s params are not the stacked init's "
+                     f"rows")
+        G = lm_global(stacked, cfg, convert, stages)
+        del stacked
+        prompt = p13_prompt(cfg, seed)
+        seq = torch.cat([prompt, toks[:, :-1].cuda()], dim=1)
+        tok_a = lm_token_check("13a", toks, lm_reference_logits(
+            G, cfg, seq)[:, P - 1:], cfg)
+        del G
+        torch.cuda.empty_cache()
+        # 13b: the metrics (the loss is each rank's own, the reference's
+        # one device's copy: rank 0's; ce and grad norm every rank's) and
+        # every rank's updated params against the stacked step's
+        rtol = {"loss": P13_LOSS_RTOL, "ce_mean": P13_LOSS_RTOL,
+                "grad_norm": P13_GNORM_RTOL}
+        out_b = {}
+        for key, _kw in P13_TRAIN:
+            want = refs["13b"][key]["metrics"]
+            rel = dict.fromkeys(rtol, 0.0)
+            gap = 0.0
+            for r, c in enumerate(coords):
+                got = res[r]["13b"][key]
+                for k in rtol if r == 0 else ("ce_mean", "grad_norm"):
+                    rel[k] = max(rel[k], abs(got[k] - want[k]) / abs(want[k]))
+                gap = max(gap, p13_param_gap(
+                    f"13b {key}", r, tuple(c[a] for a in LM_MESH),
+                    torch.load(f"{tmp}/b13_{key}_{r}.pt"), new_params[key]))
+            if any(rel[k] > rtol[k] for k in rtol):
+                fail(f"13b {key}: {rel} relative off the stacked step's "
+                     f"{want}, beyond {rtol}")
+            out_b[key] = {"metrics": res[0]["13b"][key], "stacked": want,
+                          "rel_max_over_ranks": rel, "rtol": rtol,
+                          "param_max_abs_diff": gap,
+                          "layers": p13_variant_cfg(cfg, key).n_layers,
+                          "collectives_per_step": len(
+                              refs["13b"][key]["trace"]),
+                          "k4_per_step": refs["13b"][key]["k4"]}
+        # 13c: tokens, metrics, params and every collective
+        for r in res:
+            if not torch.equal(r["13c_seq"], refs["13c"]["seq"]):
+                fail("13c: the decode tokens differ from the stacked "
+                     "loop's")
+        want = refs["13c"]["metrics"]
+        got = res[0]["13c_metrics"]
+        for k in ("loss", "grad_norm", "ce_mean"):
+            if abs(got[k] - want[k]) > P13_LOSS_RTOL * abs(want[k]):
+                fail(f"13c: {k} {got[k]} vs the stacked step's {want[k]}")
+        logs = {"decode": [], "train": []}
+        worst = 0.0
+        for r, c in enumerate(coords):
+            c13 = torch.load(f"{tmp}/c13_{r}.pt", weights_only=False)
+            worst = max(worst, p13_param_gap(
+                "13c", r, tuple(c[a] for a in LM_MESH), c13["params"],
+                new_params["13c"]))
+            for k in logs:
+                logs[k].append(c13[k])
+            del c13
+        del new_params
+        replayed = {k: p13_replay(k, v, CollectiveEngine)
+                    for k, v in logs.items()}
+        del logs
+        # 13d: the world's checkpoint in the stacked port
+        from repro_torch.runtime import Trainer, TrainerConfig
+        c2 = dataclasses.replace(cfg, n_layers=P13_PARITY_LAYERS)
+        st = Trainer(c2, p13_pcfg(), LM_MESH,
+                     adamw.AdamWConfig(lr=TRAIN_LR),
+                     data_mod.DataConfig(global_batch=TRAIN_SMALL[0],
+                                         seq_len=TRAIN_SMALL[1]),
+                     TrainerConfig(ckpt_dir=f"{tmp}/ckpt13"),
+                     device="cuda")
+        tree, _m = load_checkpoint(f"{tmp}/ckpt13", P13_CKPT_EVERY - 1,
+                                   st._shape_tree(), st._state_specs(),
+                                   LM_MESH, "cuda")
+        for r, c in enumerate(coords):
+            if p13_digests(convert.local_params(tree, LM_MESH, c)) != \
+                    res[r]["13d"]["digests"]:
+                fail(f"13d: the stacked load of the world's checkpoint "
+                     f"differs from rank {r}'s state")
+        del tree, st
+        torch.cuda.empty_cache()
+    counts["procs_lm"] = total
+    emit({"phase": "lm_procs", "ranks": PROC_RANKS, "backend": "gloo",
+          "mesh": LM_MESH, "card": smi,
+          "seconds": time.perf_counter() - t0,
+          "stacked_refs_s": refs_s, "spawn_and_children_s": spawn_s,
+          "checked_vs_plain": checked,
+          "13a": {"shape": list(LM_SMALL), "layers": cfg.n_layers,
+                  "tokens": tok_a},
+          "13b": out_b,
+          "13c": {"layers": P13_PARITY_LAYERS, "metrics": got,
+                  "stacked": want, "param_max_abs_diff": worst,
+                  "collectives_bitwise": replayed},
+          "13d": {"layers": P13_PARITY_LAYERS,
+                  "steps": P13_TRAINER_STEPS,
+                  "checkpoint_step": P13_CKPT_EVERY - 1,
+                  "resumed_bitwise": True,
+                  "log_rank0": res[0]["13d"]["log"]},
+          "per_rank": [r["timing"] for r in res],
+          "part_s_rank0": res[0]["part_s"],
+          "launches_per_rank": [r["launches"] for r in res],
+          "launches": total,
+          "transport_per_rank": [r["transport"] for r in res]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4601,6 +5331,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_procs(CollectiveEngine, procs, ops, counts, args.seed, args.mib,
                 args.reps, smi, CONFIG)
+
+    # phase 13: LM serving and training one rank per process
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    phase_lm_procs(lm_cfg, (convert, stages, adamw, schedules, lm_mod,
+                            data_mod, serve_launch), procs,
+                   CollectiveEngine, ops, counts, args.seed, smi)
     for row in rows:      # launches on every path's runs (K1 runs on all)
         row["launches"] = sum(c[row["name"]] for c in counts.values())
         if not row["launches"]:
@@ -4609,7 +5346,7 @@ def main() -> int:
         for key, c in counts.items():
             path = next((p for p in ("dlrm", "vecmat", "queue",
                                      "lm_families", "lm", "train",
-                                     "dryrun", "procs")
+                                     "dryrun", "procs_lm", "procs")
                          if key.startswith(p)), "collectives")
             by_path[path] = by_path.get(path, 0) + c[row["name"]]
         row["launches_by_path"] = by_path

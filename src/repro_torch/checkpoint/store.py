@@ -26,6 +26,19 @@ Async: CheckpointManager.save(..., blocking=False) snapshots to host
 numpy copies in the caller thread (the train step updates its buffers in
 place afterwards) and writes the files on a background thread; `wait()`
 joins before the next save or shutdown.
+
+One rank per process (`per_process=True`, on an initialized
+`torch.distributed` world laid out as `ProcessGroupEngine` lays it:
+global rank g at mesh position `unravel_index(g, mesh sizes)`) the
+tree holds this process's LOCAL shards. A save gathers every leaf to
+its global array on rank 0 (`dist.gather` of each shard's bytes, in the
+caller's thread, every process joining); rank 0 writes the same files
+and COMMIT, on the background thread as before, and `wait()` ends in a
+barrier, so no process reports a step (`latest_step`) before it is
+committed. A load (`coords`) reads the global file and keeps this
+process's shard (`convert.shard_of`). The format is unchanged: a
+checkpoint written one rank per process loads stacked and into the
+reference, and the other way round.
 """
 from __future__ import annotations
 
@@ -38,6 +51,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import flatten, unflatten
 
@@ -52,9 +66,9 @@ def _spec_to_json(spec):
     return [list(e) if isinstance(e, (tuple, list)) else e for e in spec]
 
 
-def _to_host(leaf, spec, path, mesh_shape) -> tuple:
+def _to_host(leaf, spec, path, mesh_shape, copy: bool = True) -> tuple:
     """(numpy array as the file holds it, dtype name): the global array
-    of a (stacked) leaf, a copy."""
+    of a (stacked) leaf, a copy (`copy=False`: the leaf is already one)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if mesh_shape is not None and spec is not None and t.ndim:
@@ -63,7 +77,7 @@ def _to_host(leaf, spec, path, mesh_shape) -> tuple:
                 t = t.movedim(0, len(mesh_shape))
             t = unstack(t, mesh_shape, spec)
         # a device tensor's .cpu() is already a copy; a host one is not
-        copy = t.device.type == "cpu"
+        copy = copy and t.device.type == "cpu"
         t = t.cpu().contiguous()
         if t.dtype == torch.bfloat16:
             arr = t.view(torch.int16).numpy().view("V2")
@@ -82,24 +96,60 @@ def _from_file(arr, dtype: str):
     return torch.from_numpy(arr)
 
 
-def snapshot(tree, specs=None, mesh_shape=None) -> dict:
+def _gather_root(leaf, spec, mesh_shape):
+    """The global tensor of every process's local shard of a leaf, on
+    rank 0 (None elsewhere): each shard's bytes gathered on the default
+    group (the mesh in row-major order), stacked and unstacked."""
+    from repro_torch.convert import unstack
+    h = leaf.detach().cpu().contiguous()
+    wire = h.reshape(-1).view(torch.uint8)
+    root = dist.get_rank() == 0
+    parts = [torch.empty_like(wire) for _ in range(dist.get_world_size())] \
+        if root else None
+    dist.gather(wire, parts, dst=0)
+    if not root:
+        return None
+    stacked = torch.stack(parts).view(h.dtype).reshape(
+        tuple(mesh_shape.values()) + tuple(h.shape))
+    return unstack(stacked, mesh_shape, spec)
+
+
+def snapshot(tree, specs=None, mesh_shape=None,
+             per_process: bool = False):
     """{name: (path, host array, dtype name, spec)} of every leaf: the
-    global arrays a save writes."""
+    global arrays a save writes. `per_process`: the tree's leaves are
+    this process's local shards, every process calls this, and rank 0
+    gets the snapshot (the others None)."""
     spec_of = dict(flatten(specs)) if specs is not None else {}
     out = {}
     for path, leaf in flatten(tree):
         spec = spec_of.get(path)
-        arr, dtype = _to_host(leaf, spec, path, mesh_shape)
+        if per_process and isinstance(leaf, torch.Tensor) and leaf.ndim:
+            leaf = _gather_root(leaf, spec, mesh_shape)
+            if leaf is None:
+                continue
+            arr, dtype = _to_host(leaf, None, path, None, copy=False)
+        else:
+            arr, dtype = _to_host(leaf, spec, path,
+                                  None if per_process else mesh_shape)
         out[_name(path)] = (path, arr, dtype, spec)
+    if per_process and dist.get_rank() != 0:
+        return None
     return out
 
 
 def save_checkpoint(directory: str, step: int, tree, specs=None,
-                    extra: Optional[dict] = None, mesh_shape=None):
+                    extra: Optional[dict] = None, mesh_shape=None,
+                    per_process: bool = False):
     """Synchronous save with atomic commit. `tree` is a tree of dicts of
     tensors or arrays; with `mesh_shape` and `specs`, its tensors are
-    mesh-stacked and saved as their global arrays."""
-    return _write(directory, step, snapshot(tree, specs, mesh_shape), extra)
+    mesh-stacked (with `per_process`, every process's local shards) and
+    saved as their global arrays."""
+    snap = snapshot(tree, specs, mesh_shape, per_process)
+    d = None if snap is None else _write(directory, step, snap, extra)
+    if per_process:
+        dist.barrier()
+    return d
 
 
 def _write(directory: str, step: int, snap: dict, extra: Optional[dict]):
@@ -138,11 +188,12 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def load_checkpoint(directory: str, step: int, tree_like, specs=None,
-                    mesh_shape=None, device="cpu"):
+                    mesh_shape=None, device="cpu", coords=None):
     """Restore into the structure of `tree_like` (its leaves are only
     read for their paths and whether they are 0-d): with `mesh_shape` and
-    `specs`, every leaf stacked onto that mesh on `device`; else the
-    global tensors. Returns (tree, manifest)."""
+    `specs`, every leaf stacked onto that mesh on `device` (with
+    `coords`, the local shard of the process at that mesh position);
+    else the global tensors. Returns (tree, manifest)."""
     d = os.path.join(directory, f"step_{step:09d}")
     if not os.path.exists(os.path.join(d, "COMMIT")):
         raise FileNotFoundError(f"no committed checkpoint at {d}")
@@ -155,13 +206,22 @@ def load_checkpoint(directory: str, step: int, tree_like, specs=None,
         if name not in names:
             raise KeyError(f"checkpoint leaf {name} missing in target tree")
         path, leaf = names[name]
-        t = _from_file(np.load(os.path.join(d, name + ".npy")),
-                       entry["dtype"]).to(device)
-        if mesh_shape is not None and spec_of and t.ndim:
-            from repro_torch.convert import stack_global
-            t = stack_global(t, mesh_shape, spec_of[path])
-            if any(k in _LAYERED for k in path):
-                t = t.movedim(len(mesh_shape), 0).contiguous()
+        # one process maps the file and reads its own slice alone
+        t = _from_file(np.load(os.path.join(d, name + ".npy"),
+                               mmap_mode="c" if coords is not None else None),
+                       entry["dtype"])
+        if coords is not None:
+            if spec_of and t.ndim:
+                from repro_torch.convert import shard_of
+                t = shard_of(t, mesh_shape, spec_of[path], coords)
+            t = t.to(device, copy=True, memory_format=torch.contiguous_format)
+        else:
+            t = t.to(device)
+            if mesh_shape is not None and spec_of and t.ndim:
+                from repro_torch.convert import stack_global
+                t = stack_global(t, mesh_shape, spec_of[path])
+                if any(k in _LAYERED for k in path):
+                    t = t.movedim(len(mesh_shape), 0).contiguous()
         out.append((path, t))
     if len(out) != len(names):
         missing = sorted(set(names) - set(manifest["leaves"]))
@@ -170,19 +230,28 @@ def load_checkpoint(directory: str, step: int, tree_like, specs=None,
 
 
 class CheckpointManager:
-    """Async keep-K manager with atomic commits and exact resume."""
+    """Async keep-K manager with atomic commits and exact resume.
+    `per_process`: every process of the world holds one, saves and waits
+    at the same steps; rank 0 writes."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3,
+                 per_process: bool = False):
         self.directory = directory
         self.keep = keep
+        self.per_process = per_process
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = False
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            # rank 0 has committed: now every process may see the step
+            self._pending = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -191,8 +260,14 @@ class CheckpointManager:
              blocking: bool = False, mesh_shape=None):
         self.wait()
         # snapshot to host in the caller thread (the step updates its
-        # buffers in place afterwards)
-        snap = snapshot(tree, specs, mesh_shape)
+        # buffers in place afterwards); one rank per process every
+        # process joins the gather, and rank 0 alone gets the snapshot
+        snap = snapshot(tree, specs, mesh_shape, self.per_process)
+        self._pending = self.per_process
+        if snap is None:
+            if blocking:
+                self.wait()
+            return
 
         def work():
             try:
@@ -203,20 +278,18 @@ class CheckpointManager:
 
         if blocking:
             work()
-            if self._error:
-                err, self._error = self._error, None
-                raise err
+            self.wait()
         else:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
 
     def restore_latest(self, tree_like, specs=None, mesh_shape=None,
-                       device="cpu"):
+                       device="cpu", coords=None):
         step = latest_step(self.directory)
         if step is None:
             return None
         tree, manifest = load_checkpoint(self.directory, step, tree_like,
-                                         specs, mesh_shape, device)
+                                         specs, mesh_shape, device, coords)
         return step, tree, manifest
 
     def _gc(self):

@@ -19,8 +19,13 @@ only (it imports no jax):
   * the reference `Selector.table_rows()` artifact <-> rows the port's
     `Selector.apply_table` takes (and its own `table_rows` emits);
   * a mesh-stacked tensor (or params tree) -> the LOCAL shard of the one
-    rank a process holds (`local_shard`, `local_params`), the form a
-    per-process model takes (`core/procgroup.py`).
+    rank a process holds (`local_shard`, `local_params`: a layer-stacked
+    leaf keeps its layer dim in front), the form a per-process model
+    takes (`core/procgroup.py`);
+  * a GLOBAL tensor -> one process's shard by its spec, with no stacked
+    copy (`shard_of`: a batch, a checkpoint's leaf), and back through
+    the process's engine (`gather_global`: every process of the mesh
+    calls it and gets the global tensor).
 """
 from __future__ import annotations
 
@@ -111,15 +116,61 @@ def local_shard(stacked, mesh_shape: dict, coords: dict):
     return stacked[tuple(coords[a] for a in mesh_shape)]
 
 
-def local_params(tree, mesh_shape: dict, coords: dict):
-    """`local_shard` of every tensor of a params tree (dicts and lists of
-    mesh-stacked tensors, as `dlrm_params_from_jax` gives)."""
+def local_params(tree, mesh_shape: dict, coords: dict, _path=()):
+    """One process's local shards of a mesh-stacked tree (dicts and lists:
+    the DLRM's params, the LM's, or an AdamW state): a leaf under "layers"
+    or "enc_layers", (L, *mesh, ...), gives (L, *local); a 0-d leaf (the
+    optimizer's count) stays as it is; every other leaf gives its row at
+    `coords` (`local_shard`). Copies, so the stacked tree can be freed."""
     if isinstance(tree, dict):
-        return {k: local_params(v, mesh_shape, coords)
+        return {k: local_params(v, mesh_shape, coords, _path + (k,))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(local_params(v, mesh_shape, coords) for v in tree)
-    return local_shard(tree, mesh_shape, coords)
+        return type(tree)(local_params(v, mesh_shape, coords, _path + (i,))
+                          for i, v in enumerate(tree))
+    if tree.ndim == 0:
+        return tree.clone()
+    if any(k in _LAYERED for k in _path):
+        return local_shard(tree.movedim(0, len(mesh_shape)), mesh_shape,
+                           coords).clone()
+    return local_shard(tree, mesh_shape, coords).clone()
+
+
+def shard_of(g, mesh_shape: dict, spec, coords: dict):
+    """One process's local shard of a GLOBAL tensor `g` sharded by `spec`,
+    the process at mesh position `coords`: a narrow of every sharded dim
+    (a view of g), equal to the row of `stack_global(g, ...)` at
+    `coords` without making it."""
+    spec = tuple(spec) + (None,) * (g.ndim - len(tuple(spec)))
+    for d, entry in enumerate(spec):
+        axes = _dim_axes(entry)             # the first axis is the major one
+        parts = int(np.prod([mesh_shape[a] for a in axes]))
+        if g.shape[d] % parts:
+            raise ValueError(f"dim {g.shape[d]} does not split over {axes}")
+        idx = 0
+        for a in axes:
+            idx = idx * mesh_shape[a] + coords[a]
+        size = g.shape[d] // parts
+        g = g.narrow(d, idx * size, size)
+    return g
+
+
+def gather_global(t, spec, engine):
+    """The global tensor of one process's shard `t` under `spec`: one
+    engine allgather per sharded axis and dim, the minor axis first. Every
+    process of the engine's mesh calls it with its own shard; each gets
+    the whole (the inverse of `shard_of`)."""
+    mesh = engine.mesh_shape
+    spec = tuple(spec) + (None,) * (t.ndim - len(tuple(spec)))
+    for d, entry in enumerate(spec):
+        for a in reversed(_dim_axes(entry)):
+            if mesh[a] == 1:
+                continue
+            x = t.movedim(d, 0).contiguous()
+            g = engine.allgather(x, a)
+            t = g.reshape((mesh[a] * x.shape[0],)
+                          + tuple(x.shape[1:])).movedim(0, d)
+    return t
 
 
 def dlrm_params_from_jax(params_np, cfg, mesh_shape: dict, device="cpu"):
@@ -178,12 +229,16 @@ def _tree(fn, values, specs):
 
 
 def _tree_to_stacked(values, specs, mesh_shape: dict, device,
-                     layered: bool = False):
+                     layered: bool = False, coords=None):
     """Global numpy leaves -> mesh-stacked tensors; `layered` leaves
-    (spec (None, ...)) keep their layer dim in front: (L, *mesh, ...)."""
+    (spec (None, ...)) keep their layer dim in front: (L, *mesh, ...).
+    With `coords`, the local shards of the process there: (L, *local)."""
     D = len(mesh_shape)
 
     def put(g, spec):
+        if coords is not None:
+            return shard_of(torch.from_numpy(np.array(g)), mesh_shape, spec,
+                            coords).contiguous().to(device)
         t = to_stacked(g, mesh_shape, spec, device)
         return t.movedim(D, 0).contiguous() if layered else t
     return _tree(put, values, specs)
@@ -200,13 +255,14 @@ def _tree_from_stacked(values, specs, mesh_shape: dict,
 
 
 def lm_params_from_jax(params_np, cfg, mesh_shape: dict, serve: bool = False,
-                       device="cpu"):
+                       device="cpu", coords=None):
     """The reference LM param tree (numpy leaves, global arrays) -> the
     port's mesh-stacked params, in the FSDP layout or (serve=True) the
-    serving layout."""
+    serving layout; with `coords`, the local shards of the process at
+    that mesh position (no stacked copy)."""
     specs = param_specs(cfg, mesh_shape.get("model", 1), serve=serve)
     return {k: _tree_to_stacked(v, specs[k], mesh_shape, device,
-                                layered=k in _LAYERED)
+                                layered=k in _LAYERED, coords=coords)
             for k, v in params_np.items()}
 
 
@@ -275,14 +331,15 @@ def _join_opt(trees):
     return {k: _join_opt({n: trees[n][k] for n in _OPT}) for k in first}
 
 
-def opt_state_from_jax(state_np, cfg, mesh_shape: dict, device="cpu"):
+def opt_state_from_jax(state_np, cfg, mesh_shape: dict, device="cpu",
+                       coords=None):
     """The reference AdamW state (`repro.optim.adamw_init`'s tree of
     global numpy arrays: {"leaves": {path: {"master", "m", "v"}},
     "count"}) -> the port's, each leaf mesh-stacked like its param (the
-    FSDP layout)."""
+    FSDP layout), or with `coords` the local shards there."""
     split = _split_opt(state_np["leaves"])
     leaves = _join_opt({n: lm_params_from_jax(split[n], cfg, mesh_shape,
-                                              device=device)
+                                              device=device, coords=coords)
                         for n in _OPT})
     count = torch.tensor(int(np.asarray(state_np["count"])),
                          dtype=torch.int32, device=device)

@@ -50,7 +50,10 @@ Here each process holds one rank's shard and runs the same compiled
     posted in one batch under its own tag), so `allgather_matmul`,
     `matmul_reduce_scatter` and `ring_attention` run the stacked code on
     one row — the reference's per-device form, `ppermute` for
-    `ppermute`, K4 once per local product. Every process must issue the
+    `ppermute`, K4 once per local product — and differentiate as the
+    stacked ops do: the matmuls through their adjoint Functions on local
+    shards, the ring step through its reverse exchange (`_RingPass`).
+    Every process must issue the
     same collectives, with the same arguments, in the same order — the
     SPMD contract of `shard_map`; a fingerprint of each new program, and
     of each new streaming-op signature, is all-gathered once, which
@@ -92,10 +95,15 @@ from repro_torch.core.program import (
 )
 from repro_torch.kernels import ops as kops
 
-#: what a per-process engine cannot run yet (ROADMAP.md, Queue 1)
-NOT_YET = ("not available one rank per process yet (ROADMAP.md Queue 1 "
-           "item 7: training one rank per process, the adjoints of the "
-           "per-process ring ops)")
+#: what one rank per process cannot run yet (ROADMAP.md, Queue 1): the
+#: LM families but dense, and the Trainer's elastic shrink
+NOT_YET = {
+    "families": "not available one rank per process yet (ROADMAP.md "
+                "Queue 1 item 8: the MoE, SSM, hybrid, audio and VLM "
+                "families one rank per process)",
+    "shrink": "not available one rank per process yet (ROADMAP.md Queue 1 "
+              "item 9: the Trainer's elastic shrink one rank per process)",
+}
 
 #: the native backend's reductions as `torch.distributed` ops
 _DIST_OP = {"add": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
@@ -605,9 +613,12 @@ class ProcessGroupEngine(CollectiveEngine):
     process. `device` defaults to `cuda:{LOCAL_RANK % device_count}` and
     raises without a card unless `device='cpu'` is passed. Every
     collective of both backends, the queue and the streaming ops run on
-    local shards; not yet in this mode (`NotImplementedError`,
-    `NOT_YET`): a streaming op's inputs that require grad (training one
-    rank per process).
+    local shards, and each differentiates as the stacked engine's does:
+    `allgather_matmul` and `matmul_reduce_scatter` through the same
+    adjoint Functions (`core/autograd.py`) on local shards, the ring
+    step through `_RingPass`, whose adjoint is the reverse exchange
+    (rank r + 1's gradient back to rank r), so `ring_attention`'s
+    backward is the stacked one's row.
     """
 
     device: object = None
@@ -731,16 +742,11 @@ class ProcessGroupEngine(CollectiveEngine):
         self._checked.add((axis, fp))
 
     def _streaming(self, name: str, axis, tensors, **args) -> list:
-        """A streaming op's operands on this process's device, after two
-        checks: none requires grad (`NOT_YET`: the ring's adjoints one
-        rank per process are item 7's), and every process of `axis` calls
-        the op with the same signature (op, shapes, dtypes, arguments) —
-        all-gathered the first time a signature is met, as `_agree` does
-        for programs, so a mismatch raises instead of hanging in a ring
-        step."""
-        if _autograd.needed(*tensors):
-            raise NotImplementedError(
-                f"{name} on inputs that require grad is {NOT_YET}")
+        """A streaming op's operands on this process's device, after every
+        process of `axis` is found to call the op with the same signature
+        (op, shapes, dtypes, arguments) — all-gathered the first time a
+        signature is met, as `_agree` does for programs, so a mismatch
+        raises instead of hanging in a ring step."""
         ts = [self._tensor(t) for t in tensors]
         if self._axis_size(axis) > 1:
             sig = (name, tuple((tuple(t.shape), str(t.dtype)) for t in ts),
@@ -764,11 +770,17 @@ class ProcessGroupEngine(CollectiveEngine):
         return out
 
     def allgather_matmul(self, x, w, axis: str, segments: int = 1):
+        if _autograd.needed(x, w):
+            return _autograd.AllGatherMatmul.apply(self, x, w, axis,
+                                                   segments)
         x, w = self._streaming("allgather_matmul", axis, (x, w),
                                segments=segments)
         return super().allgather_matmul(x, w, axis, segments)
 
     def matmul_reduce_scatter(self, x, w, axis: str, segments: int = 1):
+        if _autograd.needed(x, w):
+            return _autograd.MatmulReduceScatter.apply(self, x, w, axis,
+                                                       segments)
         x, w = self._streaming("matmul_reduce_scatter", axis, (x, w),
                                segments=segments)
         return super().matmul_reduce_scatter(x, w, axis, segments)
@@ -784,13 +796,20 @@ class ProcessGroupEngine(CollectiveEngine):
     def _ring_pass(self, parts: list, lay: _Layout) -> list:
         """One ring step as one exchange: every block of `parts` (one row
         each) to rank r + 1 and a fresh block from rank r - 1, each under
-        its own tag."""
+        its own tag. Differentiable (`_RingPass`) where a block requires
+        grad."""
+        if _autograd.needed(*parts):
+            return list(_RingPass.apply(self, lay, *parts))
+        return self._ring_exchange(parts, lay, 1)
+
+    def _ring_exchange(self, parts, lay: _Layout, shift: int) -> list:
+        """Every block to rank r + shift, a fresh block from r - shift."""
         n, r = lay.n, lay.rank
         got = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
                for t in parts]
         self._transports[lay.axis].exchange(
-            [((r + 1) % n, i, t[0]) for i, t in enumerate(parts)],
-            [((r - 1) % n, i, t[0]) for i, t in enumerate(got)])
+            [((r + shift) % n, i, t[0]) for i, t in enumerate(parts)],
+            [((r - shift) % n, i, t[0]) for i, t in enumerate(got)])
         return got
 
     # -- the native backend: one torch.distributed collective each ----------
@@ -830,3 +849,21 @@ class ProcessGroupEngine(CollectiveEngine):
         t.collective(lambda w, o: dist.all_to_all_single(
             o, w, group=t.group), rows[0], out)
         return out.unsqueeze(0)
+
+
+class _RingPass(torch.autograd.Function):
+    """One ring step (`ProcessGroupEngine._ring_exchange`, shift 1) with
+    its adjoint: the gradient of the block rank r received from r - 1
+    goes back to r - 1, so the backward is the reverse exchange (shift
+    -1) — what the stacked engine's index permutation transposes to."""
+
+    @staticmethod
+    def forward(ctx, engine, lay, *parts):
+        ctx.engine, ctx.lay = engine, lay
+        return tuple(engine._ring_exchange(parts, lay, 1))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = ctx.engine._ring_exchange([g.contiguous() for g in grads],
+                                         ctx.lay, -1)
+        return (None, None) + tuple(back)

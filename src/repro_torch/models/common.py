@@ -27,13 +27,16 @@ before it is used (the serving layout drops 'data', `parallel/stages.py`).
 
 With `coords` set (one process's mesh position, `core/procgroup.py`)
 'init' and 'shape' give that process's LOCAL shard alone, no mesh dims
-leading. Each param's shard is then drawn from its own
+leading (a layer-stacked leaf is then (L, *local), `models/blocks.py`).
+Without a `generator`, each param's shard is drawn from its own
 `torch.Generator`, seeded by (`seed`, the param's place in the
 definition order, the shard's position on the axes its spec names), so
 a process draws only its own slice — replicas still agree, and no
-process draws the others' shards. These draws are not the stacked
-mode's single stream: a per-process model equals a stacked one only
-when its params are carried across (`convert.local_params`).
+process draws the others' shards; these draws are not the stacked
+mode's single stream. With a `generator`, a process draws each param
+from the stacked mode's stream (one shard per distinct position, as
+there) and keeps its own: its params are then bitwise the stacked
+init's rows, at the cost of drawing every shard (one param at a time).
 
 The numerics (`rms_norm`, `rope`, `silu`, `gelu`,
 `sinusoidal_positions`) take mesh-stacked activations and act on their
@@ -93,16 +96,21 @@ class Builder:
         named = spec_axes(spec)
         local = local_shape(shape, spec, self.mesh_shape)
         gen = self.generator
+        lead = tuple(self.mesh_shape.values())
+        draw_lead = tuple(s if a in named else 1
+                          for a, s in self.mesh_shape.items())
+        pick = key = None
         if self.coords is not None:
-            lead = draw_lead = ()
-            key = (self.seed, self._index,
-                   tuple(self.coords[a] for a in self.mesh_shape
-                         if a in named))
-            self._index += 1
-        else:
-            lead = tuple(self.mesh_shape.values())
-            draw_lead = tuple(s if a in named else 1
-                              for a, s in self.mesh_shape.items())
+            lead = ()
+            if gen is None:
+                draw_lead = ()
+                key = (self.seed, self._index,
+                       tuple(self.coords[a] for a in self.mesh_shape
+                             if a in named))
+                self._index += 1
+            else:
+                pick = tuple(self.coords[a] if a in named else 0
+                             for a in self.mesh_shape)
         if self.mode == "shape":
             return torch.empty(lead + local, dtype=dtype, device="meta")
         if init == "zeros":
@@ -111,7 +119,7 @@ class Builder:
             return torch.ones(lead + local, dtype=dtype, device=self.device)
         t = torch.empty(draw_lead + local, dtype=torch.float32,
                         device=self.device)
-        if self.coords is not None:
+        if key is not None:
             gen = _shard_generator(key, self.device)
         if init == "normal":
             if scale is None:
@@ -124,6 +132,8 @@ class Builder:
             t = t.log_()
         else:
             raise ValueError(init)
+        if pick is not None:
+            t = t[pick].clone()          # not a view of every shard's draw
         return t.to(dtype).expand(lead + local).contiguous()
 
 

@@ -24,6 +24,19 @@ offload-engine enqueue-then-overlap pattern
 (`ParallelConfig.async_grad_sync`). The train step updates the params and
 the optimizer state IN PLACE (the reference donates both; ROADMAP
 Queue 3).
+
+One rank per process (the reference's multi-host launch): every builder
+takes an `engine`, and on a `core/procgroup.py::ProcessGroupEngine`
+(`process_engine` builds one) the step takes and returns this process's
+LOCAL shards — params, caches, batches, grads, the optimizer state —
+with no mesh dims leading (`ParCtx.lead == 0`).
+`init_params` / `init_cache` / `param_shapes` give them with `coords`
+(the process's mesh position) and `TrainStep.put_batch` cuts a global
+batch to the process's rows (`convert.shard_of`). The collectives are
+the stacked engine's programs on the same operands, bitwise; the plain
+products are 2-D there, batched over the ranks here, so they sum in
+another order (ROADMAP Queue 3). The dense family only: the others
+raise (`procgroup.NOT_YET`).
 """
 from __future__ import annotations
 
@@ -42,12 +55,32 @@ from repro_torch.tree import flatten, tree_map, unflatten
 
 
 def make_ctx(cfg: ArchConfig, pcfg: ParallelConfig, mesh_shape: dict,
-             device="cuda") -> ParCtx:
-    """The step's parallel context; its engine raises on device='cuda'
-    without a card."""
-    engine = CollectiveEngine(dict(mesh_shape), backend=pcfg.backend,
-                              device=device)
+             device="cuda", engine=None) -> ParCtx:
+    """The step's parallel context on `engine` (a stacked
+    `CollectiveEngine` or this process's `ProcessGroupEngine`), or on a
+    new stacked engine, which raises on device='cuda' without a card."""
+    if engine is None:
+        engine = CollectiveEngine(dict(mesh_shape), backend=pcfg.backend,
+                                  device=device)
+    if dict(engine.mesh_shape) != dict(mesh_shape):
+        raise ValueError(f"engine mesh {engine.mesh_shape} is not "
+                         f"{dict(mesh_shape)}")
+    if engine.stack_shape == () and cfg.family != "dense":
+        from repro_torch.core.procgroup import NOT_YET
+        raise NotImplementedError(
+            f"the {cfg.family} family is {NOT_YET['families']}")
     return ParCtx(engine=engine, pcfg=pcfg)
+
+
+def process_engine(mesh_shape: dict, backend: str = "microcode",
+                   device="cuda"):
+    """This process's `ProcessGroupEngine` over the initialized world: on
+    the card it picks (`cuda:{LOCAL_RANK % count}`, raising without one)
+    unless `device` is 'cpu'."""
+    from repro_torch.core.procgroup import ProcessGroupEngine
+    cpu = torch.device(device).type == "cpu"
+    return ProcessGroupEngine(dict(mesh_shape), backend=backend,
+                              device="cpu" if cpu else None)
 
 
 # --------------------------------------------------------------------------
@@ -67,25 +100,29 @@ def param_specs(cfg: ArchConfig, tp: int, serve: bool = False):
 
 
 def init_params(cfg: ArchConfig, mesh_shape: dict, tp: int, seed: int = 0,
-                device="cuda", serve: bool = False):
+                device="cuda", serve: bool = False, coords=None):
     """Random params drawn on `device` from `seed` (a torch.Generator),
     mesh-stacked in the FSDP layout or, with serve=True, the serving
-    layout."""
+    layout. With `coords` (a process's mesh position) that process's
+    local shards, bitwise the stacked init's rows
+    (`models/common.py::Builder`)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     b = Builder("init", generator=gen, mesh_shape=dict(mesh_shape),
                 device=device, dtype=dt(cfg.param_dtype),
-                spec_map=_drop_data_axis if serve else None)
+                spec_map=_drop_data_axis if serve else None,
+                coords=coords, seed=seed)
     return lm_mod.model_params(b, cfg, tp)
 
 
 def param_shapes(cfg: ArchConfig, mesh_shape: dict, tp: int, dtype=None,
-                 serve: bool = False):
+                 serve: bool = False, coords=None):
     """The param tree as storage-free 'meta' tensors of the stacked shapes
-    and dtypes `init_params` draws (the reference's ShapeDtypeStructs)."""
+    and dtypes `init_params` draws (the reference's ShapeDtypeStructs);
+    with `coords`, the local shapes."""
     b = Builder("shape", mesh_shape=dict(mesh_shape),
                 dtype=dtype or dt(cfg.param_dtype),
-                spec_map=_drop_data_axis if serve else None)
+                spec_map=_drop_data_axis if serve else None, coords=coords)
     return lm_mod.model_params(b, cfg, tp)
 
 
@@ -124,7 +161,8 @@ def grad_sync(grads, specs, ctx: ParCtx, compression=None,
     blocking path (`tree_allreduce`). Axes are ordered 'data' and
     'model' first, 'pod' (the slow fabric) last.
 
-    Returns (synced grads, each rank's sum of squares stacked (*mesh,),
+    Returns (synced grads, each rank's sum of squares stacked (*mesh,)
+    (0-d on local shards),
     corrected for replication: each leaf's contribution divided by its
     replication factor, so one allreduce over the full mesh yields the
     true norm)."""
@@ -162,7 +200,7 @@ def grad_sync(grads, specs, ctx: ParCtx, compression=None,
                                MeshMakespan.of(ctx.engine.queue).total())
 
     out = []
-    sq = torch.zeros(tuple(mesh.values()), dtype=torch.float32,
+    sq = torch.zeros(ctx.engine.stack_shape, dtype=torch.float32,
                      device=ctx.engine.device)
     for missing, entries in buckets.items():
         repl = 1
@@ -193,13 +231,38 @@ class TrainStep:
     batch_spec: object
 
     def put_batch(self, batch) -> dict:
-        """A batch of global arrays (numpy or torch, the loader's) stacked
-        onto the step's device by its batch specs."""
-        from repro_torch.convert import stack_global
-        dev = self.ctx.engine.device
-        return {k: stack_global(torch.as_tensor(v).to(dev),
+        """A batch of global arrays (numpy or torch) on the step's device
+        by its batch specs: stacked, or on local shards this process's
+        rows (`convert.shard_of`)."""
+        from repro_torch.convert import shard_of, stack_global
+        eng = self.ctx.engine
+        if self.ctx.local:
+            return {k: shard_of(torch.as_tensor(v), self.ctx.mesh_shape,
+                                self.batch_spec[k], eng.coords)
+                    .to(eng.device) for k, v in batch.items()}
+        return {k: stack_global(torch.as_tensor(v).to(eng.device),
                                 self.ctx.mesh_shape, self.batch_spec[k])
                 for k, v in batch.items()}
+
+    def data_shard(self) -> tuple:
+        """(index, count) of this process's rows of the global batch: its
+        data-parallel rank and size on local shards (the rows
+        `put_batch` keeps, for `data.make_loader`), else (0, 1)."""
+        if not self.ctx.local:
+            return 0, 1
+        mesh, coords = self.ctx.mesh_shape, self.ctx.engine.coords
+        idx, count = 0, 1
+        for a in self.batch_spec["tokens"][0] or ():
+            idx, count = idx * mesh[a] + coords[a], count * mesh[a]
+        return idx, count
+
+    def put_rows(self, batch) -> dict:
+        """This process's rows of a batch, as the loader at `data_shard`
+        gives them, on the step's device (stacked: `put_batch`)."""
+        if not self.ctx.local:
+            return self.put_batch(batch)
+        dev = self.ctx.engine.device
+        return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
 
 
 def _microbatch(batch, k: int, j: int, D: int) -> dict:
@@ -219,7 +282,8 @@ def _rank0(t):
 
 def build_train_step(cfg: ArchConfig, pcfg: ParallelConfig,
                      mesh_shape: dict, opt_cfg: adamw.AdamWConfig,
-                     lr_schedule=None, device="cuda") -> TrainStep:
+                     lr_schedule=None, device="cuda",
+                     engine=None) -> TrainStep:
     """The train step over FSDP-layout params (`init_params`): forward and
     backward of the stacked per-rank losses (microbatched), `grad_sync`,
     the global clip through the engine's scalar allreduces, the lr
@@ -227,8 +291,8 @@ def build_train_step(cfg: ArchConfig, pcfg: ParallelConfig,
     from the masters. `fn(params, opt_state, batch, step_idx)` updates
     params and opt_state in place and returns (params, opt_state,
     metrics) with 0-d metrics ce_mean, aux, grad_norm and loss (rank 0's
-    where they differ by rank)."""
-    ctx = make_ctx(cfg, pcfg, mesh_shape, device)
+    where they differ by rank; on local shards this process's)."""
+    ctx = make_ctx(cfg, pcfg, mesh_shape, device, engine)
     specs = param_specs(cfg, ctx.tp)
     ospecs = adamw.opt_specs(specs)
     dp = tuple(a for a in ("pod", "data") if a in mesh_shape)
@@ -325,13 +389,14 @@ def dp_axes(mesh_shape: dict, global_batch: int):
 
 
 def build_prefill(cfg: ArchConfig, pcfg: ParallelConfig, mesh_shape: dict,
-                  global_batch: int, seq_len: int, device="cuda"):
+                  global_batch: int, seq_len: int, device="cuda",
+                  engine=None):
     """(prefill fn, ctx, param specs, batch specs). The fn takes the
     serving-layout params and a stacked batch of `seq_len` tokens and
     returns (next tokens stacked (*mesh, B_local), layer-stacked caches
     laid out by `serve.prefill_cache_specs`)."""
     pcfg = dataclasses.replace(pcfg, serving=True)
-    ctx = make_ctx(cfg, pcfg, mesh_shape, device)
+    ctx = make_ctx(cfg, pcfg, mesh_shape, device, engine)
     specs = param_specs(cfg, ctx.tp, serve=True)
     dp = dp_axes(mesh_shape, global_batch)
     bspec = lm_mod.batch_specs(cfg, "prefill", dp=dp)
@@ -366,24 +431,25 @@ def cache_shapes(cfg: ArchConfig, pcfg: ParallelConfig, mesh_shape: dict,
 
 def init_cache(cfg: ArchConfig, pcfg: ParallelConfig, mesh_shape: dict,
                tp: int, batch: int, s_max: int, s_enc: int = 0,
-               device="cuda"):
-    """Zero decode caches, mesh-stacked on `device`."""
+               device="cuda", coords=None):
+    """Zero decode caches, mesh-stacked on `device` (with `coords`, a
+    process's local shards)."""
     b = Builder("init", mesh_shape=dict(mesh_shape), device=device,
-                dtype=dt(cfg.param_dtype))
+                dtype=dt(cfg.param_dtype), coords=coords)
     return serve_mod.make_cache(b, cfg, tp, batch, s_max, pcfg, s_enc=s_enc,
                                 dp=dp_axes(mesh_shape, batch))
 
 
 def build_decode_step(cfg: ArchConfig, pcfg: ParallelConfig,
                       mesh_shape: dict, s_max: int, global_batch: int,
-                      s_enc: int = 0, device="cuda"):
+                      s_enc: int = 0, device="cuda", engine=None):
     """(decode fn, ctx, param specs, cache specs). The fn takes the
     serving-layout params, the caches, stacked tokens (*mesh, B_local,
     1) and the position `pos` (an int) and returns (next tokens stacked
     (*mesh, B_local), the caches, written in place)."""
     pcfg_d = dataclasses.replace(pcfg, sequence_parallel=False,
                                  serving=True)
-    ctx = make_ctx(cfg, pcfg_d, mesh_shape, device)
+    ctx = make_ctx(cfg, pcfg_d, mesh_shape, device, engine)
     specs = param_specs(cfg, ctx.tp, serve=True)
     cspecs = cache_specs(cfg, pcfg_d, ctx.tp, s_max, s_enc=s_enc,
                          dp=dp_axes(mesh_shape, global_batch))

@@ -16,6 +16,14 @@ cache, so it serves every family but audio (whose prefill needs
 module's `convert_prefill_caches(..., s_enc=...)` and
 `stages.build_decode_step(..., s_enc=...)` (ROADMAP Queue 3).
 
+On a `ProcessGroupEngine` (one rank per process) the session takes the
+engine and works on this process's local shards: a global batch is cut
+to its rows (`convert.shard_of`), each prefill cache is gathered along
+every dim but the batch's through the engine (`convert.gather_global`:
+the prompt's sequence shards and the decode cache's fall on different
+ranks), rearranged, and cut to the decode layout's shard; the generated
+tokens are gathered the same way, so every process returns the whole.
+
 With `kv_cache_dtype="int8"` (which the reference's session refuses)
 the handoff quantizes each prompt slot with the decode write's own
 quantizer (`serve.quantize_kv`), so the decode caches hold what a decode
@@ -28,7 +36,8 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig, ParallelConfig
-from repro_torch.convert import stack_global, unstack
+from repro_torch.convert import gather_global, shard_of, stack_global, \
+    unstack
 from repro_torch.models.blocks import window_per_layer
 from repro_torch.models.serve import (
     layer_cache_len, prefill_cache_names, prefill_cache_specs, quantize_kv,
@@ -39,13 +48,14 @@ from repro_torch.parallel import stages
 def convert_prefill_caches(prefill_caches, cfg: ArchConfig,
                            pcfg: ParallelConfig, mesh_shape: dict, tp: int,
                            batch: int, s_prompt: int, s_max: int,
-                           s_enc: int = 0):
+                           s_enc: int = 0, engine=None):
     """Rearrange prefill's layer-stacked caches into decode's per-layer
     layout (int8 with its scales when pcfg.kv_cache_dtype says so). Per
     family, as the reference's: the attention k/v are placed at s_max
     (SWA windows rolled); the SSM `conv`/`state` and the audio cross
     cache `xk`/`xv` carry over as they are (prefill emits them in
-    decode's layout)."""
+    decode's layout). With a per-process `engine`, the caches are this
+    process's local shards, and so is the result."""
     windows = window_per_layer(cfg, cfg.n_layers)
     dp = stages.dp_axes(mesh_shape, batch)
     decode_specs = stages.cache_specs(cfg, pcfg, tp, s_max, s_enc=s_enc,
@@ -53,6 +63,21 @@ def convert_prefill_caches(prefill_caches, cfg: ArchConfig,
     pf_spec = prefill_cache_specs(cfg, pcfg, tp, s_prompt, dp=dp)[0][1:]
     q8 = pcfg.kv_cache_dtype == "int8"
     stacks = dict(zip(prefill_cache_names(cfg), prefill_caches))
+    local = engine is not None and engine.stack_shape == ()
+
+    def whole(t, spec):
+        """The global cache, or on local shards this process's batch rows
+        of it."""
+        if local:
+            return gather_global(t, (None,) + tuple(spec[1:]), engine)
+        return unstack(t, mesh_shape, spec)
+
+    def place(t, spec):
+        if local:
+            return shard_of(t, mesh_shape, (None,) + tuple(spec[1:]),
+                            engine.coords).contiguous()
+        return stack_global(t, mesh_shape, spec)
+
     caches = []
     for layer in range(cfg.n_layers):
         entry = {name: stacks[name][layer].clone()
@@ -70,9 +95,9 @@ def convert_prefill_caches(prefill_caches, cfg: ArchConfig,
         else:
             pos = slots = torch.arange(s_prompt)
         for name in ("k", "v"):
-            g = unstack(stacks[name][layer], mesh_shape, pf_spec)
+            g = whole(stacks[name][layer], pf_spec)
             src = g[:, pos.to(g.device)]                  # (B, S_p, ...)
-            shape = (batch, length) + tuple(g.shape[2:])
+            shape = (g.shape[0], length) + tuple(g.shape[2:])
             spec = decode_specs[layer][name]
             if q8:
                 codes, scales = quantize_kv(src)
@@ -80,20 +105,22 @@ def convert_prefill_caches(prefill_caches, cfg: ArchConfig,
                 sc = torch.zeros(shape[:3], dtype=torch.float32,
                                  device=g.device)
                 sc[:, slots.to(g.device)] = scales
-                entry[f"{name}_scale"] = stack_global(
-                    sc, mesh_shape, decode_specs[layer][f"{name}_scale"])
+                entry[f"{name}_scale"] = place(
+                    sc, decode_specs[layer][f"{name}_scale"])
                 src = codes
             else:
                 out = torch.zeros(shape, dtype=g.dtype, device=g.device)
             out[:, slots.to(g.device)] = src
-            entry[name] = stack_global(out, mesh_shape, spec)
+            entry[name] = place(out, spec)
         caches.append(entry)
     return caches
 
 
 @dataclasses.dataclass
 class ServeSession:
-    """Prefill + decode pair with automatic cache handoff, on `device`."""
+    """Prefill + decode pair with automatic cache handoff, on `device`, or
+    on `engine` (one engine for both steps; a `ProcessGroupEngine` serves
+    this process's local shards)."""
 
     cfg: ArchConfig
     pcfg: ParallelConfig
@@ -103,34 +130,41 @@ class ServeSession:
     s_prompt: int
     s_max: int
     device: object = "cuda"
+    engine: object = None
 
     def __post_init__(self):
         self.mesh_shape = dict(self.mesh_shape)
         self.prefill_fn, self.prefill_ctx, _, self.bspec = \
             stages.build_prefill(self.cfg, self.pcfg, self.mesh_shape,
                                  self.batch, self.s_prompt,
-                                 device=self.device)
+                                 device=self.device, engine=self.engine)
         self.decode_fn, self.decode_ctx, _, _ = stages.build_decode_step(
             self.cfg, self.pcfg, self.mesh_shape, s_max=self.s_max,
-            global_batch=self.batch, device=self.device)
+            global_batch=self.batch, device=self.device, engine=self.engine)
         self.out_spec = (self.bspec["tokens"][0],)
+        self.local = self.prefill_ctx.local
 
     def stack_batch(self, batch: dict) -> dict:
         """A batch of GLOBAL tensors (tokens (B, s_prompt), ...) ->
-        mesh-stacked on the session's device."""
-        dev = self.prefill_ctx.engine.device
-        return {k: stack_global(torch.as_tensor(v, device=dev),
+        mesh-stacked on the session's device, or this process's rows."""
+        eng = self.prefill_ctx.engine
+        if self.local:
+            return {k: shard_of(torch.as_tensor(v), self.mesh_shape,
+                                self.bspec[k], eng.coords).to(eng.device)
+                    for k, v in batch.items()}
+        return {k: stack_global(torch.as_tensor(v, device=eng.device),
                                 self.mesh_shape, self.bspec[k])
                 for k, v in batch.items()}
 
     def generate(self, params, tokens, n_new: int):
         """tokens: (B, s_prompt) -> (B, n_new) greedy continuation, a CPU
-        int32 tensor."""
+        int32 tensor (on every process, one rank per process)."""
         batch = self.stack_batch({"tokens": tokens})
         nxt, pf_caches = self.prefill_fn(params, batch)
         caches = convert_prefill_caches(
             pf_caches, self.cfg, self.pcfg, self.mesh_shape, self.tp,
-            self.batch, self.s_prompt, self.s_max)
+            self.batch, self.s_prompt, self.s_max,
+            engine=self.prefill_ctx.engine)
         del pf_caches
         out = [nxt]
         for i in range(n_new - 1):
@@ -138,4 +172,7 @@ class ServeSession:
                                          self.s_prompt + i)
             out.append(nxt)
         gen = torch.stack(out, dim=-1)                 # (*mesh, B_l, n)
+        if self.local:
+            return gather_global(gen, self.out_spec + (None,),
+                                 self.prefill_ctx.engine).cpu()
         return unstack(gen, self.mesh_shape, self.out_spec + (None,)).cpu()

@@ -7,8 +7,17 @@ simulated chip loss; shrink-and-continue on a dead rank) and elastic
 restart onto a different mesh (checkpoint resharding).
 
 The mesh is a `{axis: size}` dict and every rank a row of the stacked
-state on one device (`parallel/stages.py`); the trainer runs on the card
-unless `device="cpu"` is given. The step updates params and optimizer
+state on one device (`parallel/stages.py`) or, with `engine` this
+process's `ProcessGroupEngine` (`stages.process_engine`; the reference's
+multi-host launch), one rank per process: the step runs on local shards
+(several trainers may share the engine); the params are drawn as
+the stacked init's rows (`stages.init_params(coords=...)`), the loader
+reads only this process's data-parallel rows (`make_loader` at
+`TrainStep.data_shard()`), checkpoints are gathered to rank 0 and
+written there (`checkpoint/store.py`), and the watchdog and queue stats
+are the process's own. The elastic shrink is not available one rank per
+process (`procgroup.NOT_YET`). The trainer runs on the card unless
+`device="cpu"` is given. The step updates params and optimizer
 state in place, so a checkpoint snapshots them to host before the next
 step. run() returns a log of per-step metrics; recover-and-continue is
 exercised by tests/test_torch_trainer.py (inject a failure at step k,
@@ -31,6 +40,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig, ParallelConfig
 from repro_torch.convert import stack_global, unstack
 from repro_torch.core import telemetry
+from repro_torch.core.procgroup import NOT_YET
 from repro_torch.data import DataConfig, make_loader
 from repro_torch.optim import adamw
 from repro_torch.parallel import stages
@@ -78,13 +88,16 @@ class Trainer:
                  mesh_shape: dict, opt_cfg: adamw.AdamWConfig,
                  data_cfg: DataConfig, tcfg: TrainerConfig,
                  injector: Optional[FailureInjector] = None,
-                 lr_schedule=None, device="cuda"):
+                 lr_schedule=None, device="cuda", engine=None):
         self.arch, self.pcfg, self.mesh = arch, pcfg, dict(mesh_shape)
         self.opt_cfg, self.data_cfg, self.tcfg = opt_cfg, data_cfg, tcfg
         self.injector = injector
         self.lr_schedule = lr_schedule
-        self.device = torch.device(device)
-        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
+        per_process = engine is not None and engine.stack_shape == ()
+        self.coords = engine.coords if per_process else None
+        self.device = torch.device(engine.device if per_process else device)
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep,
+                                      per_process=per_process)
         self.watchdog = StragglerWatchdog()
         self.heartbeat = Heartbeat()
         self._preempted = False
@@ -94,12 +107,19 @@ class Trainer:
         # per-step structured metrics (one `record()` per training step)
         self.metrics = telemetry.MetricsRegistry()
         self.ts = stages.build_train_step(arch, pcfg, self.mesh, opt_cfg,
-                                          lr_schedule, device=self.device)
+                                          lr_schedule, device=self.device,
+                                          engine=engine)
+
+    @property
+    def root(self) -> bool:
+        """Whether this process prints the log (rank 0, or stacked)."""
+        return self.coords is None or self.ts.ctx.engine.global_rank == 0
 
     # -- state ---------------------------------------------------------------
     def _fresh_state(self):
         params = stages.init_params(self.arch, self.mesh, self.ts.ctx.tp,
-                                    seed=self.tcfg.seed, device=self.device)
+                                    seed=self.tcfg.seed, device=self.device,
+                                    coords=self.coords)
         return params, adamw.adamw_init(params), 0
 
     def _state_tree(self, params, opt):
@@ -109,7 +129,8 @@ class Trainer:
         return {"params": self.ts.specs, "opt": self.ts.opt_specs}
 
     def _shape_tree(self):
-        params = stages.param_shapes(self.arch, self.mesh, self.ts.ctx.tp)
+        params = stages.param_shapes(self.arch, self.mesh, self.ts.ctx.tp,
+                                     coords=self.coords)
         opt = {"leaves": tree_map(
                    lambda p: {n: p.float() for n in ("master", "m", "v")},
                    params),
@@ -119,7 +140,7 @@ class Trainer:
     def restore_or_init(self):
         got = self.ckpt.restore_latest(self._shape_tree(),
                                        self._state_specs(), self.mesh,
-                                       self.device)
+                                       self.device, self.coords)
         if got is None:
             return self._fresh_state()
         step, tree, _ = got
@@ -183,6 +204,9 @@ class Trainer:
         survivor's own copy, leaves sharded along it are re-cut from
         their global arrays. Returns the (params, opt, step) state the
         next `_run_once` continues from."""
+        if self.coords is not None:
+            raise NotImplementedError(
+                f"the elastic shrink is {NOT_YET['shrink']}") from failure
         if failure.state is None:
             raise failure  # failed outside the step loop: nothing to save
         axis = failure.axis
@@ -236,7 +260,9 @@ class Trainer:
             params, opt, start = state  # shrink-and-continue resume
         else:
             params, opt, start = self.restore_or_init()
-        loader = make_loader(self.data_cfg, self.arch, start_step=start)
+        index, count = self.ts.data_shard()
+        loader = make_loader(self.data_cfg, self.arch, start_step=start,
+                             process_index=index, process_count=count)
         log = []
         try:
             for step, batch in loader:
@@ -253,7 +279,7 @@ class Trainer:
                         raise
                 t0 = time.perf_counter()
                 params, opt, metrics = self.ts.fn(
-                    params, opt, self.ts.put_batch(batch), step)
+                    params, opt, self.ts.put_rows(batch), step)
                 metrics = {k: float(v) for k, v in metrics.items()}
                 dt = time.perf_counter() - t0
                 self.heartbeat.beat()

@@ -237,7 +237,7 @@ def _grid_results(rank: int, n: int) -> dict:
     return out
 
 
-def _engine_results(rank: int) -> dict:
+def _engine_results(rank: int, outdir: str) -> dict:
     from repro_torch.core import plugins
     from repro_torch.core.procgroup import ProcessGroupEngine
     from repro_torch.core.schedule import Schedule, Sel, Step
@@ -273,21 +273,10 @@ def _engine_results(rank: int) -> dict:
         xs = torch.from_numpy(x).reshape(4, -1)[rank]
         ws = torch.from_numpy(w).reshape(4, -1, VECMAT_SIZE)[rank]
         out[f"vecmat_{kind}"] = vm.distributed_vecmat(eng, xs, ws, TILES)
-    # what waits for a later slice: the streaming ops' adjoints
-    out["not_yet"] = []
-    g = torch.ones(4, 3, requires_grad=True)
-    for attempt in (
-            lambda: eng.allgather_matmul(g, torch.ones(3, 2), "x"),
-            lambda: eng.matmul_reduce_scatter(g, torch.ones(3, 2), "x"),
-            lambda: eng.ring_attention(torch.ones(1, 2, 1, 4,
-                                                  requires_grad=True),
-                                       *[torch.ones(1, 2, 1, 4)] * 2, "x")):
-        try:
-            attempt()
-        except NotImplementedError as e:
-            out["not_yet"].append(str(e))
-        else:
-            raise AssertionError("ran on inputs that require grad")
+    # the streaming ops differentiate one rank per process
+    out["grads"] = streaming_grads(eng, rank)
+    # what waits for a later slice: the other families, the shrink
+    out["not_yet"] = not_yet_messages(outdir)
     # a rank that asks for another algorithm than its peers
     try:
         eng.allreduce(torch.ones(77), "x",
@@ -297,13 +286,81 @@ def _engine_results(rank: int) -> dict:
     return out
 
 
+#: the streaming ops' grads: (op, local input shapes); each rank's
+#: cotangent has the output's shape
+GRAD_OPS = (("allgather_matmul", ((4, 3), (3, 2))),
+            ("matmul_reduce_scatter", ((8, 3), (3, 2))),
+            ("ring_attention", ((1, 2, 2, 4), (1, 2, 1, 4), (1, 2, 1, 4))))
+
+
+def grad_inputs(n: int, shapes, seed: int) -> list:
+    """Stacked (n, ...) fp32 inputs of a streaming op."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((n,) + s).astype(np.float32)
+            for s in shapes]
+
+
+def grad_call(eng, op: str, ins, cot):
+    """(output, grads of sum(op(ins) * cot)) of one streaming op on `eng`
+    (stacked or one process's)."""
+    ts = [torch.tensor(x, requires_grad=True) for x in ins]
+    y = getattr(eng, op)(*ts, "x")
+    (y * torch.as_tensor(cot)).sum().backward()
+    return (y.detach(),) + tuple(t.grad for t in ts)
+
+
+def streaming_grads(eng, rank: int) -> dict:
+    out = {}
+    for i, (op, shapes) in enumerate(GRAD_OPS):
+        ins = [x[rank] for x in grad_inputs(4, shapes, 20 + i)]
+        y = getattr(eng, op)(*[torch.from_numpy(x) for x in ins], "x")
+        cot = np.random.default_rng(30 + i).standard_normal(
+            (4,) + tuple(y.shape)).astype(np.float32)[rank]
+        out[op] = grad_call(eng, op, ins, cot)
+    return out
+
+
+def not_yet_messages(outdir: str) -> list:
+    """The NotImplementedError messages of what one rank per process does
+    not run yet: each non-dense family's step context, and the Trainer's
+    elastic shrink."""
+    from repro_torch.configs import ParallelConfig, get_config, \
+        reduced_config
+    from repro_torch.core.procgroup import ProcessGroupEngine
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import stages
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.runtime.health import RankFailure
+    mesh = {"pod": 1, "data": 2, "model": 2}
+    eng = ProcessGroupEngine(mesh, device="cpu")
+    msgs = []
+    for arch in ("mixtral-8x7b", "mamba2-1.3b", "hymba-1.5b",
+                 "whisper-medium", "internvl2-26b"):
+        cfg = reduced_config(get_config(arch))
+        try:
+            stages.make_ctx(cfg, ParallelConfig(), mesh, engine=eng)
+        except NotImplementedError as e:
+            msgs.append(str(e))
+    trainer = Trainer(reduced_config(get_config("qwen3-0.6b")),
+                      ParallelConfig(), mesh, adamw.AdamWConfig(),
+                      DataConfig(global_batch=4, seq_len=8),
+                      TrainerConfig(ckpt_dir=f"{outdir}/ckpt"),
+                      engine=stages.process_engine(mesh, device="cpu"))
+    try:
+        trainer._shrink_to_survivors(RankFailure("rank 1 died", rank=1))
+    except NotImplementedError as e:
+        msgs.append(str(e))
+    return msgs
+
+
 def run(rank: int, n: int, outdir: str) -> None:
     """One process of an n-rank world: the grid at every n; at n = 4 also
     the engine, the queue, use case 1 and a mismatched program."""
     count_calls()
     res = {"grid": _grid_results(rank, n)}
     if n == 4:
-        res.update(_engine_results(rank))
+        res.update(_engine_results(rank, outdir))
     torch.save(res, f"{outdir}/rank{rank}.pt")
 
 

@@ -61,9 +61,15 @@ PROCESSES = ["repro_torch.core.procgroup", "repro_torch.launch.procs",
              "repro_torch.core.engine", "repro_torch.parallel.ops",
              "repro_torch.models.common", "repro_torch.models.dlrm",
              "repro_torch.convert", "repro_torch.launch.dlrm_serve",
-             "repro_torch.launch.analysis"]
+             "repro_torch.launch.analysis",
+             # LM serving and training one rank per process
+             "repro_torch.parallel.stages", "repro_torch.models.lm",
+             "repro_torch.models.blocks", "repro_torch.models.serve",
+             "repro_torch.models.attention",
+             "repro_torch.runtime.serve_session", "repro_torch.launch.serve"]
 # the cases spawned children import
-CASES = ["_torch_procs_cases", "_torch_streams_cases"]
+CASES = ["_torch_procs_cases", "_torch_streams_cases",
+         "_torch_lm_procs_cases"]
 
 
 def test_port_imports_without_jax_or_reference():

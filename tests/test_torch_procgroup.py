@@ -18,10 +18,12 @@ the parent stacks them.
   * the queue: phase 7b's mix drained BITWISE the blocking calls;
   * use case 1: `distributed_vecmat` over 4 processes equal to the
     stacked run, bitwise on integer inputs, within 1e-4 on normal ones;
+  * the streaming ops on inputs that require grad: outputs and grads
+    within 1e-5 of the stacked engine's;
   * the entry points: no card without device='cpu', a mismatched program
-    raises, a child that raises fails the world, a streaming op on
-    inputs that require grad raises (training one rank per process is
-    not yet ported).
+    raises, a child that raises fails the world, and what one rank per
+    process does not run yet (the non-dense families, the Trainer's
+    elastic shrink) raises naming its ROADMAP item.
 """
 import os
 import subprocess
@@ -190,13 +192,36 @@ def test_mismatched_program_raises(worlds):
         assert "different programs" in worlds(4)[r]["mismatch"]
 
 
+@pytest.mark.parametrize("i", range(len(C.GRAD_OPS)),
+                         ids=[op for op, _ in C.GRAD_OPS])
+def test_streaming_ops_differentiate_per_process(worlds, i):
+    """`allgather_matmul`, `matmul_reduce_scatter` and `ring_attention`
+    on inputs that require grad, one rank per process: outputs and grads
+    within rtol = atol = 1e-5 of the stacked engine's on the same inputs
+    and cotangents (a process's products are 2-D, the stacked engine's
+    batched over the ranks: on the CPU they may sum in another order)."""
+    op, shapes = C.GRAD_OPS[i]
+    ins = C.grad_inputs(4, shapes, 20 + i)
+    got = [worlds(4)[r]["grads"][op] for r in range(4)]
+    cot = np.random.default_rng(30 + i).standard_normal(
+        (4,) + tuple(got[0][0].shape)).astype(np.float32)
+    want = C.grad_call(CollectiveEngine({"x": 4}, device="cpu"), op, ins,
+                       cot)
+    for j, w in enumerate(want):
+        np.testing.assert_allclose(torch.stack([g[j] for g in got]).numpy(),
+                                   w.numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=str(j))
+
+
 def test_not_yet_one_rank_per_process(worlds):
-    """The streaming ops on inputs that require grad (training one rank
-    per process) raise in per-process mode, naming the ROADMAP item."""
+    """What one rank per process does not run yet raises, naming its
+    ROADMAP item: the non-dense families' step contexts (item 8) and the
+    Trainer's elastic shrink (item 9)."""
     msgs = worlds(4)[0]["not_yet"]
-    assert len(msgs) == 3
-    for msg in msgs:
-        assert "ROADMAP.md Queue 1 item 7" in msg
+    assert len(msgs) == 6
+    for msg in msgs[:5]:
+        assert "ROADMAP.md Queue 1 item 8" in msg
+    assert "ROADMAP.md Queue 1 item 9" in msgs[5]
 
 
 def test_engine_needs_the_card_by_default():

@@ -24,8 +24,9 @@ results and holds them:
     collective_matmul) one K4 call per batch on each rank; params drawn
     per process from a seed, against the reference gathered outside
     the engine;
-  * a mismatched ring call raises (inputs that require grad:
-    `test_torch_procgroup.py::test_not_yet_one_rank_per_process`).
+  * a mismatched ring call raises (their grads one rank per process:
+    `test_torch_procgroup.py::test_streaming_ops_differentiate_per_process`
+    and `test_torch_procgroup_lm.py`).
 Without a spawn: `ParCtx`'s local mode against the stacked mode's rows,
 the per-process `Builder`, `convert.local_shard`, the batch helpers.
 """
