@@ -11,9 +11,10 @@ decode of qwen3-0.6b at full width, then of the MoE, SSM, hybrid and
 audio families: qwen3-moe-30b-a3b, mamba2-1.3b, hymba-1.5b and
 whisper-medium at full width) and LM training (qwen3-0.6b at full
 width: the train step and the `Trainer`) — ranks stacked on the card — and
-the collectives (both backends), the streaming ops and use cases 1 and 2
-one rank per process, 8 processes on the card, and holds every kernel on
-those paths against its plain PyTorch version.
+the collectives (both backends), the streaming ops, use cases 1 and 2 and
+every LM family's serving and training (the `Trainer`'s elastic shrink
+included) one rank per process, 8 processes on the card, and holds every
+kernel on those paths against its plain PyTorch version.
 Phases, one line each:
 
   1. device: the card (nvidia-smi) and the kernels' build time;
@@ -101,12 +102,12 @@ Phases, one line each:
   9. lm_families: LM serving for the MoE, SSM, hybrid and audio
      families at full width, params drawn on the card from --seed, each
      model built, served, checked and timed, then freed: 9a
-     qwen3-moe-30b-a3b (4 of its 48 layers; 128 experts top-8 over EP
+     qwen3-moe-30b-a3b (2 of its 48 layers; 128 experts top-8 over EP
      8 on the (1, 1, 8) mesh: two engine all-to-alls per layer, KV
      replicated so the decode cache is sequence-sharded and merged by
-     the flash-combine), 9b mamba2-1.3b (12 of 48 layers), 9c hymba-1.5b
-     (8 of 32 layers, 25 heads padded to 26, windowed and global
-     layers), 9d whisper-medium (6 of 24 encoder and 6 of 24 decoder
+     the flash-combine), 9b mamba2-1.3b (6 of 48 layers), 9c hymba-1.5b
+     (4 of 32 layers, 25 heads padded to 26, windowed and global
+     layers), 9d whisper-medium (3 of 24 encoder and 3 of 24 decoder
      layers over 1500 stub frames drawn from
      --seed, through build_prefill, convert_prefill_caches and
      build_decode_step with s_enc, as its session prefills tokens only),
@@ -149,7 +150,7 @@ Phases, one line each:
      matmul, every K4 call within its bound, grads within eps_g of the
      reference. 10d: remat full, grads BITWISE 10a's and the forward /
      backward peak lower. 10e: the `Trainer` through `launch/train.py`'s
-     code path at 7 of 28 layers (`depth_cut`; a cut for the time),
+     code path at 4 of 28 layers (`depth_cut`; a cut for the time),
      8 steps, checkpoints every 4, a failure injected at step
      6: the ce_mean trajectory equal to an uninterrupted run's within
      1e-5. Then the median step, tokens/s, peak memory, launches, one
@@ -241,11 +242,33 @@ Phases, one line each:
      (the engine's trace) the stacked step's. Per process: prefill and
      decode step ms, tokens/s, train step ms, staged bytes a call, rank
      0's busy share.
+ 14. lm_fam_procs: in phase 13's world, after 13d (`p14_child`), full
+     width, 2 layers each (a depth cut for the run's time): 14a-14e serve
+     qwen3-moe-30b-a3b on (1, 1, 8), mamba2-1.3b, hymba-1.5b (layer 0
+     global, 1 windowed), whisper-medium (2 + 2 layers, 1500 stub frames;
+     its pieces) and internvl2-26b (256 visual prefix rows ahead of 16
+     tokens; its pieces) on (1, 4, 2) at (4, 16, 8), capacity factor 8,
+     each process drawing its rows of the stacked init from --seed: the
+     tokens equal on every process and by the margin rule against the
+     float64 (14a: float32) single copy (14a routed as the processes
+     routed), the collectives of every decode step the layouts', the
+     first decode step's replayed on the stacked engine BITWISE; 14f one
+     train step of qwen3-moe-30b-a3b at (8, 64), routed as the stacked
+     step routed each rank's tokens (`p14_routed`; a token whose own
+     top-k differs must be a near-tie), int8 gradient buckets (K2/K3),
+     against that step (loss and ce within 1e-5, grad norm 1e-3, params
+     2e-4 plus one bf16 ulp); 14g the per-process `Trainer` on (2, 2, 2)
+     of qwen3-0.6b at 2 layers with the streaming matmuls (K4), data rank 1
+     dying at step 2 of 4: the processes at the dead position leave after
+     the handoff, the survivors' steps, events, mesh and final checkpoint
+     against the stacked `Trainer`'s shrink run (step 0 within 1e-5,
+     later steps within P14_TRAJ_RTOL), K4 a step the stacked run's.
+     Launches and checks as phase 13's.
 
 Then one JSON line of the five kernels with their launches on every
 path (in total and by path: collectives, dlrm, vecmat, queue, lm,
-lm_families, train, dryrun, procs, procs_lm — the children's launches,
-summed),
+lm_families, train, dryrun, procs, procs_lm, procs_families — the
+children's launches, summed),
 time, plain time, bound and library time (K4 also with the tile
 configuration that ran and its achieved rate; K5 also its `lookup` entry
 at B = 32 and 2048, beside the device time of the sequence of PyTorch
@@ -297,7 +320,13 @@ DLRM_HEADROOM = 10 * 2**30    # bytes the serving path needs beside the tables
 DLRM_ATOL, DLRM_RTOL = 1e-5, 1e-4
 
 
+#: the script's start: each phase line carries its wall seconds since
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "wall_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1914,17 +1943,17 @@ FAM_WIDE = (32, 16, 32)      # 1024 generated positions, short prompt
 # the single-copy reference's dtype, the second (batch, prompt, gen) that
 # is timed and whose tokens are held to the reference too
 FAM_RUNS = (
-    # 4 of 48 layers: the full 61 GB model leaves no room for the
-    # single-copy reference beside it (12 would fit), and phase 13 needs
-    # the time under the run's limit
-    ("9a", "qwen3-moe-30b-a3b", {"pod": 1, "data": 1, "model": 8}, 8, 4,
+    # 2 of 48 layers: the full 61 GB model leaves no room for the
+    # single-copy reference beside it (12 would fit), and phases 13-14
+    # need the time under the run's limit (4 layers: 591 s in all)
+    ("9a", "qwen3-moe-30b-a3b", {"pod": 1, "data": 1, "model": 8}, 8, 2,
      {}, torch.float32, LM_LARGE),
-    # 9b-9d at a quarter of their depth (12 of 48, 8 of 32, 6 of 24
+    # 9b-9d at an eighth of their depth (6 of 48, 4 of 32, 3 of 24
     # encoder and decoder layers), for the same reason
-    ("9b", "mamba2-1.3b", LM_MESH, LM_TP, 12, {}, torch.float64, LM_LARGE),
-    ("9c", "hymba-1.5b", LM_MESH, LM_TP, 8, {}, torch.float64, FAM_WIDE),
+    ("9b", "mamba2-1.3b", LM_MESH, LM_TP, 6, {}, torch.float64, LM_LARGE),
+    ("9c", "hymba-1.5b", LM_MESH, LM_TP, 4, {}, torch.float64, FAM_WIDE),
     # the reference's blocked attention needs blocks that divide S
-    ("9d", "whisper-medium", LM_MESH, LM_TP, 6,
+    ("9d", "whisper-medium", LM_MESH, LM_TP, 3,
      {"attn_q_block": 500, "attn_kv_block": 1500}, torch.float64, FAM_WIDE),
 )
 FAM_FRAMES = 1500            # Whisper's 30 s window of encoder positions
@@ -2006,10 +2035,12 @@ def fam_single_copy(params, cfg, mesh, tp, convert, stages, dtype,
 
 
 def fam_reference_logits(G, cfg, pcfg, stages, lm_mod, toks, frames=None,
-                         start: int = 0, routes=None, routing=None):
+                         start: int = 0, routes=None, routing=None,
+                         vis=None):
     """The single-copy forward through the port's own modules on the
     (1, 1, 1) mesh (no collective, no kernel): logits (B, T - start,
-    vocab) at positions start.. of `toks` (B, T). Rows go through in
+    vocab) at positions start.. of `toks` (B, T), a VLM's prefix `vis`
+    (B, n_vis, d) in place of its first positions. Rows go through in
     chunks of about FAM_REF_TOKENS positions (encoder frames included);
     the causal forward of a row needs no other row. Its attention is one
     block and its SSD one chunk over T where T exceeds them (both exact
@@ -2034,6 +2065,8 @@ def fam_reference_logits(G, cfg, pcfg, stages, lm_mod, toks, frames=None,
         batch = {"tokens": toks[r][None, None, None]}
         if frames is not None:
             batch["frames"] = frames[r].to(dtype)[None, None, None]
+        if vis is not None:
+            batch["vis_embed"] = vis[r].to(dtype)[None, None, None]
         forced = contextlib.nullcontext() if routes is None else moe_forced(
             mlp_mod, [tuple(t[r] for t in lr) for lr in routes], cfg,
             routing)
@@ -2155,33 +2188,37 @@ def moe_forced(mlp_mod, routes, cfg, stats):
 
 class FamServer:
     """One family's serving entry points on the card: `ServeSession`
-    (prefill, handoff, decode) for 9a-9c, and the audio family through
-    its pieces — `stages.build_prefill` with frames,
+    (prefill, handoff, decode) for 9a-9c, and the audio family (and a
+    VLM with its visual prefix) through its pieces —
+    `stages.build_prefill` with frames (or `vis_embed`),
     `convert_prefill_caches(..., s_enc)` and
     `stages.build_decode_step(s_enc=...)` — since the session prefills
-    tokens only (ROADMAP Queue 3)."""
+    tokens only (ROADMAP Queue 3). With `engine` (this process's
+    `ProcessGroupEngine`) every entry point runs on local shards: the
+    batch is cut to the process's rows and the tokens gathered."""
 
-    def __init__(self, mods, cfg, pcfg, mesh, tp, B, P, Gn, frames=None):
+    def __init__(self, mods, cfg, pcfg, mesh, tp, B, P, Gn, frames=None,
+                 vis=None, engine=None):
         convert, stages, ServeSession, convert_prefill_caches, _ = mods
         self.mods, self.cfg, self.pcfg = mods, cfg, pcfg
         self.mesh, self.tp, self.B, self.P, self.Gn = mesh, tp, B, P, Gn
-        self.frames = frames
+        self.frames, self.vis, self.engine = frames, vis, engine
         self.s_enc = 0 if frames is None else frames.shape[1]
         self.sess = None
-        if frames is None:
+        if frames is None and vis is None:
             self.sess = ServeSession(cfg, pcfg, mesh, tp, B, P, P + Gn,
-                                     device="cuda")
+                                     device="cuda", engine=engine)
             self.prefill_fn = self.sess.prefill_fn
             self.decode_fn = self.sess.decode_fn
             self.decode_ctx, self.bspec = self.sess.decode_ctx, \
                 self.sess.bspec
         else:
             self.prefill_fn, _, _, self.bspec = stages.build_prefill(
-                cfg, pcfg, mesh, B, P, device="cuda")
+                cfg, pcfg, mesh, B, P, device="cuda", engine=engine)
             self.decode_fn, self.decode_ctx, _, _ = \
                 stages.build_decode_step(cfg, pcfg, mesh, s_max=P + Gn,
                                          global_batch=B, s_enc=self.s_enc,
-                                         device="cuda")
+                                         device="cuda", engine=engine)
 
     def wrap(self, prefill=None, decode=None):
         if prefill is not None:
@@ -2197,13 +2234,19 @@ class FamServer:
         b = {"tokens": prompt}
         if self.frames is not None:
             b["frames"] = self.frames
+        if self.vis is not None:
+            b["vis_embed"] = self.vis
+        if self.engine is not None:
+            return {k: convert.shard_of(v, self.mesh, self.bspec[k],
+                                        self.engine.coords).contiguous()
+                    for k, v in b.items()}
         return {k: convert.stack_global(v, self.mesh, self.bspec[k])
                 for k, v in b.items()}
 
     def handoff(self, pf_caches):
         return self.mods[3](pf_caches, self.cfg, self.pcfg, self.mesh,
                             self.tp, self.B, self.P, self.P + self.Gn,
-                            s_enc=self.s_enc)
+                            s_enc=self.s_enc, engine=self.engine)
 
     def generate(self, params, prompt, n: int):
         """(B, n) greedy tokens on the CPU."""
@@ -2218,6 +2261,9 @@ class FamServer:
                                          self.P + i)
             out.append(nxt)
         dp = self.bspec["tokens"][0]
+        if self.engine is not None:
+            return self.mods[0].gather_global(torch.stack(out, dim=-1),
+                                              (dp, None), self.engine).cpu()
         return self.mods[0].unstack(torch.stack(out, dim=-1), self.mesh,
                                     (dp, None)).cpu()
 
@@ -2268,7 +2314,7 @@ def phase_fam_build(run, arch, mesh, tp, depth, get_config, stages,
 
 
 def fam_tokens(run, cfg, G, pcfg, mesh, mods, prompt, out, frames, rec,
-               start: int):
+               start: int, vis=None):
     """`out` (B, Gn), served greedily from `prompt` (B, P), held to the
     single copy `G`'s logits over prompt + out[:, :-1] from position
     `start` (<= P - 1) by the margin rule (`lm_token_check`). The MoE
@@ -2292,7 +2338,7 @@ def fam_tokens(run, cfg, G, pcfg, mesh, mods, prompt, out, frames, rec,
             pcfg, moe_capacity_factor=cfg.n_experts / cfg.experts_per_token)
         routing = [{"layer": i} for i in range(cfg.n_layers)]
     logits = fam_reference_logits(G, cfg, pcfg, stages, lm_mod, seq, frames,
-                                  start, routes, routing)
+                                  start, routes, routing, vis)
     if routes is not None:
         bad = [r for r in routing
                if r["equal_where_compared"] != r["compared"]]
@@ -2558,7 +2604,7 @@ TRAIN_LARGE = (8, 512)
 TRAIN_LR = 3e-4               # launch/train.py's --lr
 TRAIN_WARMUP = 20             # launch/train.py's cosine_warmup(s, 20, steps)
 TRAIN_STEPS = 8               # 10e: the Trainer's total_steps
-TRAIN_TRAINER_LAYERS = 7      # 10e's depth (a quarter of 28: the time)
+TRAIN_TRAINER_LAYERS = 4      # 10e's depth (of 28: the run's time)
 TRAIN_CKPT_EVERY = 4
 TRAIN_FAIL_AT = 6
 TRAIN_RECOVERY_TOL = 1e-5     # tests/test_runtime.py::test_failure_recovery_exact
@@ -4647,13 +4693,15 @@ def p13_unrecord(engine) -> None:
         engine.__dict__.pop(name, None)
 
 
-def p13_replay(name: str, logs: list, CollectiveEngine) -> int:
+def p13_replay(name: str, logs: list, CollectiveEngine,
+               mesh: dict = None) -> int:
     """Replay each recorded collective (the ranks' logs, global rank
-    order) on the stacked engine on the card with every rank's own
-    operands; fail unless each rank's results are BITWISE the stacked
-    rows. Returns the calls replayed."""
-    lead = tuple(LM_MESH.values())
-    eng = CollectiveEngine(dict(LM_MESH), device="cuda")
+    order) on the stacked engine on the card over `mesh` (LM_MESH) with
+    every rank's own operands; fail unless each rank's results are
+    BITWISE the stacked rows. Returns the calls replayed."""
+    mesh = dict(LM_MESH if mesh is None else mesh)
+    lead = tuple(mesh.values())
+    eng = CollectiveEngine(mesh, device="cuda")
 
     def stacked(vals):
         if isinstance(vals[0], torch.Tensor):
@@ -4662,11 +4710,11 @@ def p13_replay(name: str, logs: list, CollectiveEngine) -> int:
         if isinstance(vals[0], (list, tuple)):
             return type(vals[0])(stacked(list(v)) for v in zip(*vals))
         if any(v != vals[0] for v in vals[1:]):
-            fail(f"13c {name}: the ranks called with different {vals}")
+            fail(f"{name}: the ranks called with different {vals}")
         return vals[0]
 
     if any(len(g) != len(logs[0]) for g in logs):
-        fail(f"13c {name}: the ranks recorded {[len(g) for g in logs]} "
+        fail(f"{name}: the ranks recorded {[len(g) for g in logs]} "
              f"collectives")
     for i, calls in enumerate(zip(*logs)):
         op = calls[0]["name"]
@@ -4680,7 +4728,7 @@ def p13_replay(name: str, logs: list, CollectiveEngine) -> int:
             rows = w.reshape((-1,) + tuple(w.shape[len(lead):]))
             for r, c in enumerate(calls):
                 if c["out"][j] != proc_digest(rows[r]):
-                    fail(f"13c {name}: collective {i} ({op}) result {j} "
+                    fail(f"{name}: collective {i} ({op}) result {j} "
                          f"on rank {r} differs from the stacked engine's")
         del args, kwargs, want
     torch.cuda.empty_cache()
@@ -4727,8 +4775,9 @@ def phase13_child(rank: int, world: int, tmp: str, seed: int,
 
     def counted(name, fn, engine=eng, trace=None, k4=0):
         """Run `fn` with every launch held; its launches must be what its
-        programs imply plus `k4` K4 launches, and its collectives (the
-        engine's trace) `trace` where given. Returns (out, trace)."""
+        programs imply plus `k4` K4 launches (or `k4(out)`), and its
+        collectives (the engine's trace) `trace` where given. Returns
+        (out, trace)."""
         ran.clear()
         checked = dict.fromkeys(ops.KERNELS, 0)
         ops.reset_launch_counts()
@@ -4741,7 +4790,7 @@ def phase13_child(rank: int, world: int, tmp: str, seed: int,
         for prog, r, shape in ran:
             for k, v in procgroup.implied_launches(prog, r, shape).items():
                 want[k] += v
-        want["matmul_tiled"] += k4
+        want["matmul_tiled"] += k4(out) if callable(k4) else k4
         if got != want:
             proc_fail(f"13 {name}: rank {rank} launched {got}; its "
                       f"{len(ran)} programs and the stacked step imply "
@@ -4759,19 +4808,10 @@ def phase13_child(rank: int, world: int, tmp: str, seed: int,
         return out, colls
 
     def timed(fn, profiled=False, n=reps):
-        """Median ms of `fn` over `n` calls, the bytes it stages per call,
-        and (rank 0) its busy share."""
-        s0 = eng.transport_stats()
-        ms = median_ms(fn, n)
-        s1 = eng.transport_stats()
-        calls = n + 1
-        out = {"median_ms": ms,
-               "staged_bytes_per_call": (s1["staged_bytes"]
-                                         - s0["staged_bytes"]) / calls,
-               "staged_ms_per_call": (s1["staged_ms"]
-                                      - s0["staged_ms"]) / calls}
+        """`p14_timed` on this engine, and (rank 0) the busy share."""
+        out = p14_timed(eng, fn, n)
         if profiled:
-            out.update(proc_profile(fn, rank == 0, ms))
+            out.update(proc_profile(fn, rank == 0, out["median_ms"]))
         return out
 
     res = {"coords": coords, "timing": {}, "part_s": {}}
@@ -4958,6 +4998,12 @@ def phase13_child(rank: int, world: int, tmp: str, seed: int,
     res["checked"] = checked_total
     res["transport"] = eng.transport_stats()
     torch.save(res, f"{tmp}/p13_{rank}.pt")
+    # phase 14 in the same world, its launches counted anew
+    for k in total:
+        total[k] = checked_total[k] = 0
+    res = p14_child(rank, tmp, seed, counted, eng)
+    res["launches"], res["checked"] = dict(total), dict(checked_total)
+    torch.save(res, f"{tmp}/p14_{rank}.pt")
 
 
 def _flat(tree) -> dict:
@@ -4970,13 +5016,14 @@ def p13_param_gap(name: str, rank: int, at: tuple, got: dict,
     """The largest |got - want| over a rank's updated params (`got`,
     {path: local leaf}) against the stacked step's (`want`) at its mesh
     position `at`; fails unless each is within P13_PARAM_ATOL plus one
-    bf16 ulp of the stacked step's."""
+    bf16 ulp of the stacked step's (compared on the card)."""
     worst = 0.0
     for path, t in got.items():
         w = want[path]
         w = w[(slice(None),) + at] if path.startswith("layers") else w[at]
-        d = (t.double() - w.double()).abs()
-        bound = P13_PARAM_ATOL + 2.0 ** -7 * w.double().abs()
+        w = w.to("cuda").double()
+        d = (t.to("cuda").double() - w).abs()
+        bound = P13_PARAM_ATOL + 2.0 ** -7 * w.abs()
         if bool((d > bound).any()):
             fail(f"{name}: rank {rank} updated {path} off the stacked "
                  f"step's by {float(d.max())}")
@@ -5042,7 +5089,7 @@ def p13_stacked_refs(cfg, mods, ops, seed: int, tmp: str) -> dict:
 
 
 def phase_lm_procs(cfg, mods, procs, CollectiveEngine, ops, counts,
-                   seed: int, smi: str) -> None:
+                   seed: int, smi: str, get_config) -> None:
     """Phase 13: qwen3-0.6b one rank per process, 8 processes on the card
     in one gloo group (`phase13_child`), on launch/serve.py's (1, 4, 2)
     mesh. 13a serves at full width and depth (params drawn per process
@@ -5078,6 +5125,9 @@ def phase_lm_procs(cfg, mods, procs, CollectiveEngine, ops, counts,
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_procs_") as tmp:
         refs, new_params = p13_stacked_refs(cfg, mods, ops, seed, tmp)
         refs_s = time.perf_counter() - t0
+        t14 = time.perf_counter()
+        refs14, params14 = p14_stacked_refs(get_config, mods, ops, seed, tmp)
+        refs14_s = time.perf_counter() - t14
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
@@ -5166,7 +5216,7 @@ def phase_lm_procs(cfg, mods, procs, CollectiveEngine, ops, counts,
                 logs[k].append(c13[k])
             del c13
         del new_params
-        replayed = {k: p13_replay(k, v, CollectiveEngine)
+        replayed = {k: p13_replay(f"13c {k}", v, CollectiveEngine)
                     for k, v in logs.items()}
         del logs
         # 13d: the world's checkpoint in the stacked port
@@ -5188,28 +5238,583 @@ def phase_lm_procs(cfg, mods, procs, CollectiveEngine, ops, counts,
                      f"differs from rank {r}'s state")
         del tree, st
         torch.cuda.empty_cache()
-    counts["procs_lm"] = total
-    emit({"phase": "lm_procs", "ranks": PROC_RANKS, "backend": "gloo",
-          "mesh": LM_MESH, "card": smi,
-          "seconds": time.perf_counter() - t0,
-          "stacked_refs_s": refs_s, "spawn_and_children_s": spawn_s,
-          "checked_vs_plain": checked,
-          "13a": {"shape": list(LM_SMALL), "layers": cfg.n_layers,
-                  "tokens": tok_a},
-          "13b": out_b,
-          "13c": {"layers": P13_PARITY_LAYERS, "metrics": got,
-                  "stacked": want, "param_max_abs_diff": worst,
-                  "collectives_bitwise": replayed},
-          "13d": {"layers": P13_PARITY_LAYERS,
-                  "steps": P13_TRAINER_STEPS,
-                  "checkpoint_step": P13_CKPT_EVERY - 1,
-                  "resumed_bitwise": True,
-                  "log_rank0": res[0]["13d"]["log"]},
-          "per_rank": [r["timing"] for r in res],
+        counts["procs_lm"] = total
+        emit({"phase": "lm_procs", "ranks": PROC_RANKS, "backend": "gloo",
+              "mesh": LM_MESH, "card": smi,
+              "seconds": time.perf_counter() - t0,
+              "stacked_refs_s": refs_s, "spawn_and_children_s": spawn_s,
+              "checked_vs_plain": checked,
+              "13a": {"shape": list(LM_SMALL), "layers": cfg.n_layers,
+                      "tokens": tok_a},
+              "13b": out_b,
+              "13c": {"layers": P13_PARITY_LAYERS, "metrics": got,
+                      "stacked": want, "param_max_abs_diff": worst,
+                      "collectives_bitwise": replayed},
+              "13d": {"layers": P13_PARITY_LAYERS,
+                      "steps": P13_TRAINER_STEPS,
+                      "checkpoint_step": P13_CKPT_EVERY - 1,
+                      "resumed_bitwise": True,
+                      "log_rank0": res[0]["13d"]["log"]},
+              "per_rank": [r["timing"] for r in res],
+              "part_s_rank0": res[0]["part_s"],
+              "launches_per_rank": [r["launches"] for r in res],
+              "launches": total,
+              "transport_per_rank": [r["transport"] for r in res]})
+        # phase 14: the other families and the shrink, in the same world
+        del res
+        p14_check(get_config, mods, CollectiveEngine, ops, refs14, params14,
+                  tmp, seed, refs14_s, smi, counts)
+
+
+# --------------------------------------------------------------------------
+# Phase 14: the other LM families and the elastic shrink one rank per
+# process (in phase 13's spawned world)
+# --------------------------------------------------------------------------
+
+P14_LAYERS = 2               # every model of 14a-14g at full width (the time)
+P14_EP_MESH = {"pod": 1, "data": 1, "model": 8}
+# run, arch, mesh, tp, ParallelConfig fields, the single copy's dtype
+P14_RUNS = (
+    ("14a", "qwen3-moe-30b-a3b", P14_EP_MESH, 8, {}, torch.float32),
+    ("14b", "mamba2-1.3b", LM_MESH, LM_TP, {}, torch.float64),
+    ("14c", "hymba-1.5b", LM_MESH, LM_TP, {}, torch.float64),
+    ("14d", "whisper-medium", LM_MESH, LM_TP,
+     {"attn_q_block": 500, "attn_kv_block": 1500}, torch.float64),
+    ("14e", "internvl2-26b", LM_MESH, LM_TP, {}, torch.float64),
+)
+P14_SHRINK_MESH = {"pod": 2, "data": 2, "model": 2}
+P14_SHRINK_STEPS = 4         # 14g: the Trainer's total_steps
+P14_FAIL = (2, 1)            # 14g: data rank 1 dies at step 2
+# 14f's train configuration: int8 gradient buckets (K2/K3 in the
+# allreduces over 'model' of the leaves the experts do not shard)
+P14_MOE_PCFG = {"grad_compression": "int8"}
+# 14g's: the streaming matmuls (K4) on the shrink's path. Not int8: its
+# allreduce leaves a leaf's replicas apart by a few ulps (each rank adds
+# its own exact value to its partners' dequantized ones), and the
+# stacked handoff re-cuts a leaf sharded along the failed axis from the
+# first replica where the per-process one keeps each process's own
+P14_TRAINER_PCFG = {"sequence_parallel": True, "collective_matmul": True}
+# 14f's loss and ce, relative: P13_LOSS_RTOL. Routed alike (`p14_routed`),
+# the two steps still differ where a product of the MoE path sums in
+# another order (8.7e-6 measured on an NVIDIA H100 80GB HBM3 at 700 W)
+P14_MOE_RTOL = P13_LOSS_RTOL
+# 14f: a token may route otherwise than the stacked step routed it only
+# where its own k-th and (k+1)-th router probabilities lie within one bf16
+# ulp (2^-8, relative) of each other: a near-tie that a product summed in
+# another order breaks apart
+P14_NEAR_TIE = 2.0 ** -8
+# 14g's ce and loss after the first update, relative: the two runs' params
+# then differ by up to a bf16 ulp where an update rounds to the other
+# neighbour (13b: 3.05e-5 apart after one step), which the next forward
+# carries into the metrics; at P13_LOSS_RTOL (1e-5) the check failed at
+# 3.7e-5 (steps 1-3, 3.8e-5 in later runs, on an NVIDIA H100 80GB HBM3 at
+# 700 W); step 0 stays within P13_LOSS_RTOL
+P14_TRAJ_RTOL = 1e-4
+
+
+def p14_cfg(get_config, arch: str):
+    """A phase-14 config: full width, P14_LAYERS layers (an encoder's too;
+    hymba's layer 0 global, layer 1 windowed)."""
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=P14_LAYERS, encoder_layers=min(
+        cfg.encoder_layers, P14_LAYERS))
+
+
+def p14_shape(cfg) -> tuple:
+    """(batch, prompt, gen): LM_SMALL, a VLM's prompt behind its visual
+    prefix (the prefix takes the prompt's first n_vis positions)."""
+    B, P, Gn = LM_SMALL
+    return B, P + (cfg.n_vis_tokens if cfg.family == "vlm" else 0), Gn
+
+
+def p14_inputs(cfg, seed: int):
+    """The prompt, the audio family's stub frames and a VLM's prefix,
+    drawn on the card from --seed (the same on every process)."""
+    B, P, _Gn = p14_shape(cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed + 14)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                           device="cuda", dtype=torch.int32)
+    frames = fam_frames(cfg, B, seed) if cfg.encoder_layers else None
+    vis = None
+    if cfg.family == "vlm":
+        vis = torch.randn((B, cfg.n_vis_tokens, cfg.d_model), generator=g,
+                          device="cuda").to(torch.bfloat16)
+    return prompt, frames, vis
+
+
+def p14_timed(engine, fn, reps: int) -> dict:
+    """Median ms of `fn` over `reps` calls (after a warm-up call) and the
+    bytes (and host ms) it stages per call through `engine`."""
+    s0 = engine.transport_stats()
+    ms = median_ms(fn, reps)
+    s1 = engine.transport_stats()
+    return {"median_ms": ms,
+            "staged_bytes_per_call": (s1["staged_bytes"]
+                                      - s0["staged_bytes"]) / (reps + 1),
+            "staged_ms_per_call": (s1["staged_ms"]
+                                   - s0["staged_ms"]) / (reps + 1)}
+
+
+def p14_serve(run, cfg, pcfg, mesh, tp, eng, mods, counted, seed: int,
+              tmp: str, rank: int) -> dict:
+    """One model of 14a-14e on this process: params drawn as the stacked
+    init's rows, served at (4, 16, 8) under `counted` (the session, or
+    the pieces with frames or the visual prefix), the collectives of
+    every decode step against the layouts', the first decode step's
+    recorded for the parent's replay (`c14_{run}_{rank}.pt`), a MoE's
+    routings logged; then the prefill and a decode step timed."""
+    from repro_torch.models import mlp as mlp_mod
+    stages = mods[1]
+    B, P, Gn = p14_shape(cfg)
+    params = stages.init_params(cfg, mesh, tp, seed=seed, device=eng.device,
+                                serve=True, coords=eng.coords)
+    prompt, frames, vis = p14_inputs(cfg, seed)
+    server = FamServer(mods, cfg, pcfg, mesh, tp, B, P, Gn, frames, vis,
+                       engine=eng)
+    log, step_colls = [], []
+    state = p13_record(eng, log)
+
+    def per_step(fn):
+        def dec(prm, cch, tok, pos):
+            state["active"] = pos == P
+            t0 = len(eng.trace_log)
+            out = fn(prm, cch, tok, pos)
+            state["active"] = False
+            names: dict = {}
+            for e in eng.trace_log[t0:]:
+                names[e[0]] = names.get(e[0], 0) + 1
+            step_colls.append(names)
+            return out
+        return dec
+    server.wrap(decode=per_step)
+    rec: list = []
+    with (moe_recording(mlp_mod, rec) if cfg.family == "moe"
+          else contextlib.nullcontext()):
+        toks, _ = counted(f"14 {run}", lambda: server.generate(
+            params, prompt, Gn), engine=eng)
+    p13_unrecord(eng)
+    want = fam_step_collectives(cfg, tp, P + Gn, pcfg)
+    if len(step_colls) != Gn - 1 or any(c != want for c in step_colls):
+        proc_fail(f"14 {run}: rank {rank} decode steps ran {step_colls}, "
+                  f"the layouts {want}")
+    torch.save(log, f"{tmp}/c14_{run}_{rank}.pt")
+    out = {"tokens": toks, "step_collectives": want,
+           "rec": [{k: v.cpu() for k, v in r.items()} for r in rec]}
+    batch = server.batch(prompt)
+    out["prefill"] = p14_timed(eng, lambda: server.prefill_fn(params, batch),
+                               P13_REPS)
+    nxt, pf = server.prefill_fn(params, batch)
+    caches = server.handoff(pf)
+    del pf
+    out["decode_step"] = step = p14_timed(eng, lambda: server.decode_fn(
+        params, caches, nxt[..., None], P), P13_REPS)
+    step["tokens_per_s"] = B / (step["median_ms"] / 1e3)
+    del params, server, caches, batch, nxt
+    torch.cuda.empty_cache()
+    return out
+
+
+def p14_trainer(cfg, mods, mesh, seed: int, ckpt: str, engine=None):
+    """14g's Trainer: P14_SHRINK_STEPS steps at TRAIN_SMALL on `mesh`, data
+    rank P14_FAIL[1] failing at step P14_FAIL[0], no checkpoint but the
+    final one; stacked on the card, or on `engine`."""
+    (_convert, _stages, adamw, schedules, _lm, data_mod, _launch) = mods
+    from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig
+    return Trainer(cfg, p13_pcfg(**P14_TRAINER_PCFG), mesh,
+                   adamw.AdamWConfig(lr=TRAIN_LR),
+                   data_mod.DataConfig(global_batch=TRAIN_SMALL[0],
+                                       seq_len=TRAIN_SMALL[1], seed=seed),
+                   TrainerConfig(total_steps=P14_SHRINK_STEPS,
+                                 ckpt_dir=ckpt, ckpt_every=1000, seed=seed),
+                   injector=FailureInjector(rank_fail_at=(P14_FAIL,)),
+                   lr_schedule=p13_sched(schedules), device="cuda",
+                   engine=engine)
+
+
+@contextlib.contextmanager
+def p14_routed(mlp_mod, routes, stats: dict):
+    """While the block runs, each `moe_block` (one per layer, in order)
+    routes its tokens to the experts `routes[layer]` names (the stacked
+    step's choices on this rank's tokens), gated by this run's own
+    probabilities; the capacity dispatch then keeps what the stacked
+    step kept. `stats` counts the tokens whose own top-k set differs,
+    the near-ties (own k-th and (k+1)-th probabilities within
+    P14_NEAR_TIE, relative) and the largest such gap of a token that
+    differs."""
+    real_top = mlp_mod.top_k
+    layer = [0]
+
+    def top_k(probs, k):
+        te = routes[layer[0]].to(probs.device)
+        own = real_top(probs, k)[1]
+        differ = (own.sort(-1).values != te.sort(-1).values).any(-1)
+        p = probs.detach().float().sort(-1, descending=True).values
+        gap = (p[..., k - 1] - p[..., k]) / p[..., k - 1]
+        stats["tokens"] = stats.get("tokens", 0) + int(differ.numel())
+        stats["differ"] = stats.get("differ", 0) + int(differ.sum())
+        stats["near_ties"] = stats.get("near_ties", 0) + int(
+            (gap <= P14_NEAR_TIE).sum())
+        stats["differ_gap"] = max(stats.get("differ_gap", 0.0), float(
+            gap[differ].max()) if bool(differ.any()) else 0.0)
+        layer[0] += 1
+        return torch.gather(probs, -1, te), te
+    mlp_mod.top_k = top_k
+    try:
+        yield
+    finally:
+        mlp_mod.top_k = real_top
+
+
+def p14_child(rank: int, tmp: str, seed: int, counted, lm_engine) -> dict:
+    """Phase 14 in one process of phase 13's world (after 13d; its
+    LM_MESH engine `lm_engine`): 14a-14e serve (`p14_serve`), 14f one
+    train step of qwen3-moe-30b-a3b against the stacked step's trace and
+    K4 count, 14g the per-process `Trainer` through a shrink (last: the
+    processes at the dead position leave it)."""
+    from repro_torch import convert
+    from repro_torch import data as data_mod
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.parallel import stages
+    from repro_torch.runtime import ServeSession, convert_prefill_caches
+    refs = torch.load(f"{tmp}/refs14.pt", weights_only=False)
+    mods = (convert, stages, ServeSession, convert_prefill_caches,
+            serve_launch)
+    res = {"runs": {}, "part_s": {}}
+    engines = {tuple(LM_MESH.items()): lm_engine}
+    for run, arch, mesh, tp, extra, _dtype in P14_RUNS:
+        t0 = time.perf_counter()
+        key = tuple(mesh.items())
+        if key not in engines:
+            engines[key] = stages.process_engine(mesh, "microcode", "cuda")
+        cfg = p14_cfg(get_config, arch)
+        pcfg = ParallelConfig(moe_capacity_factor=FAM_MOE_CF, **extra)
+        res["runs"][run] = p14_serve(run, cfg, pcfg, mesh, tp, engines[key],
+                                     mods, counted, seed, tmp, rank)
+        res["part_s"][run] = time.perf_counter() - t0
+    # 14f: one train step of the MoE on the EP mesh
+    t0 = time.perf_counter()
+    eng = engines[tuple(P14_EP_MESH.items())]
+    cfg = p14_cfg(get_config, "qwen3-moe-30b-a3b")
+    params = stages.init_params(cfg, P14_EP_MESH, 8, seed=seed,
+                                device=eng.device, coords=eng.coords)
+    opt = adamw.adamw_init(params)
+    ts = stages.build_train_step(cfg, p13_pcfg(**P14_MOE_PCFG), P14_EP_MESH,
+                                 adamw.AdamWConfig(lr=TRAIN_LR),
+                                 p13_sched(schedules), engine=eng)
+    b = ts.put_batch(train_batch(data_mod, cfg, *TRAIN_SMALL, seed))
+    # routed as the stacked step routed this rank's tokens: the top-k is
+    # discontinuous, and the products sum in another order per process
+    from repro_torch.models import mlp as mlp_mod
+    routing: dict = {}
+    with p14_routed(mlp_mod, refs["14f"]["routes"][rank], routing):
+        (_p, _o, m), _ = counted("14f", lambda: ts.fn(params, opt, b, 0),
+                                 engine=eng, trace=refs["14f"]["trace"],
+                                 k4=refs["14f"]["k4"])
+    res["14f"] = {k: float(v) for k, v in m.items()}
+    res["14f_routing"] = routing
+    res["coords_ep"] = dict(eng.coords)
+    torch.save({p: t.cpu() for p, t in _flat(params).items()},
+               f"{tmp}/f14_{rank}.pt")
+    del params, opt, ts, b
+    torch.cuda.empty_cache()
+    res["part_s"]["14f"] = time.perf_counter() - t0
+    # 14g: the Trainer through a shrink of the data axis
+    t0 = time.perf_counter()
+    c2 = dataclasses.replace(get_config(LM_ARCH), n_layers=P14_LAYERS)
+    eng = stages.process_engine(P14_SHRINK_MESH, "microcode", "cuda")
+    trainer = p14_trainer(c2, (convert, stages, adamw, schedules, lm_mod,
+                               data_mod, serve_launch), P14_SHRINK_MESH,
+                          seed, f"{tmp}/ckpt14", engine=eng)
+    k4 = refs["14g"]["k4"]          # the stacked run's K4 a step
+    log, _ = counted("14g", trainer.run, engine=eng, k4=lambda log: sum(
+        k4[:P14_FAIL[0]] if log[-1].get("event") == "left" else k4))
+    now = trainer.ts.ctx.engine
+    res["14g"] = {"log": log, "mesh": dict(trainer.mesh),
+                  "members": list(now.members), "coords": dict(now.coords),
+                  "left": log[-1].get("event") == "left"}
+    res["part_s"]["14g"] = time.perf_counter() - t0
+    return res
+
+
+def p14_stacked_refs(get_config, mods, ops, seed: int, tmp: str) -> tuple:
+    """The stacked port's runs phase 14 holds the processes against, on
+    the card before the spawn: 14f the MoE's train step from the same
+    init (metrics, the engine's trace, K4 launches, the updated params
+    on the host), 14g the stacked `Trainer`'s shrink run (its log, its
+    final checkpoint under `tmp`)."""
+    (convert, stages, adamw, schedules, lm_mod, data_mod,
+     serve_launch) = mods
+    from repro_torch.models import mlp as mlp_mod
+    cfg = p14_cfg(get_config, "qwen3-moe-30b-a3b")
+    params = stages.init_params(cfg, P14_EP_MESH, 8, seed=seed,
+                                device="cuda")
+    opt = adamw.adamw_init(params)
+    ts = stages.build_train_step(cfg, p13_pcfg(**P14_MOE_PCFG), P14_EP_MESH,
+                                 adamw.AdamWConfig(lr=TRAIN_LR),
+                                 p13_sched(schedules), device="cuda")
+    ops.reset_launch_counts()
+    rec: list = []
+    with moe_recording(mlp_mod, rec):
+        _p, _o, m = ts.fn(params, opt, ts.put_batch(train_batch(
+            data_mod, cfg, *TRAIN_SMALL, seed)), 0)
+    torch.cuda.synchronize()
+    lead = tuple(P14_EP_MESH.values())
+    # each rank's expert choices per layer, for the processes' step
+    routes = [[r["top_e"].reshape((-1,) + tuple(r["top_e"].shape[
+        len(lead):]))[i].cpu() for r in rec] for i in range(PROC_RANKS)]
+    refs = {"14f": {"metrics": {k: float(v) for k, v in m.items()},
+                    "trace": [tuple(e) for e in ts.ctx.engine.trace_log],
+                    "k4": ops.launch_counts()["matmul_tiled"],
+                    "routes": routes}}
+    del rec
+    new_params = {p: t.cpu() for p, t in _flat(params).items()}
+    del params, opt, ts
+    torch.cuda.empty_cache()
+    c2 = dataclasses.replace(get_config(LM_ARCH), n_layers=P14_LAYERS)
+    k4: list = []
+    real_build = stages.build_train_step
+
+    def build(*a, **kw):
+        # each step's K4 launches, on the mesh before and after the shrink
+        ts = real_build(*a, **kw)
+        fn = ts.fn
+
+        def step(*args):
+            n = ops.launch_counts()["matmul_tiled"]
+            out = fn(*args)
+            k4.append(ops.launch_counts()["matmul_tiled"] - n)
+            return out
+        ts.fn = step
+        return ts
+    stages.build_train_step = build
+    try:
+        st = p14_trainer(c2, mods, P14_SHRINK_MESH, seed,
+                         f"{tmp}/ckpt14_stacked")
+        refs["14g"] = {"log": st.run(), "mesh": dict(st.mesh), "k4": k4}
+    finally:
+        stages.build_train_step = real_build
+    del st
+    torch.cuda.empty_cache()
+    torch.save(refs, f"{tmp}/refs14.pt")
+    return refs, new_params
+
+
+def p14_ckpt_params(directory: str, cfg, mesh, stages, adamw) -> dict:
+    """{path: stacked leaf} of the params of the latest checkpoint under
+    `directory`, loaded onto `mesh` on the card."""
+    from repro_torch.checkpoint import latest_step, load_checkpoint
+    from repro_torch.tree import tree_map
+    tp = mesh["model"]
+    specs = stages.param_specs(cfg, tp)
+    shapes = stages.param_shapes(cfg, mesh, tp)
+    like = {"params": shapes, "opt": {
+        "leaves": tree_map(lambda p: {n: p.float() for n in _OPT_NAMES},
+                           shapes),
+        "count": torch.empty((), dtype=torch.int32, device="meta")}}
+    step = latest_step(directory)
+    tree, _m = load_checkpoint(directory, step, like, {
+        "params": specs, "opt": adamw.opt_specs(specs)}, mesh, "cuda")
+    return step, _flat(tree["params"])
+
+
+def p14_check(get_config, mods, CollectiveEngine, ops, refs, new_params,
+              tmp: str, seed: int, refs_s: float, smi: str, counts) -> None:
+    """Phase 14's checks in the parent, on the children's results
+    (`p14_{rank}.pt`): 14a-14e the tokens, equal on every process, by the
+    margin rule against the float64 (14a: float32) single copy of the
+    same params (a stacked init of --seed; the MoE routed as the
+    processes routed, their routings stacked) and every collective of the
+    first decode step replayed BITWISE on the stacked engine; 14f rank
+    0's loss and every rank's ce and grad norm against the stacked step,
+    every rank's updated params within P13_PARAM_ATOL plus one bf16 ulp;
+    14g the survivors' steps against the stacked `Trainer`'s shrink run
+    (ce and loss within P13_LOSS_RTOL, the grad norm P13_GNORM_RTOL),
+    the same event rows, survivors and shrunk mesh, the processes at the
+    dead position gone with a 'left' row, and the world's final
+    checkpoint (written by the survivors' rank 0) the stacked run's
+    within the 14f params bound."""
+    t0 = time.perf_counter()
+    (convert, stages, adamw, schedules, lm_mod, data_mod,
+     serve_launch) = mods
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.runtime import ServeSession, convert_prefill_caches
+    smods = (convert, stages, ServeSession, convert_prefill_caches,
+             serve_launch)
+    res = [torch.load(f"{tmp}/p14_{r}.pt", weights_only=False)
+           for r in range(PROC_RANKS)]
+    checked = dict.fromkeys(ops.KERNELS, 0)
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for r in res:
+        for k in ops.KERNELS:
+            checked[k] += r["checked"][k]
+            total[k] += r["launches"][k]
+    if not checked["fused_combine"]:
+        fail("14: no fused_combine call was held against its plain version")
+    runs = {}
+    for run, arch, mesh, tp, extra, ref_dtype in P14_RUNS:
+        cfg = p14_cfg(get_config, arch)
+        pcfg = ParallelConfig(moe_capacity_factor=FAM_MOE_CF, **extra)
+        B, P, Gn = p14_shape(cfg)
+        out = res[0]["runs"][run]["tokens"]
+        if any(not torch.equal(r["runs"][run]["tokens"], out)
+               for r in res[1:]):
+            fail(f"14 {run}: the processes generated different tokens")
+        rec = None
+        if cfg.family == "moe":
+            lead = tuple(mesh.values())
+            rec = [{k: torch.stack([r["runs"][run]["rec"][i][k]
+                                    for r in res]).reshape(
+                lead + tuple(res[0]["runs"][run]["rec"][i][k].shape)).cuda()
+                for k in res[0]["runs"][run]["rec"][i]}
+                for i in range(len(res[0]["runs"][run]["rec"]))]
+        params = stages.init_params(cfg, mesh, tp, seed=seed, device="cuda",
+                                    serve=True)
+        G = fam_single_copy(params, cfg, mesh, tp, convert, stages,
+                            ref_dtype)
+        del params
+        torch.cuda.empty_cache()
+        prompt, frames, vis = p14_inputs(cfg, seed)
+        line, _logits = fam_tokens(f"14 {run}", cfg, G, pcfg, mesh, smods,
+                                   prompt, out, frames, rec, P - 1, vis)
+        del G, _logits, rec
+        torch.cuda.empty_cache()
+        logs = [torch.load(f"{tmp}/c14_{run}_{r}.pt", weights_only=False)
+                for r in range(PROC_RANKS)]
+        line["collectives_bitwise"] = p13_replay(f"14 {run}", logs,
+                                                 CollectiveEngine, mesh)
+        del logs
+        line.update({"arch": arch, "mesh": mesh,
+                     "shape": [B, P, Gn],
+                     "collectives_per_step": res[0]["runs"][run]
+                     ["step_collectives"],
+                     "per_rank": [{k: r["runs"][run][k] for k in
+                                   ("prefill", "decode_step")}
+                                  for r in res]})
+        runs[run] = line
+    parts = {"14a-14e": time.perf_counter() - t0}
+    # 14f: the MoE's train step against the stacked step
+    want = refs["14f"]["metrics"]
+    ftol = {"loss": P14_MOE_RTOL, "ce_mean": P14_MOE_RTOL,
+            "grad_norm": P13_GNORM_RTOL}
+    rtol = {"loss": P13_LOSS_RTOL, "ce_mean": P13_LOSS_RTOL,
+            "grad_norm": P13_GNORM_RTOL}
+    rel = dict.fromkeys(rtol, 0.0)
+    gap = 0.0
+    for r, got in enumerate(res):
+        for k in rtol if r == 0 else ("ce_mean", "grad_norm"):
+            rel[k] = max(rel[k], abs(got["14f"][k] - want[k]) / abs(want[k]))
+        gap = max(gap, p13_param_gap(
+            "14f", r, tuple(got["coords_ep"][a] for a in P14_EP_MESH),
+            torch.load(f"{tmp}/f14_{r}.pt"), new_params))
+    if any(rel[k] > ftol[k] for k in ftol):
+        fail(f"14f: {rel} relative off the stacked step's {want}, beyond "
+             f"{ftol}")
+    for r, got in enumerate(res):
+        routing = got["14f_routing"]
+        if routing["differ_gap"] > P14_NEAR_TIE:
+            fail(f"14f: rank {r}'s own top-k differs from the stacked "
+                 f"step's on {routing['differ']} tokens, one with its k-th "
+                 f"and (k+1)-th probabilities {routing['differ_gap']} apart"
+                 f" (relative), beyond a near-tie ({P14_NEAR_TIE})")
+    parts["14f"] = time.perf_counter() - t0 - sum(parts.values())
+    # 14g: the shrink against the stacked Trainer's
+    slog, smesh = refs["14g"]["log"], refs["14g"]["mesh"]
+    fail_step, dead = P14_FAIL
+    names = list(P14_SHRINK_MESH)
+
+    def data_of(r):
+        return int(np.unravel_index(r, tuple(P14_SHRINK_MESH.values()))[
+            names.index("data")])
+
+    def steps(log):
+        return [x for x in log if "event" not in x]
+
+    def events(log):
+        return [x for x in log if "event" in x]
+    leavers = [r for r in range(PROC_RANKS) if res[r]["14g"]["left"]]
+    if leavers != [r for r in range(PROC_RANKS) if data_of(r) == dead]:
+        fail(f"14g: ranks {leavers} left, not the dead data position's")
+    grel = dict.fromkeys(rtol, 0.0)
+    per_step: dict = {}
+    for r, got in enumerate(res):
+        g = got["14g"]
+        if r in leavers:
+            if events(g["log"])[:-1] != events(slog) or \
+                    [x["step"] for x in steps(g["log"])] != \
+                    list(range(fail_step)):
+                fail(f"14g: leaving rank {r} logged {g['log']}")
+            continue
+        if events(g["log"]) != events(slog) or g["mesh"] != smesh or \
+                g["members"] != [q for q in range(PROC_RANKS)
+                                 if data_of(q) != dead]:
+            fail(f"14g: rank {r} shrank to {g['mesh']} over {g['members']} "
+                 f"with {events(g['log'])}; the stacked run to {smesh} "
+                 f"with {events(slog)}")
+        if [x["step"] for x in steps(g["log"])] != \
+                [x["step"] for x in steps(slog)]:
+            fail(f"14g: rank {r} ran steps {steps(g['log'])}")
+        for a, b in zip(steps(g["log"]), steps(slog)):
+            # the loss is the process's own rows' (the stacked run's is
+            # mesh position 0's): rank 0's, as in 13b
+            tol = dict(rtol) if a["step"] == 0 else {
+                "loss": P14_TRAJ_RTOL, "ce_mean": P14_TRAJ_RTOL,
+                "grad_norm": P13_GNORM_RTOL}
+            for k in rtol if r == 0 else ("ce_mean", "grad_norm"):
+                d = abs(a[k] - b[k]) / abs(b[k])
+                grel[k] = max(grel[k], d)
+                row = per_step.setdefault(a["step"], {})
+                row[k] = max(row.get(k, 0.0), d)
+                if d > tol[k]:
+                    fail(f"14g: rank {r}'s step {a['step']} {k} {a[k]} is "
+                         f"{d} relative off the stacked shrink run's {b[k]}"
+                         f", beyond {tol[k]}")
+    c2 = dataclasses.replace(get_config(LM_ARCH), n_layers=P14_LAYERS)
+    step_p, got = p14_ckpt_params(f"{tmp}/ckpt14", c2, smesh, stages, adamw)
+    step_s, ref_p = p14_ckpt_params(f"{tmp}/ckpt14_stacked", c2, smesh,
+                                    stages, adamw)
+    if step_p != step_s or step_p != P14_SHRINK_STEPS - 1:
+        fail(f"14g: the world's final checkpoint is step {step_p}, the "
+             f"stacked run's {step_s}")
+    ck_gap = 0.0
+    for path, t in got.items():
+        d = (t.double() - ref_p[path].double()).abs()
+        if bool((d > P13_PARAM_ATOL + 2.0 ** -7
+                 * ref_p[path].double().abs()).any()):
+            fail(f"14g: the world's checkpoint {path} is off the stacked "
+                 f"run's by {float(d.max())}")
+        ck_gap = max(ck_gap, float(d.max()))
+    del got, ref_p
+    torch.cuda.empty_cache()
+    parts["14g"] = time.perf_counter() - t0 - sum(parts.values())
+    counts["procs_families"] = total
+    emit({"phase": "lm_fam_procs", "ranks": PROC_RANKS, "backend": "gloo",
+          "card": smi, "stacked_refs_s": refs_s,
+          "children_s_rank0": sum(res[0]["part_s"].values()),
+          "check_s": time.perf_counter() - t0, "check_parts_s": parts,
+          "layers": P14_LAYERS, "checked_vs_plain": checked,
+          "runs": runs,
+          "14f": {"metrics": res[0]["14f"], "stacked": want,
+                  "routing_differs": [r["14f_routing"] for r in res],
+                  "near_tie": P14_NEAR_TIE,
+                  "rel_max_over_ranks": rel, "rtol": ftol,
+                  "param_max_abs_diff": gap,
+                  "collectives_per_step": len(refs["14f"]["trace"]),
+                  "k4_per_step": refs["14f"]["k4"]},
+          "14g": {"mesh": P14_SHRINK_MESH, "shrunk": smesh,
+                  "fail": {"step": fail_step, "data_rank": dead},
+                  "leavers": leavers, "rel_max": grel,
+                  "rel_max_per_step": per_step,
+                  "traj_rtol": P14_TRAJ_RTOL,
+                  "pcfg": P14_TRAINER_PCFG, "k4_per_step": refs["14g"]["k4"],
+                  "checkpoint_step": step_p,
+                  "checkpoint_param_max_abs_diff": ck_gap,
+                  "log_rank0": res[0]["14g"]["log"]},
           "part_s_rank0": res[0]["part_s"],
           "launches_per_rank": [r["launches"] for r in res],
-          "launches": total,
-          "transport_per_rank": [r["transport"] for r in res]})
+          "launches": total})
 
 
 def main() -> int:
@@ -5335,9 +5940,11 @@ def main() -> int:
     # phase 13: LM serving and training one rank per process
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    # phase 14: the other LM families and the elastic shrink one rank per
+    # process, in phase 13's world
     phase_lm_procs(lm_cfg, (convert, stages, adamw, schedules, lm_mod,
                             data_mod, serve_launch), procs,
-                   CollectiveEngine, ops, counts, args.seed, smi)
+                   CollectiveEngine, ops, counts, args.seed, smi, get_config)
     for row in rows:      # launches on every path's runs (K1 runs on all)
         row["launches"] = sum(c[row["name"]] for c in counts.values())
         if not row["launches"]:
@@ -5346,7 +5953,8 @@ def main() -> int:
         for key, c in counts.items():
             path = next((p for p in ("dlrm", "vecmat", "queue",
                                      "lm_families", "lm", "train",
-                                     "dryrun", "procs_lm", "procs")
+                                     "dryrun", "procs_lm", "procs_families",
+                                     "procs")
                          if key.startswith(p)), "collectives")
             by_path[path] = by_path.get(path, 0) + c[row["name"]]
         row["launches_by_path"] = by_path

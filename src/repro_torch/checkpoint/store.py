@@ -31,12 +31,15 @@ One rank per process (`per_process=True`, on an initialized
 `torch.distributed` world laid out as `ProcessGroupEngine` lays it:
 global rank g at mesh position `unravel_index(g, mesh sizes)`) the
 tree holds this process's LOCAL shards. A save gathers every leaf to
-its global array on rank 0 (`dist.gather` of each shard's bytes, in the
-caller's thread, every process joining); rank 0 writes the same files
-and COMMIT, on the background thread as before, and `wait()` ends in a
-barrier, so no process reports a step (`latest_step`) before it is
-committed. A load (`coords`) reads the global file and keeps this
-process's shard (`convert.shard_of`). The format is unchanged: a
+its global array on the mesh's rank 0 (`dist.gather` of each shard's
+bytes, in the caller's thread, every process of the mesh joining); that
+process writes the same files and COMMIT, on the background thread as
+before, and `wait()` ends in a barrier, so no process reports a step
+(`latest_step`) before it is committed. The mesh is the whole world in
+rank order by default, or that of a `ProcessGroupEngine` (`engine`: its
+`members` over its `group`, as after an elastic shrink). A load
+(`coords`) reads the global file and keeps this process's shard
+(`convert.shard_of`). The format is unchanged: a
 checkpoint written one rank per process loads stacked and into the
 reference, and the other way round.
 """
@@ -96,36 +99,47 @@ def _from_file(arr, dtype: str):
     return torch.from_numpy(arr)
 
 
-def _gather_root(leaf, spec, mesh_shape):
+def _mesh(engine) -> tuple:
+    """(group, global ranks in row-major mesh order) of `engine`'s mesh,
+    or of the whole world in rank order."""
+    if engine is None:
+        return None, tuple(range(dist.get_world_size()))
+    return engine.group, engine.members
+
+
+def _gather_root(leaf, spec, mesh_shape, engine=None):
     """The global tensor of every process's local shard of a leaf, on
-    rank 0 (None elsewhere): each shard's bytes gathered on the default
-    group (the mesh in row-major order), stacked and unstacked."""
+    the mesh's rank 0 (None elsewhere): each shard's bytes gathered on
+    the mesh's group, put in row-major mesh order, stacked and
+    unstacked."""
     from repro_torch.convert import unstack
+    group, members = _mesh(engine)
     h = leaf.detach().cpu().contiguous()
     wire = h.reshape(-1).view(torch.uint8)
-    root = dist.get_rank() == 0
-    parts = [torch.empty_like(wire) for _ in range(dist.get_world_size())] \
-        if root else None
-    dist.gather(wire, parts, dst=0)
+    root = dist.get_rank() == members[0]
+    parts = [torch.empty_like(wire) for _ in members] if root else None
+    dist.gather(wire, parts, dst=members[0], group=group)
     if not root:
         return None
-    stacked = torch.stack(parts).view(h.dtype).reshape(
-        tuple(mesh_shape.values()) + tuple(h.shape))
+    by_rank = dict(zip(sorted(members), parts))     # the group's rank order
+    stacked = torch.stack([by_rank[g] for g in members]).view(
+        h.dtype).reshape(tuple(mesh_shape.values()) + tuple(h.shape))
     return unstack(stacked, mesh_shape, spec)
 
 
 def snapshot(tree, specs=None, mesh_shape=None,
-             per_process: bool = False):
+             per_process: bool = False, engine=None):
     """{name: (path, host array, dtype name, spec)} of every leaf: the
     global arrays a save writes. `per_process`: the tree's leaves are
-    this process's local shards, every process calls this, and rank 0
-    gets the snapshot (the others None)."""
+    this process's local shards, every process of the mesh (`engine`'s,
+    default the world) calls this, and the mesh's rank 0 gets the
+    snapshot (the others None)."""
     spec_of = dict(flatten(specs)) if specs is not None else {}
     out = {}
     for path, leaf in flatten(tree):
         spec = spec_of.get(path)
         if per_process and isinstance(leaf, torch.Tensor) and leaf.ndim:
-            leaf = _gather_root(leaf, spec, mesh_shape)
+            leaf = _gather_root(leaf, spec, mesh_shape, engine)
             if leaf is None:
                 continue
             arr, dtype = _to_host(leaf, None, path, None, copy=False)
@@ -133,22 +147,23 @@ def snapshot(tree, specs=None, mesh_shape=None,
             arr, dtype = _to_host(leaf, spec, path,
                                   None if per_process else mesh_shape)
         out[_name(path)] = (path, arr, dtype, spec)
-    if per_process and dist.get_rank() != 0:
+    if per_process and dist.get_rank() != _mesh(engine)[1][0]:
         return None
     return out
 
 
 def save_checkpoint(directory: str, step: int, tree, specs=None,
                     extra: Optional[dict] = None, mesh_shape=None,
-                    per_process: bool = False):
+                    per_process: bool = False, engine=None):
     """Synchronous save with atomic commit. `tree` is a tree of dicts of
     tensors or arrays; with `mesh_shape` and `specs`, its tensors are
     mesh-stacked (with `per_process`, every process's local shards) and
-    saved as their global arrays."""
-    snap = snapshot(tree, specs, mesh_shape, per_process)
+    saved as their global arrays (on `engine`'s mesh, default the
+    world)."""
+    snap = snapshot(tree, specs, mesh_shape, per_process, engine)
     d = None if snap is None else _write(directory, step, snap, extra)
     if per_process:
-        dist.barrier()
+        dist.barrier(group=_mesh(engine)[0])
     return d
 
 
@@ -231,14 +246,16 @@ def load_checkpoint(directory: str, step: int, tree_like, specs=None,
 
 class CheckpointManager:
     """Async keep-K manager with atomic commits and exact resume.
-    `per_process`: every process of the world holds one, saves and waits
-    at the same steps; rank 0 writes."""
+    `per_process`: every process of the mesh (`engine`'s, default the
+    world; an elastic shrink sets it anew) holds one, saves and waits at
+    the same steps; the mesh's rank 0 writes."""
 
     def __init__(self, directory: str, keep: int = 3,
-                 per_process: bool = False):
+                 per_process: bool = False, engine=None):
         self.directory = directory
         self.keep = keep
         self.per_process = per_process
+        self.engine = engine
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -251,7 +268,7 @@ class CheckpointManager:
         if self._pending:
             # rank 0 has committed: now every process may see the step
             self._pending = False
-            dist.barrier()
+            dist.barrier(group=_mesh(self.engine)[0])
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -262,7 +279,8 @@ class CheckpointManager:
         # snapshot to host in the caller thread (the step updates its
         # buffers in place afterwards); one rank per process every
         # process joins the gather, and rank 0 alone gets the snapshot
-        snap = snapshot(tree, specs, mesh_shape, self.per_process)
+        snap = snapshot(tree, specs, mesh_shape, self.per_process,
+                        self.engine)
         self._pending = self.per_process
         if snap is None:
             if blocking:

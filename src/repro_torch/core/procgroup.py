@@ -95,16 +95,6 @@ from repro_torch.core.program import (
 )
 from repro_torch.kernels import ops as kops
 
-#: what one rank per process cannot run yet (ROADMAP.md, Queue 1): the
-#: LM families but dense, and the Trainer's elastic shrink
-NOT_YET = {
-    "families": "not available one rank per process yet (ROADMAP.md "
-                "Queue 1 item 8: the MoE, SSM, hybrid, audio and VLM "
-                "families one rank per process)",
-    "shrink": "not available one rank per process yet (ROADMAP.md Queue 1 "
-              "item 9: the Trainer's elastic shrink one rank per process)",
-}
-
 #: the native backend's reductions as `torch.distributed` ops
 _DIST_OP = {"add": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
             "min": dist.ReduceOp.MIN}
@@ -601,27 +591,102 @@ def _default_device():
     return f"cuda:{local % torch.cuda.device_count()}"
 
 
+def mesh_groups(mesh_shape: dict, members=None) -> tuple:
+    """Create the process groups of a mesh laid over the global ranks
+    `members` (row-major in mesh order; default the whole world): the
+    whole mesh's, and one per live axis and per pair of live axes at every
+    position of the other axes. `dist.new_group` is collective over the
+    whole world, so every process of the world — inside the mesh or not —
+    calls this with the same arguments, in the same order as the other
+    processes make their own calls. Returns (the whole mesh's group —
+    None for the whole world —, the members, {(axes, coords of the other
+    axes): group}); a process outside a group holds a handle it cannot
+    use. A process that has left the mesh keeps taking part through
+    `follow_meshes`."""
+    names = list(mesh_shape)
+    sizes = tuple(mesh_shape[a] for a in names)
+    world = dist.get_world_size()
+    members = tuple(range(world)) if members is None else \
+        tuple(int(g) for g in members)
+    if len(members) != math.prod(sizes) or len(set(members)) != len(members):
+        raise ValueError(f"{len(members)} processes cannot hold the mesh "
+                         f"{dict(mesh_shape)}")
+    if not all(0 <= g < world for g in members):
+        raise ValueError(f"members {members} are not all ranks of the "
+                         f"world of {world}")
+
+    def glob(coords: dict) -> int:
+        return members[int(np.ravel_multi_index(
+            tuple(coords[a] for a in names), sizes))]
+
+    whole = None if members == tuple(range(world)) else \
+        dist.new_group(list(members))
+    groups = {}
+    live = [a for a in names if mesh_shape[a] > 1]
+    for axes in [(a,) for a in live] + list(itertools.combinations(live, 2)):
+        others = [a for a in names if a not in axes]
+        for rest in itertools.product(*(range(mesh_shape[a])
+                                        for a in others)):
+            fixed = dict(zip(others, rest))
+            groups[axes, rest] = dist.new_group(sorted(
+                glob(dict(fixed, **dict(zip(axes, c))))
+                for c in itertools.product(*(range(mesh_shape[a])
+                                             for a in axes))))
+    return whole, members, groups
+
+
+def announce_mesh(root: int, mesh_shape=None, members=None):
+    """Broadcast the next mesh whose groups the world creates — its shape
+    and `members` — or None (no more meshes) from global rank `root` to
+    every process of the world; returns what was sent. Each process of a
+    mesh calls it with the same `root` (the mesh's first member), and so
+    does each process in `follow_meshes`."""
+    msg = [None if mesh_shape is None else (dict(mesh_shape),
+                                            [int(g) for g in members])]
+    dist.broadcast_object_list(msg, src=root)
+    return msg[0]
+
+
+def follow_meshes(root: int) -> None:
+    """The loop of a process that has left the mesh (at an elastic
+    shrink) while the others carry on: join the creation of every later
+    mesh's groups (`mesh_groups` is collective over the whole world), as
+    `announce_mesh` from each mesh's first member names them, until the
+    last mesh's members announce None."""
+    while (msg := announce_mesh(root)) is not None:
+        mesh_shape, members = msg
+        mesh_groups(mesh_shape, members)
+        root = members[0]
+
+
 @dataclasses.dataclass
 class ProcessGroupEngine(CollectiveEngine):
     """The CCLO of ONE process: this rank's local shards in, its results
-    out, over the default `torch.distributed` process group.
+    out, over the processes of the world that hold the mesh.
 
-    The world is the mesh: global rank g sits at mesh position
-    `np.unravel_index(g, mesh sizes)` (row-major, the stacked engine's
-    order), so the world size must equal the mesh's. Each axis's and each
-    axis pair's process groups are created here, in one order on every
-    process. `device` defaults to `cuda:{LOCAL_RANK % device_count}` and
-    raises without a card unless `device='cpu'` is passed. Every
-    collective of both backends, the queue and the streaming ops run on
-    local shards, and each differentiates as the stacked engine's does:
+    `members` are the global ranks of the mesh's positions in row-major
+    order (the stacked engine's order): mesh rank i, at
+    `np.unravel_index(i, mesh sizes)`, is global rank `members[i]`. The
+    default is the whole world in rank order, so the world size must then
+    equal the mesh's; a subset (the survivors of an elastic shrink) needs
+    every process of the world, members or not, to create the groups in
+    the same order: the others call `mesh_groups(mesh_shape, members)`
+    (`follow_meshes`) while the members build the engine. Each axis's
+    and each axis pair's process groups are created here, and the whole
+    mesh's (`group`: the default group over the whole world, None).
+    `device` defaults to `cuda:{LOCAL_RANK % device_count}` and raises
+    without a card unless `device='cpu'` is passed. Every collective of
+    both backends, the queue and the streaming ops run on local shards,
+    and each differentiates as the stacked engine's does:
     `allgather_matmul` and `matmul_reduce_scatter` through the same
-    adjoint Functions (`core/autograd.py`) on local shards, the ring
-    step through `_RingPass`, whose adjoint is the reverse exchange
-    (rank r + 1's gradient back to rank r), so `ring_attention`'s
-    backward is the stacked one's row.
+    adjoint Functions (`core/autograd.py`) on local shards, the ring step
+    through `_RingPass`, whose adjoint is the reverse exchange (rank
+    r + 1's gradient back to rank r), so `ring_attention`'s backward is
+    the stacked one's row.
     """
 
     device: object = None
+    members: Optional[tuple] = None
 
     def __post_init__(self):
         if self.device is None:
@@ -631,42 +696,35 @@ class ProcessGroupEngine(CollectiveEngine):
             raise RuntimeError(
                 "ProcessGroupEngine needs an initialized process group "
                 "(repro_torch.launch.procs.init_from_env or spawn)")
-        names = list(self.mesh_shape)
-        sizes = tuple(self.mesh_shape[a] for a in names)
-        if dist.get_world_size() != math.prod(sizes):
-            raise ValueError(f"{dist.get_world_size()} processes cannot "
-                             f"hold the mesh {self.mesh_shape}")
+        self.group, self.members, groups = mesh_groups(self.mesh_shape,
+                                                       self.members)
         self.global_rank = dist.get_rank()
+        if self.global_rank not in self.members:
+            raise ValueError(f"rank {self.global_rank} is not in the mesh's "
+                             f"members {self.members}")
+        #: this process's rank in the mesh (row-major): 0 writes checkpoints
+        self.mesh_rank = self.members.index(self.global_rank)
+        names = list(self.mesh_shape)
         self.coords = dict(zip(names, (int(c) for c in np.unravel_index(
-            self.global_rank, sizes))))
+            self.mesh_rank, tuple(self.mesh_shape[a] for a in names)))))
         self._transports: dict = {}
         self._checked: set = set()
-        live = [a for a in names if self.mesh_shape[a] > 1]
-        # every process creates every group, in this one order
-        for axes in [(a,) for a in live] + list(
-                itertools.combinations(live, 2)):
+        for (axes, rest), group in groups.items():
             others = [a for a in names if a not in axes]
-            for rest in itertools.product(
-                    *(range(self.mesh_shape[a]) for a in others)):
-                fixed = dict(zip(others, rest))
-                members = sorted(self._global(dict(fixed, **dict(zip(
-                    axes, c)))) for c in itertools.product(
-                        *(range(self.mesh_shape[a]) for a in axes)))
-                group = dist.new_group(members)
-                if all(fixed[a] == self.coords[a] for a in others):
-                    keys = [axes[0]] if len(axes) == 1 else \
-                        [axes, axes[::-1]]
-                    for key in keys:
-                        self._transports[key] = Transport(
-                            group, [self._global(self._position(key, r))
-                                    for r in range(self._axis_size(key))])
+            if any(self.coords[a] != c for a, c in zip(others, rest)):
+                continue
+            keys = [axes[0]] if len(axes) == 1 else [axes, axes[::-1]]
+            for key in keys:
+                self._transports[key] = Transport(
+                    group, [self._global(self._position(key, r))
+                            for r in range(self._axis_size(key))])
 
     # -- the process's place in the mesh -----------------------------------
     def _global(self, coords: dict) -> int:
         names = list(self.mesh_shape)
-        return int(np.ravel_multi_index(
+        return self.members[int(np.ravel_multi_index(
             tuple(coords[a] for a in names),
-            tuple(self.mesh_shape[a] for a in names)))
+            tuple(self.mesh_shape[a] for a in names)))]
 
     def _position(self, axis, r: int) -> dict:
         """Mesh coordinates of communicator rank r of `axis` in this

@@ -35,8 +35,9 @@ with no mesh dims leading (`ParCtx.lead == 0`).
 batch to the process's rows (`convert.shard_of`). The collectives are
 the stacked engine's programs on the same operands, bitwise; the plain
 products are 2-D there, batched over the ranks here, so they sum in
-another order (ROADMAP Queue 3). The dense family only: the others
-raise (`procgroup.NOT_YET`).
+another order (ROADMAP Queue 3). Every family runs so: the MoE's
+dispatch, the SSM mixer's carries, the hybrid's two branches, the audio
+encoder and the VLM prefix take local shards as they take stacked rows.
 """
 from __future__ import annotations
 
@@ -65,10 +66,6 @@ def make_ctx(cfg: ArchConfig, pcfg: ParallelConfig, mesh_shape: dict,
     if dict(engine.mesh_shape) != dict(mesh_shape):
         raise ValueError(f"engine mesh {engine.mesh_shape} is not "
                          f"{dict(mesh_shape)}")
-    if engine.stack_shape == () and cfg.family != "dense":
-        from repro_torch.core.procgroup import NOT_YET
-        raise NotImplementedError(
-            f"the {cfg.family} family is {NOT_YET['families']}")
     return ParCtx(engine=engine, pcfg=pcfg)
 
 

@@ -15,9 +15,12 @@ the stacked init's rows (`stages.init_params(coords=...)`), the loader
 reads only this process's data-parallel rows (`make_loader` at
 `TrainStep.data_shard()`), checkpoints are gathered to rank 0 and
 written there (`checkpoint/store.py`), and the watchdog and queue stats
-are the process's own. The elastic shrink is not available one rank per
-process (`procgroup.NOT_YET`). The trainer runs on the card unless
-`device="cpu"` is given. The step updates params and optimizer
+are the process's own. A shrink one rank per process hands the shards
+along the failed axis over before the dead position's processes leave
+(`_shrink_to_survivors`); the survivors carry on over an engine of
+their own, and the processes that left join the creation of every later
+shrink's groups until the survivors end. The trainer runs on the card
+unless `device="cpu"` is given. The step updates params and optimizer
 state in place, so a checkpoint snapshots them to host before the next
 step. run() returns a log of per-step metrics; recover-and-continue is
 exercised by tests/test_torch_trainer.py (inject a failure at step k,
@@ -30,6 +33,7 @@ trace time only.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import signal
 import time
 from typing import Optional
@@ -38,9 +42,9 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig, ParallelConfig
-from repro_torch.convert import stack_global, unstack
+from repro_torch.convert import gather_global, shard_of, stack_global, \
+    unstack
 from repro_torch.core import telemetry
-from repro_torch.core.procgroup import NOT_YET
 from repro_torch.data import DataConfig, make_loader
 from repro_torch.optim import adamw
 from repro_torch.parallel import stages
@@ -83,6 +87,24 @@ def _restack(leaf, spec, path, old: dict, new: dict, axis: str, pos: int):
     return (t.movedim(D, 0) if layered else t).contiguous()
 
 
+def _reshard_local(leaf, spec, old_engine, new_mesh: dict, new_coords,
+                   axis: str):
+    """`_restack` one rank per process: this process's shard of a leaf on
+    the mesh `new_mesh` (axis `axis` one shorter). A dim sharded over
+    `axis` (with any other axes of its spec entry) is gathered whole
+    through `old_engine` (every process of the old mesh joins) and cut to
+    `new_coords`' shard (None on a process that leaves); a leaf
+    replicated along the axis keeps this process's own copy."""
+    if leaf.ndim == 0 or axis not in spec_axes(spec):
+        return leaf
+    spec = tuple(spec) + (None,) * (leaf.ndim - len(tuple(spec)))
+    along = tuple(e if axis in spec_axes((e,)) else None for e in spec)
+    g = gather_global(leaf, along, old_engine)
+    if new_coords is None:
+        return None
+    return shard_of(g, new_mesh, along, new_coords).contiguous()
+
+
 class Trainer:
     def __init__(self, arch: ArchConfig, pcfg: ParallelConfig,
                  mesh_shape: dict, opt_cfg: adamw.AdamWConfig,
@@ -96,14 +118,20 @@ class Trainer:
         per_process = engine is not None and engine.stack_shape == ()
         self.coords = engine.coords if per_process else None
         self.device = torch.device(engine.device if per_process else device)
-        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep,
-                                      per_process=per_process)
+        self.ckpt = CheckpointManager(
+            tcfg.ckpt_dir, keep=tcfg.keep, per_process=per_process,
+            engine=engine if per_process else None)
         self.watchdog = StragglerWatchdog()
         self.heartbeat = Heartbeat()
         self._preempted = False
         # axis -> rank-id-aware degraded Communicator (built up by
         # _shrink_to_survivors as failures accumulate; absent = intact)
         self._axis_comms: dict = {}
+        # one rank per process, after a shrink: the global rank that
+        # announces the next mesh's groups (`procgroup.announce_mesh`),
+        # and whether this process has left the mesh
+        self._announcer: Optional[int] = None
+        self._left = False
         # per-step structured metrics (one `record()` per training step)
         self.metrics = telemetry.MetricsRegistry()
         self.ts = stages.build_train_step(arch, pcfg, self.mesh, opt_cfg,
@@ -112,8 +140,9 @@ class Trainer:
 
     @property
     def root(self) -> bool:
-        """Whether this process prints the log (rank 0, or stacked)."""
-        return self.coords is None or self.ts.ctx.engine.global_rank == 0
+        """Whether this process prints the log (the mesh's rank 0, or
+        stacked)."""
+        return self.coords is None or self.ts.ctx.engine.mesh_rank == 0
 
     # -- state ---------------------------------------------------------------
     def _fresh_state(self):
@@ -157,6 +186,15 @@ class Trainer:
 
     def run(self):
         self._install_signals()
+        try:
+            return self._run()
+        finally:
+            if self._announcer is not None and not self._left:
+                # the survivors' last mesh: the processes that left return
+                from repro_torch.core.procgroup import announce_mesh
+                announce_mesh(self._announcer)
+
+    def _run(self):
         restarts = 0
         log = []
         state = None
@@ -189,6 +227,16 @@ class Trainer:
                             if comm is not None else [],
                             "mesh_shape": dict(self.mesh),
                             "restart": restarts})
+                if state is None:
+                    # one rank per process, at the dead position: the
+                    # state is handed over and the survivors' groups made;
+                    # this process joins their later meshes' groups
+                    from repro_torch.core.procgroup import follow_meshes
+                    log.append({"event": "left", "step": e.state[2],
+                                "global_rank":
+                                    self.ts.ctx.engine.global_rank})
+                    follow_meshes(self._announcer)
+                    return log
                 continue
 
     def _shrink_to_survivors(self, failure: RankFailure):
@@ -203,10 +251,20 @@ class Trainer:
         (`_restack`): leaves replicated along the axis keep each
         survivor's own copy, leaves sharded along it are re-cut from
         their global arrays. Returns the (params, opt, step) state the
-        next `_run_once` continues from."""
-        if self.coords is not None:
-            raise NotImplementedError(
-                f"the elastic shrink is {NOT_YET['shrink']}") from failure
+        next `_run_once` continues from.
+
+        One rank per process every process sees the same failure (the
+        injector is a function of the step) and joins the handoff on the
+        old engine (`_reshard_local`). Then the mesh's first member
+        announces the survivors' mesh to the whole world
+        (`procgroup.announce_mesh`), and every process of the world
+        takes part in creating its groups: the survivors by building
+        their `ProcessGroupEngine` over it (`members`: their global
+        ranks), the processes at the dead position through
+        `procgroup.mesh_groups`, and those that left at an earlier shrink
+        in `procgroup.follow_meshes`. The processes at the dead position
+        get None: `run()` then follows the later meshes and ends for
+        them when the survivors end theirs."""
         if failure.state is None:
             raise failure  # failed outside the step loop: nothing to save
         axis = failure.axis
@@ -221,6 +279,9 @@ class Trainer:
         self._axis_comms[axis] = comm.without_ranks([pos])
         self.mesh = {**old, axis: old[axis] - 1}
         specs, ospecs = self.ts.specs, self.ts.opt_specs
+        if self.coords is not None:
+            return self._shrink_local(params, opt, step, old, axis, pos,
+                                      specs, ospecs)
         self.ts = stages.build_train_step(self.arch, self.pcfg, self.mesh,
                                           self.opt_cfg, self.lr_schedule,
                                           device=self.device)
@@ -231,6 +292,52 @@ class Trainer:
                 for (path, leaf), (_p, spec) in zip(flatten(tree),
                                                     flatten(spec_tree))])
         return move(params, specs), move(opt, ospecs), step
+
+    def _shrink_local(self, params, opt, step, old: dict, axis: str,
+                      pos: int, specs, ospecs):
+        """`_shrink_to_survivors` one rank per process (see there)."""
+        import torch.distributed as dist
+        from repro_torch.core.procgroup import ProcessGroupEngine, \
+            announce_mesh, mesh_groups
+        eng = self.ts.ctx.engine
+        if self._announcer is None and \
+                len(eng.members) != dist.get_world_size():
+            raise ValueError(
+                "a shrink one rank per process needs the Trainer's engine "
+                "over the whole world: every process creates the survivors' "
+                "groups")
+        names = list(old)
+        # the survivors' global ranks in row-major order of the new mesh
+        members = [eng._global(dict(zip(names, (
+            c + (1 if a == axis and c >= pos else 0)
+            for a, c in zip(names, idx)))))
+            for idx in itertools.product(*(range(self.mesh[a])
+                                           for a in names))]
+        leaving = eng.coords[axis] == pos
+        new_coords = None if leaving else {
+            **eng.coords, axis: eng.coords[axis] - (eng.coords[axis] > pos)}
+
+        def move(tree, spec_tree):
+            return unflatten([
+                (path, _reshard_local(leaf, spec, eng, self.mesh,
+                                      new_coords, axis))
+                for (path, leaf), (_p, spec) in zip(flatten(tree),
+                                                    flatten(spec_tree))])
+        params, opt = move(params, specs), move(opt, ospecs)
+        announce_mesh(eng.members[0], self.mesh, members)
+        self._announcer = members[0]
+        if leaving:
+            mesh_groups(self.mesh, members)
+            self._left = True
+            return None
+        new = ProcessGroupEngine(self.mesh, backend=eng.backend,
+                                 device=eng.device, members=members)
+        self.coords = new.coords
+        self.ckpt.engine = new
+        self.ts = stages.build_train_step(self.arch, self.pcfg, self.mesh,
+                                          self.opt_cfg, self.lr_schedule,
+                                          device=self.device, engine=new)
+        return params, opt, step
 
     def _queue_stats(self):
         """Offload-queue telemetry from the step's CollectiveEngine: how

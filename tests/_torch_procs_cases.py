@@ -275,8 +275,10 @@ def _engine_results(rank: int, outdir: str) -> dict:
         out[f"vecmat_{kind}"] = vm.distributed_vecmat(eng, xs, ws, TILES)
     # the streaming ops differentiate one rank per process
     out["grads"] = streaming_grads(eng, rank)
-    # what waits for a later slice: the other families, the shrink
-    out["not_yet"] = not_yet_messages(outdir)
+    # every LM family's step context one rank per process
+    out["families"] = family_contexts()
+    # an engine over part of the world
+    out["subset"] = subset_results(rank, outdir)
     # a rank that asks for another algorithm than its peers
     try:
         eng.allreduce(torch.ones(77), "x",
@@ -320,38 +322,64 @@ def streaming_grads(eng, rank: int) -> dict:
     return out
 
 
-def not_yet_messages(outdir: str) -> list:
-    """The NotImplementedError messages of what one rank per process does
-    not run yet: each non-dense family's step context, and the Trainer's
-    elastic shrink."""
+#: one arch of every LM family (the MoE twice: top-k and mixtral's)
+FAMILY_ARCHS = ("qwen3-0.6b", "qwen3-moe-30b-a3b", "mixtral-8x7b",
+                "mamba2-1.3b", "hymba-1.5b", "whisper-medium",
+                "internvl2-26b")
+
+
+def family_contexts() -> dict:
+    """arch -> what `stages.make_ctx` builds for a reduced config of every
+    LM family on this process's `ProcessGroupEngine` over (1, 2, 2): the
+    family, the leading mesh dims, whether the context is on local
+    shards, its TP size and TP rank, and the engine's coordinates."""
     from repro_torch.configs import ParallelConfig, get_config, \
         reduced_config
     from repro_torch.core.procgroup import ProcessGroupEngine
-    from repro_torch.data import DataConfig
-    from repro_torch.optim import adamw
     from repro_torch.parallel import stages
-    from repro_torch.runtime import Trainer, TrainerConfig
-    from repro_torch.runtime.health import RankFailure
     mesh = {"pod": 1, "data": 2, "model": 2}
     eng = ProcessGroupEngine(mesh, device="cpu")
-    msgs = []
-    for arch in ("mixtral-8x7b", "mamba2-1.3b", "hymba-1.5b",
-                 "whisper-medium", "internvl2-26b"):
+    out = {}
+    for arch in FAMILY_ARCHS:
         cfg = reduced_config(get_config(arch))
-        try:
-            stages.make_ctx(cfg, ParallelConfig(), mesh, engine=eng)
-        except NotImplementedError as e:
-            msgs.append(str(e))
-    trainer = Trainer(reduced_config(get_config("qwen3-0.6b")),
-                      ParallelConfig(), mesh, adamw.AdamWConfig(),
-                      DataConfig(global_batch=4, seq_len=8),
-                      TrainerConfig(ckpt_dir=f"{outdir}/ckpt"),
-                      engine=stages.process_engine(mesh, device="cpu"))
-    try:
-        trainer._shrink_to_survivors(RankFailure("rank 1 died", rank=1))
-    except NotImplementedError as e:
-        msgs.append(str(e))
-    return msgs
+        ctx = stages.make_ctx(cfg, ParallelConfig(), mesh, engine=eng)
+        out[arch] = {"family": cfg.family, "lead": ctx.lead,
+                     "local": ctx.local, "tp": ctx.tp,
+                     "tp_rank": int(ctx.tp_rank()),
+                     "coords": dict(eng.coords),
+                     "engine": type(ctx.engine).__name__}
+    return out
+
+
+#: the global ranks of a mesh over part of the world, in mesh order
+SUBSET = (3, 1)
+
+
+def subset_results(rank: int, outdir: str):
+    """A `ProcessGroupEngine` over global ranks 3 and 1 of the world of
+    four ({"x": 2}; mesh rank 0 is global rank 3): the other processes
+    create its groups beside it (`mesh_groups`); its members allreduce
+    and allgather an integer-valued vector and save it as a checkpoint
+    per process through the mesh's group. Returns a member's results,
+    None elsewhere."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.core.procgroup import ProcessGroupEngine, mesh_groups
+    mesh = {"x": 2}
+    if rank not in SUBSET:
+        mesh_groups(mesh, SUBSET)
+        return None
+    eng = ProcessGroupEngine(mesh, device="cpu", members=SUBSET)
+    x = subset_input(rank)
+    out = {"mesh_rank": eng.mesh_rank, "coords": dict(eng.coords),
+           "allreduce": eng.allreduce(x, "x"),
+           "allgather": eng.allgather(x, "x")}
+    save_checkpoint(f"{outdir}/subset_ckpt", 0, {"w": x}, {"w": ("x",)},
+                    mesh_shape=mesh, per_process=True, engine=eng)
+    return out
+
+
+def subset_input(rank: int):
+    return torch.arange(6.0) + 10 * rank
 
 
 def run(rank: int, n: int, outdir: str) -> None:

@@ -21,9 +21,8 @@ the parent stacks them.
   * the streaming ops on inputs that require grad: outputs and grads
     within 1e-5 of the stacked engine's;
   * the entry points: no card without device='cpu', a mismatched program
-    raises, a child that raises fails the world, and what one rank per
-    process does not run yet (the non-dense families, the Trainer's
-    elastic shrink) raises naming its ROADMAP item.
+    raises, a child that raises fails the world, and the step context of
+    every LM family builds on a process's engine.
 """
 import os
 import subprocess
@@ -50,6 +49,7 @@ from repro_torch.launch import procs
 SIZES = (2, 3, 4)
 GRID = [(n, key) for n in SIZES for key, *_ in C.grid(n)]
 _WORLDS: dict = {}
+_DIRS: dict = {}
 
 
 @pytest.fixture(scope="module")
@@ -60,6 +60,7 @@ def worlds(tmp_path_factory):
             d = tmp_path_factory.mktemp(f"world{n}")
             procs.spawn(C.run, n, backend="gloo", device="cpu",
                         args=(str(d),))
+            _DIRS[n] = d
             _WORLDS[n] = [torch.load(d / f"rank{r}.pt") for r in range(n)]
         return _WORLDS[n]
     return get
@@ -213,15 +214,41 @@ def test_streaming_ops_differentiate_per_process(worlds, i):
                                    err_msg=str(j))
 
 
-def test_not_yet_one_rank_per_process(worlds):
-    """What one rank per process does not run yet raises, naming its
-    ROADMAP item: the non-dense families' step contexts (item 8) and the
-    Trainer's elastic shrink (item 9)."""
-    msgs = worlds(4)[0]["not_yet"]
-    assert len(msgs) == 6
-    for msg in msgs[:5]:
-        assert "ROADMAP.md Queue 1 item 8" in msg
-    assert "ROADMAP.md Queue 1 item 9" in msgs[5]
+@pytest.mark.parametrize("arch", C.FAMILY_ARCHS)
+def test_make_ctx_every_family_per_process(worlds, arch):
+    """`stages.make_ctx` builds the step context of every LM family (the
+    MoE, SSM, hybrid, audio and VLM ones as the dense one) on each
+    process's `ProcessGroupEngine`: local shards (no mesh dims lead), TP
+    2, and each process's TP rank its model coordinate."""
+    from repro_torch.configs import get_config
+    for r in range(4):
+        got = worlds(4)[r]["families"][arch]
+        assert got["family"] == get_config(arch).family
+        assert got["engine"] == "ProcessGroupEngine"
+        assert got["lead"] == 0 and got["local"] and got["tp"] == 2
+        assert got["coords"] == {"pod": 0, "data": r // 2, "model": r % 2}
+        assert got["tp_rank"] == got["coords"]["model"]
+
+
+def test_engine_over_part_of_the_world(worlds):
+    """A `ProcessGroupEngine` over global ranks (3, 1) of four, the others
+    creating its groups alongside: mesh rank 0 is global rank 3, its
+    allreduce and allgather take the members in mesh order (bitwise on
+    integer values), and a checkpoint saved per process through the
+    mesh's group is written by its rank 0 in mesh order."""
+    from repro_torch.checkpoint import load_checkpoint
+    w = worlds(4)
+    got = {r: w[r]["subset"] for r in range(4)}
+    assert got[0] is None and got[2] is None
+    x3, x1 = C.subset_input(3), C.subset_input(1)
+    for r, pos in zip(C.SUBSET, (0, 1)):
+        assert got[r]["mesh_rank"] == pos and got[r]["coords"] == {"x": pos}
+        assert torch.equal(got[r]["allreduce"], x3 + x1)
+        assert torch.equal(got[r]["allgather"].reshape(-1),
+                           torch.cat([x3, x1]))
+    tree, _ = load_checkpoint(str(_DIRS[4] / "subset_ckpt"), 0,
+                              {"w": torch.empty(12)})
+    assert torch.equal(tree["w"], torch.cat([x3, x1]))
 
 
 def test_engine_needs_the_card_by_default():

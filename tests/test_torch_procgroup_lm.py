@@ -23,7 +23,9 @@ stacks each rank's local results and holds them:
     a stacked checkpoint restores into the world as its local shards.
 The launchers: `launch.train --procs 4` and `launch.serve --procs 4`
 (and `launch.serve` under torchrun) give the stacked launchers' loss and
-tokens; without `--device cpu` they raise where there is no card.
+tokens, for qwen3-0.6b and for a non-dense family each (the MoE trained,
+the hybrid served); whisper's serve refuses as the stacked one does;
+without `--device cpu` they raise where there is no card.
 """
 import functools
 import json
@@ -563,6 +565,52 @@ def test_serve_launcher_procs(tmp_path, how):
     got = json.loads((tmp_path / "p.json").read_text())
     assert got == json.loads((tmp_path / "s.json").read_text())
     assert np.asarray(got).shape == (4, 10)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b"])
+def test_serve_launcher_procs_family(tmp_path, arch):
+    """`launch.serve --procs 4` serves a non-dense family (the hybrid:
+    attention and SSM branches, global and windowed layers) with the
+    stacked launcher's tokens on four devices."""
+    from repro_torch.launch import serve
+    argv = ["--arch", arch, "--device", "cpu", "--gen", "3",
+            "--prompt-len", "5"]
+    serve.main(argv + ["--procs", "4", "--out", str(tmp_path / "p.json")])
+    serve.main(argv + ["--devices", "4", "--out", str(tmp_path / "s.json")])
+    got = json.loads((tmp_path / "p.json").read_text())
+    assert got == json.loads((tmp_path / "s.json").read_text())
+    assert np.asarray(got).shape == (4, 8)
+
+
+def test_serve_launcher_procs_refuses_audio():
+    """The audio family: `launch.serve --procs 2` refuses as the stacked
+    launcher (and the reference's) does: its decode has no cross cache
+    (ROADMAP Queue 3)."""
+    from repro_torch.launch import serve
+    argv = ["--arch", "whisper-medium", "--device", "cpu", "--gen", "2",
+            "--prompt-len", "3"]
+    with pytest.raises(KeyError, match="xk"):
+        serve.main(argv + ["--devices", "2"])
+    with pytest.raises(Exception, match="xk"):
+        serve.main(argv + ["--procs", "2"])
+
+
+def test_train_launcher_procs_family(tmp_path):
+    """`launch.train --procs 4` trains the MoE (its aux term) with the
+    stacked launcher's trajectory on four devices."""
+    from repro_torch.launch import train
+    argv = ["--arch", "qwen3-moe-30b-a3b", "--device", "cpu", "--steps",
+            "2", "--batch", "4", "--seq", "16", "--ckpt-every", "100"]
+    train.main(argv + ["--procs", "4", "--ckpt", str(tmp_path / "p"),
+                       "--log-json", str(tmp_path / "p.json")])
+    train.main(argv + ["--devices", "4", "--ckpt", str(tmp_path / "s"),
+                       "--log-json", str(tmp_path / "s.json")])
+    got = json.loads((tmp_path / "p.json").read_text())
+    want = json.loads((tmp_path / "s.json").read_text())
+    assert [r["step"] for r in got] == [0, 1]
+    for a, b in zip(got, want):
+        for k in METRICS:
+            np.testing.assert_allclose(a[k], b[k], err_msg=k, **METRIC_TOL)
 
 
 def test_launchers_procs_need_the_card(monkeypatch):
