@@ -16,7 +16,9 @@ as the forward does, and the CPU and the card take one backward:
   allgather              <-> reduce_scatter(add), and the other way round
   alltoall               <-> alltoall (the inverse block permutation)
   allgather_matmul(x, w)     dx = reduce_scatter(dy @ w^T),
-                             dw = allgather(x)^T @ dy per rank
+                             dw = allgather(x)^T @ dy per rank, the
+                             gathered x being the shards the forward's
+                             ring brought (no second gather)
   matmul_reduce_scatter(x, w)  G = allgather(dy): dx = G @ w^T, dw = x^T @ G
 
 A two-axis (product) collective's adjoint is the same call over the same
@@ -118,21 +120,26 @@ class AllGatherMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, engine, x, w, axis, segments):
         ctx.engine, ctx.axis = engine, axis
-        ctx.save_for_backward(x, w)
-        return engine.allgather_matmul(x, w, axis, segments=segments)
+        ctx.x_shape, ctx.x_dtype = tuple(x.shape), x.dtype
+        if not ctx.needs_input_grad[2]:
+            ctx.save_for_backward(w)
+            return engine.allgather_matmul(x, w, axis, segments=segments)
+        y, xg = engine.allgather_matmul(x, w, axis, segments=segments,
+                                        keep_gathered=True)
+        ctx.save_for_backward(w, xg)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        eng, axis = ctx.engine, ctx.axis
+        w = ctx.saved_tensors[0]
         dx = dw = None
         if ctx.needs_input_grad[1]:
-            z = _mm_t(g, w, x.dtype, tb=True)           # (*mesh, n m, k)
-            dx = eng.reduce_scatter(z, axis).reshape(x.shape)
+            z = _mm_t(g, w, ctx.x_dtype, tb=True)      # (*mesh, n m, k)
+            dx = ctx.engine.reduce_scatter(z, ctx.axis).reshape(ctx.x_shape)
         if ctx.needs_input_grad[2]:
-            xg = eng.allgather(x, axis).reshape(tuple(g.shape[:-1])
-                                                + (x.shape[-1],))
-            dw = _mm_t(xg, g, w.dtype, ta=True)
+            xg = ctx.saved_tensors[1]
+            dw = _mm_t(xg.reshape(tuple(g.shape[:-1]) + (xg.shape[-1],)),
+                       g, w.dtype, ta=True)
         return None, dx, dw, None, None
 
 

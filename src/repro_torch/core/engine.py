@@ -1302,7 +1302,8 @@ class CollectiveEngine:
         (default a.dtype)."""
         return kops.matmul(a, b, out_dtype or a.dtype)
 
-    def allgather_matmul(self, x, w, axis: str, segments: int = 1):
+    def allgather_matmul(self, x, w, axis: str, segments: int = 1,
+                         keep_gathered: bool = False):
         """y = allgather(x, rows) @ w without staging the gathered buffer.
 
         Each ring step multiplies the resident shard of every rank (one
@@ -1310,6 +1311,10 @@ class CollectiveEngine:
         x: mesh-stacked (m, k) local rows; w: mesh-stacked (k, p); out:
         mesh-stacked (n*m, p). segments > 1 row-splits the shard into
         independent segment pipelines, as the reference does.
+        keep_gathered also returns the shards the ring brought, placed as
+        `allgather(x)` places them (n*m, k): the backward's dw reads them
+        as the reference's transpose reads its saved ring residuals, with
+        no second gather.
         """
         if _autograd.needed(x, w):
             return _autograd.AllGatherMatmul.apply(self, x, w, axis,
@@ -1319,13 +1324,16 @@ class CollectiveEngine:
         rows, lay = self._layout(x, axis)
         n = lay.n
         if n == 1:
-            return self._matmul(x, w)
+            y = self._matmul(x, w)
+            return (y, x) if keep_gathered else y
         wrows, _ = self._layout(w, axis)
         R, m, p = rows.shape[0], rows.shape[1], wrows.shape[-1]
         segs = _fit_segments(m, segments)
         sub = m // segs
         parts = list(rows.split(sub, dim=1))
         out = torch.zeros((R, n, m, p), dtype=x.dtype, device=x.device)
+        kept = torch.empty((R, n) + tuple(rows.shape[1:]), dtype=x.dtype,
+                           device=x.device) if keep_gathered else None
         at = torch.arange(R, device=x.device)
         rank = lay.rank_of_rows(x.device)
         for s in range(n):
@@ -1333,11 +1341,17 @@ class CollectiveEngine:
             for j, part in enumerate(parts):
                 out[at, (rank - s) % n, j * sub:(j + 1) * sub] = \
                     self._matmul(part, wrows)
+                if kept is not None:
+                    kept[at, (rank - s) % n, j * sub:(j + 1) * sub] = part
             if s < n - 1:
                 parts = self._ring_pass(parts, lay)
         self.trace_log.append(("allgather_matmul", "ring", axis,
                                int(rows[0].numel() * rows.element_size())))
-        return lay.restore(out.reshape(R, n * m, p))
+        y = lay.restore(out.reshape(R, n * m, p))
+        if kept is None:
+            return y
+        return y, lay.restore(kept.reshape((R, n * m)
+                                           + tuple(rows.shape[2:])))
 
     def matmul_reduce_scatter(self, x, w, axis: str, segments: int = 1):
         """Row-sharded output of (x @ w) with the partial-sum reduction

@@ -827,13 +827,14 @@ class ProcessGroupEngine(CollectiveEngine):
                                         [((r - shift) % n, 0, out)])
         return out
 
-    def allgather_matmul(self, x, w, axis: str, segments: int = 1):
+    def allgather_matmul(self, x, w, axis: str, segments: int = 1,
+                         keep_gathered: bool = False):
         if _autograd.needed(x, w):
             return _autograd.AllGatherMatmul.apply(self, x, w, axis,
                                                    segments)
         x, w = self._streaming("allgather_matmul", axis, (x, w),
                                segments=segments)
-        return super().allgather_matmul(x, w, axis, segments)
+        return super().allgather_matmul(x, w, axis, segments, keep_gathered)
 
     def matmul_reduce_scatter(self, x, w, axis: str, segments: int = 1):
         if _autograd.needed(x, w):

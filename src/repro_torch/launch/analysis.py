@@ -26,13 +26,23 @@ undercount: every layer and every ring step executes.
                them)
   collectives  every program the engine executed (`_execute`), its
                wire bytes per rank by `Program.fabric_wire_bytes` on
-               the executed buffer (ICI and DCN); the streaming ring
+               the executed buffer (ICI and DCN), a compressed program's
+               by the bytes its exchanges send (`_coded_wire`: the int8
+               codes padded to whole 256-element blocks and their
+               scales, where `fabric_wire_bytes` prices 1 + 4/256 bytes
+               an element); the streaming ring
                ops (`allgather_matmul`, `matmul_reduce_scatter`,
                `ring_attention`) from the engine's `trace_log`, whose
                raw permutations run no program; and every native
                collective (`backend='native'`: the engine's `_native*`
                hooks) by the reference's ring model of XLA's
                collectives (`NATIVE_WIRE`)
+  reads        the storages some op or kernel entry point read, so
+               `memory` can report the argument bytes a step never read
+               (what jit drops from a compiled step)
+  kernel calls the launches the kernel entry points imply
+               (`KERNEL_ENTRIES`): on 'meta' what a run on the card
+               launches
 
 Every count is of the stacked run, all ranks together; per-rank values
 divide by the rank count (`roofline_terms`).
@@ -41,6 +51,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import math
 import weakref
 
 import torch
@@ -48,6 +60,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.core import engine as engine_mod
 from repro_torch.kernels import ops as kops
 
 # wire bytes per rank of a streaming ring op, from the bytes its
@@ -126,6 +139,33 @@ class StepStats:
     # (collective, schedule, executed buffer shape, codec, axis) per
     # program, in the order the engine ran them
     programs: list = dataclasses.field(default_factory=list)
+    # keys of the storages some op or kernel entry point of the call read
+    # (`memory`'s unread_argument_bytes)
+    read: set = dataclasses.field(default_factory=set)
+    # kernel (`kernels/ops.py::KERNELS`) -> the launches its entry points
+    # imply: one per outermost call with a non-empty result, on any device
+    kernel_calls: dict = dataclasses.field(default_factory=dict)
+
+
+def _coded_wire(comm, body, tgt_idx, buf) -> tuple:
+    """(fabric, bytes one rank sends) of one exchange of a compressed
+    program: k segments of `seg` elements each (the region index the
+    executor built); a compressed segment padded to whole codec blocks,
+    as the codec's payload is (the int8 codes and one fp32 scale per 256
+    elements), an uncompressed one (a ring's allgather phase) as it
+    is."""
+    send_ops, _ = engine_mod._split_wire(body[1:-1])
+    codec = engine_mod._codec_of(send_ops)
+    unit, _rows, uidx = tgt_idx
+    seg = uidx.shape[2] * unit * math.prod(buf.shape[2:])
+    if codec is None:
+        nbytes = seg * buf.element_size()
+    else:
+        block = codec.block_elems
+        nbytes = -(-seg // block) * block * codec.wire_bytes_per_elem
+    level = getattr(send_ops[-1], "level", None)
+    c = comm.level_comm(level) if hasattr(comm, "level_comm") else comm
+    return "dcn" if c.is_dcn else "ici", uidx.shape[0] * nbytes
 
 
 class _EngineTap:
@@ -146,8 +186,27 @@ class _EngineTap:
         real_execute = eng._execute
 
         def execute(sched, rows, lay, compression=None):
-            self._program(sched, rows, compression, eng.trace_log[-1][2])
-            return real_execute(sched, rows, lay, compression)
+            axis = eng.trace_log[-1][2]
+            if compression is None:
+                self._program(sched, rows, axis)
+                return real_execute(sched, rows, lay, compression)
+            sent = {"ici": 0.0, "dcn": 0.0}
+            real_exchange = engine_mod._exchange
+
+            def exchange(st, body, k_req, step):
+                res = real_exchange(st, body, k_req, step)
+                fabric, nbytes = _coded_wire(eng.comm(axis), body, res[0],
+                                             st.buf)
+                sent[fabric] += nbytes
+                return res
+
+            engine_mod._exchange = exchange
+            try:
+                out = real_execute(sched, rows, lay, compression)
+            finally:
+                engine_mod._exchange = real_exchange
+            self._program(sched, rows, axis, compression, sent)
+            return out
 
         eng._execute = execute
         for name in NATIVE_WIRE:
@@ -189,15 +248,61 @@ class _EngineTap:
         k[0] += 1
         k[1] += wire
 
-    def _program(self, sched, rows, compression, axis) -> None:
+    def _program(self, sched, rows, axis, compression=None,
+                 fab=None) -> None:
         eng = self.engine
-        prog = sched.compile(codec=compression, verify=eng.verify)
-        msg = _nbytes(rows[0])
-        fab = prog.fabric_wire_bytes(msg, eng.comm(axis),
-                                     elem_bytes=rows.element_size())
+        if fab is None:
+            prog = sched.compile(codec=compression, verify=eng.verify)
+            fab = prog.fabric_wire_bytes(_nbytes(rows[0]), eng.comm(axis),
+                                         elem_bytes=rows.element_size())
         self.stats.programs.append((sched.collective, sched,
                                     tuple(rows.shape), compression, axis))
         self._count(sched.collective, fab["ici"] + fab["dcn"], fab["dcn"])
+
+
+# the kernels' entry points (`kernels/ops.py`) and the kernel each
+# launches once on the card when its result is not empty. A kernel reads
+# its operands outside any dispatch mode (a ctypes launch on the card, the
+# output alone on 'meta'), so `counting` marks them read at the call.
+KERNEL_ENTRIES = {
+    "fused_combine": "fused_combine", "fused_combine_at": "fused_combine",
+    "quantize_int8": "quantize_blocks", "quantize_int8_at": "quantize_blocks",
+    "dequantize_int8": "dequantize_blocks",
+    "dequantize_int8_at": "dequantize_blocks", "matmul": "matmul_tiled",
+    "embedding_gather": "gather_rows", "embedding_lookup_rows": "gather_rows",
+}
+
+
+@contextlib.contextmanager
+def _kernel_calls(stats: StepStats):
+    saved = {name: getattr(kops, name) for name in KERNEL_ENTRIES}
+    depth = [0]
+
+    def calling(name, fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            stats.read.update(t.untyped_storage()._cdata
+                              for t in tensors((args, kwargs)))
+            depth[0] += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+            res = tensors(out)
+            if depth[0] == 0 and res and res[0].numel():
+                kernel = KERNEL_ENTRIES[name]
+                stats.kernel_calls[kernel] = \
+                    stats.kernel_calls.get(kernel, 0) + 1
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(kops, name, calling(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(kops, name, fn)
 
 
 class _Dispatch(TorchDispatchMode):
@@ -230,6 +335,7 @@ class _Dispatch(TorchDispatchMode):
             return out
         ins = tensors((args, kwargs))
         in_keys = [t.untyped_storage()._cdata for t in ins]
+        st.read.update(in_keys)
         seen, wrote = set(in_keys), 0
         for t in tensors(out):
             storage = t.untyped_storage()
@@ -260,6 +366,7 @@ def counting(engines=()):
     with contextlib.ExitStack() as stack:
         for eng in engines:
             stack.enter_context(_EngineTap(eng, stats))
+        stack.enter_context(_kernel_calls(stats))
         stack.enter_context(mode)
         yield stats
     stats.flops += kops.kernel_flops() - k4
@@ -315,10 +422,14 @@ def memory(args, out, st: StepStats, mesh_shape: dict) -> dict:
                           if t.untyped_storage()._cdata in in_keys],
                          mesh_shape)
     temp = st.peak_bytes // ranks - (outb - alias)
+    unread, _ = arg_bytes([t for t in tensors(args)
+                           if t.untyped_storage()._cdata not in st.read],
+                          mesh_shape)
     return {"argument_bytes": arg, "output_bytes": outb, "temp_bytes": temp,
             "alias_bytes": alias,
             "peak_bytes_est": arg + outb + temp - alias,
-            "unstacked_argument_bytes": single}
+            "unstacked_argument_bytes": single,
+            "unread_argument_bytes": unread}
 
 
 def roofline_terms(st: StepStats, mem: dict, hw, chips: int) -> dict:

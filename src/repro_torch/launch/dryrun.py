@@ -99,9 +99,13 @@ def _mesh_name(mesh_shape: dict) -> str:
     return "x".join(str(s) for s in mesh_shape.values())
 
 
-def build_cell(cfg, shape_cfg, mesh_shape: dict, pcfg: ParallelConfig):
+def build_cell(cfg, shape_cfg, mesh_shape: dict, pcfg: ParallelConfig,
+               s_enc: int = None):
     """(step thunk, engine, argument tree) of one cell's step on
-    `mesh_shape`, every input a 'meta' tensor."""
+    `mesh_shape`, every input a 'meta' tensor. A decode step of the audio
+    family reads a cross cache of `s_enc` encoder positions (default
+    WHISPER_S_ENC). Its position is a host int, where the reference's
+    step takes a 4-byte int32 argument: `memory` counts no bytes for it."""
     kind = shape_cfg.kind
     tp = mesh_shape.get("model", 1)
     pshapes = stages.param_shapes(cfg, mesh_shape, tp, serve=kind != "train")
@@ -118,7 +122,8 @@ def build_cell(cfg, shape_cfg, mesh_shape: dict, pcfg: ParallelConfig):
             cfg, pcfg, mesh_shape, shape_cfg.global_batch,
             shape_cfg.seq_len, device="meta")
         return (lambda: pf(pshapes, batch)), ctx.engine, (pshapes, batch)
-    s_enc = WHISPER_S_ENC if cfg.encoder_layers else 0
+    s_enc = (WHISPER_S_ENC if s_enc is None else s_enc) \
+        if cfg.encoder_layers else 0
     dstep, ctx, _, _ = stages.build_decode_step(
         cfg, pcfg, mesh_shape, s_max=shape_cfg.seq_len,
         global_batch=shape_cfg.global_batch, s_enc=s_enc, device="meta")
@@ -186,35 +191,48 @@ def _finish(result, fn, engine, args, mesh_shape, model_flops, t_start, hw):
     return result
 
 
+def build_dlrm_cell(dcfg, mesh_shape: dict, pcfg: ParallelConfig,
+                    batch: int):
+    """(forward thunk, engine, argument tree) of the DLRM serving step on
+    `mesh_shape`: the tables sharded over 'model' on rows, the FC stack
+    checkerboard-decomposed, `batch` requests of `dcfg.n_tables` ids over
+    the data axes; every input a 'meta' tensor (the counterpart of
+    `build_cell` for `run_dlrm_cell`)."""
+    from repro_torch.core.engine import CollectiveEngine
+    from repro_torch.models import dlrm as dlrm_mod
+    from repro_torch.parallel.ops import ParCtx
+
+    pcfg = dataclasses.replace(pcfg, serving=True)
+    engine = CollectiveEngine(mesh_shape, backend=pcfg.backend,
+                              device="meta")
+    ctx = ParCtx(engine=engine, pcfg=pcfg)
+    bld = Builder("shape", mesh_shape=dict(mesh_shape), dtype=torch.float32)
+    params = dlrm_mod.dlrm_params(bld, dcfg, mesh_shape["model"])
+    dp = stages.dp_axes(mesh_shape, batch)
+    idx = bld.param((batch, dcfg.n_tables), (dp, None), dtype=torch.int32)
+    return (lambda: dlrm_mod.dlrm_forward(params, idx, ctx)), engine, \
+        (params, idx)
+
+
 def run_dlrm_cell(multi_pod: bool, pcfg: ParallelConfig,
                   variant: str = "base", batch: int = 1024, hw=TPU_V5E):
     """Paper Table 2 at full scale: 100 tables x 4M rows x 32 (51 GB fp32),
     sharded over the model axis; FC stack checkerboard-decomposed."""
     from repro_torch.configs.dlrm import CONFIG as dcfg
-    from repro_torch.core.engine import CollectiveEngine
-    from repro_torch.models import dlrm as dlrm_mod
-    from repro_torch.parallel.ops import ParCtx
 
     t_start = time.time()
     mesh = make_production_mesh(multi_pod=multi_pod)
     result = {"arch": "dlrm", "shape": f"serve_b{batch}",
               "mesh": _mesh_name(mesh), "chips": math.prod(mesh.values()),
               "backend": pcfg.backend, "variant": variant, "kind": "serve"}
-    pcfg = dataclasses.replace(pcfg, serving=True)
-    engine = CollectiveEngine(mesh, backend=pcfg.backend, device="meta")
-    ctx = ParCtx(engine=engine, pcfg=pcfg)
-    bld = Builder("shape", mesh_shape=mesh, dtype=torch.float32)
-    params = dlrm_mod.dlrm_params(bld, dcfg, mesh["model"])
-    dp = stages.dp_axes(mesh, batch)
-    idx = bld.param((batch, dcfg.n_tables), (dp, None), dtype=torch.int32)
+    fn, engine, args = build_dlrm_cell(dcfg, mesh, pcfg, batch)
     result["t_lower_s"] = round(time.time() - t_start, 2)
     # FC flops (2*b*in*out summed) + embedding gather bytes dominate
     dims = (dcfg.n_tables * dcfg.emb_dim,) + tuple(dcfg.fc_dims) \
         + (dcfg.out_dim,)
     flops = sum(2 * batch * dims[i] * dims[i + 1]
                 for i in range(len(dims) - 1))
-    return _finish(result, lambda: dlrm_mod.dlrm_forward(params, idx, ctx),
-                   engine, (params, idx), mesh, flops, t_start, hw)
+    return _finish(result, fn, engine, args, mesh, flops, t_start, hw)
 
 
 def all_cells():

@@ -752,7 +752,8 @@ def test_meta_counters_equal_card_step(card):
     """A reduced qwen3-0.6b train step with SP and the collective matmul
     on the (1, 4, 2) mesh, once on 'meta' and once on the card under the
     same counters: FLOPs equal (K4's counted at its wrapper on the card),
-    argument bytes equal, the programs equal in order."""
+    argument bytes equal, the programs equal in order, the card's
+    launches those the meta run's kernel entry points imply."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import analysis, dryrun
@@ -773,9 +774,13 @@ def test_meta_counters_equal_card_step(card):
     toks = torch.randint(0, cfg.vocab_size, (8, 32), dtype=torch.int32)
     batch = ts.put_batch({"tokens": toks, "labels": toks})
     k4 = matmul.matmul_tiled.launches
+    k1 = fused_reduce.fused_combine.launches
     with analysis.counting([ts.ctx.engine]) as st_c:
         ts.fn(params, opt, batch, 0)
     assert matmul.matmul_tiled.launches > k4
+    assert st_m.kernel_calls == st_c.kernel_calls == {
+        "fused_combine": fused_reduce.fused_combine.launches - k1,
+        "matmul_tiled": matmul.matmul_tiled.launches - k4}
     assert st_c.flops == st_m.flops
     assert analysis.arg_bytes((params, opt, batch), mesh) == \
         analysis.arg_bytes(args, mesh)

@@ -3,15 +3,19 @@
 
   * the counters on hand-counted programs: a loop of products, an engine
     allreduce's wire bytes (ICI and DCN) against its program's
-    `fabric_wire_bytes`, the streaming ring ops, K4's products on 'meta'
-    and through `ops.matmul`;
+    `fabric_wire_bytes`, the int8 codec's padded wire and
+    `allgather_matmul`'s adjoint against the reference's compiled ones,
+    the streaming ring ops, K4's products on 'meta' and through
+    `ops.matmul`, the launches the kernel entry points imply, the
+    argument bytes a step never reads;
   * `make_production_mesh`, `cache_shapes` and `ops.fused_add` against
     the reference's;
   * a reduced qwen3-0.6b train step and prefill on the (1, 4, 2) mesh
     against the reference's step lowered and compiled here on the same
-    mesh: argument bytes equal `memory_analysis()`'s; FLOPs and wire bytes
-    equal `repro.launch.analysis.analyze_hlo`'s, but for the two
-    differences the compiler makes (see `test_train_step_against_
+    mesh (`test_torch_dryrun_families.py`'s helper, which does so for
+    every family): argument bytes equal `memory_analysis()`'s; FLOPs and
+    wire bytes equal `repro.launch.analysis.analyze_hlo`'s, but for the
+    two differences the compiler makes (see `test_train_step_against_
     compiled_reference`);
   * one dry-run result of each kind, and a SKIP(full-attn) cell, through
     `benchmarks/roofline.py::fmt_table`.
@@ -33,10 +37,11 @@ from benchmarks.roofline import fmt_table
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced_config as jax_reduced_config
 from repro.configs.base import ParallelConfig as JaxParallelConfig
+from repro.core.compat import shard_map
+from repro.core.engine import CollectiveEngine as JaxEngine
 from repro.core.topology import make_mesh as jax_make_mesh
 from repro.kernels import ops as jax_ops
 from repro.launch import analysis as jax_analysis
-from repro.optim import adamw as jax_adamw
 from repro.parallel import stages as jax_stages
 from repro_torch.configs import ParallelConfig, get_config, reduced_config
 from repro_torch.configs.base import SHAPES, ShapeConfig
@@ -46,6 +51,8 @@ from repro_torch.kernels import ops
 from repro_torch.launch import analysis, dryrun
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.parallel import stages
+
+import test_torch_dryrun_families as families
 
 MESH = {"pod": 1, "data": 4, "model": 2}
 B, S = 8, 64
@@ -91,12 +98,26 @@ def test_k4_counted_on_meta_and_through_ops():
     assert ops.kernel_flops() == k0
 
 
+def _padded_wire(prog, elems: int, block: int = 256) -> float:
+    """int8 wire bytes per rank of `prog` on `elems` elements a rank: each
+    exchange's segment padded to whole `block`s of codes, one fp32 scale
+    per block."""
+    total = 0.0
+    for mult, k, body, _region in prog.exchange_terms():
+        send = next(op for op in body if type(op).__name__ == "Send")
+        seg = elems * send.bytes_frac / k
+        total += mult * k * math.ceil(seg / block) * (block + 4)
+    return total
+
+
 @pytest.mark.parametrize("axis,compression", [
     ("data", None), ("data", "int8"), (("pod", "data"), None)])
 def test_allreduce_wire_bytes_equal_program(axis, compression):
     """One engine allreduce: its wire bytes per rank, ICI and DCN, are
     its executed program's `fabric_wire_bytes` on the executed buffer
-    (the two-axis allreduce's pod steps ride DCN)."""
+    (the two-axis allreduce's pod steps ride DCN); an int8 program's are
+    its exchanges' padded codes and scales, which the codec sends, where
+    `fabric_wire_bytes` prices 1 + 4/256 bytes an element."""
     mesh = {"pod": 2, "data": 4}
     eng = CollectiveEngine(mesh, device="cpu")
     x = torch.zeros(2, 4, 1000)
@@ -107,9 +128,41 @@ def test_allreduce_wire_bytes_equal_program(axis, compression):
     assert (name, codec, ax) == ("allreduce", compression, axis)
     prog = sched.compile(codec=compression)
     fab = prog.fabric_wire_bytes(4 * math.prod(shape[1:]), eng.comm(axis))
-    assert st.coll_wire_bytes == fab["ici"] + fab["dcn"] > 0
+    want = fab["ici"] + fab["dcn"] if compression is None else \
+        _padded_wire(prog, math.prod(shape[1:]))
+    assert st.coll_wire_bytes == want > 0
     assert st.coll_dcn_bytes == fab["dcn"]
     assert (fab["dcn"] > 0) == isinstance(axis, tuple)
+
+
+@pytest.mark.parametrize("algorithm,coded,plain,elems", [
+    ("recursive_doubling", 2, 0, 1000), ("ring", 3, 3, 250)])
+def test_int8_wire_counts_padded_blocks(algorithm, coded, plain, elems):
+    """An int8 allreduce of 1000 fp32 a rank over 4 ranks sends, in each
+    compressed exchange, `elems` codes padded to whole 256-element blocks
+    and one fp32 scale per block, and the ring's allgather phase its
+    fp32 chunks as they are: recursive doubling 2 x (1024 + 4 x 4) B, the
+    ring 3 x (256 + 4) + 3 x 1000 B. The reference's compiled allreduce
+    moves the same bytes (its jnp codec pads alike); 1 + 4/256 B a
+    compressed element, the priced wire, is less."""
+    blocks = -(-elems // 256)
+    hand = coded * blocks * (256 + 4) + plain * elems * 4
+    assert hand > coded * elems * (1 + 4 / 256) + plain * elems * 4
+    eng = CollectiveEngine({"x": 4}, device="cpu")
+    _, st = analysis.count(lambda: eng.allreduce(
+        torch.zeros(4, 1000), "x", algorithm=algorithm, compression="int8"),
+        [eng])
+    assert st.coll_wire_bytes == hand and st.coll_dcn_bytes == 0
+    jmesh = jax_make_mesh((4,), ("x",))
+    jeng = JaxEngine(jmesh)
+    fn = jax.jit(shard_map(
+        lambda v: jeng.allreduce(v, "x", algorithm=algorithm,
+                                 compression="int8"),
+        mesh=jmesh, in_specs=P("x"), out_specs=P("x"), check_vma=False))
+    compiled = fn.lower(jax.ShapeDtypeStruct(
+        (4000,), jnp.float32, sharding=NamedSharding(jmesh, P("x")))).compile()
+    assert jax_analysis.analyze_hlo(compiled.as_text()).coll_wire_bytes \
+        == hand
     assert st.coll_by_kind == {"allreduce": [1, st.coll_wire_bytes]}
 
 
@@ -130,6 +183,84 @@ def test_streaming_ring_wire_bytes():
     assert st.coll_by_kind == {"allgather_matmul": [1, 3 * 8 * 32 * 4]}
     # 4 ring steps, each one product per stacked rank (8)
     assert st.flops == 4 * 8 * 2 * 8 * 32 * 16
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_allgather_matmul_grad_wire_equals_reference(n):
+    """allgather_matmul and its adjoint move what the reference's
+    compiled `jax.grad` of the same call moves: the forward ring's n - 1
+    shards and, backward, one reduce-scatter of dy w^T ((n - 1) shards
+    again). dw reads the shards the forward's ring brought; a second
+    allgather of x for it (the port's backward before) moved (n - 1)
+    shards more than the reference."""
+    m, k, p = 8, 32, 16
+    shard = m * k * 4
+    eng = CollectiveEngine({"x": n}, device="cpu")
+    x = torch.zeros(n, m, k, requires_grad=True)
+    w = torch.zeros(n, k, p, requires_grad=True)
+
+    def step():
+        y = eng.allgather_matmul(x, w, "x")
+        torch.autograd.grad(y.sum(), [x, w])
+
+    _, st = analysis.count(step, [eng])
+    assert st.coll_wire_bytes == 2 * (n - 1) * shard
+    assert [p[0] for p in st.programs] == ["reduce_scatter"]
+    jmesh = jax_make_mesh((n,), ("x",))
+    jeng = JaxEngine(jmesh)
+
+    def loss(xl, wl):
+        return jeng.allgather_matmul(xl, wl, "x").sum()
+
+    fn = jax.jit(shard_map(jax.grad(loss, argnums=(0, 1)), mesh=jmesh,
+                           in_specs=(P("x"), P("x")),
+                           out_specs=(P("x"), P("x")), check_vma=False))
+    sds = lambda shape: jax.ShapeDtypeStruct(  # noqa: E731
+        shape, jnp.float32, sharding=NamedSharding(jmesh, P("x")))
+    compiled = fn.lower(sds((n * m, k)), sds((n * k, p))).compile()
+    assert jax_analysis.analyze_hlo(compiled.as_text()).coll_wire_bytes \
+        == st.coll_wire_bytes
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+@pytest.mark.parametrize("algorithm,compression,want", [
+    ("ring", None, {"fused_combine": 3}),
+    ("recursive_doubling", "int8", {"quantize_blocks": 2,
+                                    "dequantize_blocks": 2})])
+def test_kernel_calls_counted(device, algorithm, compression, want):
+    """The launches the kernel entry points imply, alike on 'meta' and
+    on the CPU (where the plain versions launch nothing): a 4-rank ring
+    allreduce combines in its 3 reduce-scatter exchanges (K1 each; the
+    allgather phase copies); an int8 recursive doubling quantizes and
+    dequantizes each of its 2 exchanges once (K2, K3)."""
+    eng = CollectiveEngine({"x": 4}, device=device)
+    _, st = analysis.count(lambda: eng.allreduce(
+        torch.zeros(4, 1024, device=device), "x", algorithm=algorithm,
+        compression=compression), [eng])
+    assert st.kernel_calls == want
+
+
+def test_unread_arguments_counted():
+    """`memory` reports the argument bytes no op of the step read (what
+    jit drops from a compiled step): an argument the step never touches,
+    not one a kernel entry point reads on 'meta' (K5's lookup gives its
+    output alone there, and reads the tables all the same)."""
+    mesh = {"x": 4}
+    tables = _meta(4, 3, 10, 8)
+    ids = _meta(4, 5, 3, dtype=torch.int32)
+    lo = _meta(4, dtype=torch.int64)
+    unused = _meta(4, 100)
+    x = _meta(4, 7)
+    args = (tables, ids, lo, unused, x)
+
+    def step():
+        return ops.embedding_lookup_rows(tables, ids, lo), x * 2
+
+    out, st = analysis.count(step)
+    mem = analysis.memory(args, out, st, mesh)
+    assert mem["unread_argument_bytes"] == 100 * 4
+    assert mem["argument_bytes"] == (3 * 10 * 8 * 4 + 5 * 3 * 4 + 8
+                                     + 100 * 4 + 7 * 4)
 
 
 def test_peak_bytes_track_lifetimes():
@@ -235,52 +366,20 @@ def test_fused_add_matches_reference(shape, dtype):
 
 # -- a reduced step against the reference's compiled step -------------------
 
-def _configs():
-    return (jax_reduced_config(jax_get_config("qwen3-0.6b"), n_layers=LAYERS),
-            reduced_config(get_config("qwen3-0.6b"), n_layers=LAYERS))
-
-
 def _reference(kind: str, remat: str, backend: str = "microcode"):
-    """(memory_analysis, analyze_hlo stats) of the reference's step
-    lowered and compiled on the (1, 4, 2) mesh of the host devices."""
-    jcfg, _ = _configs()
-    mesh = jax_make_mesh((1, 4, 2), ("pod", "data", "model"))
-    dp = jax_stages.dp_axes(mesh, B)
-
-    def sds(shape, dtype, spec):
-        return jax.ShapeDtypeStruct(shape, dtype,
-                                    sharding=NamedSharding(mesh, spec))
-
-    pcfg = JaxParallelConfig(remat=remat, backend=backend)
-    tokens = sds((B, S), jnp.int32, P(dp, None))
-    if kind == "train":
-        ts = jax_stages.build_train_step(jcfg, pcfg, mesh,
-                                         jax_adamw.AdamWConfig())
-        ps = jax_stages.param_shapes(jcfg, mesh, 2)
-        f32 = lambda sd: jax.ShapeDtypeStruct(  # noqa: E731
-            sd.shape, jnp.float32, sharding=sd.sharding)
-        opt = {"leaves": jax.tree.map(
-            lambda sd: {"master": f32(sd), "m": f32(sd), "v": f32(sd)}, ps,
-            is_leaf=lambda x: isinstance(x, jax.ShapeDtypeStruct)),
-            "count": jax.ShapeDtypeStruct((), jnp.int32)}
-        lowered = ts.fn.lower(ps, opt, {"tokens": tokens, "labels": tokens},
-                              jax.ShapeDtypeStruct((), jnp.int32))
-    else:
-        pf, _, _, _ = jax_stages.build_prefill(jcfg, pcfg, mesh, B, S)
-        lowered = pf.lower(jax_stages.param_shapes(jcfg, mesh, 2, serve=True),
-                           {"tokens": tokens})
-    compiled = lowered.compile()
-    return (compiled.memory_analysis(),
-            jax_analysis.analyze_hlo(compiled.as_text()))
+    """(memory_analysis, analyze_hlo stats) of the reference's reduced
+    qwen3-0.6b step compiled on the (1, 4, 2) mesh of the host devices
+    (`test_torch_dryrun_families.py`'s helper, which lowers every
+    reference cell)."""
+    return families.reference("qwen3-0.6b", kind,
+                              {"remat": remat, "backend": backend},
+                              tuple(MESH.values()))
 
 
 def _port(kind: str, remat: str, backend: str = "microcode"):
-    _, cfg = _configs()
-    fn, eng, args = dryrun.build_cell(cfg, ShapeConfig("cell", S, B, kind),
-                                      MESH, ParallelConfig(remat=remat,
-                                                           backend=backend))
-    out, st = analysis.count(fn, [eng])
-    return analysis.memory(args, out, st, MESH), st
+    return families.port("qwen3-0.6b", kind,
+                         {"remat": remat, "backend": backend},
+                         tuple(MESH.values()))
 
 
 def test_prefill_against_compiled_reference():
@@ -319,7 +418,7 @@ def test_train_step_against_compiled_reference(remat):
         recomputed forward that the backward never reads — per layer
         2 B_l S^2 H_l hd on each device (none without remat).
     """
-    _, cfg = _configs()
+    _, cfg = families.configs("qwen3-0.6b")
     mem, hlo = _reference("train", remat)
     pmem, st = _port("train", remat)
     assert pmem["argument_bytes"] == mem.argument_size_in_bytes
