@@ -16,6 +16,8 @@ Public API:
     register_collective  out-of-tree collectives, no engine changes needed
     Tracer/MetricsRegistry  unified telemetry (core/telemetry.py):
                          virtual-clock traces + the stats registry
+    WallTracer/WALL      wall-clock spans and counters, recorded while a
+                         torch profiler session is active
 """
 from repro_torch.core.engine import CollectiveEngine, execute_program
 from repro_torch.core.faults import (
@@ -32,8 +34,8 @@ from repro_torch.core.sequencer import Request, RequestCancelled, Sequencer
 from repro_torch.core.topology import Communicator, FabricOccupancy, axis_comm
 from repro_torch.core.schedule import Schedule, Step, Sel
 from repro_torch.core.hw_spec import HwSpec, TPU_V5E, ACCL_CLUSTER
-from repro_torch.core.telemetry import MetricsRegistry, NullTracer, \
-    StatsView, Tracer
+from repro_torch.core.telemetry import NULL, WALL, MetricsRegistry, \
+    NullTracer, StatsView, Tracer, WallTracer
 from repro_torch.core import algorithms, faults, hierarchical, mesh_cost, \
     plugins, pricing, program, sequencer, simulator, telemetry, verify
 
@@ -46,7 +48,7 @@ __all__ = [
     "TransportError", "TransportTimeout", "PeerFailedError",
     "Communicator", "axis_comm", "Schedule", "Step", "Sel",
     "HwSpec", "TPU_V5E", "ACCL_CLUSTER",
-    "Tracer", "NullTracer", "MetricsRegistry", "StatsView",
-    "algorithms", "faults", "hierarchical", "mesh_cost", "plugins",
+    "Tracer", "NullTracer", "WallTracer", "NULL", "WALL", "MetricsRegistry",
+    "StatsView", "algorithms", "faults", "hierarchical", "mesh_cost", "plugins",
     "pricing", "program", "sequencer", "simulator", "telemetry", "verify",
 ]

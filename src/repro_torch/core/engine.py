@@ -59,6 +59,7 @@ real point-to-point transfers.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
 import math
 from typing import Optional, Sequence
@@ -119,8 +120,13 @@ def _region_index(rows: tuple, spans: tuple, k: int, device) -> tuple:
     """
     key = (rows, spans, k, str(device))
     hit = _INDEX_CACHE.get(key)
+    live = telemetry.LIVE
     if hit is not None:
+        if live is not None:
+            live.count("region_index.hit")
         return hit
+    if live is not None:
+        live.count("region_index.miss")
     total = sum(ln for _s, ln in spans[0])
     unit = total // k
     for sp in spans:
@@ -192,14 +198,29 @@ def _codec_of(send_ops: tuple):
     return None
 
 
+def _path(codec, recv) -> str:
+    """How `_exchange` runs an exchange: 'indexed' (a plain combine: K1
+    reads payload and target in place), 'codec' (the codec's indexed
+    hooks) or 'gather' (operands copied first)."""
+    if codec is None and recv.op in kops.COMBINE_OPS and not recv.track_recv:
+        return "indexed"
+    if codec is not None and codec.compress_at is not None and \
+            codec.consume_at is not None:
+        return "codec"
+    return "gather"
+
+
 # --------------------------------------------------------------------------
 # The executor (the DMP): one path for every collective
 # --------------------------------------------------------------------------
 
 class _State:
-    """Per-run registers: the stacked buffer plus the relay sources."""
+    """Per-run registers: the stacked buffer plus the relay sources, and
+    the recorder of the run's exchange spans (`telemetry.NULL` when
+    none records)."""
 
-    def __init__(self, prog: Program, buf, groups: int):
+    def __init__(self, prog: Program, buf, groups: int, tr):
+        self.tr = tr
         self.n = prog.nranks
         self.groups = groups
         self.chunks = prog.chunks
@@ -267,7 +288,8 @@ def _exchange(st: _State, body: tuple, k_req: int, step):
     pay_idx = _region_index(src_rows, pay_spans * st.groups, k, buf.device)
     tgt_idx = _region_index(dst_rows, tgt_spans * st.groups, k, buf.device)
 
-    if codec is None and recv.op in kops.COMBINE_OPS and not recv.track_recv:
+    path = _path(codec, recv)
+    if path == "indexed":
         unit, _rows, uidx = tgt_idx
         out = torch.empty((k, uidx.shape[1], uidx.shape[2] * unit * row_elems),
                           dtype=buf.dtype, device=buf.device)
@@ -275,8 +297,7 @@ def _exchange(st: _State, body: tuple, k_req: int, step):
             kops.fused_combine_at(buf, tgt_idx, src_t, pay_idx, j, recv.op,
                                   out=out[j])
         return tgt_idx, out, None
-    if codec is not None and codec.compress_at is not None and \
-            codec.consume_at is not None:
+    if path == "codec":
         wire = codec.compress_at(src_t, pay_idx)               # at send
         raw = None
         if recv.track_recv:
@@ -310,19 +331,32 @@ def _apply(st: _State, tgt_idx, new_val, raw) -> None:
             (st.buf.shape[0], -1) + tuple(st.buf.shape[2:]))
 
 
+def _traced_exchange(st: _State, body: tuple, k_req: int, step):
+    """`_exchange` under an `exchange` span of the wall-clock recorder."""
+    path = _path(_codec_of(_split_wire(body[1:-1])[0]), body[-1])
+    with st.tr.span("exchange", track="engine", step=step, path=path) as sp:
+        res = _exchange(st, body, k_req, step)
+        sp.add(segments=int(res[0][2].shape[0]))
+    return res
+
+
 def _run_exchange(st: _State, body: tuple, k_req: int, step) -> None:
-    _apply(st, *_exchange(st, body, k_req, step))
+    if st.tr.enabled:
+        _apply(st, *_traced_exchange(st, body, k_req, step))
+    else:
+        _apply(st, *_exchange(st, body, k_req, step))
 
 
 def _exec_loop(st: _State, loop: Loop) -> None:
+    run = _traced_exchange if st.tr.enabled else _exchange
     for it in range(loop.trip):
         # two-phase: every slot reads the iteration-start state, the
         # writes land at iteration end
         writes = []
         for slot, seq in enumerate(loop.slots):
             body, k_req = split_exchange(seq)
-            writes.append(_exchange(st, body, k_req,
-                                    loop.base + it * loop.period + slot))
+            writes.append(run(st, body, k_req,
+                              loop.base + it * loop.period + slot))
         for w in writes:
             _apply(st, *w)
 
@@ -338,7 +372,16 @@ def execute_program(prog: Program, buf, *, groups: int = 1):
 
     This is the single data plane: every collective the engine issues —
     whatever the algorithm, codec, or segment count — runs through here.
+    While the wall-clock recorder records (`telemetry.wall()`), the run
+    is an `execute_program` span and each exchange an `exchange` span.
     """
+    tr = telemetry.wall()
+    with tr.span("execute_program", track="engine", program=prog.name,
+                 segments=prog.segments, codec=prog.codec):
+        return _execute_ops(prog, buf, groups, tr)
+
+
+def _execute_ops(prog: Program, buf, groups: int, tr):
     if buf.ndim < 2 or buf.shape[0] != groups * prog.nranks:
         raise ValueError(f"buffer of shape {tuple(buf.shape)} is not "
                          f"{groups} x {prog.nranks} stacked ranks")
@@ -354,7 +397,7 @@ def execute_program(prog: Program, buf, *, groups: int = 1):
         buf = _chunk_permute(buf, chunks, n,
                              lambda r, j: (j + r) % chunks)
         i = 1
-    st = _State(prog, buf, groups)
+    st = _State(prog, buf, groups, tr)
     if prog.relay == SRC_ORIGINAL:
         st.orig = buf.clone()
     elif prog.relay == SRC_RECEIVED:
@@ -546,6 +589,22 @@ def _gen_schedule(collective: str, algorithm: str, comm,
     return gen(comm, **kw)
 
 
+def _api_span(fn):
+    """A collective of the engine's API under a root span
+    `engine.<name>` (the input's bytes; the algorithm and segments
+    `_resolve` picks) while the wall-clock recorder records: one gate
+    read a call."""
+    name = "engine." + fn.__name__
+
+    @functools.wraps(fn)
+    def call(self, x, *args, **kwargs):
+        with telemetry.wall().span(name, track="engine",
+                                   bytes=int(getattr(x, "nbytes", 0))):
+            return fn(self, x, *args, **kwargs)
+
+    return call
+
+
 def _engine_metrics() -> telemetry.MetricsRegistry:
     reg = telemetry.MetricsRegistry()
     reg.counter("gen_calls")
@@ -698,10 +757,15 @@ class CollectiveEngine:
                  if isinstance(comm, ProductComm) else comm.size)
         key = (collective, algorithm, shape, root, op)
         sched = self._sched_cache.get(key)
+        live = telemetry.LIVE
         if sched is not None:
             self.metrics.inc("sched_cache_hits")
+            if live is not None:
+                live.count("schedule.cache_hit")
             return sched
         self.metrics.inc("gen_calls")
+        if live is not None:
+            live.count("schedule.gen")
         sched = _gen_schedule(collective, algorithm, comm, root, op)
         self._sched_cache[key] = sched
         return sched
@@ -715,38 +779,48 @@ class CollectiveEngine:
         `x` is ONE rank's local array (the selector prices per-rank
         bytes). The returned schedule carries the chosen segment count in
         `.segments` (caller-supplied `segments` overrides the selector).
+        While the wall-clock recorder records, the pick is an
+        `engine.resolve` span and its outcome annotates the API's span.
         """
-        comm = self.comm(axis)
-        nbytes = x.numel() * x.element_size()
-        if algorithm in (None, "auto"):
-            # alltoall executes on the caller's 2-D leading-dim grid, so
-            # the selector clamps candidate segments on rows, not the
-            # flat element count (priced k == executed k)
-            lead = int(x.shape[0]) if collective == "alltoall" \
-                and x.ndim else None
-            choice = self.selector.choose(
-                collective, nbytes, comm, codec=compression,
-                elem_bytes=x.element_size(), lead_dim=lead)
-            algorithm = choice.algorithm
-            if segments is None:
-                segments = choice.segments
-            if root == 0 and op == "add":
-                # the auto pick already generated exactly this schedule
-                sched = choice.schedule
+        tr = telemetry.wall()
+        with tr.span("engine.resolve", track="engine") as sp:
+            comm = self.comm(axis)
+            nbytes = x.numel() * x.element_size()
+            if algorithm in (None, "auto"):
+                # alltoall executes on the caller's 2-D leading-dim grid,
+                # so the selector clamps candidate segments on rows, not
+                # the flat element count (priced k == executed k)
+                lead = int(x.shape[0]) if collective == "alltoall" \
+                    and x.ndim else None
+                choice = self.selector.choose(
+                    collective, nbytes, comm, codec=compression,
+                    elem_bytes=x.element_size(), lead_dim=lead)
+                algorithm = choice.algorithm
+                if segments is None:
+                    segments = choice.segments
+                if root == 0 and op == "add":
+                    # the auto pick already generated exactly this schedule
+                    sched = choice.schedule
+                else:
+                    sched = self._cached_schedule(collective, algorithm,
+                                                  comm, root, op)
             else:
                 sched = self._cached_schedule(collective, algorithm, comm,
                                               root, op)
-        else:
-            sched = self._cached_schedule(collective, algorithm, comm,
-                                          root, op)
-        sched = sched.with_segments(segments if segments else 1)
+            sched = sched.with_segments(segments if segments else 1)
+            sp.add(algorithm=algorithm, segments=sched.segments,
+                   msg_bytes=int(nbytes))
+        tr.annotate(algorithm=algorithm, segments=sched.segments)
         self.trace_log.append((collective, algorithm, axis, int(nbytes)))
         return sched
 
     def _execute(self, sched: Schedule, rows, lay: _Layout,
                  compression: Optional[str] = None):
-        """Compile (memoized) and run through the one data plane."""
-        prog = sched.compile(codec=compression, verify=self.verify)
+        """Compile (memoized; an `engine.compile` span while the
+        wall-clock recorder records) and run through the one data
+        plane."""
+        with telemetry.wall().span("engine.compile", track="engine"):
+            prog = sched.compile(codec=compression, verify=self.verify)
         return execute_program(prog, rows, groups=lay.groups)
 
     def _own_chunks(self, sched: Schedule, out, lay: _Layout):
@@ -932,6 +1006,7 @@ class CollectiveEngine:
         return lay.restore(out[:, :size].reshape((-1,) + shape))
 
     # -- MPI-like API (paper Listing 1) --------------------------------------
+    @_api_span
     def allreduce(self, x, axis, op: str = "add",
                   algorithm: str = "auto",
                   compression: Optional[str] = None,
@@ -960,6 +1035,7 @@ class CollectiveEngine:
         out = self._execute(sched, flat, lay, compression)
         return lay.restore(out[:, :size].reshape((-1,) + shape))
 
+    @_api_span
     def reduce_scatter(self, x, axis, op: str = "add",
                        algorithm: str = "auto",
                        compression: Optional[str] = None,
@@ -992,6 +1068,7 @@ class CollectiveEngine:
         out = self._execute(sched, flat, lay, compression)
         return lay.restore(self._own_chunks(sched, out, lay))
 
+    @_api_span
     def allgather(self, x, axis, algorithm: str = "auto",
                   segments: Optional[int] = None):
         """Tiled: returns concat of every rank's flat x (own shard at
@@ -1302,6 +1379,7 @@ class CollectiveEngine:
         (default a.dtype)."""
         return kops.matmul(a, b, out_dtype or a.dtype)
 
+    @_api_span
     def allgather_matmul(self, x, w, axis: str, segments: int = 1,
                          keep_gathered: bool = False):
         """y = allgather(x, rows) @ w without staging the gathered buffer.
@@ -1336,15 +1414,18 @@ class CollectiveEngine:
                            device=x.device) if keep_gathered else None
         at = torch.arange(R, device=x.device)
         rank = lay.rank_of_rows(x.device)
+        tr = telemetry.wall()
         for s in range(n):
             # at step s every rank holds rank (r - s) % n's shard
-            for j, part in enumerate(parts):
-                out[at, (rank - s) % n, j * sub:(j + 1) * sub] = \
-                    self._matmul(part, wrows)
-                if kept is not None:
-                    kept[at, (rank - s) % n, j * sub:(j + 1) * sub] = part
-            if s < n - 1:
-                parts = self._ring_pass(parts, lay)
+            with tr.span("exchange", track="engine", step=s, path="ring"):
+                for j, part in enumerate(parts):
+                    out[at, (rank - s) % n, j * sub:(j + 1) * sub] = \
+                        self._matmul(part, wrows)
+                    if kept is not None:
+                        kept[at, (rank - s) % n, j * sub:(j + 1) * sub] = \
+                            part
+                if s < n - 1:
+                    parts = self._ring_pass(parts, lay)
         self.trace_log.append(("allgather_matmul", "ring", axis,
                                int(rows[0].numel() * rows.element_size())))
         y = lay.restore(out.reshape(R, n * m, p))
@@ -1353,6 +1434,7 @@ class CollectiveEngine:
         return y, lay.restore(kept.reshape((R, n * m)
                                            + tuple(rows.shape[2:])))
 
+    @_api_span
     def matmul_reduce_scatter(self, x, w, axis: str, segments: int = 1):
         """Row-sharded output of (x @ w) with the partial-sum reduction
         streamed around the ring. x: mesh-stacked (m, k_local); w:
@@ -1389,9 +1471,11 @@ class CollectiveEngine:
             return chunks[at, (rank - 1 - s) % n, j * sub:(j + 1) * sub]
 
         accs = [chunk(0, j) for j in range(segs)]
+        tr = telemetry.wall()
         for s in range(1, n):
-            accs = [a + chunk(s, j)
-                    for j, a in enumerate(self._ring_pass(accs, lay))]
+            with tr.span("exchange", track="engine", step=s, path="ring"):
+                accs = [a + chunk(s, j)
+                        for j, a in enumerate(self._ring_pass(accs, lay))]
         self.trace_log.append(("matmul_reduce_scatter", "ring", axis,
                                int(rows[0].numel() * rows.element_size())))
         out = accs[0] if segs == 1 else torch.cat(accs, dim=1)

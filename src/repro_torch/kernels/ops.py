@@ -10,13 +10,20 @@ temporaries; K4 alone runs its plain version there, so that its products
 are counted as aten products. The choice follows the tensor's device
 alone — there is no fallback and no flag. Mirrors `repro/kernels/ops.py`, whose `_interpret` picks the
 Pallas interpreter off a TPU.
+
+Each entry point below, while a wall-clock span is open
+(`telemetry.LIVE`), charges its call and its ns — argument and index
+checks, the launch or the plain version — to the recorder
+(`WallTracer.entry`): one global read and a branch a call otherwise.
 """
 from __future__ import annotations
 
 import math
+import time
 
 import torch
 
+from repro_torch.core import telemetry as _tel
 from repro_torch.kernels import embedding_gather as _eg
 from repro_torch.kernels import fused_reduce as _fr
 from repro_torch.kernels import matmul as _mm
@@ -67,12 +74,19 @@ def _region_len(t, index) -> int:
 def fused_combine(x, y, op: str = "add", out_dtype=None, out=None):
     """K1: `op(x.f32, y.f32).to(out_dtype)`, elementwise; written into
     `out` (which may alias x) when given."""
+    live = _tel.LIVE
+    if live is not None:
+        t0 = time.perf_counter_ns()
     if _meta(x):
-        return _meta_out(out, x.shape, out_dtype or x.dtype)
-    if _on_card(x):
-        return _fr.fused_combine(x.contiguous(), y.contiguous(), op=op,
-                                 out_dtype=out_dtype, out=out)
-    return _into(out, ref.fused_combine(x, y, op, out_dtype))
+        res = _meta_out(out, x.shape, out_dtype or x.dtype)
+    elif _on_card(x):
+        res = _fr.fused_combine(x.contiguous(), y.contiguous(), op=op,
+                                out_dtype=out_dtype, out=out)
+    else:
+        res = _into(out, ref.fused_combine(x, y, op, out_dtype))
+    if live is not None:
+        live.entry(t0)
+    return res
 
 
 def fused_add(x, y, out_dtype=None):
@@ -88,35 +102,57 @@ def fused_combine_at(a, a_index, b, b_index, j: int, op: str = "add",
     regions of rank-stacked buffers (`core/engine.py::_region_index`
     triples), as a (ranks, seg) tensor; written into `out` (which must
     not overlap a or b) when given."""
+    live = _tel.LIVE
+    if live is not None:
+        t0 = time.perf_counter_ns()
     if _meta(a):
-        return _meta_out(out, (a_index[1].shape[1], _region_len(a, a_index)),
-                         out_dtype or a.dtype)
-    if _on_card(a):
-        return _fr.fused_combine_at(a, a_index, b, b_index, j, op=op,
-                                    out_dtype=out_dtype, out=out)
-    return _into(out, ref.fused_combine_at(a, a_index, b, b_index, j, op,
-                                           out_dtype))
+        res = _meta_out(out, (a_index[1].shape[1], _region_len(a, a_index)),
+                        out_dtype or a.dtype)
+    elif _on_card(a):
+        res = _fr.fused_combine_at(a, a_index, b, b_index, j, op=op,
+                                   out_dtype=out_dtype, out=out)
+    else:
+        res = _into(out, ref.fused_combine_at(a, a_index, b, b_index, j, op,
+                                              out_dtype))
+    if live is not None:
+        live.entry(t0)
+    return res
 
 
 def quantize_int8(x2d):
     """K2 on a rank-stacked payload (rows, n): int8 codes (rows, Lp) and
     fp32 scales (rows, Lp/256), each row padded to 256 on its own."""
+    live = _tel.LIVE
+    if live is not None:
+        t0 = time.perf_counter_ns()
     if _on_card(x2d):
-        return _qz.quantize_blocks(x2d.contiguous())
-    return ref.quantize_blocks(x2d)
+        res = _qz.quantize_blocks(x2d.contiguous())
+    else:
+        res = ref.quantize_blocks(x2d)
+    if live is not None:
+        live.entry(t0)
+    return res
 
 
 def dequantize_int8(q2d, scales, n_valid: int, old=None, op: str = "copy",
                     out_dtype=None, out=None):
     """K3: codes back to (rows, n_valid), optionally combined into `old`;
     written into `out` (which may alias old) when given."""
+    live = _tel.LIVE
+    if live is not None:
+        t0 = time.perf_counter_ns()
     if _on_card(q2d):
-        return _qz.dequantize_blocks(
+        res = _qz.dequantize_blocks(
             q2d, scales, n_valid,
             old=None if old is None else old.contiguous(), op=op,
             out_dtype=out_dtype, out=out)
-    return _into(out, ref.dequantize_blocks(q2d, scales, n_valid, old=old,
-                                            op=op, out_dtype=out_dtype))
+    else:
+        res = _into(out, ref.dequantize_blocks(q2d, scales, n_valid,
+                                               old=old, op=op,
+                                               out_dtype=out_dtype))
+    if live is not None:
+        live.entry(t0)
+    return res
 
 
 def quantize_int8_at(src, index):
@@ -124,15 +160,22 @@ def quantize_int8_at(src, index):
     rank-stacked buffer `src` in place (a `core/engine.py::_region_index`
     triple): codes (k*ranks, Lp) and scales (k*ranks, Lp/256), row
     j*ranks + r for segment j of rank r."""
+    live = _tel.LIVE
+    if live is not None:
+        t0 = time.perf_counter_ns()
     if _meta(src):
         k, ranks = index[2].shape[:2]
         lp = ref.padded_len(_region_len(src, index))
-        return (_meta_out(None, (k * ranks, lp), torch.int8),
-                _meta_out(None, (k * ranks, lp // ref.QUANT_BLOCK),
-                          torch.float32))
-    if _on_card(src):
-        return _qz.quantize_blocks_at(src, index)
-    return ref.quantize_blocks_at(src, index)
+        res = (_meta_out(None, (k * ranks, lp), torch.int8),
+               _meta_out(None, (k * ranks, lp // ref.QUANT_BLOCK),
+                         torch.float32))
+    elif _on_card(src):
+        res = _qz.quantize_blocks_at(src, index)
+    else:
+        res = ref.quantize_blocks_at(src, index)
+    if live is not None:
+        live.entry(t0)
+    return res
 
 
 def dequantize_int8_at(q2d, scales, n_valid: int, old, old_index,
@@ -141,41 +184,63 @@ def dequantize_int8_at(q2d, scales, n_valid: int, old, old_index,
     `old_index` of the rank-stacked buffer `old`, read in place: a (k,
     ranks, n_valid) tensor, written into `out` (which must not overlap
     old) when given. 'copy' reads no `old`."""
+    live = _tel.LIVE
+    if live is not None:
+        t0 = time.perf_counter_ns()
     if _meta(q2d):
         k, ranks = old_index[2].shape[:2]
-        return _meta_out(out, (k, ranks, n_valid),
-                         old.dtype if old is not None else out_dtype)
-    if _on_card(q2d):
-        return _qz.dequantize_blocks_at(q2d, scales, n_valid, old, old_index,
-                                        op=op, out=out, out_dtype=out_dtype)
-    return _into(out, ref.dequantize_blocks_at(q2d, scales, n_valid, old,
-                                               old_index, op, out_dtype))
+        res = _meta_out(out, (k, ranks, n_valid),
+                        old.dtype if old is not None else out_dtype)
+    elif _on_card(q2d):
+        res = _qz.dequantize_blocks_at(q2d, scales, n_valid, old, old_index,
+                                       op=op, out=out, out_dtype=out_dtype)
+    else:
+        res = _into(out, ref.dequantize_blocks_at(q2d, scales, n_valid, old,
+                                                  old_index, op, out_dtype))
+    if live is not None:
+        live.entry(t0)
+    return res
 
 
 def matmul(x, y, out_dtype=None):
     """K4: `x @ y` with an fp32 accumulator, cast to `out_dtype` (default
     x.dtype); (M, K) @ (K, N), or batched over matching leading dims."""
+    live = _tel.LIVE
+    if live is not None:
+        t0 = time.perf_counter_ns()
     if not _on_card(x):
-        return ref.matmul(x, y, out_dtype)
-    lead = tuple(x.shape[:-2])
-    if tuple(y.shape[:-2]) != lead:
-        raise ValueError(f"matmul: leading dims differ: {tuple(x.shape)} "
-                         f"@ {tuple(y.shape)}")
-    x3 = x.reshape((-1,) + tuple(x.shape[-2:])).contiguous()
-    y3 = y.reshape((-1,) + tuple(y.shape[-2:])).contiguous()
-    out = _mm.matmul_tiled(x3, y3, out_dtype=out_dtype)
-    return out.reshape(lead + tuple(out.shape[-2:]))
+        res = ref.matmul(x, y, out_dtype)
+    else:
+        lead = tuple(x.shape[:-2])
+        if tuple(y.shape[:-2]) != lead:
+            raise ValueError(f"matmul: leading dims differ: "
+                             f"{tuple(x.shape)} @ {tuple(y.shape)}")
+        x3 = x.reshape((-1,) + tuple(x.shape[-2:])).contiguous()
+        y3 = y.reshape((-1,) + tuple(y.shape[-2:])).contiguous()
+        out = _mm.matmul_tiled(x3, y3, out_dtype=out_dtype)
+        res = out.reshape(lead + tuple(out.shape[-2:]))
+    if live is not None:
+        live.entry(t0)
+    return res
 
 
 def embedding_gather(table, indices):
     """K5: rows `indices` of a (V, D) table -> (B, D), or of every table
     of a (G, V, D) stack with (G, B) indices -> (G, B, D). Indices are
     int32 and already clipped into [0, V)."""
+    live = _tel.LIVE
+    if live is not None:
+        t0 = time.perf_counter_ns()
     if not _on_card(table):
-        return ref.gather_rows(table, indices)
-    if table.ndim == 2:
-        return embedding_gather(table[None], indices[None])[0]
-    return _eg.gather_rows(table.contiguous(), indices.contiguous())
+        res = ref.gather_rows(table, indices)
+    elif table.ndim == 2:
+        res = _eg.gather_rows(table[None].contiguous(),
+                              indices[None].contiguous())[0]
+    else:
+        res = _eg.gather_rows(table.contiguous(), indices.contiguous())
+    if live is not None:
+        live.entry(t0)
+    return res
 
 
 def embedding_lookup_rows(tables, ids, lo):
@@ -183,12 +248,19 @@ def embedding_lookup_rows(tables, ids, lo):
     (G, B, T) int32 (any strides), `lo` (G,) int64, each stacked rank's
     first row -> (G, B, T*D), each rank's partial concat vector (rows it
     does not hold are +0.0). One K5 launch on the card."""
+    live = _tel.LIVE
+    if live is not None:
+        t0 = time.perf_counter_ns()
     if _meta(tables):
         G, T, _rows, D = tables.shape
-        return _meta_out(None, (G, ids.shape[1], T * D), tables.dtype)
-    if _on_card(tables):
-        return _eg.lookup_rows(tables, ids, lo)
-    return ref.lookup_rows(tables, ids, lo)
+        res = _meta_out(None, (G, ids.shape[1], T * D), tables.dtype)
+    elif _on_card(tables):
+        res = _eg.lookup_rows(tables, ids, lo)
+    else:
+        res = ref.lookup_rows(tables, ids, lo)
+    if live is not None:
+        live.entry(t0)
+    return res
 
 
 def launch_counts() -> dict:

@@ -36,7 +36,7 @@ import torch
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.configs.dlrm import CONFIG, DLRMConfig
 from repro_torch.convert import unstack
-from repro_torch.core import CollectiveEngine
+from repro_torch.core import CollectiveEngine, telemetry
 from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.models.common import Builder
 from repro_torch.parallel.ops import ParCtx
@@ -116,8 +116,17 @@ class DLRMServer:
 
     @torch.inference_mode()
     def serve(self, indices):
-        """(B, T) global row ids -> (B, out_dim) logits."""
-        return self._unstack(self.model(self._stack(indices)))
+        """(B, T) global row ids -> (B, out_dim) logits. While the
+        wall-clock recorder records, the batch is a root span
+        `dlrm.serve` (its spans share one call id) over `dlrm.ids_in`,
+        the model's spans (`dlrm_forward`) and `dlrm.unstack`."""
+        tr = telemetry.wall()
+        with tr.span("dlrm.serve", track="dlrm", batch=len(indices)):
+            with tr.span("dlrm.ids_in", track="dlrm"):
+                idx = self._stack(indices)
+            y = self.model(idx)
+            with tr.span("dlrm.unstack", track="dlrm"):
+                return self._unstack(y)
 
     __call__ = serve
 

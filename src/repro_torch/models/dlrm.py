@@ -40,6 +40,7 @@ import math
 import torch
 
 from repro_torch.configs.dlrm import DLRMConfig
+from repro_torch.core import telemetry
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import Builder
 from repro_torch.parallel.ops import ParCtx
@@ -134,32 +135,44 @@ def rank_matmul(x, w, lead: int):
 
 def dlrm_forward(params, indices, ctx: ParCtx):
     """indices: stacked (B_local, T) -> stacked (B_local, out_dim)
-    click-through logits, replicated over 'model'."""
-    vec = embedding_lookup(params["tables"], indices, ctx)
+    click-through logits, replicated over 'model'. While the wall-clock
+    recorder records, the lookup is a `dlrm.lookup` span, the
+    checkerboard FC1 a `dlrm.fc1` span and every other layer a `dlrm.fc`
+    span; the engine's spans nest inside them."""
+    tr = telemetry.wall()
+    with tr.span("dlrm.lookup", track="dlrm"):
+        vec = embedding_lookup(params["tables"], indices, ctx)
     tp, D = ctx.tp, ctx.lead
     x = vec
     n = len(params["fc"])
     for i, fc in enumerate(params["fc"]):
         w, bias = fc["w"], fc["b"]
-        if i == 0 and tp > 1:
-            # checkerboard FC1: row-partitioned input slice x column slice
-            x_slice = ctx.tp_slice(x, w.shape[-2], dim=-1)
-            if ctx.pcfg.collective_matmul:
-                y = ctx.engine.matmul_reduce_scatter(x_slice, w, ctx.tp_axis)
-                y = ctx.engine.allgather(y, ctx.tp_axis).reshape(
-                    tuple(x.shape[:-1]) + (-1,))
+        fc1 = i == 0 and tp > 1
+        with tr.span("dlrm.fc1" if fc1 else "dlrm.fc", track="dlrm",
+                     layer=i):
+            if fc1:
+                # checkerboard FC1: row-partitioned input slice x column
+                # slice
+                x_slice = ctx.tp_slice(x, w.shape[-2], dim=-1)
+                if ctx.pcfg.collective_matmul:
+                    y = ctx.engine.matmul_reduce_scatter(x_slice, w,
+                                                         ctx.tp_axis)
+                    y = ctx.engine.allgather(y, ctx.tp_axis).reshape(
+                        tuple(x.shape[:-1]) + (-1,))
+                else:
+                    y = rank_matmul(x_slice, w, D)
+                    y = ctx.engine.allreduce(y, ctx.tp_axis)
             else:
-                y = rank_matmul(x_slice, w, D)
-                y = ctx.engine.allreduce(y, ctx.tp_axis)
-        else:
-            y = rank_matmul(x, w, D)
-            if tp > 1 and 0 < i < n - 1:
-                # column-parallel: out-dim sharded; gather for next layer
-                y = ctx.engine.allgather(y.transpose(-1, -2), ctx.tp_axis)
-                y = y.reshape(tuple(x.shape[:-2]) + (-1, x.shape[-2])
-                              ).transpose(-1, -2)
-        y = y + bias.unsqueeze(-2)
-        x = torch.relu(y) if i < n - 1 else y
+                y = rank_matmul(x, w, D)
+                if tp > 1 and 0 < i < n - 1:
+                    # column-parallel: out-dim sharded; gather for next
+                    # layer
+                    y = ctx.engine.allgather(y.transpose(-1, -2),
+                                             ctx.tp_axis)
+                    y = y.reshape(tuple(x.shape[:-2]) + (-1, x.shape[-2])
+                                  ).transpose(-1, -2)
+            y = y + bias.unsqueeze(-2)
+            x = torch.relu(y) if i < n - 1 else y
     return x
 
 
