@@ -23,9 +23,10 @@ Phases, one line each:
      plain version at the main path's segment shape; K1's indexed entry
      point (operands read in place through the executor's region index)
      BITWISE, every op, fp32 and bf16 and an fp32 -> bf16 cast, on the
-     indices of real ring exchanges: 16-byte and unaligned units, 1 and
-     32 segments; K2's and K3's indexed entry points (a whole compressed
-     exchange per launch) BITWISE likewise, every consume op, .5 ties;
+     indices of real ring exchanges, one launch an exchange: 16-byte and
+     unaligned units, 1 and 32 segments; K2's and K3's indexed entry
+     points (a whole compressed exchange per launch) BITWISE likewise,
+     every consume op, .5 ties;
   3. main path fp32: allreduce (auto), reduce_scatter, allgather, bcast,
      alltoall and a ("pod", "data") = (2, 4) two-axis allreduce on
      integer-valued inputs from --seed, each BITWISE against a torch
@@ -37,8 +38,9 @@ Phases, one line each:
   5. times: the median of >= 10 runs after warm-up (CUDA events) per
      collective; where one fp32 and one int8 allreduce spend device time
      (torch.profiler, by kernel group, and the device's idle share);
-     per-launch times of K1-K3 (K1 also through a bidi_ring exchange's
-     index out of the 8 x 64 MiB stack: `indexed_ms`; K2 and K3 also one
+     per-launch times of K1-K3 (K1 also one launch per bidi_ring exchange
+     of 32 segments, read through its index out of the 8 x 64 MiB stack:
+     `exchange_ms` beside `exchange_bound_ms`; K2 and K3 also one
      launch per compressed exchange of the int8 allreduce: `exchange_ms`
      beside `exchange_bound_ms`, and a line with k per-segment launches
      against one exchange launch, after K2 and K3 are held BITWISE
@@ -522,23 +524,24 @@ def replay_k1(ops, ref, calls, gen, where: str) -> int:
     for i, (_n, args, kw, res) in enumerate(calls):
         p = sig.bind(*args, **kw)
         p.apply_defaults()
-        a, ai, b, bi, j, op, od = (p.arguments[k] for k in (
-            "a", "a_index", "b", "b_index", "j", "op", "out_dtype"))
+        a, ai, b, bi, op, od = (p.arguments[k] for k in (
+            "a", "a_index", "b", "b_index", "op", "out_dtype"))
         same(f"{where}: K1 call {i} ({op}) on the path's operands", res,
-             ref.fused_combine_at(a, ai, b, bi, j, op, od))
+             ref.fused_combine_at(a, ai, b, bi, op, od))
         na = torch.randn(a.shape, generator=gen, device=a.device).to(a.dtype)
         nb = na if b is a else torch.randn(
             b.shape, generator=gen, device=b.device).to(b.dtype)
         same(f"{where}: K1 call {i} ({op}) on normal values",
-             ops.fused_combine_at(na, ai, nb, bi, j, op, out_dtype=od),
-             ref.fused_combine_at(na, ai, nb, bi, j, op, od))
+             ops.fused_combine_at(na, ai, nb, bi, op, out_dtype=od),
+             ref.fused_combine_at(na, ai, nb, bi, op, od))
     return len(calls)
 
 
 def exchange_indices(ops, shape, algorithm: str, segments: int) -> list:
-    """(target index, payload index, segment) of every indexed K1 call
-    one fp32 allreduce of a `shape` buffer makes on the card."""
-    return [(a[1], a[3], a[4]) for _n, a, _kw, _r in recorded_calls(
+    """(target index, payload index) of every indexed K1 call (one a
+    combining exchange) one fp32 allreduce of a `shape` buffer makes on
+    the card."""
+    return [(a[1], a[3]) for _n, a, _kw, _r in recorded_calls(
         ops, ("fused_combine_at",), shape, algorithm=algorithm,
         segments=segments)]
 
@@ -557,9 +560,9 @@ def codec_exchange_indices(ops, shape, **kw) -> list:
 
 def phase_kernels_indexed(ops, ref, gen) -> int:
     """K1's indexed entry point BITWISE against its plain version on the
-    region indices of real ring exchanges: 16-byte units (8 x 32768 and
-    8 x 1024 per segment) and unaligned ones (15 elements), 1 and 32
-    segments."""
+    region indices of real ring exchanges, every segment of an exchange in
+    one launch: 16-byte units (8 x 32768 and 8 x 1024 per segment) and
+    unaligned ones (15 elements), 1 and 32 segments."""
     dev = "cuda"
     checked = 0
     for shape, k in (((NRANKS, NRANKS * SEG), 1),
@@ -567,7 +570,7 @@ def phase_kernels_indexed(ops, ref, gen) -> int:
                      ((NRANKS, NRANKS * 15), 1),
                      ((NRANKS, NRANKS * 32 * 15), 32)):
         calls = exchange_indices(ops, shape, "ring", k)
-        tgt, pay, _j = calls[0]
+        tgt, pay = calls[0]
         if tgt[2].shape[0] != k:
             fail(f"K1 indexed: a ring exchange of {shape} has "
                  f"{tgt[2].shape[0]} segments, not {k}")
@@ -575,15 +578,14 @@ def phase_kernels_indexed(ops, ref, gen) -> int:
             a = torch.randn(shape, generator=gen, device=dev).to(dtype)
             b = torch.randn(shape, generator=gen, device=dev).to(dtype)
             for op in ("add", "max", "min", "mul"):
-                for j in sorted({0, k - 1}):
-                    same(f"K1 indexed {op} {dtype} {shape} j={j}/{k}",
-                         ops.fused_combine_at(a, tgt, b, pay, j, op),
-                         ref.fused_combine_at(a, tgt, b, pay, j, op))
-                    checked += 1
+                same(f"K1 indexed {op} {dtype} {shape} k={k}",
+                     ops.fused_combine_at(a, tgt, b, pay, op),
+                     ref.fused_combine_at(a, tgt, b, pay, op))
+                checked += 1
             same(f"K1 indexed add {dtype}->bf16 {shape}",
-                 ops.fused_combine_at(a, tgt, b, pay, k - 1, "add",
+                 ops.fused_combine_at(a, tgt, b, pay, "add",
                                       out_dtype=torch.bfloat16),
-                 ref.fused_combine_at(a, tgt, b, pay, k - 1, "add",
+                 ref.fused_combine_at(a, tgt, b, pay, "add",
                                       torch.bfloat16))
             checked += 1
     return checked
@@ -784,10 +786,11 @@ def phase_profile(runs, times) -> dict:
 def kernel_rows(ref, fr, qz, ops, X, gen, err) -> list:
     """Phase 5b: per-kernel device time at the main path's segment shape,
     cycling through 128 MiB of operands so each launch reads cold HBM;
-    K1's indexed entry point cycling through the 448 combine exchanges of
-    a bidi_ring allreduce of the stacked X (8 x 64 MiB); K2's and K3's
-    (one launch per exchange) through the compressed exchanges of the
-    int8 allreduce of X, each reading its own 32 MiB region."""
+    K1's, K2's and K3's indexed entry points, one launch per exchange:
+    K1 cycling through the 14 combine exchanges (32 segments each) of a
+    bidi_ring allreduce of the stacked X (8 x 64 MiB), K2 and K3 through
+    the compressed exchanges of the int8 allreduce of X, each reading
+    its own 32 MiB region."""
     dev = "cuda"
     pool = 64
     a = torch.randn((pool, NRANKS, SEG), generator=gen, device=dev)
@@ -828,22 +831,26 @@ def kernel_rows(ref, fr, qz, ops, X, gen, err) -> list:
         torch.add(a[i], b[i], out=a[i])
 
     row("fused_combine", k1, k1_plain, k1_lib, 3 * 4 * el)
-    # bidi_ring x 32: 2 x 8 chunks of 32 segments, 8 x 32768 at 64 MiB
+    # bidi_ring x 32: 2 x 8 chunks of 32 segments, 8 x 32768 at 64 MiB;
+    # one launch an exchange covers its 32 segments
     calls = exchange_indices(ops, X.shape, "bidi_ring", 32)
     seg = X.shape[1] // (NRANKS * 64)
-    seg_out = torch.empty((NRANKS, seg), device=dev)
+    ex_out = torch.empty((32, NRANKS, seg), device=dev)
     unit, _rows, units = calls[0][0]
-    if units.shape[1] != NRANKS or units.shape[2] * unit != seg:
-        fail(f"K1 indexed: bidi_ring segments of {tuple(X.shape)} are not "
-             f"{NRANKS} x {seg}")
+    if tuple(units.shape[:2]) != (32, NRANKS) or \
+            units.shape[2] * unit != seg:
+        fail(f"K1 indexed: bidi_ring exchanges of {tuple(X.shape)} are not "
+             f"32 x {NRANKS} x {seg}")
     at = {"i": 0}
 
     def k1_at():
         at["i"] = (at["i"] + 1) % len(calls)
-        tgt, pay, j = calls[at["i"]]
-        fr.fused_combine_at(X, tgt, X, pay, j, "add", out=seg_out)
+        tgt, pay = calls[at["i"]]
+        fr.fused_combine_at(X, tgt, X, pay, "add", out=ex_out)
 
-    rows[-1]["indexed_ms"] = device_time_ms(k1_at, n)
+    rows[-1]["exchange_ms"] = device_time_ms(k1_at, n)
+    rows[-1]["exchange_bound_ms"] = \
+        3 * ex_out.numel() * 4 / HBM_BYTES_PER_S * 1e3
     rows[-1]["indexed_exchanges"] = len(calls)
     row("quantize_blocks", lambda: qz.quantize_blocks(b[cyc()]),
         lambda: ref.quantize_blocks(b[cyc()]), None,
@@ -1635,12 +1642,12 @@ def lm_checked(ops, ref, log):
         res = real["fused_combine_at"](*args, **kwargs)
         p = sig.bind(*args, **kwargs)
         p.apply_defaults()
-        a, ai, b, bi, j, op, od = (p.arguments[k] for k in (
-            "a", "a_index", "b", "b_index", "j", "op", "out_dtype"))
+        a, ai, b, bi, op, od = (p.arguments[k] for k in (
+            "a", "a_index", "b", "b_index", "op", "out_dtype"))
         same(f"lm K1 call {len(log['k1'])} ({op})", res,
-             ref.fused_combine_at(a, ai, b, bi, j, op, od))
+             ref.fused_combine_at(a, ai, b, bi, op, od))
         log["k1"].append((a.shape, a.dtype, b.shape, b.dtype, b is a, ai,
-                          bi, j, op, od))
+                          bi, op, od))
         return res
 
     def k4(x, y, out_dtype=None):
@@ -1668,47 +1675,33 @@ def lm_checked(ops, ref, log):
 def lm_replay_normal(ops, ref, log, gen) -> int:
     """Every logged K1 call again on normal-valued operands of its shapes
     through its own region indices, BITWISE against the plain version."""
-    for i, (ash, adt, bsh, bdt, same_ab, ai, bi, j, op, od) in \
+    for i, (ash, adt, bsh, bdt, same_ab, ai, bi, op, od) in \
             enumerate(log["k1"]):
         a = torch.randn(ash, generator=gen, device="cuda").to(adt)
         b = a if same_ab else torch.randn(bsh, generator=gen,
                                           device="cuda").to(bdt)
         same(f"lm K1 call {i} ({op}) on normal values",
-             ops.fused_combine_at(a, ai, b, bi, j, op, out_dtype=od),
-             ref.fused_combine_at(a, ai, b, bi, j, op, od))
+             ops.fused_combine_at(a, ai, b, bi, op, out_dtype=od),
+             ref.fused_combine_at(a, ai, b, bi, op, od))
     return len(log["k1"])
 
 
-def implied_k1(prog, shape) -> int:
-    """K1 launches the executor makes for `prog` on a (rows, L, ...)
-    buffer: one per segment of every uncompressed combining exchange
-    (`core/engine.py::_exchange`), over the exchanges of the program's
-    walk (`core/procgroup.py::batches`)."""
+def implied_k1(prog) -> int:
+    """K1 launches the executor makes for `prog`: one for every
+    uncompressed combining exchange, over all its
+    segments (`core/engine.py::_exchange`), over the exchanges of the
+    program's walk (`core/procgroup.py::batches`)."""
     from repro_torch.core import engine as em
     from repro_torch.core import procgroup
     from repro_torch.core import program as pm
-    from repro_torch.kernels import ops as kops
-    length = shape[1]
-    row_elems = 1
-    for d in shape[2:]:
-        row_elems *= int(d)
 
-    def body(b, k_req, step):
-        recv = b[-1]
-        send_ops, _dec = em._split_wire(b[1:-1])
-        if em._codec_of(send_ops) is not None:
+    def body(b):
+        if em._codec_of(em._split_wire(b[1:-1])[0]) is not None:
             fail("lm: a compressed exchange on the serving path")
-        if recv.op not in kops.COMBINE_OPS or recv.track_recv:
-            return 0
-        if k_req <= 1:
-            return 1
-        src = send_ops[-1].perm[0][0]
-        rows = sum(ln for _s, ln in em._spans(b[0].sel, prog.chunks,
-                                               length, src, step))
-        return pm.fit_segments(rows, k_req, row_elems, 1)
+        return int(em._path(None, b[-1]) == "indexed")
 
-    return sum(body(*x) for batch in procgroup.batches(prog)
-               if not isinstance(batch, pm.Copy) for x in batch)
+    return sum(body(b) for batch in procgroup.batches(prog)
+               if not isinstance(batch, pm.Copy) for b, _k, _step in batch)
 
 
 def lm_counted_steps(dstep, engine, ops, steps):
@@ -1727,8 +1720,8 @@ def lm_counted_steps(dstep, engine, ops, steps):
         k0 = ops.launch_counts()["fused_combine"]
         out = dstep(*args, **kwargs)
         launched = ops.launch_counts()["fused_combine"] - k0
-        implied = sum(implied_k1(s.compile(codec=c, verify=engine.verify),
-                                 shape) for s, shape, c in progs)
+        implied = sum(implied_k1(s.compile(codec=c, verify=engine.verify))
+                      for s, _shape, c in progs)
         colls: dict = {}
         for s, _sh, _c in progs:
             colls[s.collective] = colls.get(s.collective, 0) + 1
@@ -2915,9 +2908,9 @@ class TrainProbe:
 
     def implied_k1(self, step) -> dict:
         out = dict.fromkeys(self.PHASES, 0)
-        for phase, sched, shape, c in step["progs"]:
+        for phase, sched, _shape, c in step["progs"]:
             out[phase] += implied_k1(
-                sched.compile(codec=c, verify=self.engine.verify), shape)
+                sched.compile(codec=c, verify=self.engine.verify))
         return out
 
 
@@ -3616,10 +3609,10 @@ def dry_phase_k1(probe_step, programs) -> dict:
         fail(f"dryrun: the meta run executed {len(programs)} programs, the "
              f"card's step {len(probe_step['progs'])}")
     out: dict = {}
-    for (phase, _s, _shape, _c), (_n, sched, shape, codec, _ax) in zip(
+    for (phase, _s, _shape, _c), (_n, sched, _sh, codec, _ax) in zip(
             probe_step["progs"], programs):
         out[phase] = out.get(phase, 0) + implied_k1(
-            sched.compile(codec=codec), shape)
+            sched.compile(codec=codec))
     return out
 
 

@@ -22,13 +22,13 @@ structure this executor follows:
     send, decompress at consume (fused into the combine, `plugins`),
     segment counts from `fit_segments` with the codec's block.
 
-A plain combining exchange launches K1 once per segment over the
-stacked (ranks, segment) payload, reading both operands in place through
-the region indices. An int8 exchange launches K2 once over all its
-segments and ranks, reading the payload in place ("at send"), then K3
-once, reading the combine target in place ("at consume"); a relay
-exchange adds one K3 copy of the wire for its raw arrivals. Copy
-receives launch no kernel. The streaming API
+A plain combining exchange launches K1 once over all its segments and
+ranks, reading both operands in place through the region indices. An
+int8 exchange launches K2 once over all its segments and ranks, reading
+the payload in place ("at send"), then K3 once, reading the combine
+target in place ("at consume"); a relay exchange adds one K3 copy of the
+wire for its raw arrivals. Copy receives launch no kernel. The streaming
+API
 (`allgather_matmul`, `matmul_reduce_scatter`) computes each ring step's
 products for every rank in one K4 launch.
 
@@ -245,10 +245,10 @@ def _exchange(st: _State, body: tuple, k_req: int, step):
     iteration — gets the reference's two-phase semantics. A plain
     combine (no codec, no relay register) reads its payload and target in
     place through the region indices (K1's indexed entry point), one
-    launch per segment; a codec with indexed hooks (int8) compresses and
-    consumes the whole exchange in place, one launch each; every other
-    exchange gathers (copies) its operands first. Returns (target index,
-    new region values, raw arrivals or None)."""
+    launch over the whole exchange; a codec with indexed hooks (int8)
+    compresses and consumes the whole exchange in place, one launch each;
+    every other exchange gathers (copies) its operands first. Returns
+    (target index, new region values, raw arrivals or None)."""
     load, recv = body[0], body[-1]
     send_ops, _dec_ops = _split_wire(body[1:-1])
     send = send_ops[-1]
@@ -290,13 +290,8 @@ def _exchange(st: _State, body: tuple, k_req: int, step):
 
     path = _path(codec, recv)
     if path == "indexed":
-        unit, _rows, uidx = tgt_idx
-        out = torch.empty((k, uidx.shape[1], uidx.shape[2] * unit * row_elems),
-                          dtype=buf.dtype, device=buf.device)
-        for j in range(k):
-            kops.fused_combine_at(buf, tgt_idx, src_t, pay_idx, j, recv.op,
-                                  out=out[j])
-        return tgt_idx, out, None
+        return tgt_idx, kops.fused_combine_at(buf, tgt_idx, src_t, pay_idx,
+                                              recv.op), None
     if path == "codec":
         wire = codec.compress_at(src_t, pay_idx)               # at send
         raw = None

@@ -30,13 +30,13 @@ Here each process holds one rank's shard and runs the same compiled
     rank and target spans from the receiver's; both sides compute the
     exchange's segment count, and a disagreement raises.
   * Kernels per rank, through the stacked path's entry points: a plain
-    combine launches K1 (`ops.fused_combine_at`) once per segment,
-    reading the local target in place and the arrival from the receive
-    buffer; an int8 exchange launches K2 (`compress_at`) once over the
-    local payload at send and K3 (`consume_at`) once into the local
-    target at receive (a relay exchange adds one K3 copy for its raw
-    arrival); bf16 keeps its per-segment gathered path. Copy receives
-    launch nothing.
+    combine launches K1 (`ops.fused_combine_at`) once over the whole
+    exchange, reading the local target in place and the arrival from the
+    receive buffer; an int8 exchange launches K2 (`compress_at`) once
+    over the local payload at send and K3 (`consume_at`) once into the
+    local target at receive (a relay exchange adds one K3 copy for its
+    raw arrival); bf16 keeps its per-segment gathered path. Copy
+    receives launch nothing.
   * `ProcessGroupEngine` is the `CollectiveEngine` of one process: its
     inputs and outputs are this rank's local shard (no mesh dims lead,
     `stack_shape == ()`), `_resolve`, the selector, the schedule cache
@@ -85,8 +85,8 @@ import torch.distributed as dist
 from repro_torch.core import autograd as _autograd
 from repro_torch.core import plugins, telemetry
 from repro_torch.core.engine import (
-    CollectiveEngine, _Layout, _codec_of, _gather, _region_index, _scatter,
-    _spans, _split_wire,
+    CollectiveEngine, _Layout, _codec_of, _gather, _path, _region_index,
+    _scatter, _spans, _split_wire,
 )
 from repro_torch.core.plugins import Compressed
 from repro_torch.core.program import (
@@ -375,14 +375,11 @@ def _finish(st: _Local, x: _Xfer):
     current state WITHOUT writing it: (new values (k, 1, seg), raw
     arrival or None). The stacked `_exchange`'s three paths, per rank."""
     recv, codec, k, seg, buf = x.recv, x.codec, x.k, x.seg, st.buf
-    if codec is None and recv.op in kops.COMBINE_OPS and not recv.track_recv:
+    if _path(codec, recv) == "indexed":
         inc = x.inbox[0].reshape((1, x.pay_rows) + tuple(buf.shape[1:]))
         inc_idx = _region_index((0,), _whole(x.pay_rows), k, buf.device)
-        out = torch.empty((k, 1, seg), dtype=buf.dtype, device=buf.device)
-        for j in range(k):
-            kops.fused_combine_at(buf.unsqueeze(0), x.tgt_idx, inc, inc_idx,
-                                  j, recv.op, out=out[j])
-        return out, None
+        return kops.fused_combine_at(buf.unsqueeze(0), x.tgt_idx, inc,
+                                     inc_idx, recv.op), None
     if _indexed(codec):
         wire = Compressed(*x.inbox)
         out = codec.consume_at(wire, buf.unsqueeze(0), x.tgt_idx, recv.op)
@@ -508,11 +505,12 @@ def execute_program_local(prog: Program, buf, rank: int,
 
 def implied_launches(prog: Program, rank: int, shape) -> dict:
     """The kernel launches rank `rank`'s share of `prog` implies on a
-    buffer of local shape `shape`, from the program alone: K1 once per
-    segment of every combining exchange it receives (plain, or bf16 at
-    consume), K2 once per int8 exchange it sends, K3 once per int8
-    exchange it consumes and once more where that exchange is a relay.
-    Keys as `ops.launch_counts()`."""
+    buffer of local shape `shape`, from the program alone: K1 once for
+    every plain combining exchange it receives (one launch over all its
+    segments) and once per segment of any other combining exchange (a
+    relay's or bf16's, at consume), K2 once per int8 exchange it sends,
+    K3 once per int8 exchange it consumes and once more where that
+    exchange is a relay. Keys as `ops.launch_counts()`."""
     counts = dict.fromkeys(kops.KERNELS, 0)
     L, row_elems = int(shape[0]), math.prod(shape[1:])
     chunks, n = prog.chunks, prog.nranks
@@ -539,6 +537,8 @@ def implied_launches(prog: Program, rank: int, shape) -> dict:
             k = _segments(rows, k_req, row_elems, codec)
             if indexed:
                 counts["dequantize_blocks"] += 1 + int(recv.track_recv)
+            elif _path(codec, recv) == "indexed":
+                counts["fused_combine"] += 1
             elif recv.op != "copy":
                 counts["fused_combine"] += k
     return counts

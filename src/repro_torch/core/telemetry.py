@@ -392,6 +392,8 @@ def _export_args(ev: dict) -> dict:
 ENTRIES = "kernel.entries"
 #: ... and of their ns (argument and index checks, the launch)
 ENTRY_NS = "kernel.entry_ns"
+#: the segments K1's whole-exchange entry point combined (k a call)
+K1_SEGMENTS = "k1.segments"
 
 
 def _delta(c0: Optional[dict], c1: Optional[dict]) -> dict:

@@ -6,10 +6,11 @@ add/max/min/mul. The kernel (csrc/fused_combine.cu) is memory-bound on
 the H100 — two reads and one write per element — and has two entry
 points: `fused_combine` takes contiguous tensors as they are, with a
 masked tail instead of the TPU's 256x128 padding; `fused_combine_at`
-reads both operands in place through the executor's region indices
+combines every segment of one exchange in one launch, reading both
+operands in place through the executor's region indices
 (`core/engine.py::_region_index`), as the TPU kernel's BlockSpec index
-maps did. Both count into `fused_combine.launches`. Their plain versions
-are `ref.fused_combine` and `ref.fused_combine_at`.
+maps did. Both count their launches into `fused_combine.launches`. Their
+plain versions are `ref.fused_combine` and `ref.fused_combine_at`.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._index import check_index, row_and_unit
 
 OPS = ("add", "max", "min", "mul")
-_MAX_GRID_Y = 65535
+_MAX_GRID_YZ = 65535   # grid y (ranks) and z (segments) of the indexed launch
 
 
 def _dtype_code(dtype) -> int:
@@ -71,11 +72,11 @@ def fused_combine(x, y, op: str = "add", out_dtype=None, out=None):
 fused_combine.launches = 0
 
 
-def fused_combine_at(a, a_index, b, b_index, j: int, op: str = "add",
+def fused_combine_at(a, a_index, b, b_index, op: str = "add",
                      out_dtype=None, out=None):
-    """Launch K1 on segment `j` of two regions of rank-stacked CUDA
-    buffers, read in place: `op(gather(a)[j].f32, gather(b)[j].f32)` as a
-    (ranks, seg) tensor of `out_dtype` (default a.dtype) — `out` when
+    """Launch K1 once over every segment of two regions of rank-stacked
+    CUDA buffers, read in place: `op(gather(a).f32, gather(b).f32)` as a
+    (k, ranks, seg) tensor of `out_dtype` (default a.dtype) — `out` when
     given (it must not overlap a or b), else a new one. Each index is
     `(unit, rows (1, ranks, 1), units (k, ranks, units/k))` as
     `core/engine.py::_region_index` builds it. Raises on anything it
@@ -103,31 +104,27 @@ def fused_combine_at(a, a_index, b, b_index, j: int, op: str = "add",
         raise ValueError(f"fused_combine_at: regions differ: {k} x {ranks} "
                          f"x {seg} vs {tuple(units_b.shape[:2])} x "
                          f"{upk_b * ue_b} elements")
-    if not 0 <= j < k:
-        raise ValueError(f"fused_combine_at: segment {j} of {k}")
-    if ranks > _MAX_GRID_Y or max(seg, ue_a, ue_b) >= 2**31:
-        raise ValueError(f"fused_combine_at: {ranks} ranks x {seg} elements "
-                         f"exceed the launch grid")
+    if max(k, ranks) > _MAX_GRID_YZ or max(seg, ue_a, ue_b) >= 2**31:
+        raise ValueError(f"fused_combine_at: {k} segments x {ranks} ranks x "
+                         f"{seg} elements exceed the launch grid")
     out_dtype = out_dtype or a.dtype
     if out is None:
-        out = torch.empty((ranks, seg), dtype=out_dtype, device=a.device)
-    if (out.device != a.device or tuple(out.shape) != (ranks, seg)
+        out = torch.empty((k, ranks, seg), dtype=out_dtype, device=a.device)
+    if (out.device != a.device or tuple(out.shape) != (k, ranks, seg)
             or out.dtype != out_dtype or not out.is_contiguous()):
         raise ValueError(f"fused_combine_at: `out` must be a contiguous "
-                         f"{(ranks, seg)} {out_dtype} tensor on {a.device}")
-    if seg == 0 or ranks == 0:
+                         f"{(k, ranks, seg)} {out_dtype} tensor on "
+                         f"{a.device}")
+    if out.numel() == 0:
         return out
     v = 16 // a.element_size()
     vec_ok = int(all(t.data_ptr() % 16 == 0 for t in (a, b, out))
                  and ue_a % v == 0 and ue_b % v == 0)
-    # segment j's units: the int64 rows j * ranks.. of each units tensor
-    seg_a = units_a.data_ptr() + 8 * j * ranks * upk_a
-    seg_b = units_b.data_ptr() + 8 * j * ranks * upk_b
     lib = _build.library()
     rc = lib.k1_fused_combine_at(
-        a.data_ptr(), rows_a.data_ptr(), seg_a, row_a, ue_a, upk_a,
-        b.data_ptr(), rows_b.data_ptr(), seg_b, row_b, ue_b, upk_b,
-        out.data_ptr(), ranks, seg, _dtype_code(a.dtype),
+        a.data_ptr(), rows_a.data_ptr(), units_a.data_ptr(), row_a, ue_a,
+        upk_a, b.data_ptr(), rows_b.data_ptr(), units_b.data_ptr(), row_b,
+        ue_b, upk_b, out.data_ptr(), k, ranks, seg, _dtype_code(a.dtype),
         _dtype_code(out_dtype), _build.OP_CODES[op], vec_ok,
         _build.stream_handle(a))
     fused_combine.launches += 1

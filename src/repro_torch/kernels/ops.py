@@ -96,25 +96,29 @@ def fused_add(x, y, out_dtype=None):
     return fused_combine(x, y, "add", out_dtype)
 
 
-def fused_combine_at(a, a_index, b, b_index, j: int, op: str = "add",
+def fused_combine_at(a, a_index, b, b_index, op: str = "add",
                      out_dtype=None, out=None):
-    """K1 reading its operands in place: `op` of segment `j` of two
-    regions of rank-stacked buffers (`core/engine.py::_region_index`
-    triples), as a (ranks, seg) tensor; written into `out` (which must
-    not overlap a or b) when given."""
+    """K1 over a whole exchange, reading its operands in place: `op` of
+    every segment of two regions of rank-stacked buffers
+    (`core/engine.py::_region_index` triples), as a (k, ranks, seg)
+    tensor; one launch on the card; written into `out` (which must not
+    overlap a or b) when given. While a span records, counts its k
+    segments into `k1.segments`."""
     live = _tel.LIVE
     if live is not None:
         t0 = time.perf_counter_ns()
     if _meta(a):
-        res = _meta_out(out, (a_index[1].shape[1], _region_len(a, a_index)),
+        k, ranks = a_index[2].shape[:2]
+        res = _meta_out(out, (k, ranks, _region_len(a, a_index)),
                         out_dtype or a.dtype)
     elif _on_card(a):
-        res = _fr.fused_combine_at(a, a_index, b, b_index, j, op=op,
+        res = _fr.fused_combine_at(a, a_index, b, b_index, op=op,
                                    out_dtype=out_dtype, out=out)
     else:
-        res = _into(out, ref.fused_combine_at(a, a_index, b, b_index, j, op,
+        res = _into(out, ref.fused_combine_at(a, a_index, b, b_index, op,
                                               out_dtype))
     if live is not None:
+        live.count(_tel.K1_SEGMENTS, int(a_index[2].shape[0]))
         live.entry(t0)
     return res
 

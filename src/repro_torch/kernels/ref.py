@@ -45,18 +45,12 @@ def fused_combine(x, y, op: str = "add", out_dtype=None):
     return _COMBINE[op](x.float(), y.float()).to(out_dtype)
 
 
-def fused_combine_at(a, a_index, b, b_index, j: int, op: str = "add",
+def fused_combine_at(a, a_index, b, b_index, op: str = "add",
                      out_dtype=None):
-    """K1 on segment `j` of two regions: `fused_combine` of the two
-    gathered operands."""
-    return fused_combine(_segment(a, a_index, j), _segment(b, b_index, j),
-                         op, out_dtype)
-
-
-def _segment(t, index, j: int):
-    """Segment `j` of a region of `t`, as a (ranks, seg) copy."""
-    unit, ridx, uidx = index
-    return gather_regions(t, (unit, ridx, uidx[j:j + 1]))[0]
+    """K1 over every segment of two regions: `fused_combine` of the two
+    gathered (k, ranks, seg) operands."""
+    return fused_combine(gather_regions(a, a_index),
+                         gather_regions(b, b_index), op, out_dtype)
 
 
 def padded_len(n_valid: int) -> int:

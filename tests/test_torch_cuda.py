@@ -88,32 +88,31 @@ def _ring_index(L, width, k, step, device, rows=8, spans=1):
     (8 * 64, 1, 32, 1), (8 * 48, 1, 1, 2), (8 * 10, 3, 1, 2)])
 def test_k1_at_bitwise(card, op, dtype, L, width, k, spans):
     """The indexed K1 against its plain version, on 16-byte units and on
-    unaligned ones (15 elements)."""
+    unaligned ones (15 elements): one launch over all k segments."""
     a = _randn((8, L, width), 19, card, dtype)
     b = _randn((8, L, width), 20, card, dtype)
     tgt, pay = _ring_index(L, width, k, 2, card, spans=spans)
     before = fused_reduce.fused_combine.launches
-    for j in range(k):
-        got = ops.fused_combine_at(a, tgt, b, pay, j, op)
-        assert torch.equal(got, ref.fused_combine_at(a, tgt, b, pay, j, op))
-        assert torch.equal(got, ref.fused_combine(
-            engine_mod._gather(a, tgt)[j], engine_mod._gather(b, pay)[j], op))
-        cast = ops.fused_combine_at(a, tgt, b, pay, j, op,
-                                    out_dtype=torch.bfloat16)
-        assert torch.equal(cast, ref.fused_combine_at(
-            a, tgt, b, pay, j, op, torch.bfloat16))
-    assert fused_reduce.fused_combine.launches == before + 2 * k
+    got = ops.fused_combine_at(a, tgt, b, pay, op)
+    assert torch.equal(got, ref.fused_combine_at(a, tgt, b, pay, op))
+    assert torch.equal(got, ref.fused_combine(
+        engine_mod._gather(a, tgt), engine_mod._gather(b, pay), op))
+    cast = ops.fused_combine_at(a, tgt, b, pay, op, out_dtype=torch.bfloat16)
+    assert torch.equal(cast, ref.fused_combine_at(
+        a, tgt, b, pay, op, torch.bfloat16))
+    assert fused_reduce.fused_combine.launches == before + 2
 
 
 @pytest.mark.parametrize("op", ["add", "max"])
 def test_engine_segments_32_on_card_equals_cpu(card, op):
     """A 32-segment allreduce through the indexed K1 on the card, bitwise
-    equal to the plain versions on the CPU; 1 launch per combine segment."""
+    equal to the plain versions on the CPU; 1 launch per combining
+    exchange, over all its 32 segments."""
     X = _randn((8, 8 * 32 * 64), 21, "cpu")
     ops.reset_launch_counts()
     gpu = CollectiveEngine({"x": 8}).allreduce(X.to(card), "x", op=op,
                                                algorithm="ring", segments=32)
-    assert ops.launch_counts()["fused_combine"] == 7 * 32
+    assert ops.launch_counts()["fused_combine"] == 7
     cpu = CollectiveEngine({"x": 8}, device="cpu").allreduce(
         X, "x", op=op, algorithm="ring", segments=32)
     assert torch.equal(gpu.cpu(), cpu)
@@ -124,22 +123,23 @@ def test_wrappers_raise_on_bad_input(card):
     with pytest.raises(ValueError):
         fused_reduce.fused_combine(a.t(), a.t())          # not contiguous
     tgt, pay = _ring_index(64, 1, 2, 0, card)
-    fused_reduce.fused_combine_at(a, tgt, a, pay, 1)      # takes these
+    fused_reduce.fused_combine_at(a, tgt, a, pay)         # takes these
     with pytest.raises(ValueError):                       # index on the CPU
         fused_reduce.fused_combine_at(
-            a, (tgt[0], tgt[1].cpu(), tgt[2].cpu()), a, pay, 0)
+            a, (tgt[0], tgt[1].cpu(), tgt[2].cpu()), a, pay)
     with pytest.raises(ValueError):                       # buffer on the CPU
-        fused_reduce.fused_combine_at(a.cpu(), tgt, a, pay, 0)
+        fused_reduce.fused_combine_at(a.cpu(), tgt, a, pay)
     with pytest.raises(ValueError):                       # int32 index
         fused_reduce.fused_combine_at(a, (tgt[0], tgt[1].int(), tgt[2]), a,
-                                      pay, 0)
+                                      pay)
     with pytest.raises(ValueError):                       # index shape
         fused_reduce.fused_combine_at(a, (tgt[0], tgt[1], tgt[2][:, :4]), a,
-                                      pay, 0)
+                                      pay)
     with pytest.raises(ValueError):                       # dtypes differ
-        fused_reduce.fused_combine_at(a, tgt, a.to(torch.bfloat16), pay, 0)
-    with pytest.raises(ValueError):                       # no segment 2
-        fused_reduce.fused_combine_at(a, tgt, a, pay, 2)
+        fused_reduce.fused_combine_at(a, tgt, a.to(torch.bfloat16), pay)
+    with pytest.raises(ValueError):                       # one segment's out
+        fused_reduce.fused_combine_at(a, tgt, a, pay,
+                                      out=torch.empty(8, 4, device=card))
     with pytest.raises(TypeError):
         quantize.quantize_blocks(a.double())
     with pytest.raises(ValueError):

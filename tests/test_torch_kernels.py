@@ -101,14 +101,13 @@ def test_k1_cast_and_in_place_out():
 
 def _recorded_combines(monkeypatch, algo, segments, X, op="add"):
     """Every indexed K1 call one port allreduce of X makes on the CPU:
-    (a, a_index, b, b_index, j, op), operands as they were at the call."""
+    (a, a_index, b, b_index, op), operands as they were at the call."""
     calls = []
     real = ops.fused_combine_at
 
-    def record(a, a_index, b, b_index, j, op="add", out_dtype=None,
-               out=None):
-        calls.append((a.clone(), a_index, b.clone(), b_index, j, op))
-        return real(a, a_index, b, b_index, j, op, out_dtype, out)
+    def record(a, a_index, b, b_index, op="add", out_dtype=None, out=None):
+        calls.append((a.clone(), a_index, b.clone(), b_index, op))
+        return real(a, a_index, b, b_index, op, out_dtype, out)
 
     monkeypatch.setattr(ops, "fused_combine_at", record)
     CollectiveEngine({"x": 8}, device="cpu").allreduce(
@@ -123,8 +122,9 @@ def test_k1_at_plain_version_is_gather_then_combine(monkeypatch, algo,
                                                     segments, layout):
     """The indexed K1's plain version, on the (unit, k) layouts of real
     programs, equals `ref.fused_combine` of the two `_gather`ed operands
-    and the reference's Pallas kernel (interpret mode) on them, bitwise.
-    The ragged layout's units are 5 or 15 fp32 (not 16-byte vectors)."""
+    and the reference's Pallas kernel (interpret mode) on them, bitwise,
+    one call over all of an exchange's segments. The ragged layout's
+    units are 5 or 15 fp32 (not 16-byte vectors)."""
     shape = (8, 1024) if layout == "aligned" else (8, 40, 3)
     X = torch.from_numpy(_mixed(shape, seed=20))
     calls = _recorded_combines(monkeypatch, algo, segments, X)
@@ -132,10 +132,12 @@ def test_k1_at_plain_version_is_gather_then_combine(monkeypatch, algo,
     units = {(c[1][0], c[1][2].shape[0]) for c in calls}
     if segments > 1:
         assert any(k > 1 for _u, k in units), units
-    for a, ai, b, bi, j, op in calls[:2] + calls[-2:]:
-        got = ref.fused_combine_at(a, ai, b, bi, j, op)
-        ga, gb = tengine._gather(a, ai)[j], tengine._gather(b, bi)[j]
+    for a, ai, b, bi, op in calls[:2] + calls[-2:]:
+        got = ref.fused_combine_at(a, ai, b, bi, op)
+        ga, gb = tengine._gather(a, ai), tengine._gather(b, bi)
         assert torch.equal(got, ref.fused_combine(ga, gb, op))
+        assert torch.equal(got, torch.stack([
+            ref.fused_combine(ga[j], gb[j], op) for j in range(ga.shape[0])]))
         want = jops.fused_combine(jnp.asarray(ga.numpy()),
                                   jnp.asarray(gb.numpy()), op=op)
         assert np.array_equal(got.numpy(), _j2np(want))
@@ -145,14 +147,15 @@ def test_k1_at_plain_version_is_gather_then_combine(monkeypatch, algo,
 @pytest.mark.parametrize("op", ["max", "min", "mul"])
 def test_k1_at_ops_match_pallas_interpret(monkeypatch, op, dtype):
     """Every op and dtype through the indexed entry point of ops, on a
-    ring program's regions, with an fp32 -> bf16 cast."""
+    ring program's regions (every segment of an exchange), with an fp32
+    -> bf16 cast."""
     X = torch.from_numpy(_mixed((8, 512), seed=21)).to(getattr(torch, dtype))
     calls = _recorded_combines(monkeypatch, "ring", 4, X, op=op)
-    for a, ai, b, bi, j, _op in calls[:2]:
-        ga, gb = tengine._gather(a, ai)[j], tengine._gather(b, bi)[j]
+    for a, ai, b, bi, _op in calls[:2]:
+        ga, gb = tengine._gather(a, ai), tengine._gather(b, bi)
         for out_dtype in (None, "bfloat16"):
             got = ops.fused_combine_at(
-                a, ai, b, bi, j, op,
+                a, ai, b, bi, op,
                 out_dtype=out_dtype and getattr(torch, out_dtype))
             want = jops.fused_combine(
                 jnp.asarray(_np(ga)).astype(dtype),
@@ -652,8 +655,8 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(ops.embedding_gather(x, torch.zeros(2, dtype=torch.int32)),
                        x[:2])
     tgt = tengine._region_index((0, 1, 2, 3), (((0, 300),),) * 4, 3, "cpu")
-    assert torch.equal(ops.fused_combine_at(x, tgt, x, tgt, 2, "add"),
-                       2 * x[:, 200:])
+    assert torch.equal(ops.fused_combine_at(x, tgt, x, tgt, "add"),
+                       2 * x.reshape(4, 3, 100).transpose(0, 1))
     q8, s8 = ops.quantize_int8_at(x, tgt)
     assert tuple(q8.shape) == (12, 256) and tuple(s8.shape) == (12, 1)
     assert torch.equal(ops.dequantize_int8_at(q8, s8, 100, x, tgt, "add"),
@@ -674,7 +677,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     tgt = tengine._region_index((0,), (((0, 4),),), 1, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         fused_reduce.fused_combine_at(torch.ones(1, 4), tgt,
-                                      torch.ones(1, 4), tgt, 0)
+                                      torch.ones(1, 4), tgt)
     with pytest.raises(ValueError, match="CUDA"):
         quantize.quantize_blocks_at(torch.ones(1, 4), tgt)
     with pytest.raises(ValueError, match="CUDA"):

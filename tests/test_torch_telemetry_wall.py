@@ -167,6 +167,26 @@ def test_kernel_entries_count_the_calls_made(monkeypatch):
                 by_id[e["parent"]]["counters"].get(telemetry.ENTRIES, 0)
 
 
+def test_k1_entry_counts_each_exchange_and_its_segments():
+    """A traced 4-segment ring allreduce: each of its 7 combining
+    exchanges is one K1 entry over all 4 segments, so `kernel.entries`
+    rises by 1 an exchange and `k1.segments` by 4."""
+    eng = CollectiveEngine({"x": 8}, device="cpu")
+    x = _input(8 * 4 * 64)
+    with profiled() as spans:
+        eng.allreduce(x, "x", algorithm="ring", segments=4)
+    root, = _roots(spans)
+    combining = [e for e in spans if e["name"] == "exchange"
+                 and e["args"]["path"] == "indexed"]
+    assert len(combining) == 7
+    for e in combining:
+        assert e["args"]["segments"] == 4
+        assert e["counters"][telemetry.ENTRIES] == 1
+        assert e["counters"][telemetry.K1_SEGMENTS] == 4
+    assert root["counters"][telemetry.ENTRIES] == 7
+    assert root["counters"][telemetry.K1_SEGMENTS] == 7 * 4
+
+
 def test_dlrm_spans_nest_a_batch():
     server = _server()
     with profiled() as spans:
