@@ -4,7 +4,9 @@ Copy of `repro/configs/base.py`, field for field (the port imports
 nothing of the reference package, its jax-free modules included). Every
 assigned architecture is an `ArchConfig` in its own module
 (src/repro_torch/configs/<id>.py, copied from the reference's);
-`get_config(name)` resolves them. The parallelism knobs live in
+`get_config(name)` resolves them, and the port's own architectures
+(`PORT_ARCH_IDS`, which no reference module has) beside them. The
+parallelism knobs live in
 `ParallelConfig`. The port serves and trains every family
 (`models/serve.py`, `parallel/stages.py`); `remat`, `microbatches` and
 `async_grad_sync` act as the reference's (`models/blocks.py`,
@@ -60,6 +62,20 @@ class ArchConfig:
 
     # source provenance (public literature), recorded for the report
     source: str = ""
+
+    # The port's own knobs, fields of `LayerTypedConfig` alone (so the
+    # ten reference configs stay field for field the reference's); here
+    # their neutral values, which every family's code path reads.
+    layer_types = ()
+    shared_d_ff = 0
+    embedding_multiplier = 1.0
+    residual_multiplier = 1.0
+    logits_scaling = 1.0
+    attention_multiplier = 0.0
+    use_rope = True
+    ssm_conv_bias = False
+    moe_dropless = False
+    expert_init_fan_in = False
 
     @property
     def resolved_head_dim(self) -> int:
@@ -126,6 +142,66 @@ class ArchConfig:
         unused = (self.n_experts - self.experts_per_token) * \
             3 * self.d_model * self.moe_d_ff * self.n_layers
         return dense - unused
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerTypedConfig(ArchConfig):
+    """An architecture whose layers differ by kind, with Granite-4.0-H's
+    knobs (`granitemoehybrid`; the port's own, no reference config has
+    them). `models/blocks.py::layer_plan` reads the kinds.
+
+    layer_types           per layer "mamba" (the Mamba2 mixer) or
+                          "attention", each followed by the MoE; the
+                          first `n_layers` entries are run
+    shared_d_ff           width of the shared SwiGLU expert added to the
+                          routed output (0: none)
+    embedding_multiplier  scales the token embeddings
+    residual_multiplier   scales both residual branches
+    logits_scaling        divides the head's logits
+    attention_multiplier  the softmax scale (0: 1 / sqrt(head_dim))
+    use_rope              False: no positional embedding (NoPE)
+    ssm_conv_bias         a bias on the causal conv's channels
+    moe_dropless          size the dispatch by the per-expert counts, so
+                          no assignment is dropped (the ten families keep
+                          their capacity rule)
+    expert_init_fan_in    draw each expert matrix by its fan-in (the
+                          reference's law scales it by the expert count)
+    """
+
+    layer_types: tuple = ()
+    shared_d_ff: int = 0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: float = 0.0
+    use_rope: bool = True
+    ssm_conv_bias: bool = False
+    moe_dropless: bool = False
+    expert_init_fan_in: bool = False
+
+    @property
+    def kinds(self) -> tuple:
+        return tuple(self.layer_types[:self.n_layers])
+
+    def n_params(self) -> int:
+        d, v, hd = self.d_model, self.vocab_size, self.resolved_head_dim
+        di, st, nh = self.ssm_d_inner, self.ssm_state, self.ssm_n_heads
+        mamba = d * (2 * di + 2 * st + nh) + self.ssm_conv * (di + 2 * st) \
+            + 2 * nh + di + di * d
+        if self.ssm_conv_bias:
+            mamba += di + 2 * st
+        attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+        ffn = d * self.n_experts + self.n_experts * 3 * d * self.moe_d_ff \
+            + 3 * d * self.shared_d_ff + 2 * d
+        layers = sum((mamba if k == "mamba" else attn) + ffn
+                     for k in self.kinds)
+        emb = v * d if self.tie_embeddings else 2 * v * d
+        return layers + emb + d
+
+    def n_active_params(self) -> int:
+        unused = (self.n_experts - self.experts_per_token) * 3 \
+            * self.d_model * self.moe_d_ff * self.n_layers
+        return self.n_params() - unused
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,8 +282,15 @@ ARCH_IDS = {
 }
 
 
+# The port's own architectures (not in the reference's tables, which
+# ARCH_IDS and ASSIGNED_ARCHS copy): CLI id -> module.
+PORT_ARCH_IDS = {
+    "granite-4.0-h-small": "granite_4p0_h_small",
+}
+
+
 def get_config(name: str) -> ArchConfig:
-    mod_name = ARCH_IDS.get(name, name)
+    mod_name = ARCH_IDS.get(name) or PORT_ARCH_IDS.get(name, name)
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
 
@@ -235,5 +318,10 @@ def reduced_config(cfg: ArchConfig, **overrides) -> ArchConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
+    if cfg.layer_types:
+        # one layer of each kind, in the order they first appear
+        kinds = tuple(dict.fromkeys(cfg.kinds))
+        shrink.update(n_layers=len(kinds), layer_types=kinds,
+                      shared_d_ff=64 if cfg.shared_d_ff else 0)
     shrink.update(overrides)
     return dataclasses.replace(cfg, **shrink)

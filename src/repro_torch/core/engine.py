@@ -1137,6 +1137,7 @@ class CollectiveEngine:
             out = torch.roll(grp, root, dims=1).reshape(out.shape[0], -1)
         return lay.restore(out)
 
+    @_api_span
     def alltoall(self, x, axis: str, algorithm: str = "auto",
                  segments: Optional[int] = None):
         """Tiled on leading dim: block j of the output came from rank j."""

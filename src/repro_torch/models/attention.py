@@ -19,6 +19,10 @@ and the decode attention act on trailing dims only, so their leading
 dims may be the mesh's. Decode over a sequence-sharded cache merges the
 partial softmax statistics (m, l, acc) across the TP group with engine
 allreduces — a distributed flash-combine.
+
+A config may set the softmax scale (`attention_multiplier`; 0 keeps
+1 / sqrt(head_dim)) and leave out the rotary embedding (`use_rope`
+False: NoPE), in prefill and decode alike (`softmax_scale`).
 """
 from __future__ import annotations
 
@@ -74,15 +78,20 @@ def attn_params(b: Builder, cfg: ArchConfig, tp: int):
 # Flash-style blocked attention (prefill)
 # --------------------------------------------------------------------------
 
+def softmax_scale(cfg: ArchConfig) -> Optional[float]:
+    """The config's softmax scale, or None for 1 / sqrt(head_dim)."""
+    return cfg.attention_multiplier or None
+
+
 def _flash_fwd_blocks(q, k, v, window: int, *, causal: bool, qb: int,
-                      kb: int, q_offset: int):
+                      kb: int, q_offset: int, scale: Optional[float] = None):
     """Returns (out, lse). Shapes as the reference's (already grouped):
     q: (b, nq, qb, kv, g, hd); k, v: (nk, b, kb, kv, hd); out
     (b, nq, kv, g, qb, hd), lse (b, nq, kv, g, qb)."""
     b, nq, qbs, kv, g, hd = q.shape
     nk = k.shape[0]
     dev = q.device
-    scale = 1.0 / math.sqrt(hd)
+    scale = scale or 1.0 / math.sqrt(hd)
     eff_w = window if window > 0 else 1 << 30     # 0 means unlimited
     outs, lses = [], []
     for qi in range(nq):
@@ -116,7 +125,7 @@ def _flash_fwd_blocks(q, k, v, window: int, *, causal: bool, qb: int,
 
 
 def _flash_bwd_blocks(q, k, v, out, lse, dout, window: int, *,
-                      causal: bool, kb: int):
+                      causal: bool, kb: int, scale: Optional[float] = None):
     """The reference's flash backward (`_make_flash.bwd`): for every
     (kv block, q block) pair, P recomputed from lse under the forward's
     mask, then dv += P^T dO, dS = P (dO V^T - delta) scale, dq += dS K,
@@ -125,7 +134,7 @@ def _flash_bwd_blocks(q, k, v, out, lse, dout, window: int, *,
     b, nq, qbs, kv, g, hd = q.shape
     nk = k.shape[0]
     dev = q.device
-    scale = 1.0 / math.sqrt(hd)
+    scale = scale or 1.0 / math.sqrt(hd)
     eff_w = window if window > 0 else 1 << 30
     doutf = dout.float()
     delta = torch.sum(doutf * out.float(), dim=-1)     # (b,nq,kv,g,qb)
@@ -159,23 +168,26 @@ class _Flash(torch.autograd.Function):
     `_flash_fwd_blocks`, the residuals (q, k, v, out, lse)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int, causal: bool, qb: int, kb: int):
+    def forward(ctx, q, k, v, window: int, causal: bool, qb: int, kb: int,
+                scale: Optional[float]):
         out, lse = _flash_fwd_blocks(q, k, v, window, causal=causal, qb=qb,
-                                     kb=kb, q_offset=0)
+                                     kb=kb, q_offset=0, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window, ctx.causal, ctx.kb = window, causal, kb
+        ctx.window, ctx.causal, ctx.kb, ctx.scale = window, causal, kb, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _flash_bwd_blocks(q, k, v, out, lse, dout, ctx.window,
-                                       causal=ctx.causal, kb=ctx.kb)
+                                       causal=ctx.causal, kb=ctx.kb,
+                                       scale=ctx.scale)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None, None)
+                None, None, None)
 
 
-def _blocked(q, k, v, causal, window, q_block, kv_block, q_offset):
+def _blocked(q, k, v, causal, window, q_block, kv_block, q_offset,
+             scale=None):
     """q: (..., Sq, H, hd); k, v: (..., Skv, KV, hd); the leading dims
     (batch and any mesh dims) fold into one batch dim."""
     lead = tuple(q.shape[:-3])
@@ -193,32 +205,34 @@ def _blocked(q, k, v, causal, window, q_block, kv_block, q_offset):
     vr = v.reshape(b, nk, kb, kv, hd).movedim(1, 0)
     if q_offset == 0 and torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad):
-        out = _Flash.apply(qr, kr, vr, int(window), causal, qb, kb)
+        out = _Flash.apply(qr, kr, vr, int(window), causal, qb, kb, scale)
     else:
         out, _lse = _flash_fwd_blocks(qr, kr, vr, int(window),
                                       causal=causal, qb=qb, kb=kb,
-                                      q_offset=q_offset)
+                                      q_offset=q_offset, scale=scale)
     out = out.permute(0, 1, 4, 2, 3, 5)   # (b,nq,kv,g,qb,hd)->(b,nq,qb,..)
     return out.reshape(lead + (sq, h, hd))
 
 
 def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
                       q_block: int = 512, kv_block: int = 1024,
-                      q_offset: int = 0):
+                      q_offset: int = 0, scale: Optional[float] = None):
     """q: (..., Sq, H, hd); k, v: (..., Skv, KV, hd); H % KV == 0.
 
     Returns (..., Sq, H, hd). `window` > 0 masks keys older than `window`
     positions (0 = unlimited); `q_offset` is the absolute position of
-    q[0] (for caches)."""
-    return _blocked(q, k, v, causal, window, q_block, kv_block, q_offset)
+    q[0] (for caches); `scale` the softmax scale (None: 1 / sqrt(hd))."""
+    return _blocked(q, k, v, causal, window, q_block, kv_block, q_offset,
+                    scale)
 
 
 def flash_attention(q, k, v, *, causal: bool, window: int = 0,
-                    q_block: int = 512, kv_block: int = 1024):
+                    q_block: int = 512, kv_block: int = 1024,
+                    scale: Optional[float] = None):
     """Memory-efficient attention (the training and prefill path): the
     same contract as `chunked_attention` at offset 0, through the flash
     forward; with grad enabled, through `_Flash` (O(S) residuals)."""
-    return _blocked(q, k, v, causal, window, q_block, kv_block, 0)
+    return _blocked(q, k, v, causal, window, q_block, kv_block, 0, scale)
 
 
 # --------------------------------------------------------------------------
@@ -226,7 +240,8 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
 # --------------------------------------------------------------------------
 
 def decode_attention(q, k_cache, v_cache, *, slot_positions, cur_pos,
-                     combine_axis: Optional[str] = None, engine=None):
+                     combine_axis: Optional[str] = None, engine=None,
+                     scale: Optional[float] = None):
     """q: (..., B, H, hd); caches: (..., B, Sc, KV, hd) (a local slice
     when combine_axis is set). slot_positions: (Sc,) or stacked (*mesh,
     Sc): the absolute position held by each cache slot (< 0 =
@@ -239,7 +254,7 @@ def decode_attention(q, k_cache, v_cache, *, slot_positions, cur_pos,
     h, hd = q.shape[-2:]
     kv = k_cache.shape[-2]
     g = h // kv
-    scale = 1.0 / math.sqrt(hd)
+    scale = scale or 1.0 / math.sqrt(hd)
     qr = q.reshape(tuple(q.shape[:-2]) + (kv, g, hd))
     mask = (slot_positions >= 0) & (slot_positions <= cur_pos)
     mask = mask[..., None, None, None, :]         # (..., 1, 1, 1, Sc)
@@ -341,7 +356,7 @@ def attention_block(params, x, cfg: ArchConfig, ctx: ParCtx,
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    if not acfg.cross:
+    if not acfg.cross and cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
@@ -357,7 +372,8 @@ def attention_block(params, x, cfg: ArchConfig, ctx: ParCtx,
         v = ctx.take(v, owner, dim=2)
 
     out = flash_attention(q, k, v, causal=acfg.causal, window=window,
-                          q_block=q_block, kv_block=kv_block)
+                          q_block=q_block, kv_block=kv_block,
+                          scale=softmax_scale(cfg))
     hm = head_mask(cfg, ctx, hl, local=True)
     if hm is not None:
         out = out * hm[..., None, None, :, None].to(out.dtype)

@@ -17,13 +17,19 @@ backward differentiates the SUM of the per-rank losses; the head input
 is always full-sequence and model-axis replicated, so each rank's loss
 is ce_local_sum / (total_tokens * tp_size), stacked (*mesh,). MoE aux
 stats are token-sharded, scaled by 1 / n_ranks_total.
+
+A config's `embedding_multiplier` scales the token embeddings and its
+`logits_scaling` divides the head's logits (Granite-4.0-H's muP scalars;
+both 1 elsewhere, where they cost nothing).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.blocks import layer_params, stack_forward, stacked
+from repro_torch.models.blocks import (
+    layer_params, stack_forward, stack_params, stacked,
+)
 from repro_torch.models.common import Builder, rms_norm, sinusoidal_positions
 from repro_torch.parallel.ops import ParCtx, local_matmul
 
@@ -46,9 +52,7 @@ def model_params(b: Builder, cfg: ArchConfig, tp: int):
     p = {
         "embed": b.param((vp, d), ("model", "data"), scale=0.02),
         "final_norm": b.param((d,), (None,), init="ones"),
-        "layers": stacked(b, cfg.n_layers,
-                          lambda bb: layer_params(
-                              bb, cfg, tp, cross=bool(cfg.encoder_layers))),
+        "layers": stack_params(b, cfg, tp, cross=bool(cfg.encoder_layers)),
     }
     if not cfg.tie_embeddings:
         p["head"] = b.param((vp, d), ("model", "data"), scale=0.02)
@@ -105,7 +109,15 @@ def embed_tokens(params, tokens, cfg: ArchConfig, ctx: ParCtx):
                                                          device=rows.device))
     if ctx.tp > 1:
         rows = ctx.engine.allreduce(rows, ctx.tp_axis)
+    if cfg.embedding_multiplier != 1.0:
+        rows = rows * cfg.embedding_multiplier
     return rows
+
+
+def _scaled(logits, cfg: ArchConfig):
+    """Logits divided by the config's `logits_scaling` (as is at 1)."""
+    s = cfg.logits_scaling
+    return logits if s == 1.0 else logits / s
 
 
 def lm_head_ce(params, x, labels, cfg: ArchConfig, ctx: ParCtx,
@@ -123,7 +135,8 @@ def lm_head_ce(params, x, labels, cfg: ArchConfig, ctx: ParCtx,
     v_l = vp // ctx.tp
     w = params["embed"] if cfg.tie_embeddings else params["head"]
     w = ctx.gather_fsdp(w, dim=1)                     # (V_l, D)
-    logits = local_matmul(x.float(), w.float().transpose(-1, -2), L)
+    logits = _scaled(local_matmul(x.float(), w.float().transpose(-1, -2), L),
+                     cfg)
     lo = ctx.tp_rank(2) * v_l                         # (*mesh, 1, 1)
     vocab_ok = (lo[..., None] + torch.arange(v_l, device=lo.device)
                 ) < cfg.vocab_size
@@ -155,21 +168,34 @@ def lm_head_ce(params, x, labels, cfg: ArchConfig, ctx: ParCtx,
     return ce.sum((-2, -1)), mask.sum((-2, -1))
 
 
-def lm_head_sample(params, x, cfg: ArchConfig, ctx: ParCtx):
+def head_logits(params, x, cfg: ArchConfig, ctx: ParCtx):
+    """Each rank's slice of the vocab-parallel head's fp32 logits. x:
+    stacked (*mesh, B, D) -> (*mesh, B, V / tp); padded vocab rows read
+    -1e30."""
+    v_l = padded_vocab(cfg, ctx.tp) // ctx.tp
+    w = params["embed"] if cfg.tie_embeddings else params["head"]
+    w = ctx.gather_fsdp(w, dim=1)
+    logits = _scaled(torch.matmul(x.float(), w.float().transpose(-1, -2)),
+                     cfg)
+    lo = ctx.tp_rank(1) * v_l                           # (*mesh, 1)
+    vocab_ok = (lo + torch.arange(v_l, device=lo.device)) < cfg.vocab_size
+    return torch.where(vocab_ok.unsqueeze(-2), logits, -1e30)
+
+
+def lm_head_sample(params, x, cfg: ArchConfig, ctx: ParCtx,
+                   logits=None):
     """Greedy next-token over the vocab-parallel head. x: stacked
     (*mesh, B, D) -> (*mesh, B) int32, the same on every TP rank. Ties go
     to the lowest id: each rank's first maximum, then the lowest id among
-    the ranks within 1e-6 of the global maximum."""
+    the ranks within 1e-6 of the global maximum. `logits`: `head_logits`
+    already computed for x."""
     vp = padded_vocab(cfg, ctx.tp)
     if vp > _MAX_EXACT_ID:
         raise ValueError(f"vocab {vp} exceeds the head's exact id range")
     v_l = vp // ctx.tp
-    w = params["embed"] if cfg.tie_embeddings else params["head"]
-    w = ctx.gather_fsdp(w, dim=1)
-    logits = torch.matmul(x.float(), w.float().transpose(-1, -2))
+    if logits is None:
+        logits = head_logits(params, x, cfg, ctx)
     lo = ctx.tp_rank(1) * v_l                           # (*mesh, 1)
-    vocab_ok = (lo + torch.arange(v_l, device=lo.device)) < cfg.vocab_size
-    logits = torch.where(vocab_ok.unsqueeze(-2), logits, -1e30)
     val = logits.amax(-1)
     idx = lo + logits.argmax(-1)
     if ctx.tp > 1:

@@ -28,23 +28,31 @@ positions, the head slice — each stacked row gets its own offset from
 caches IN PLACE and replaces the SSM carries in each layer's dict (the
 reference returns new arrays and donates the old ones); it returns the
 same cache dicts.
+
+A config with `layer_types` holds both kinds in one cache list: each
+layer's entry is its kind's (`blocks.layer_plan`), k/v for an attention
+layer, conv and state for a Mamba layer, and prefill emits each name
+stacked over the layers that hold it (`prefill_cache_names`). Prefill
+and decode can also return the head's logits (`return_logits`), each
+rank's vocab slice, (*mesh, B, V / tp).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import mlp as mlp_mod
+from repro_torch.core import telemetry
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
     decode_attention, kv_layout, kv_owner, padded_heads,
 )
 from repro_torch.models.blocks import (
-    layer_slice, stack_forward, window_per_layer,
+    cache_names, ffn_block, has_attention, has_ssm, layer_params_of,
+    layer_plan, residual, stack_forward, window_per_layer,
 )
 from repro_torch.models.common import Builder, rms_norm, rope
 from repro_torch.models.lm import (
-    _input_stream, embed_tokens, lm_head_sample, sp_slice,
+    _input_stream, embed_tokens, head_logits, lm_head_sample, sp_slice,
 )
 from repro_torch.parallel.ops import ParCtx, local_matmul
 
@@ -78,9 +86,9 @@ def make_cache(b: Builder, cfg: ArchConfig, tp: int, batch: int,
     (init mode) or their specs. Shapes are GLOBAL before the Builder
     shards them; dp=None replicates the batch dim."""
     caches = []
-    for layer in range(cfg.n_layers):
+    for layer, spot in enumerate(layer_plan(cfg)):
         entry = {}
-        if cfg.has_attention:
+        if cfg.has_attention and has_attention(spot.kind):
             length = layer_cache_len(cfg, layer, s_max)
             shp, spec = attn_cache_params(b, cfg, tp, dp, length,
                                           pcfg.decode_seq_shard)
@@ -103,7 +111,7 @@ def make_cache(b: Builder, cfg: ArchConfig, tp: int, batch: int,
                 xshp = (batch,) + xshp[1:]
                 entry["xk"] = b.param(xshp, xspec, init="zeros")
                 entry["xv"] = b.param(xshp, xspec, init="zeros")
-        if cfg.family in ("ssm", "hybrid"):
+        if has_ssm(spot.kind):
             nh_p = ssm_mod.padded_ssm_heads(cfg, tp)
             di_l = nh_p * cfg.ssm_head_dim // tp
             # conv channels are TP-local (x-part sharded, bc-part
@@ -122,15 +130,28 @@ def make_cache(b: Builder, cfg: ArchConfig, tp: int, batch: int,
 
 
 def prefill_cache_names(cfg: ArchConfig) -> tuple:
-    """The caches prefill emits, in order, by family (each a layer-stacked
-    leaf of its decode cache's name)."""
-    if cfg.family == "ssm":
-        return ("conv", "state")
-    if cfg.family == "hybrid":
-        return ("k", "v", "conv", "state")
-    if cfg.encoder_layers:
-        return ("k", "v", "xk", "xv")
-    return ("k", "v")
+    """The caches prefill emits, in order (each a layer-stacked leaf of
+    its decode cache's name): every name of the layers' kinds, in the
+    order they first appear."""
+    names: dict = {}
+    for spot in layer_plan(cfg):
+        names.update(dict.fromkeys(cache_names(
+            spot.kind, bool(cfg.encoder_layers))))
+    return tuple(names)
+
+
+def prefill_cache_rows(cfg: ArchConfig) -> list:
+    """For each layer, {cache name: its row in prefill's stack of that
+    name}."""
+    seen: dict = {}
+    out = []
+    for spot in layer_plan(cfg):
+        row = {}
+        for name in cache_names(spot.kind, bool(cfg.encoder_layers)):
+            row[name] = seen.get(name, 0)
+            seen[name] = row[name] + 1
+        out.append(row)
+    return out
 
 
 def prefill_cache_specs(cfg: ArchConfig, pcfg, tp: int, s: int,
@@ -229,7 +250,7 @@ def attn_decode(lp, h, cache, cfg: ArchConfig, ctx: ParCtx, pos: int,
     q = ctx.dense(h, params["wq"]).reshape(lead + (bsz, 1, hl, hd))
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-    if not cross:
+    if not cross and cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
     q = q[..., 0, :, :]                                # (B, hl, hd)
 
@@ -256,7 +277,8 @@ def attn_decode(lp, h, cache, cfg: ArchConfig, ctx: ParCtx, pos: int,
         v_new = ctx.dense(h, params["wv"]).reshape(lead + (bsz, 1, kv_l, hd))
         if cfg.qk_norm:
             k_new = rms_norm(k_new, params["k_norm"], cfg.norm_eps)
-        k_new = rope(k_new, positions, cfg.rope_theta)
+        if cfg.use_rope:
+            k_new = rope(k_new, positions, cfg.rope_theta)
         rolling = bool(window) and window < s_max   # cache len == window
         slot, slot_pos = _slot_and_positions(length_total, rolling, pos,
                                              local_len, rank, seq_sharded)
@@ -301,7 +323,7 @@ def attn_decode(lp, h, cache, cfg: ArchConfig, ctx: ParCtx, pos: int,
     out = decode_attention(
         qf, k_sel, v_sel, slot_positions=slot_pos, cur_pos=pos,
         combine_axis=ctx.tp_axis if seq_sharded else None,
-        engine=ctx.engine)
+        engine=ctx.engine, scale=cfg.attention_multiplier or None)
 
     # mask padded heads, take local rows for the row-parallel o_proj
     if seq_sharded:
@@ -321,48 +343,57 @@ def attn_decode(lp, h, cache, cfg: ArchConfig, ctx: ParCtx, pos: int,
 
 
 def decode_step(params, caches, tokens, pos: int, cfg: ArchConfig,
-                ctx: ParCtx, s_max: int):
+                ctx: ParCtx, s_max: int, return_logits: bool = False):
     """One greedy decode step. tokens: stacked (*mesh, B, 1); pos: the
     position being written.
 
-    Returns (next_tokens stacked (*mesh, B), caches updated in place).
+    Returns (next_tokens stacked (*mesh, B), caches updated in place),
+    and the head's logits (*mesh, B, V / tp) with `return_logits`.
     """
     windows = window_per_layer(cfg, cfg.n_layers)
-    x = embed_tokens(params, tokens, cfg, ctx)
-    for i in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], i)
-        cache = caches[i]
-        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        if cfg.family == "ssm":
-            y, (cache["conv"], cache["state"]) = ssm_mod.ssm_mixer(
-                lp["ssm"], h, cfg, ctx, conv_state=cache["conv"],
-                ssm_state=cache["state"], decode=True)
-            x = x + y
-            continue
-        y, _ = attn_decode(lp, h, cache, cfg, ctx, pos, windows[i], s_max)
-        if cfg.family == "hybrid":
+    tr = telemetry.wall()
+    with tr.span("lm.decode", track="lm", pos=pos):
+        x = embed_tokens(params, tokens, cfg, ctx)
+        for i, spot in enumerate(layer_plan(cfg)):
+            with tr.span("lm.layer", track="lm", layer=i,
+                         kind=spot.group or spot.kind):
+                x = _decode_layer(layer_params_of(params["layers"], spot),
+                                  caches[i], x, spot.kind, windows[i], pos,
+                                  cfg, ctx, s_max)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = head_logits(params, x[..., 0, :], cfg, ctx)
+        nxt = lm_head_sample(params, x[..., 0, :], cfg, ctx, logits=logits)
+    return (nxt, caches, logits) if return_logits else (nxt, caches)
+
+
+def _decode_layer(lp, cache, x, kind: str, window: int, pos: int,
+                  cfg: ArchConfig, ctx: ParCtx, s_max: int):
+    """One layer of a decode step: x stacked (*mesh, B, 1, D); writes the
+    layer's cache in place (the SSM carries replaced in its dict)."""
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if kind in ("ssm", "ssm_moe"):
+        y, (cache["conv"], cache["state"]) = ssm_mod.ssm_mixer(
+            lp["ssm"], h, cfg, ctx, conv_state=cache["conv"],
+            ssm_state=cache["state"], decode=True)
+        if kind == "ssm":
+            return x + y
+    else:
+        y, _ = attn_decode(lp, h, cache, cfg, ctx, pos, window, s_max)
+        if kind == "hybrid":
             s_out, (cache["conv"], cache["state"]) = ssm_mod.ssm_mixer(
                 lp["ssm"], h, cfg, ctx, conv_state=cache["conv"],
                 ssm_state=cache["state"], decode=True)
             y = 0.5 * (rms_norm(y, lp["norm_attn_out"], cfg.norm_eps)
                        + rms_norm(s_out, lp["norm_ssm_out"], cfg.norm_eps))
+    x = x + residual(cfg, y)
+    if "xattn" in lp:
+        hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
+        y, _ = attn_decode(lp, hx, cache, cfg, ctx, pos, 0, s_max,
+                           cross=True)
         x = x + y
-        if "xattn" in lp:
-            hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
-            y, _ = attn_decode(lp, hx, cache, cfg, ctx, pos, 0, s_max,
-                               cross=True)
-            x = x + y
-        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        if cfg.family == "moe":
-            y, _ = mlp_mod.moe_block(lp["moe"], h2, cfg, ctx,
-                                     ctx.pcfg.moe_capacity_factor,
-                                     dropless=True)
-        else:
-            y = mlp_mod.mlp_block(lp["mlp"], h2, cfg, ctx)
-        x = x + y
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    nxt = lm_head_sample(params, x[..., 0, :], cfg, ctx)
-    return nxt, caches
+    h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+    y, _ = ffn_block(lp, h2, cfg, ctx, decode=True)
+    return x + residual(cfg, y)
 
 
 # --------------------------------------------------------------------------
@@ -370,7 +401,7 @@ def decode_step(params, caches, tokens, pos: int, cfg: ArchConfig,
 # --------------------------------------------------------------------------
 
 def prefill(params, batch, cfg: ArchConfig, ctx: ParCtx,
-            collect_cache: bool = True):
+            collect_cache: bool = True, return_logits: bool = False):
     """Forward over the prompt; emit next token + caches.
 
     Caches come back layer-stacked, (L, *mesh, ...), in uniform
@@ -379,14 +410,17 @@ def prefill(params, batch, cfg: ArchConfig, ctx: ParCtx,
     handoff. Under sequence parallelism the input stream is cut to each
     TP rank's slice of the sequence first, as `lm.forward` does (the
     reference's prefill does not, and raises there: ROADMAP Queue 3).
+    With `return_logits`, the last position's logits come third.
     """
-    x, enc_out = _input_stream(params, batch, cfg, ctx)
-    positions = torch.arange(x.shape[ctx.lead + 1], device=x.device)
-    x, _, caches = stack_forward(params["layers"], sp_slice(x, ctx), cfg,
-                                 ctx, positions, causal=True,
-                                 enc_out=enc_out,
-                                 collect_cache=collect_cache)
-    x = ctx.sp_allgather_seq(x)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    nxt = lm_head_sample(params, x[..., -1, :], cfg, ctx)
-    return nxt, caches
+    with telemetry.wall().span("lm.prefill", track="lm"):
+        x, enc_out = _input_stream(params, batch, cfg, ctx)
+        positions = torch.arange(x.shape[ctx.lead + 1], device=x.device)
+        x, _, caches = stack_forward(params["layers"], sp_slice(x, ctx), cfg,
+                                     ctx, positions, causal=True,
+                                     enc_out=enc_out,
+                                     collect_cache=collect_cache)
+        x = ctx.sp_allgather_seq(x)
+        x = rms_norm(x[..., -1:, :], params["final_norm"], cfg.norm_eps)
+        logits = head_logits(params, x[..., 0, :], cfg, ctx)
+        nxt = lm_head_sample(params, x[..., 0, :], cfg, ctx, logits=logits)
+    return (nxt, caches, logits) if return_logits else (nxt, caches)

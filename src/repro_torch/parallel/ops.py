@@ -29,6 +29,7 @@ spec (`stages.grad_sync`).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -65,10 +66,13 @@ def _local_matmul(x, w, lead: int):
 
 @dataclasses.dataclass
 class ParCtx:
-    """Per-step parallel context threaded through all layers."""
+    """Per-step parallel context threaded through all layers. `routes`:
+    while a list, every MoE layer appends its routing to it
+    (`mlp.moe_block`), the record a check holds the served path to."""
 
     engine: CollectiveEngine
     pcfg: ParallelConfig
+    routes: Optional[list] = None
 
     @property
     def mesh_shape(self) -> dict:

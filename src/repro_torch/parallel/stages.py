@@ -391,7 +391,9 @@ def build_prefill(cfg: ArchConfig, pcfg: ParallelConfig, mesh_shape: dict,
     """(prefill fn, ctx, param specs, batch specs). The fn takes the
     serving-layout params and a stacked batch of `seq_len` tokens and
     returns (next tokens stacked (*mesh, B_local), layer-stacked caches
-    laid out by `serve.prefill_cache_specs`)."""
+    laid out by `serve.prefill_cache_specs`), and with `return_logits`
+    the last position's logits, each rank's vocab slice (*mesh, B_local,
+    V / tp)."""
     pcfg = dataclasses.replace(pcfg, serving=True)
     ctx = make_ctx(cfg, pcfg, mesh_shape, device, engine)
     specs = param_specs(cfg, ctx.tp, serve=True)
@@ -399,11 +401,12 @@ def build_prefill(cfg: ArchConfig, pcfg: ParallelConfig, mesh_shape: dict,
     bspec = lm_mod.batch_specs(cfg, "prefill", dp=dp)
 
     @torch.inference_mode()
-    def pf(params, batch):
+    def pf(params, batch, return_logits: bool = False):
         s = batch["tokens"].shape[-1]
         if s != seq_len:
             raise ValueError(f"prefill built for {seq_len} tokens, got {s}")
-        return serve_mod.prefill(params, batch, cfg, ctx)
+        return serve_mod.prefill(params, batch, cfg, ctx,
+                                 return_logits=return_logits)
 
     return pf, ctx, specs, bspec
 
@@ -443,7 +446,8 @@ def build_decode_step(cfg: ArchConfig, pcfg: ParallelConfig,
     """(decode fn, ctx, param specs, cache specs). The fn takes the
     serving-layout params, the caches, stacked tokens (*mesh, B_local,
     1) and the position `pos` (an int) and returns (next tokens stacked
-    (*mesh, B_local), the caches, written in place)."""
+    (*mesh, B_local), the caches, written in place), and with
+    `return_logits` the head's logits (*mesh, B_local, V / tp)."""
     pcfg_d = dataclasses.replace(pcfg, sequence_parallel=False,
                                  serving=True)
     ctx = make_ctx(cfg, pcfg_d, mesh_shape, device, engine)
@@ -452,8 +456,8 @@ def build_decode_step(cfg: ArchConfig, pcfg: ParallelConfig,
                          dp=dp_axes(mesh_shape, global_batch))
 
     @torch.inference_mode()
-    def dstep(params, caches, tokens, pos: int):
+    def dstep(params, caches, tokens, pos: int, return_logits: bool = False):
         return serve_mod.decode_step(params, caches, tokens, int(pos), cfg,
-                                     ctx, s_max)
+                                     ctx, s_max, return_logits=return_logits)
 
     return dstep, ctx, specs, cspecs

@@ -40,7 +40,8 @@ from repro_torch.convert import gather_global, shard_of, stack_global, \
     unstack
 from repro_torch.models.blocks import window_per_layer
 from repro_torch.models.serve import (
-    layer_cache_len, prefill_cache_names, prefill_cache_specs, quantize_kv,
+    layer_cache_len, prefill_cache_names, prefill_cache_rows,
+    prefill_cache_specs, quantize_kv,
 )
 from repro_torch.parallel import stages
 
@@ -51,7 +52,9 @@ def convert_prefill_caches(prefill_caches, cfg: ArchConfig,
                            s_enc: int = 0, engine=None):
     """Rearrange prefill's layer-stacked caches into decode's per-layer
     layout (int8 with its scales when pcfg.kv_cache_dtype says so). Per
-    family, as the reference's: the attention k/v are placed at s_max
+    layer (`serve.prefill_cache_rows`: a layer-typed stack emits each name
+over the layers that hold it), as the reference's: the attention k/v
+are placed at s_max
     (SWA windows rolled); the SSM `conv`/`state` and the audio cross
     cache `xk`/`xv` carry over as they are (prefill emits them in
     decode's layout). With a per-process `engine`, the caches are this
@@ -79,10 +82,10 @@ def convert_prefill_caches(prefill_caches, cfg: ArchConfig,
         return stack_global(t, mesh_shape, spec)
 
     caches = []
-    for layer in range(cfg.n_layers):
-        entry = {name: stacks[name][layer].clone()
-                 for name in ("conv", "state", "xk", "xv") if name in stacks}
-        if "k" not in stacks:
+    for layer, rows in enumerate(prefill_cache_rows(cfg)):
+        entry = {name: stacks[name][row].clone() for name, row in
+                 rows.items() if name in ("conv", "state", "xk", "xv")}
+        if "k" not in rows:
             caches.append(entry)
             continue
         length = layer_cache_len(cfg, layer, s_max)
@@ -95,7 +98,7 @@ def convert_prefill_caches(prefill_caches, cfg: ArchConfig,
         else:
             pos = slots = torch.arange(s_prompt)
         for name in ("k", "v"):
-            g = whole(stacks[name][layer], pf_spec)
+            g = whole(stacks[name][rows[name]], pf_spec)
             src = g[:, pos.to(g.device)]                  # (B, S_p, ...)
             shape = (g.shape[0], length) + tuple(g.shape[2:])
             spec = decode_specs[layer][name]
@@ -156,23 +159,44 @@ class ServeSession:
                                 self.mesh_shape, self.bspec[k])
                 for k, v in batch.items()}
 
-    def generate(self, params, tokens, n_new: int):
+    def generate(self, params, tokens, n_new: int,
+                 return_logits: bool = False):
         """tokens: (B, s_prompt) -> (B, n_new) greedy continuation, a CPU
-        int32 tensor (on every process, one rank per process)."""
+        int32 tensor (on every process, one rank per process). With
+        `return_logits`, also the logits each token was taken from, (B,
+        n_new, V) fp32 on the CPU (the padded vocab rows cut off)."""
         batch = self.stack_batch({"tokens": tokens})
-        nxt, pf_caches = self.prefill_fn(params, batch)
+        # the step fns' plain call unless the logits are asked for
+        kw = {"return_logits": True} if return_logits else {}
+        out = self.prefill_fn(params, batch, **kw)
+        nxt, pf_caches = out[:2]
+        logits = list(out[2:])
         caches = convert_prefill_caches(
             pf_caches, self.cfg, self.pcfg, self.mesh_shape, self.tp,
             self.batch, self.s_prompt, self.s_max,
             engine=self.prefill_ctx.engine)
-        del pf_caches
-        out = [nxt]
+        del pf_caches, out
+        toks = [nxt]
         for i in range(n_new - 1):
-            nxt, caches = self.decode_fn(params, caches, nxt[..., None],
-                                         self.s_prompt + i)
-            out.append(nxt)
-        gen = torch.stack(out, dim=-1)                 # (*mesh, B_l, n)
+            step = self.decode_fn(params, caches, nxt[..., None],
+                                  self.s_prompt + i, **kw)
+            nxt, caches = step[:2]
+            logits.extend(step[2:])
+            toks.append(nxt)
+        gen = self._whole(torch.stack(toks, dim=-1), (None,))
+        if not return_logits:
+            return gen
+        # (*mesh, B_l, V_l) a step -> (B, n_new, V)
+        lg = self._whole(torch.stack(logits, dim=-2),
+                         (None, self.pcfg.tp_axis))
+        return gen, lg[..., :self.cfg.vocab_size].float()
+
+    def _whole(self, t, trailing: tuple):
+        """The global (B, ...) tensor of stacked (or local) per-rank rows
+        laid out by the batch's spec then `trailing` (an axis the mesh
+        lacks: replicated), on the CPU."""
+        spec = self.out_spec + tuple(a if a in self.mesh_shape else None
+                                     for a in trailing)
         if self.local:
-            return gather_global(gen, self.out_spec + (None,),
-                                 self.prefill_ctx.engine).cpu()
-        return unstack(gen, self.mesh_shape, self.out_spec + (None,)).cpu()
+            return gather_global(t, spec, self.prefill_ctx.engine).cpu()
+        return unstack(t, self.mesh_shape, spec).cpu()

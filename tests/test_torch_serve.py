@@ -134,6 +134,37 @@ def test_serve_session_matches_jax(case):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_serve_session_calls_its_step_fns_plainly():
+    """Without `return_logits`, generate calls the prefill and decode fns
+    in their plain form, (params, batch) and (params, caches, tokens,
+    pos), so a caller's wrapper of that form serves as before; with it,
+    the tokens are the same and each comes with its logits."""
+    s_p, n_new = 8, 3
+    cfg = configs("qwen")[1]
+    _, pcfg = case_pcfgs("qwen")
+    prompt = torch.from_numpy(tokens("qwen", seed=5, s=s_p))
+    params = port_params("qwen", serve=True)
+    sess = ServeSession(cfg, pcfg, MESH, 2, B, s_p, s_p + n_new,
+                        device="cpu")
+    want, logits = sess.generate(params, prompt, n_new, return_logits=True)
+    calls = []
+    pf, df = sess.prefill_fn, sess.decode_fn
+
+    def plain_pf(params, batch):
+        calls.append("prefill")
+        return pf(params, batch)
+
+    def plain_df(params, caches, tok, pos):
+        calls.append(pos)
+        return df(params, caches, tok, pos)
+    sess.prefill_fn, sess.decode_fn = plain_pf, plain_df
+    got = sess.generate(params, prompt, n_new)
+    assert calls == ["prefill", s_p, s_p + 1]
+    assert torch.equal(got, want)
+    assert logits.shape == (B, n_new, cfg.vocab_size)
+    assert torch.equal(logits.argmax(-1).to(want.dtype), want)
+
+
 @pytest.mark.parametrize("case", ["smollm31", "smollm63", "hymba_rep"])
 def test_serve_session_replicated_kv_matches_decode(case):
     """With KV heads replicated (the flash-combine decode cache), the

@@ -332,3 +332,57 @@ def test_region_index_counts_only_under_a_span():
         engine_mod._region_index(*key)
     engine_mod._region_index(*key)
     assert rec.counters == {"region_index.miss": 1, "region_index.hit": 1}
+
+
+def test_lm_prefill_spans_nest_and_count_the_moe():
+    """A traced prefill of a small Granite-4.0-H (layers mamba /
+    attention): one `lm.prefill` root, an `lm.layer` a layer with its
+    kind, the Mamba mixer's `ssm.proj` / `ssm.scan` / `ssm.norm` inside
+    `ssm.mixer`, the MoE's steps with the alltoalls inside dispatch and
+    combine and the counts' read (`moe.count_sync`) inside route; `moe.assignments` is tokens x top-k, `moe.dropped` 0."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.convert import stack_global
+    from repro_torch.parallel import stages
+    cfg = reduced_config(get_config("granite-4.0-h-small"))
+    mesh = {"pod": 1, "data": 1, "model": 2}
+    s = 16
+    pf, ctx, _specs, bspec = stages.build_prefill(cfg, ParallelConfig(), mesh,
+                                                  1, s, device="cpu")
+    params = stages.init_params(cfg, mesh, 2, seed=1, device="cpu",
+                                serve=True)
+    tokens = torch.arange(s, dtype=torch.int32)[None]
+    batch = {"tokens": stack_global(tokens, mesh, bspec["tokens"])}
+    with profiled() as spans:
+        traced = pf(params, batch)
+    _check_nesting(spans)
+    root, = _roots(spans)
+    assert root["name"] == "lm.prefill"
+    by_id = {e["id"]: e for e in spans}
+
+    def parent(e):
+        return by_id[e["parent"]]["name"]
+
+    layers = [e for e in spans if e["name"] == "lm.layer"]
+    assert [e["args"]["kind"] for e in layers] == ["mamba", "attention"]
+    assert all(parent(e) == "lm.prefill" for e in layers)
+    for name in ("ssm.proj", "ssm.scan", "ssm.norm"):
+        hit, = [e for e in spans if e["name"] == name]
+        assert parent(hit) == "ssm.mixer"
+    for name in ("moe.route", "moe.dispatch", "moe.experts", "moe.combine",
+                 "moe.shared"):
+        assert [parent(e) for e in spans if e["name"] == name] == \
+            ["lm.layer"] * 2
+    # the per-expert counts' one read to the host a layer, a span of its own
+    assert [parent(e) for e in spans if e["name"] == "moe.count_sync"] == \
+        ["moe.route"] * 2
+    a2a = [parent(e) for e in spans if e["name"] == "engine.alltoall"]
+    assert a2a == ["moe.dispatch", "moe.combine"] * 2
+    assert root["counters"]["moe.assignments"] == 2 * s * 2
+    assert root["counters"].get("moe.dropped", 0) == 0  # no change: 0
+    assert ctx.engine.metrics.get("moe.dropped") == 0
+    assert root["counters"]["moe.slots"] >= 2 * s * 2
+    # tracing changes no bit
+    plain = pf(params, batch)
+    for a, b in zip(traced[1], plain[1]):
+        assert torch.equal(a, b)
+    assert torch.equal(traced[0], plain[0])
