@@ -322,6 +322,8 @@ REPLACES = {
     "dequantize_blocks": "src/repro/kernels/quantize.py:60",
     "matmul_tiled": "src/repro/kernels/matmul.py:47",
     "gather_rows": "src/repro/kernels/embedding_gather.py:34",
+    # no TPU kernel: the JAX engine's region write after a copy exchange
+    "region_copy": "src/repro/core/engine.py:99",
 }
 SOURCES = {
     "fused_combine": "src/repro_torch/kernels/csrc/fused_combine.cu",
@@ -329,6 +331,7 @@ SOURCES = {
     "dequantize_blocks": "src/repro_torch/kernels/csrc/quantize.cu",
     "matmul_tiled": "src/repro_torch/kernels/csrc/matmul.cu",
     "gather_rows": "src/repro_torch/kernels/csrc/embedding_gather.cu",
+    "region_copy": "src/repro_torch/kernels/csrc/fused_combine.cu",
 }
 DLRM_MESH = {"pod": 1, "data": 1, "model": 8}
 DLRM_BATCHES, DLRM_SMALL, DLRM_LARGE = 20, 32, 2048
@@ -514,26 +517,45 @@ def recorded_calls(ops, names, shape, **kw) -> list:
     return calls
 
 
+K1_ARGS = ("a", "a_index", "b", "b_index", "op", "out_dtype", "in_place")
+
+
+def k1_args(entry, args, kwargs) -> tuple:
+    """(a, a_index, b, b_index, op, out_dtype, in_place) of a call to
+    `entry`, K1's indexed entry point (`ops.fused_combine_at`)."""
+    p = inspect.signature(entry).bind(*args, **kwargs)
+    p.apply_defaults()
+    return tuple(p.arguments[k] for k in K1_ARGS)
+
+
+def k1_run(fn, a, ai, b, bi, op, od, ip):
+    """K1 (`fn`: the kernel's entry or its plain version) on the operands,
+    left as they are: an in-place call (`ip`) runs on a clone of a (b
+    aliasing a stays aliased) and gives the whole buffer it wrote."""
+    if not ip:
+        return fn(a, ai, b, bi, op, od)
+    c = a.clone()
+    return fn(c, ai, c if b is a else b, bi, op, od, in_place=True)
+
+
 def replay_k1(ops, ref, calls, gen, where: str) -> int:
     """Each recorded K1 call of a path BITWISE against K1's plain version:
-    the path's own result on the operands it was given, and K1 again
-    through the same region indices on normal-valued operands of the same
-    shapes (a path's own operands may be integer-valued, where every sum
-    is exact in any order and precision)."""
-    sig = inspect.signature(ops.fused_combine_at)
+    the path's own result on the operands it was given (an in-place
+    call's: the whole buffer it wrote), and K1 again through the same
+    region indices, in place or not as the path called it, on
+    normal-valued operands of the same shapes (a path's own operands may
+    be integer-valued, where every sum is exact in any order and
+    precision)."""
     for i, (_n, args, kw, res) in enumerate(calls):
-        p = sig.bind(*args, **kw)
-        p.apply_defaults()
-        a, ai, b, bi, op, od = (p.arguments[k] for k in (
-            "a", "a_index", "b", "b_index", "op", "out_dtype"))
+        a, ai, b, bi, op, od, ip = k1_args(ops.fused_combine_at, args, kw)
         same(f"{where}: K1 call {i} ({op}) on the path's operands", res,
-             ref.fused_combine_at(a, ai, b, bi, op, od))
+             k1_run(ref.fused_combine_at, a, ai, b, bi, op, od, ip))
         na = torch.randn(a.shape, generator=gen, device=a.device).to(a.dtype)
         nb = na if b is a else torch.randn(
             b.shape, generator=gen, device=b.device).to(b.dtype)
         same(f"{where}: K1 call {i} ({op}) on normal values",
-             ops.fused_combine_at(na, ai, nb, bi, op, out_dtype=od),
-             ref.fused_combine_at(na, ai, nb, bi, op, od))
+             k1_run(ops.fused_combine_at, na, ai, nb, bi, op, od, ip),
+             k1_run(ref.fused_combine_at, na, ai, nb, bi, op, od, ip))
     return len(calls)
 
 
@@ -631,6 +653,52 @@ def phase_codec_indexed(ops, ref, gen) -> int:
                      ref.dequantize_blocks_at(q, s, n, old, tgt, op))
                 checked += 1
     return checked
+
+
+def phase_main_exchanges(CollectiveEngine, ops, ref, gen, L: int) -> dict:
+    """Phase 2c: every call the main path's allreduce (bidi_ring x 32, the
+    selector's pick at 8 x 64 MiB) makes to K1's in-place entry and to the
+    indexed copy, held BITWISE against the plain version as it runs
+    (`proc_checked`: the plain version writes a clone first), on normal
+    values, fp32 and bf16: at 8 x `L` (16-byte units, the vector path)
+    and at 8 x 7680 (15-element units, the scalar path); 14 K1 calls and
+    14 copies each, every exchange written in place; the result equal to
+    the same allreduce on the CPU (the plain versions)."""
+    eng = CollectiveEngine({"x": NRANKS}, device="cuda")
+    cpu = CollectiveEngine({"x": NRANKS}, device="cpu")
+    cases = {}
+    for width, vec in ((L, True), (2 * NRANKS * 32 * 15, False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((NRANKS, width), generator=gen,
+                            device="cuda").to(dtype)
+            checked = dict.fromkeys(ops.KERNELS, 0)
+            with proc_checked(ops, ref, checked, on_fail=fail), \
+                    recording(ops, ("fused_combine_at",)) as (calls, _i):
+                got = eng.allreduce(x, "x", algorithm="bidi_ring",
+                                    segments=32)
+                torch.cuda.synchronize()
+            name = f"2c: bidi_ring x 32 allreduce of 8 x {width} {dtype}"
+            if (checked["fused_combine"], checked["region_copy"]) != (14, 14):
+                fail(f"{name}: {checked['fused_combine']} K1 calls and "
+                     f"{checked['region_copy']} copies held, not 14 and 14")
+            if not all(kw.get("in_place") for _n, _a, kw, _r in calls):
+                fail(f"{name}: an exchange was not written in place")
+            unit_bytes = int(calls[0][1][1][0]) * x.element_size()
+            if (unit_bytes % 16 == 0) != vec:
+                fail(f"{name}: {unit_bytes}-byte units, vectors expected "
+                     f"{vec}")
+            if width <= 2**20:
+                same(name, got.cpu(), cpu.allreduce(
+                    x.cpu(), "x", algorithm="bidi_ring", segments=32))
+            cases[f"{width}/{str(dtype).split('.')[-1]}"] = {
+                "k1_held": checked["fused_combine"],
+                "copies_held": checked["region_copy"],
+                "unit_bytes": unit_bytes, "vec16": vec}
+            del x, got
+    torch.cuda.empty_cache()
+    emit({"phase": "main_exchanges", "bitwise": True, "in_place": True,
+          "cases": cases})
+    return cases
 
 
 def int_inputs(shape, gen, device="cuda"):
@@ -787,10 +855,14 @@ def kernel_rows(ref, fr, qz, ops, X, gen, err) -> list:
     """Phase 5b: per-kernel device time at the main path's segment shape,
     cycling through 128 MiB of operands so each launch reads cold HBM;
     K1's, K2's and K3's indexed entry points, one launch per exchange:
-    K1 cycling through the 14 combine exchanges (32 segments each) of a
-    bidi_ring allreduce of the stacked X (8 x 64 MiB), K2 and K3 through
-    the compressed exchanges of the int8 allreduce of X, each reading
-    its own 32 MiB region."""
+    K1 in place as the main path runs it (`exchange_ms`; into a fresh
+    tensor: `exchange_out_ms`), cycling through the 14 combine exchanges
+    (32 segments each) of a bidi_ring allreduce of the stacked X
+    (8 x 64 MiB), the indexed copy (its own row, a whole exchange a
+    launch) through the same allreduce's 14 copy exchanges, K2 and K3
+    through the compressed exchanges of the int8 allreduce of X, each
+    reading its own 32 MiB region. The in-place writes go to a copy of
+    X, which stays as it was."""
     dev = "cuda"
     pool = 64
     a = torch.randn((pool, NRANKS, SEG), generator=gen, device=dev)
@@ -833,25 +905,57 @@ def kernel_rows(ref, fr, qz, ops, X, gen, err) -> list:
     row("fused_combine", k1, k1_plain, k1_lib, 3 * 4 * el)
     # bidi_ring x 32: 2 x 8 chunks of 32 segments, 8 x 32768 at 64 MiB;
     # one launch an exchange covers its 32 segments
-    calls = exchange_indices(ops, X.shape, "bidi_ring", 32)
+    rec = recorded_calls(ops, ("fused_combine_at", "region_copy"), X.shape,
+                         algorithm="bidi_ring", segments=32)
+    calls = [(a[1], a[3]) for nm, a, _kw, _r in rec
+             if nm == "fused_combine_at"]
+    copies = [(a[1], a[3]) for nm, a, _kw, _r in rec
+              if nm == "region_copy"]                 # (payload, target)
     seg = X.shape[1] // (NRANKS * 64)
     ex_out = torch.empty((32, NRANKS, seg), device=dev)
     unit, _rows, units = calls[0][0]
     if tuple(units.shape[:2]) != (32, NRANKS) or \
-            units.shape[2] * unit != seg:
+            units.shape[2] * unit != seg or (len(calls), len(copies)) != \
+            (14, 14):
         fail(f"K1 indexed: bidi_ring exchanges of {tuple(X.shape)} are not "
-             f"32 x {NRANKS} x {seg}")
+             f"14 combines and 14 copies of 32 x {NRANKS} x {seg}")
+    Xw = X.clone()
     at = {"i": 0}
 
+    def ex(pairs):
+        at["i"] = (at["i"] + 1) % len(pairs)
+        return pairs[at["i"]]
+
     def k1_at():
-        at["i"] = (at["i"] + 1) % len(calls)
-        tgt, pay = calls[at["i"]]
+        tgt, pay = ex(calls)
+        fr.fused_combine_at(Xw, tgt, Xw, pay, "add", in_place=True)
+
+    def k1_at_out():
+        tgt, pay = ex(calls)
         fr.fused_combine_at(X, tgt, X, pay, "add", out=ex_out)
 
+    def copy_at(fn):
+        pay, tgt = ex(copies)
+        fn(Xw, pay, Xw, tgt)
+
+    elems = ex_out.numel()
     rows[-1]["exchange_ms"] = device_time_ms(k1_at, n)
-    rows[-1]["exchange_bound_ms"] = \
-        3 * ex_out.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    rows[-1]["exchange_out_ms"] = device_time_ms(k1_at_out, n)
+    rows[-1]["exchange_bound_ms"] = 3 * elems * 4 / HBM_BYTES_PER_S * 1e3
     rows[-1]["indexed_exchanges"] = len(calls)
+    rows.append({
+        "name": "region_copy", "route": "cuda",
+        "source": SOURCES["region_copy"],
+        "replaces": REPLACES["region_copy"], "max_abs_err": 0.0,
+        "ms": device_time_ms(lambda: copy_at(fr.region_copy), n),
+        "plain_ms": device_time_ms(lambda: copy_at(ref.region_copy), n // 4),
+        "bound_ms": 2 * elems * 4 / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+        "library_why": "no library call copies region to region through "
+                       "two indices; the plain version is aten's gather "
+                       "and index_put_, the path it replaced",
+        "shape": [32, NRANKS, seg], "indexed_exchanges": len(copies)})
+    del Xw
     row("quantize_blocks", lambda: qz.quantize_blocks(b[cyc()]),
         lambda: ref.quantize_blocks(b[cyc()]), None,
         4 * el + el + 4 * nb)
@@ -1628,26 +1732,30 @@ def lm_token_check(name, tokens, logits, cfg) -> dict:
 
 @contextlib.contextmanager
 def lm_checked(ops, ref, log):
-    """While the block runs, hold every K1 call (`fused_combine_at`)
-    BITWISE against K1's plain version on the operands it was given, and
-    every K4 call (`matmul`) within 2 K 2^-24 (|x| @ |w|) of the fp32
-    plain product plus one rounding to its output type (bf16: 2^-8 |y|),
-    right after the call, before any later write (plain versions launch
-    no kernel, so the counts are the path's). Log what a later replay on
-    normal values needs (the indices and operand shapes)."""
-    real = {n: getattr(ops, n) for n in ("fused_combine_at", "matmul")}
-    sig = inspect.signature(real["fused_combine_at"])
+    """While the block runs, hold every K1 call (`fused_combine_at`) and
+    every indexed copy (`region_copy`) BITWISE against its plain version
+    on the operands it was given, and every K4 call (`matmul`) within
+    2 K 2^-24 (|x| @ |w|) of the fp32 plain product plus one rounding to
+    its output type (bf16: 2^-8 |y|), right after the call, before any
+    later write (plain versions launch no kernel, so the counts are the
+    path's; an in-place write's plain version runs first, on a clone).
+    Log what a later replay on normal values needs (the indices and
+    operand shapes); `log["copy"]` counts the copies held."""
+    real = {n: getattr(ops, n)
+            for n in ("fused_combine_at", "matmul", "region_copy")}
+    log.setdefault("copy", [])
 
     def k1(*args, **kwargs):
+        a, ai, b, bi, op, od, ip = k1_args(real["fused_combine_at"], args,
+                                           kwargs)
+        want = k1_run(ref.fused_combine_at, a, ai, b, bi, op, od, ip) \
+            if ip else None
         res = real["fused_combine_at"](*args, **kwargs)
-        p = sig.bind(*args, **kwargs)
-        p.apply_defaults()
-        a, ai, b, bi, op, od = (p.arguments[k] for k in (
-            "a", "a_index", "b", "b_index", "op", "out_dtype"))
-        same(f"lm K1 call {len(log['k1'])} ({op})", res,
-             ref.fused_combine_at(a, ai, b, bi, op, od))
+        if want is None:
+            want = ref.fused_combine_at(a, ai, b, bi, op, od)
+        same(f"lm K1 call {len(log['k1'])} ({op})", res, want)
         log["k1"].append((a.shape, a.dtype, b.shape, b.dtype, b is a, ai,
-                          bi, op, od))
+                          bi, op, od, ip))
         return res
 
     def k4(x, y, out_dtype=None):
@@ -1664,7 +1772,16 @@ def lm_checked(ops, ref, log):
         log["k4"].append(float(diff.max()))
         return res
 
-    ops.fused_combine_at, ops.matmul = k1, k4
+    def copy(src, src_index, dst, dst_index):
+        d = dst.clone()
+        want = ref.region_copy(d if src is dst else src, src_index, d,
+                               dst_index)
+        res = real["region_copy"](src, src_index, dst, dst_index)
+        same(f"lm indexed copy {len(log['copy'])}", res, want)
+        log["copy"].append(int(src_index[2].numel()))
+        return res
+
+    ops.fused_combine_at, ops.matmul, ops.region_copy = k1, k4, copy
     try:
         yield
     finally:
@@ -1675,14 +1792,14 @@ def lm_checked(ops, ref, log):
 def lm_replay_normal(ops, ref, log, gen) -> int:
     """Every logged K1 call again on normal-valued operands of its shapes
     through its own region indices, BITWISE against the plain version."""
-    for i, (ash, adt, bsh, bdt, same_ab, ai, bi, op, od) in \
+    for i, (ash, adt, bsh, bdt, same_ab, ai, bi, op, od, ip) in \
             enumerate(log["k1"]):
         a = torch.randn(ash, generator=gen, device="cuda").to(adt)
         b = a if same_ab else torch.randn(bsh, generator=gen,
                                           device="cuda").to(bdt)
         same(f"lm K1 call {i} ({op}) on normal values",
-             ops.fused_combine_at(a, ai, b, bi, op, out_dtype=od),
-             ref.fused_combine_at(a, ai, b, bi, op, od))
+             k1_run(ops.fused_combine_at, a, ai, b, bi, op, od, ip),
+             k1_run(ref.fused_combine_at, a, ai, b, bi, op, od, ip))
     return len(log["k1"])
 
 
@@ -1928,6 +2045,7 @@ def phase_lm_serve(cfg, params, mods, ops, ref, counts, gen, seed: int):
               k, v, {"allreduce": 1 + 2 * cfg.n_layers + 2})
               for k, v in steps.items()},
           "k1_checked_bitwise": len(log["k1"]),
+          "copy_checked_bitwise": len(log["copy"]),
           "k1_replayed_normal": replayed, "k4_checked": len(log["k4"]),
           "k4_max_abs_err": max(log["k4"]) if log["k4"] else None,
           "margin": f"{LM_Z} sqrt(2) eps rms(logits), eps = 2^-8 "
@@ -2497,6 +2615,7 @@ def phase_fam_serve(run, cfg, params, mesh, tp, pcfg, ref_dtype, mods, ops,
     line.update({
         "launches": counts[f"lm_families_{run}"],
         "k1_checked_bitwise": len(log["k1"]), "k1_replayed_normal": replayed,
+        "copy_checked_bitwise": len(log["copy"]),
         "margin": f"{LM_Z} sqrt(2) eps rms(logits), eps = 2^-8 sqrt(n_r) = "
                   f"{lm_eps(cfg):.4f}",
         "reference": f"the port's modules on the (1, 1, 1) mesh, "
@@ -3249,6 +3368,7 @@ def phase_train(cfg, mods, ops, ref, counts, gen, seed: int, reps: int,
     del st_d, ts_d, synced_a, _pd
     replayed = lm_replay_normal(ops, ref, log, gen)
     out["k1_checked_bitwise"] = len(log["k1"])
+    out["copy_checked_bitwise"] = len(log["copy"])
     out["k1_replayed_normal"] = replayed
     out["k4_checked"] = len(log["k4"])
     del params, backup, opt, ts
@@ -3665,7 +3785,8 @@ def phase_dryrun(cfg, mods, ops, ref, counts, seed: int, smi: str) -> None:
             ts.fn(params, opt, batch, 0)
             torch.cuda.synchronize()
         checked = {"fused_combine": len(log["k1"]),
-                   "matmul_tiled": len(log["k4"])}
+                   "matmul_tiled": len(log["k4"]),
+                   "region_copy": len(log["copy"])}
         k4_err = max(log["k4"], default=None)
         del log
         probe = TrainProbe((stages, adamw, lm_mod), ops, ts.ctx.engine)
@@ -3717,6 +3838,7 @@ def phase_dryrun(cfg, mods, ops, ref, counts, seed: int, smi: str) -> None:
             "k1_per_phase": k1_meta, "launches": c,
             "k1_checked_bitwise": checked["fused_combine"],
             "k4_checked": checked["matmul_tiled"], "k4_max_abs_err": k4_err,
+            "copy_checked_bitwise": checked["region_copy"],
             "peak_meta_bytes": st_m.peak_bytes,
             "peak_tracked_card_bytes": st_c.peak_bytes,
             "peak_allocator_card_bytes": peak_card,
@@ -4148,7 +4270,11 @@ PROC_CHECKED = {
     "matmul": ("matmul_tiled", "matmul"),
     "embedding_gather": ("gather_rows", "gather_rows"),
     "embedding_lookup_rows": ("gather_rows", "lookup_rows"),
+    "region_copy": ("region_copy", "region_copy"),
 }
+#: the entry points that may write an operand in place -> that operand (K1
+#: only with `in_place`)
+PROC_IN_PLACE = {"fused_combine_at": "a", "region_copy": "dst"}
 
 
 def k4_within(x, y, got, want) -> bool:
@@ -4185,7 +4311,16 @@ def proc_checked(ops, ref, checked: dict, on_fail=None):
             p = sig.bind(*args, **kwargs)
             p.apply_defaults()
             p.arguments.pop("out", None)
-            want = getattr(ref, plain)(**p.arguments)
+            plain_args = dict(p.arguments)
+            written = PROC_IN_PLACE.get(name)
+            if written and (name != "fused_combine_at"
+                            or plain_args["in_place"]):
+                # an in-place call: the plain version writes a clone
+                t = plain_args[written]
+                c = t.clone()
+                plain_args = {k: (c if v is t else v)
+                              for k, v in plain_args.items()}
+            want = getattr(ref, plain)(**plain_args)
             res = real[name](*args, **kwargs)
             for i, (g, w) in enumerate(zip(
                     res if isinstance(res, tuple) else (res,),
@@ -4752,7 +4887,9 @@ def phase_procs(CollectiveEngine, procs, ops, counts, seed: int, mib: int,
         for k, v in r["checked"].items():
             checked[k] += v
     for k in ops.KERNELS:
-        if not checked[k]:
+        # the per-process data plane copies through its transport: the
+        # stacked indexed copy need not run here
+        if not checked[k] and k != "region_copy":
             fail(f"12: no {k} call was held against its plain version")
     # 12a: every case bitwise the stacked executor's row, and the
     # integer-valued uncompressed allreduces bitwise X.sum(0) on every rank
@@ -6143,6 +6280,7 @@ def main() -> int:
 
     err = phase_kernels(ops, ref, gen)                      # phase 2
     L = args.mib * 2**20 // 4
+    phase_main_exchanges(CollectiveEngine, ops, ref, gen, L)   # phase 2c
     X = int_inputs((NRANKS, L), gen)
     runs = phase_main_fp32(CollectiveEngine, X, counts, ops)   # phase 3
     runs.update(phase_main_int8(CollectiveEngine, X, counts, ops, gen))

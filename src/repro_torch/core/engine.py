@@ -14,7 +14,9 @@ structure this executor follows:
     and the per-rank regions become one gather / one scatter over all
     ranks (index tensors cached per region);
   * LOOP is two-phase: every slot reads the iteration-start state and
-    the writes land at iteration end;
+    the writes land at iteration end — or straight away, where the
+    compiled program proves that no slot reads what another writes
+    (`program.in_place_plan`);
   * STREAM and STREAM_CHAIN run as their unfused per-step equivalent at
     the program's segment granularity (the fusion passes prove the two
     orders value-identical), STACKED_RECV as its bodies in step order;
@@ -23,11 +25,16 @@ structure this executor follows:
     segment counts from `fit_segments` with the codec's block.
 
 A plain combining exchange launches K1 once over all its segments and
-ranks, reading both operands in place through the region indices. An
+ranks, reading both operands in place through the region indices. Where
+the program proves it safe, K1 writes its result straight into the
+buffer through the target index, and a plain copy exchange is one launch
+of the indexed copy (the reference is pure: the port updates its own
+clone of the input in place); elsewhere the result lands in a fresh
+tensor that is scattered after, and a copy gathers its payload first. An
 int8 exchange launches K2 once over all its segments and ranks, reading
 the payload in place ("at send"), then K3 once, reading the combine
 target in place ("at consume"); a relay exchange adds one K3 copy of the
-wire for its raw arrivals. Copy receives launch no kernel. The streaming
+wire for its raw arrivals. The streaming
 API
 (`allgather_matmul`, `matmul_reduce_scatter`) computes each ring step's
 products for every rank in one K4 launch.
@@ -74,7 +81,7 @@ from repro_torch.core.hw_spec import HwSpec, TPU_V5E
 from repro_torch.core.program import (
     SRC_ORIGINAL, SRC_RECEIVED, Compress, Copy, Loop, Program, RecvCombine,
     SegLoop, Send, StackedRecv, Stream, StreamChain, fit_segments,
-    split_exchange,
+    in_place_plan, split_exchange,
 )
 from repro_torch.core.schedule import (
     SEL_ALL, SEL_CHUNK, SEL_MASK, SEL_RANGE, Schedule,
@@ -83,6 +90,7 @@ from repro_torch.core.selector import Selector
 from repro_torch.core.topology import ProductComm, axis_comm, product_comm
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels._index import gather_regions as _gather
+from repro_torch.kernels._index import scatter_regions as _scatter
 
 
 # --------------------------------------------------------------------------
@@ -148,16 +156,6 @@ def _region_index(rows: tuple, spans: tuple, k: int, device) -> tuple:
     return res
 
 
-def _unit_view(t, unit: int):
-    return t.reshape(t.shape[0], t.shape[1] // unit, -1)
-
-
-def _scatter(t, index, val) -> None:
-    unit, ridx, uidx = index
-    view = _unit_view(t, unit)
-    view.index_put_((ridx, uidx), val.reshape(uidx.shape + view.shape[2:]))
-
-
 def _chunk_permute(buf, chunks: int, n: int, src_chunk) -> torch.Tensor:
     """Local chunk rotation (the Bruck pre/post COPY micro-ops):
     rank r's new chunk j is its old chunk src_chunk(r, j)."""
@@ -210,6 +208,15 @@ def _path(codec, recv) -> str:
     return "gather"
 
 
+def _writes_in_place(codec, recv) -> bool:
+    """Whether an exchange has a kernel that writes its result in place:
+    a plain combine (K1) or a plain copy (the indexed copy). A codec
+    exchange, a relay register and an op K1 does not compute write
+    deferred, whatever the program proves."""
+    return codec is None and not recv.track_recv and (
+        recv.op == "copy" or recv.op in kops.COMBINE_OPS)
+
+
 # --------------------------------------------------------------------------
 # The executor (the DMP): one path for every collective
 # --------------------------------------------------------------------------
@@ -236,19 +243,25 @@ class _State:
         return self.buf
 
 
-def _exchange(st: _State, body: tuple, k_req: int, step):
-    """Compute one exchange over every rank WITHOUT writing it.
+def _exchange(st: _State, body: tuple, k_req: int, step,
+              in_place: bool = False):
+    """Compute one exchange over every rank, writing it only where
+    `in_place` (the program's proof) allows and a kernel can.
 
     body = (Copy('load'), [Compress], Send, [Decompress], RecvCombine).
-    The new region values are computed from the current state into fresh
-    tensors, so a caller that defers the returned write — a LOOP
-    iteration — gets the reference's two-phase semantics. A plain
-    combine (no codec, no relay register) reads its payload and target in
-    place through the region indices (K1's indexed entry point), one
-    launch over the whole exchange; a codec with indexed hooks (int8)
-    compresses and consumes the whole exchange in place, one launch each;
-    every other exchange gathers (copies) its operands first. Returns
-    (target index, new region values, raw arrivals or None)."""
+    In place, a plain combine (no codec, no relay register) is K1's
+    indexed entry point writing back through the target index, and a
+    plain copy the indexed copy: one launch over the whole exchange, the
+    buffer updated, no value returned. Else the new region values are
+    computed from the current state into fresh tensors, so a caller that
+    defers the returned write — a LOOP iteration — gets the reference's
+    two-phase semantics: a plain combine reads its payload and target in
+    place through the region indices (K1), one launch; a codec with
+    indexed hooks (int8) compresses and consumes the whole exchange in
+    place, one launch each; every other exchange gathers (copies) its
+    operands first. While a span records, counts the exchange into
+    `exchange.in_place` or `exchange.deferred`. Returns (target index,
+    new region values or None where written, raw arrivals or None)."""
     load, recv = body[0], body[-1]
     send_ops, _dec_ops = _split_wire(body[1:-1])
     send = send_ops[-1]
@@ -288,6 +301,17 @@ def _exchange(st: _State, body: tuple, k_req: int, step):
     pay_idx = _region_index(src_rows, pay_spans * st.groups, k, buf.device)
     tgt_idx = _region_index(dst_rows, tgt_spans * st.groups, k, buf.device)
 
+    wrote = in_place and _writes_in_place(codec, recv)
+    live = telemetry.LIVE
+    if live is not None:
+        live.count("exchange.in_place" if wrote else "exchange.deferred")
+    if wrote:
+        if recv.op == "copy":
+            kops.region_copy(src_t, pay_idx, buf, tgt_idx)
+        else:
+            kops.fused_combine_at(buf, tgt_idx, src_t, pay_idx, recv.op,
+                                  in_place=True)
+        return tgt_idx, None, None
     path = _path(codec, recv)
     if path == "indexed":
         return tgt_idx, kops.fused_combine_at(buf, tgt_idx, src_t, pay_idx,
@@ -319,39 +343,42 @@ def _exchange(st: _State, body: tuple, k_req: int, step):
 
 
 def _apply(st: _State, tgt_idx, new_val, raw) -> None:
-    _scatter(st.buf, tgt_idx, new_val)
+    if new_val is not None:        # None: written in place already
+        _scatter(st.buf, tgt_idx, new_val)
     if raw is not None:
         # the relay register holds the raw arrival, payload-shaped
         st.prev = raw.transpose(0, 1).reshape(
             (st.buf.shape[0], -1) + tuple(st.buf.shape[2:]))
 
 
-def _traced_exchange(st: _State, body: tuple, k_req: int, step):
-    """`_exchange` under an `exchange` span of the wall-clock recorder."""
+def _traced_exchange(st: _State, body: tuple, k_req: int, step,
+                     in_place: bool = False):
+    """`_exchange` under an `exchange` span of the wall-clock recorder,
+    tagged with its path and whether it wrote in place."""
     path = _path(_codec_of(_split_wire(body[1:-1])[0]), body[-1])
     with st.tr.span("exchange", track="engine", step=step, path=path) as sp:
-        res = _exchange(st, body, k_req, step)
-        sp.add(segments=int(res[0][2].shape[0]))
+        res = _exchange(st, body, k_req, step, in_place)
+        sp.add(segments=int(res[0][2].shape[0]), in_place=res[1] is None)
     return res
 
 
-def _run_exchange(st: _State, body: tuple, k_req: int, step) -> None:
-    if st.tr.enabled:
-        _apply(st, *_traced_exchange(st, body, k_req, step))
-    else:
-        _apply(st, *_exchange(st, body, k_req, step))
+def _run_exchange(st: _State, body: tuple, k_req: int, step,
+                  in_place: bool) -> None:
+    run = _traced_exchange if st.tr.enabled else _exchange
+    _apply(st, *run(st, body, k_req, step, in_place))
 
 
-def _exec_loop(st: _State, loop: Loop) -> None:
+def _exec_loop(st: _State, loop: Loop, in_place: bool) -> None:
     run = _traced_exchange if st.tr.enabled else _exchange
     for it in range(loop.trip):
         # two-phase: every slot reads the iteration-start state, the
-        # writes land at iteration end
+        # writes land at iteration end; in place where the program proves
+        # that no slot's write reaches what any slot reads
         writes = []
         for slot, seq in enumerate(loop.slots):
             body, k_req = split_exchange(seq)
             writes.append(run(st, body, k_req,
-                              loop.base + it * loop.period + slot))
+                              loop.base + it * loop.period + slot, in_place))
         for w in writes:
             _apply(st, *w)
 
@@ -363,7 +390,8 @@ def execute_program(prog: Program, buf, *, groups: int = 1):
     of group g, and every group runs the program independently (the
     other mesh axes of a one-axis collective). L must be divisible by
     prog.chunks. Hierarchical programs run through their flat perms.
-    Returns the final buffer (a new tensor; `buf` is not modified).
+    Returns the final buffer (a new tensor; `buf` is not modified: the
+    run updates a clone of it, in place where the program proves it).
 
     This is the single data plane: every collective the engine issues —
     whatever the algorithm, codec, or segment count — runs through here.
@@ -393,6 +421,7 @@ def _execute_ops(prog: Program, buf, groups: int, tr):
                              lambda r, j: (j + r) % chunks)
         i = 1
     st = _State(prog, buf, groups, tr)
+    plan = in_place_plan(prog)
     if prog.relay == SRC_ORIGINAL:
         st.orig = buf.clone()
     elif prog.relay == SRC_RECEIVED:
@@ -407,20 +436,20 @@ def _execute_ops(prog: Program, buf, groups: int, tr):
             _exec_loop(st, Loop(base=op.base, trip=op.trip,
                                 period=op.period,
                                 slots=tuple((SegLoop(op.segments, b),)
-                                            for b in op.slots)))
+                                            for b in op.slots)), plan[i])
             i += 1
         elif isinstance(op, Loop):
-            _exec_loop(st, op)
+            _exec_loop(st, op, plan[i])
             i += 1
         elif isinstance(op, StreamChain):
             # likewise proven value-identical to per-step SEG_LOOPs
-            for body in op.bodies:
-                _run_exchange(st, body, op.segments, body[0].step)
+            for body, safe in zip(op.bodies, plan[i]):
+                _run_exchange(st, body, op.segments, body[0].step, safe)
             i += 1
         elif isinstance(op, StackedRecv):
             # write-disjoint copies of the original: step order
-            for body in op.bodies:
-                _run_exchange(st, body, 1, body[0].step)
+            for body, safe in zip(op.bodies, plan[i]):
+                _run_exchange(st, body, 1, body[0].step, safe)
             i += 1
         elif isinstance(op, Copy) and op.kind == "bruck_post":
             st.buf = _chunk_permute(
@@ -429,6 +458,7 @@ def _execute_ops(prog: Program, buf, groups: int, tr):
             i += 1
         elif isinstance(op, SegLoop) or (
                 isinstance(op, Copy) and op.kind == "load"):
+            safe = plan[i]
             if isinstance(op, SegLoop):
                 body, k_req = op.body, op.segments
                 i += 1
@@ -438,7 +468,7 @@ def _execute_ops(prog: Program, buf, groups: int, tr):
                     j += 1
                 body, k_req = ops[i:j + 1], 1
                 i = j + 1
-            _run_exchange(st, body, k_req, body[0].step)
+            _run_exchange(st, body, k_req, body[0].step, safe)
         else:
             raise ValueError(f"unexpected micro-op {op}")
     return st.buf

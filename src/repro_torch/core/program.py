@@ -942,6 +942,107 @@ def fuse_stacked_recv(ops: tuple, nranks: int) -> tuple:
     return tuple(out)
 
 
+# --------------------------------------------------------------------------
+# In-place writes: the data plane's write-back proof
+# --------------------------------------------------------------------------
+
+def _chunk_spans(sel: Sel, r: int, step: int, chunks: int) -> tuple:
+    """The (offset, length) chunk ranges selector `sel` names in rank r's
+    buffer at a concrete step: `_sel_region` for a contiguous one, the
+    whole buffer for SEL_ALL, one chunk per entry for SEL_MASK."""
+    if sel.kind == SEL_ALL:
+        return ((0, chunks),)
+    if sel.kind == SEL_MASK:
+        return tuple((int(j), 1) for j in sel.fn(r, step))
+    return (_sel_region(sel, r, step),)
+
+
+def _writes_safe(bodies, steps, nranks: int, chunks: int) -> bool:
+    """The region proof that lets the exchanges `bodies` (at schedule
+    `steps`), all reading one buffer state, write their results straight
+    into the buffer: for EVERY rank r,
+
+      1. no body's target region on row r overlaps any body's payload
+         region read from row r's buffer (a rank's write never lands
+         where another rank's payload, or a later slot's, is read), and
+      2. the bodies' target regions on row r are pairwise disjoint (no
+         slot reads a combine target another slot wrote).
+
+    Then the results are those of the deferred write, bit for bit, in any
+    order of ranks, segments and slots. A payload read from the
+    immutable original (or the relay register) reads no row of the
+    buffer. Regions are whole chunks, and segmenting only slices them,
+    so the verdict holds at every segment count. A selector that does
+    not evaluate on plain ints proves nothing."""
+    ends = []     # (load, recv, step, ranks it receives, buffer rows read)
+    for body, step in zip(bodies, steps):
+        load, recv = body[0], body[-1]
+        send = next(o for o in body if isinstance(o, Send))
+        dsts = set(recv.dsts if recv.dsts is not None else range(nranks))
+        read = {s for s, d in send.perm if d in dsts} \
+            if load.source == SRC_BUFFER else set()
+        ends.append((load, recv, step, dsts, read))
+    try:
+        for r in range(nranks):
+            reads, writes = [], []
+            for load, recv, step, dsts, read in ends:
+                if r in read:
+                    reads.extend(_chunk_spans(load.sel, r, step, chunks))
+                if r in dsts:
+                    writes.extend(_chunk_spans(recv.sel, r, step, chunks))
+            for i, (w0, wl) in enumerate(writes):
+                if any(_overlaps(w0, w0 + wl, o0, o0 + ol)
+                       for o0, ol in reads + writes[i + 1:]):
+                    return False
+    except Exception:
+        return False
+    return True
+
+
+def in_place_plan(prog: Program) -> tuple:
+    """Where the data plane may write each exchange of `prog` straight
+    into the buffer through its target index (`_writes_safe`), one entry
+    per op of `prog.ops`: a bool for a LOOP or STREAM (every iteration's
+    slots proved together, as they read one iteration-start state), for a
+    SEG_LOOP, and for a bare exchange at its COPY('load'); a tuple of
+    bools, one a body, for a STREAM_CHAIN or STACKED_RECV (bodies run one
+    after another, each proved alone); None elsewhere. Computed once a
+    program (`compile_schedule` proves every program it compiles) and
+    kept on it, outside its fields: a program's fields mirror the JAX
+    IR's, and a `dataclasses.replace` copy proves its own ops again."""
+    plan = prog.__dict__.get("_in_place")
+    if plan is not None:
+        return plan
+    n, chunks, ops = prog.nranks, prog.chunks, prog.ops
+
+    def alone(body) -> bool:
+        return _writes_safe((body,), (body[0].step,), n, chunks)
+
+    plan = []
+    for i, op in enumerate(ops):
+        if isinstance(op, (Loop, Stream)):
+            bodies = tuple(split_exchange(s)[0] for s in op.slots) \
+                if isinstance(op, Loop) else op.slots
+            plan.append(all(_writes_safe(
+                bodies, [op.base + it * op.period + j
+                         for j in range(len(bodies))], n, chunks)
+                for it in range(op.trip)))
+        elif isinstance(op, (StreamChain, StackedRecv)):
+            plan.append(tuple(alone(b) for b in op.bodies))
+        elif isinstance(op, SegLoop):
+            plan.append(alone(op.body))
+        elif isinstance(op, Copy) and op.kind == "load":
+            j = i
+            while not isinstance(ops[j], RecvCombine):
+                j += 1
+            plan.append(alone(ops[i:j + 1]))
+        else:
+            plan.append(None)
+    plan = tuple(plan)
+    object.__setattr__(prog, "_in_place", plan)   # frozen: set once
+    return plan
+
+
 # Schedules hash their Sel closures by identity, so freshly generated
 # (structurally identical) schedules never share entries: bound the cache
 # so long-lived processes compiling transient schedules (benchmark loops,
@@ -1092,6 +1193,7 @@ def compile_schedule(schedule: Schedule, segments: Optional[int] = None,
             raise
         if tr.enabled:
             sp.add(ops=len(ops), verify=mode, passes=passes)
+        in_place_plan(prog)
         if len(_COMPILE_CACHE) >= _COMPILE_CACHE_MAX:
             evicted = next(iter(_COMPILE_CACHE))  # FIFO eviction
             _COMPILE_CACHE.pop(evicted)

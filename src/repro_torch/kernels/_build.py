@@ -111,6 +111,9 @@ ARGTYPES = {
     "k1_fused_combine_at": [_P, _P, _P, _LL, _LL, _LL,
                             _P, _P, _P, _LL, _LL, _LL,
                             _P, _LL, _LL, _LL, _I, _I, _I, _I, _P],
+    "region_copy_at": [_P, _P, _P, _LL, _LL, _LL,
+                       _P, _P, _P, _LL, _LL, _LL,
+                       _LL, _LL, _LL, _I, _P],
     "k2_quantize_blocks": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
     "k2_quantize_blocks_at": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL,
                               _P, _P, _LL, _LL, _I, _P],

@@ -6,8 +6,9 @@ An index is `(unit, rows (1, ranks, 1), units (k, ranks, units/k))`, as
 `fused_combine_at` and K2/K3's `quantize_blocks_at` /
 `dequantize_blocks_at` check their indices here, each index object once
 (the executor caches its indices and the path is host-bound).
-`gather_regions` copies a region out: the executor's data-plane gather
-and the plain versions' operand gather (`ref.py`) are this one function.
+`gather_regions` copies a region out and `scatter_regions` writes one
+back: the executor's deferred gather and write and the plain versions'
+(`ref.py`) are these two functions.
 """
 from __future__ import annotations
 
@@ -44,6 +45,14 @@ def check_index(who: str, name: str, index, device) -> None:
     _CHECKED[id(index)] = (index, device)
 
 
+def check_in_place(who: str, a, out_dtype, out) -> None:
+    """Raise unless a combine may write back into its target `a`: the
+    result keeps a's dtype and no `out` is given beside it."""
+    if out is not None or out_dtype != a.dtype:
+        raise ValueError(f"{who}: an in-place write takes no `out` and "
+                         f"keeps a's dtype {a.dtype}, not {out_dtype}")
+
+
 def row_and_unit(who: str, name: str, t, unit: int) -> tuple:
     """(elements per stacked row, elements per unit) of buffer `t`."""
     if t.ndim < 2 or t.shape[1] % unit:
@@ -60,3 +69,11 @@ def gather_regions(t, index) -> torch.Tensor:
     unit, ridx, uidx = index
     g = t.reshape(t.shape[0], t.shape[1] // unit, -1)[ridx, uidx]
     return g.reshape(g.shape[0], g.shape[1], -1)
+
+
+def scatter_regions(t, index, val) -> None:
+    """Write `val`, a (k, ranks, seg) tensor, into the region `index` of
+    the rank-stacked buffer `t`: `gather_regions`' inverse."""
+    unit, ridx, uidx = index
+    view = t.reshape(t.shape[0], t.shape[1] // unit, -1)
+    view.index_put_((ridx, uidx), val.reshape(uidx.shape + view.shape[2:]))

@@ -38,6 +38,7 @@ KERNELS = {
     "dequantize_blocks": _qz.dequantize_blocks,
     "matmul_tiled": _mm.matmul_tiled,
     "gather_rows": _eg.gather_rows,
+    "region_copy": _fr.region_copy,
 }
 
 
@@ -97,28 +98,55 @@ def fused_add(x, y, out_dtype=None):
 
 
 def fused_combine_at(a, a_index, b, b_index, op: str = "add",
-                     out_dtype=None, out=None):
+                     out_dtype=None, out=None, in_place=False):
     """K1 over a whole exchange, reading its operands in place: `op` of
     every segment of two regions of rank-stacked buffers
     (`core/engine.py::_region_index` triples), as a (k, ranks, seg)
     tensor; one launch on the card; written into `out` (which must not
-    overlap a or b) when given. While a span records, counts its k
+    overlap a or b) when given, or with `in_place` back into a's region
+    through a_index, returning `a`. While a span records, counts its k
     segments into `k1.segments`."""
     live = _tel.LIVE
     if live is not None:
         t0 = time.perf_counter_ns()
     if _meta(a):
         k, ranks = a_index[2].shape[:2]
-        res = _meta_out(out, (k, ranks, _region_len(a, a_index)),
-                        out_dtype or a.dtype)
+        res = a if in_place else _meta_out(
+            out, (k, ranks, _region_len(a, a_index)), out_dtype or a.dtype)
     elif _on_card(a):
         res = _fr.fused_combine_at(a, a_index, b, b_index, op=op,
-                                   out_dtype=out_dtype, out=out)
+                                   out_dtype=out_dtype, out=out,
+                                   in_place=in_place)
+    elif in_place:
+        if out is not None:
+            raise ValueError("fused_combine_at: an in-place write takes "
+                             "no `out`")
+        res = ref.fused_combine_at(a, a_index, b, b_index, op, out_dtype,
+                                   in_place=True)
     else:
         res = _into(out, ref.fused_combine_at(a, a_index, b, b_index, op,
                                               out_dtype))
     if live is not None:
         live.count(_tel.K1_SEGMENTS, int(a_index[2].shape[0]))
+        live.entry(t0)
+    return res
+
+
+def region_copy(src, src_index, dst, dst_index):
+    """The data plane's copy exchange: every segment of the region
+    `src_index` of the rank-stacked buffer `src` written into the region
+    `dst_index` of `dst` (`core/engine.py::_region_index` triples; the
+    regions must not overlap); one launch on the card. Returns `dst`."""
+    live = _tel.LIVE
+    if live is not None:
+        t0 = time.perf_counter_ns()
+    if _meta(src):
+        res = dst
+    elif _on_card(src):
+        res = _fr.region_copy(src, src_index, dst, dst_index)
+    else:
+        res = ref.region_copy(src, src_index, dst, dst_index)
+    if live is not None:
         live.entry(t0)
     return res
 

@@ -3,7 +3,8 @@
 The indexed entry points (`fused_combine_at`, `quantize_blocks_at`,
 `dequantize_blocks_at`) gather their operands' regions and run the
 contiguous version on the copies, so they are bitwise equal to it by
-construction.
+construction; an in-place `fused_combine_at` and the indexed copy
+`region_copy` scatter the result back through the write index.
 
 K5's `lookup_rows` is the reference DLRM lookup's sequence of ops (shift,
 hit mask, clamp, gather, zeroed misses, concat layout), so it equals
@@ -27,7 +28,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._index import gather_regions
+from repro_torch.kernels._index import (
+    check_in_place, gather_regions, scatter_regions,
+)
 
 QUANT_BLOCK = 256   # elements per int8 scale block
 
@@ -46,11 +49,24 @@ def fused_combine(x, y, op: str = "add", out_dtype=None):
 
 
 def fused_combine_at(a, a_index, b, b_index, op: str = "add",
-                     out_dtype=None):
+                     out_dtype=None, in_place=False):
     """K1 over every segment of two regions: `fused_combine` of the two
-    gathered (k, ranks, seg) operands."""
-    return fused_combine(gather_regions(a, a_index),
-                         gather_regions(b, b_index), op, out_dtype)
+    gathered (k, ranks, seg) operands; with `in_place` written back into
+    a's region through a_index, returning `a`."""
+    res = fused_combine(gather_regions(a, a_index),
+                        gather_regions(b, b_index), op, out_dtype)
+    if not in_place:
+        return res
+    check_in_place("fused_combine_at", a, out_dtype or a.dtype, None)
+    scatter_regions(a, a_index, res)
+    return a
+
+
+def region_copy(src, src_index, dst, dst_index):
+    """The indexed copy: dst's region `dst_index` = src's region
+    `src_index`, gathered then written; returns `dst`."""
+    scatter_regions(dst, dst_index, gather_regions(src, src_index))
+    return dst
 
 
 def padded_len(n_valid: int) -> int:

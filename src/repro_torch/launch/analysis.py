@@ -193,8 +193,8 @@ class _EngineTap:
             sent = {"ici": 0.0, "dcn": 0.0}
             real_exchange = engine_mod._exchange
 
-            def exchange(st, body, k_req, step):
-                res = real_exchange(st, body, k_req, step)
+            def exchange(st, body, k_req, step, *in_place):
+                res = real_exchange(st, body, k_req, step, *in_place)
                 fabric, nbytes = _coded_wire(eng.comm(axis), body, res[0],
                                              st.buf)
                 sent[fabric] += nbytes
@@ -270,6 +270,7 @@ KERNEL_ENTRIES = {
     "dequantize_int8": "dequantize_blocks",
     "dequantize_int8_at": "dequantize_blocks", "matmul": "matmul_tiled",
     "embedding_gather": "gather_rows", "embedding_lookup_rows": "gather_rows",
+    "region_copy": "region_copy",
 }
 
 

@@ -103,6 +103,87 @@ def test_k1_at_bitwise(card, op, dtype, L, width, k, spans):
     assert fused_reduce.fused_combine.launches == before + 2
 
 
+def _unit_bytes(index, width, dtype) -> int:
+    return int(index[0]) * width * torch.empty(0, dtype=dtype).element_size()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["add", "max", "min", "mul"])
+@pytest.mark.parametrize("L,width,k,spans,vec", [
+    (8 * 256, 1, 4, 1, True), (8 * 32 * 64, 1, 32, 1, True),
+    (8 * 15, 3, 3, 1, False), (8 * 10, 3, 1, 2, False)])
+def test_k1_at_in_place_bitwise(card, op, dtype, L, width, k, spans, vec):
+    """K1 writing back through its target's own index, one launch over all
+    k segments, against its plain version bitwise: on units that take the
+    16-byte vectors and on units that refuse them (15 and 30 elements),
+    with the payload in another buffer and in the target's own (a ring
+    step reads chunks no rank writes)."""
+    tgt, pay = _ring_index(L, width, k, 2, card, spans=spans)
+    assert (_unit_bytes(tgt, width, dtype) % 16 == 0) == vec
+    for own in (False, True):
+        a = _randn((8, L, width), 27, card, dtype)
+        b = a if own else _randn((8, L, width), 28, card, dtype)
+        want = a.clone()
+        ref.fused_combine_at(want, tgt, want if own else b, pay, op,
+                             in_place=True)
+        before = fused_reduce.fused_combine.launches
+        got = ops.fused_combine_at(a, tgt, b, pay, op, in_place=True)
+        assert fused_reduce.fused_combine.launches == before + 1
+        assert got is a and torch.equal(a, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int64])
+@pytest.mark.parametrize("L,width,k,spans,shift", [
+    (8 * 256, 1, 4, 1, 0), (8 * 32 * 64, 1, 32, 1, 0), (8 * 15, 3, 3, 1, 0),
+    (8 * 10, 3, 1, 2, 0), (8 * 256, 1, 4, 1, 1)])
+def test_region_copy_bitwise(card, dtype, L, width, k, spans, shift):
+    """The indexed copy, one launch over all k segments, against its plain
+    version bitwise: 16-byte units, units of 15 and 30 elements (narrower
+    words), a buffer that starts one element off 16 bytes (no vectors);
+    from another buffer and within one (a ring step's payload and target
+    chunks are disjoint)."""
+    tgt, pay = _ring_index(L, width, k, 1, card, spans=spans)
+    n = 8 * L * width
+
+    def buf(seed):
+        flat = torch.empty(n + shift, dtype=dtype, device=card)[shift:]
+        flat.copy_((_randn((n,), seed, "cpu") * 100).to(dtype).to(card))
+        return flat.view(8, L, width)
+
+    for own in (False, True):
+        dst = buf(29)
+        src = dst if own else buf(30)
+        want = dst.clone()
+        ref.region_copy(want if own else src, pay, want, tgt)
+        before = fused_reduce.region_copy.launches
+        got = ops.region_copy(src, pay, dst, tgt)
+        assert fused_reduce.region_copy.launches == before + 1
+        assert got is dst and torch.equal(dst, want)
+
+
+@pytest.mark.parametrize("coll,algo,segments,k1,copies", [
+    ("allreduce", "bidi_ring", 32, 14, 14),
+    ("allgather", "ring", 16, 0, 7),
+    ("alltoall", "linear", 32, 0, 7),
+    ("allreduce", "recursive_doubling", 1, 3, 0)])
+def test_engine_in_place_on_card_equals_cpu(card, coll, algo, segments, k1,
+                                            copies):
+    """The programs of the benchmark's cells on the card, written in place
+    (recursive doubling deferred), bitwise equal to the CPU's plain
+    versions: one K1 launch a combining exchange, one indexed copy a copy
+    exchange."""
+    X = _randn((8, 8 * 2 * 32 * 48), 31, "cpu").to(torch.bfloat16)
+    ops.reset_launch_counts()
+    gpu = getattr(CollectiveEngine({"x": 8}), coll)(
+        X.to(card), "x", algorithm=algo, segments=segments)
+    counts = ops.launch_counts()
+    assert (counts["fused_combine"], counts["region_copy"]) == (k1, copies)
+    cpu = getattr(CollectiveEngine({"x": 8}, device="cpu"), coll)(
+        X, "x", algorithm=algo, segments=segments)
+    assert torch.equal(gpu.cpu(), cpu)
+
+
 @pytest.mark.parametrize("op", ["add", "max"])
 def test_engine_segments_32_on_card_equals_cpu(card, op):
     """A 32-segment allreduce through the indexed K1 on the card, bitwise
@@ -775,12 +856,15 @@ def test_meta_counters_equal_card_step(card):
     batch = ts.put_batch({"tokens": toks, "labels": toks})
     k4 = matmul.matmul_tiled.launches
     k1 = fused_reduce.fused_combine.launches
+    kc = fused_reduce.region_copy.launches
     with analysis.counting([ts.ctx.engine]) as st_c:
         ts.fn(params, opt, batch, 0)
     assert matmul.matmul_tiled.launches > k4
+    launched = {"fused_combine": fused_reduce.fused_combine.launches - k1,
+                "matmul_tiled": matmul.matmul_tiled.launches - k4,
+                "region_copy": fused_reduce.region_copy.launches - kc}
     assert st_m.kernel_calls == st_c.kernel_calls == {
-        "fused_combine": fused_reduce.fused_combine.launches - k1,
-        "matmul_tiled": matmul.matmul_tiled.launches - k4}
+        k: v for k, v in launched.items() if v}
     assert st_c.flops == st_m.flops
     assert analysis.arg_bytes((params, opt, batch), mesh) == \
         analysis.arg_bytes(args, mesh)

@@ -224,14 +224,15 @@ def test_allgather_matmul_grad_wire_equals_reference(n):
 
 @pytest.mark.parametrize("device", ["meta", "cpu"])
 @pytest.mark.parametrize("algorithm,compression,want", [
-    ("ring", None, {"fused_combine": 3}),
+    ("ring", None, {"fused_combine": 3, "region_copy": 3}),
     ("recursive_doubling", "int8", {"quantize_blocks": 2,
                                     "dequantize_blocks": 2})])
 def test_kernel_calls_counted(device, algorithm, compression, want):
     """The launches the kernel entry points imply, alike on 'meta' and
     on the CPU (where the plain versions launch nothing): a 4-rank ring
-    allreduce combines in its 3 reduce-scatter exchanges (K1 each; the
-    allgather phase copies); an int8 recursive doubling quantizes and
+    allreduce combines in its 3 reduce-scatter exchanges (K1 each) and
+    copies in its 3 allgather exchanges (the indexed copy each, both
+    written in place); an int8 recursive doubling quantizes and
     dequantizes each of its 2 exchanges once (K2, K3)."""
     eng = CollectiveEngine({"x": 4}, device=device)
     _, st = analysis.count(lambda: eng.allreduce(

@@ -313,18 +313,19 @@ def test_trace_log_and_schedule_cache():
     assert eng.trace_log[-1] == ("allreduce", "ring", "x", 64 * 4)
 
 
-@pytest.mark.parametrize("coll,codec,gathers", [
+@pytest.mark.parametrize("coll,codec,copies", [
     ("reduce_scatter", None, 0), ("reduce_scatter", "int8", 0),
     ("allreduce", None, 7), ("allreduce", "int8", 7)])
-def test_plain_combine_gathers_no_operand(monkeypatch, coll, codec, gathers):
+def test_plain_combine_gathers_no_operand(monkeypatch, coll, codec, copies):
     """A combine reads its payload and target in place: an uncompressed
-    one through K1's indexed entry point (one call per segment), an int8
+    one through K1's indexed entry point (one call per exchange), an int8
     one through the indexed K2 and K3 (one call each per exchange). A
-    ring reduce-scatter gathers nothing, a ring allreduce only its 7
-    allgather payloads."""
+    ring's copy exchanges (the allreduce's 7 allgather steps) are one
+    indexed copy each, payload and target in place: nothing is gathered."""
     from repro_torch.core import engine as tengine
     from repro_torch.kernels import ops as tops
-    seen = {"gather": 0, "at": 0, "quantize_at": 0, "dequantize_at": 0}
+    seen = {"gather": 0, "at": 0, "quantize_at": 0, "dequantize_at": 0,
+            "copy": 0}
 
     def count(name, fn):
         def wrapped(*a, **kw):
@@ -335,12 +336,14 @@ def test_plain_combine_gathers_no_operand(monkeypatch, coll, codec, gathers):
     monkeypatch.setattr(tengine, "_gather", count("gather", tengine._gather))
     for name, attr in (("at", "fused_combine_at"),
                        ("quantize_at", "quantize_int8_at"),
-                       ("dequantize_at", "dequantize_int8_at")):
+                       ("dequantize_at", "dequantize_int8_at"),
+                       ("copy", "region_copy")):
         monkeypatch.setattr(tops, attr, count(name, getattr(tops, attr)))
     X = torch.from_numpy(_normal((8, 2048), seed=17))
     eng = CollectiveEngine({"x": 8}, device="cpu")
     getattr(eng, coll)(X, "x", algorithm="ring", compression=codec)
-    assert seen["gather"] == gathers
+    assert seen["gather"] == 0
+    assert seen["copy"] == copies
     assert seen["at"] == (7 if codec is None else 0)
     assert seen["quantize_at"] == seen["dequantize_at"] == \
         (0 if codec is None else 7)

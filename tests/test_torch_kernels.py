@@ -105,9 +105,10 @@ def _recorded_combines(monkeypatch, algo, segments, X, op="add"):
     calls = []
     real = ops.fused_combine_at
 
-    def record(a, a_index, b, b_index, op="add", out_dtype=None, out=None):
+    def record(a, a_index, b, b_index, op="add", out_dtype=None, out=None,
+               in_place=False):
         calls.append((a.clone(), a_index, b.clone(), b_index, op))
-        return real(a, a_index, b, b_index, op, out_dtype, out)
+        return real(a, a_index, b, b_index, op, out_dtype, out, in_place)
 
     monkeypatch.setattr(ops, "fused_combine_at", record)
     CollectiveEngine({"x": 8}, device="cpu").allreduce(
@@ -666,9 +667,10 @@ def test_cpu_tensors_take_the_plain_version():
                                                     dtype=torch.int32),
                                        torch.tensor([2]))
     assert torch.equal(lookup, torch.stack([torch.zeros(300), x[3]])[None])
+    assert torch.equal(ops.region_copy(x, tgt, torch.zeros(4, 300), tgt), x)
     assert ops.launch_counts() == {"fused_combine": 0, "quantize_blocks": 0,
                                    "dequantize_blocks": 0, "matmul_tiled": 0,
-                                   "gather_rows": 0}
+                                   "gather_rows": 0, "region_copy": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

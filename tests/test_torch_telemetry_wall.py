@@ -24,10 +24,11 @@ from repro_torch.kernels import ops as kops
 from repro_torch.launch.dlrm_serve import DLRMServer
 
 WALL = telemetry.WALL
-#: the kernel entry points of `kernels/ops.py` (K1-K5)
+#: the kernel entry points of `kernels/ops.py` (K1-K5, the indexed copy)
 ENTRY_POINTS = ("fused_combine", "fused_combine_at", "quantize_int8",
                 "dequantize_int8", "quantize_int8_at", "dequantize_int8_at",
-                "matmul", "embedding_gather", "embedding_lookup_rows")
+                "matmul", "embedding_gather", "embedding_lookup_rows",
+                "region_copy")
 
 
 @contextlib.contextmanager
@@ -170,7 +171,8 @@ def test_kernel_entries_count_the_calls_made(monkeypatch):
 def test_k1_entry_counts_each_exchange_and_its_segments():
     """A traced 4-segment ring allreduce: each of its 7 combining
     exchanges is one K1 entry over all 4 segments, so `kernel.entries`
-    rises by 1 an exchange and `k1.segments` by 4."""
+    rises by 1 an exchange and `k1.segments` by 4; each of its 7 copy
+    exchanges is one entry of the indexed copy."""
     eng = CollectiveEngine({"x": 8}, device="cpu")
     x = _input(8 * 4 * 64)
     with profiled() as spans:
@@ -183,7 +185,7 @@ def test_k1_entry_counts_each_exchange_and_its_segments():
         assert e["args"]["segments"] == 4
         assert e["counters"][telemetry.ENTRIES] == 1
         assert e["counters"][telemetry.K1_SEGMENTS] == 4
-    assert root["counters"][telemetry.ENTRIES] == 7
+    assert root["counters"][telemetry.ENTRIES] == 7 + 7
     assert root["counters"][telemetry.K1_SEGMENTS] == 7 * 4
 
 
