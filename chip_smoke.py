@@ -1805,20 +1805,20 @@ def lm_replay_normal(ops, ref, log, gen) -> int:
 
 def implied_k1(prog) -> int:
     """K1 launches the executor makes for `prog`: one for every
-    uncompressed combining exchange, over all its
-    segments (`core/engine.py::_exchange`), over the exchanges of the
-    program's walk (`core/procgroup.py::batches`)."""
+    uncompressed plain combining exchange, over all its segments, in
+    place or not (`core/engine.py::exchange_path`), over the exchanges
+    of the program's walk (`core/program.py::batches`)."""
     from repro_torch.core import engine as em
-    from repro_torch.core import procgroup
     from repro_torch.core import program as pm
 
     def body(b):
         if em._codec_of(em._split_wire(b[1:-1])[0]) is not None:
             fail("lm: a compressed exchange on the serving path")
-        return int(em._path(None, b[-1]) == "indexed")
+        return int(em.exchange_path(None, b[-1], False) == "indexed")
 
-    return sum(body(b) for batch in procgroup.batches(prog)
-               if not isinstance(batch, pm.Copy) for b, _k, _step in batch)
+    return sum(body(b) for batch in pm.batches(prog)
+               if isinstance(batch, pm.Batch)
+               for b, _k, _step in batch.exchanges)
 
 
 def lm_counted_steps(dstep, engine, ops, steps):

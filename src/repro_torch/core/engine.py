@@ -13,13 +13,14 @@ structure this executor follows:
   * every selector `sel.fn(rank, step)` is evaluated in Python per rank,
     and the per-rank regions become one gather / one scatter over all
     ranks (index tensors cached per region);
-  * LOOP is two-phase: every slot reads the iteration-start state and
-    the writes land at iteration end — or straight away, where the
-    compiled program proves that no slot reads what another writes
-    (`program.in_place_plan`);
+  * the program runs batch by batch of its walk (`program.batches`, the
+    per-process executor's too): a LOOP iteration, a STACKED_RECV, or
+    one exchange. Every exchange of a batch reads the batch-start state
+    and the writes land at its end — or straight away, where the
+    compiled program proves that no exchange reads what another writes;
   * STREAM and STREAM_CHAIN run as their unfused per-step equivalent at
     the program's segment granularity (the fusion passes prove the two
-    orders value-identical), STACKED_RECV as its bodies in step order;
+    orders value-identical);
   * the codec path is the reference's `_exchange_update`: compress at
     send, decompress at consume (fused into the combine, `plugins`),
     segment counts from `fit_segments` with the codec's block.
@@ -78,10 +79,10 @@ from repro_torch.core import autograd as _autograd
 from repro_torch.core import hierarchical, plugins, telemetry
 from repro_torch.core.algorithms import GENERATORS
 from repro_torch.core.hw_spec import HwSpec, TPU_V5E
+from repro_torch.core.plugins import Compressed
 from repro_torch.core.program import (
-    SRC_ORIGINAL, SRC_RECEIVED, Compress, Copy, Loop, Program, RecvCombine,
-    SegLoop, Send, StackedRecv, Stream, StreamChain, fit_segments,
-    in_place_plan, split_exchange,
+    SRC_ORIGINAL, SRC_RECEIVED, Compress, Copy, Program, Send, batches,
+    fit_segments,
 )
 from repro_torch.core.schedule import (
     SEL_ALL, SEL_CHUNK, SEL_MASK, SEL_RANGE, Schedule,
@@ -156,18 +157,6 @@ def _region_index(rows: tuple, spans: tuple, k: int, device) -> tuple:
     return res
 
 
-def _chunk_permute(buf, chunks: int, n: int, src_chunk) -> torch.Tensor:
-    """Local chunk rotation (the Bruck pre/post COPY micro-ops):
-    rank r's new chunk j is its old chunk src_chunk(r, j)."""
-    R = buf.shape[0]
-    idx = np.array([[src_chunk(row % n, j) for j in range(chunks)]
-                    for row in range(R)], np.int64)
-    grp = buf.reshape(R, chunks, -1)
-    rows = torch.arange(R, device=buf.device)[:, None]
-    out = grp[rows, torch.as_tensor(idx, device=buf.device)]
-    return out.reshape(buf.shape)
-
-
 # --------------------------------------------------------------------------
 # Wire pipeline (SEG_LOOP / COMPRESS / SEND / DECOMPRESS)
 # --------------------------------------------------------------------------
@@ -196,11 +185,53 @@ def _codec_of(send_ops: tuple):
     return None
 
 
-def _path(codec, recv) -> str:
-    """How `_exchange` runs an exchange: 'indexed' (a plain combine: K1
-    reads payload and target in place), 'codec' (the codec's indexed
-    hooks) or 'gather' (operands copied first)."""
-    if codec is None and recv.op in kops.COMBINE_OPS and not recv.track_recv:
+def _ends(body: tuple, n: int, step) -> tuple:
+    """(COPY('load'), SEND, RECV_COMBINE, codec or None, {receiver:
+    sender}, the receivers in rank order) of one exchange of an n-rank
+    program."""
+    load, recv = body[0], body[-1]
+    send_ops, _dec_ops = _split_wire(body[1:-1])
+    send = send_ops[-1]
+    src_of = {d: s for (s, d) in send.perm}
+    dsts = sorted(recv.dsts) if recv.dsts is not None else list(range(n))
+    missing = [d for d in dsts if d not in src_of]
+    if missing:
+        raise ValueError(f"step {step}: ranks {missing} receive nothing "
+                         f"but mask_recv=False")
+    if recv.track_recv and len(dsts) != n:
+        raise ValueError("relay='received' needs every rank to receive")
+    return load, send, recv, _codec_of(send_ops), src_of, dsts
+
+
+def _segments(rows: int, k_req: int, row_elems: int, codec) -> int:
+    """An exchange's segment count: the largest k <= k_req that cuts its
+    payload of `rows` rows into whole codec blocks (`fit_segments`)."""
+    if k_req <= 1:
+        return 1
+    return fit_segments(rows, k_req, row_elems,
+                        codec.block_elems if codec is not None else 1)
+
+
+def exchange_path(codec, recv, in_place: bool) -> str:
+    """The kernels an exchange runs on:
+
+      'in_place'  a plain combine's K1 or a plain copy's indexed copy,
+                  writing the buffer through the target index, where the
+                  program proves it safe (`in_place`);
+      'indexed'   a plain combine's K1, reading payload and target in
+                  place into a fresh result;
+      'codec'     the codec's whole-exchange hooks (int8: K2 at send, K3
+                  at consume);
+      'gather'    the operands copied out first: a relay register, bf16,
+                  a deferred copy.
+
+    A codec exchange, a relay register and an op K1 does not compute
+    never write in place, whatever the program proves."""
+    plain = codec is None and not recv.track_recv
+    if plain and in_place and (recv.op == "copy" or
+                               recv.op in kops.COMBINE_OPS):
+        return "in_place"
+    if plain and recv.op in kops.COMBINE_OPS:
         return "indexed"
     if codec is not None and codec.compress_at is not None and \
             codec.consume_at is not None:
@@ -208,32 +239,104 @@ def _path(codec, recv) -> str:
     return "gather"
 
 
-def _writes_in_place(codec, recv) -> bool:
-    """Whether an exchange has a kernel that writes its result in place:
-    a plain combine (K1) or a plain copy (the indexed copy). A codec
-    exchange, a relay register and an op K1 does not compute write
-    deferred, whatever the program proves."""
-    return codec is None and not recv.track_recv and (
-        recv.op == "copy" or recv.op in kops.COMBINE_OPS)
+def _segment_wire(codec, inc):
+    """A payload gathered as (k, ranks, seg) as it crosses on the 'gather'
+    path: itself, or each segment compressed, stacked in segment
+    order."""
+    if codec is None:
+        return inc
+    ws = [codec.compress(inc[j]) for j in range(inc.shape[0])]
+    return Compressed(*(torch.stack([getattr(w, f) for w in ws])
+                        for f in Compressed._fields))
+
+
+def _consume(buf, tgt_idx, recv, codec, path, arrival):
+    """An exchange's receiving half on `path` (`exchange_path`), into the
+    region `tgt_idx` of the rank-stacked `buf`, for every rank the index
+    holds. `arrival` is what the path reads: (tensor, region index) of
+    the payload, read in place by K1 or the indexed copy ('in_place',
+    'indexed'), else the wire: the codec's compressed exchange ('codec')
+    or `_segment_wire`'s ('gather'). 'in_place' writes the buffer; every
+    other path computes the new region values from the current state
+    without writing it. Returns (new values (k, ranks, seg) or None where
+    written, the raw arrival a relay register keeps or None)."""
+    op, track = recv.op, recv.track_recv
+    if path == "in_place":
+        if op == "copy":
+            kops.region_copy(*arrival, buf, tgt_idx)
+        else:
+            kops.fused_combine_at(buf, tgt_idx, *arrival, op, in_place=True)
+        return None, None
+    if path == "indexed":
+        return kops.fused_combine_at(buf, tgt_idx, *arrival, op), None
+    unit, _rows, uidx = tgt_idx
+    k, seg = uidx.shape[0], uidx.shape[2] * unit * math.prod(buf.shape[2:])
+    if path == "codec":
+        raw = codec.decompress(arrival, (seg,), buf.dtype).reshape(
+            k, -1, seg) if track else None
+        return codec.consume_at(arrival, buf, tgt_idx, op), raw
+    if codec is None:
+        if op == "copy":
+            return arrival, (arrival if track else None)
+        out = _gather(buf, tgt_idx)
+        for j in range(k):
+            plugins.combine(op, out[j], arrival[j], out=out[j])
+        return out, (arrival if track else None)
+    out = _gather(buf, tgt_idx) if op != "copy" else \
+        torch.empty((k, uidx.shape[1], seg), dtype=buf.dtype,
+                    device=buf.device)
+    raw = torch.empty_like(out) if track else None
+    for j in range(k):
+        wire = Compressed(arrival.payload[j], arrival.scale[j])
+        if raw is not None:
+            raw[j] = codec.decompress(wire, (seg,), buf.dtype)
+        codec.consume(wire, out[j], op, out=out[j])          # at consume
+    return out, raw
 
 
 # --------------------------------------------------------------------------
 # The executor (the DMP): one path for every collective
 # --------------------------------------------------------------------------
 
-class _State:
-    """Per-run registers: the stacked buffer plus the relay sources, and
-    the recorder of the run's exchange spans (`telemetry.NULL` when
-    none records)."""
+def _chunk_permute(buf, chunks: int, ranks: tuple, src_chunk) -> torch.Tensor:
+    """Local chunk rotation (the Bruck pre/post COPY micro-ops): row i,
+    of rank ranks[i], gets as its chunk j its old chunk
+    src_chunk(ranks[i], j)."""
+    idx = np.array([[src_chunk(r, j) for j in range(chunks)] for r in ranks],
+                   np.int64)
+    grp = buf.reshape(buf.shape[0], chunks, -1)
+    rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    out = grp[rows, torch.as_tensor(idx, device=buf.device)]
+    return out.reshape(buf.shape)
 
-    def __init__(self, prog: Program, buf, groups: int, tr):
-        self.tr = tr
-        self.n = prog.nranks
-        self.groups = groups
-        self.chunks = prog.chunks
-        self.buf = buf
-        self.orig = None
-        self.prev = None
+
+class _State:
+    """Per-run registers: the rank-stacked buffer, whose row i holds rank
+    `ranks[i]`, the relay registers, and the recorder of the run's
+    exchange spans (`telemetry.NULL` when none records)."""
+
+    def __init__(self, prog: Program, buf, ranks: tuple, tr=telemetry.NULL):
+        self.n, self.chunks, self.relay = prog.nranks, prog.chunks, prog.relay
+        self.ranks, self.tr, self.buf = ranks, tr, buf
+        self._hold()
+
+    def _hold(self) -> None:
+        """The relay registers take the buffer as it stands before step 0
+        (relay='received': step 0 forwards the input)."""
+        self.orig = self.buf.clone() if self.relay == SRC_ORIGINAL else None
+        self.prev = self.buf.clone() if self.relay == SRC_RECEIVED else None
+
+    def roll(self, kind: str) -> None:
+        """Bruck pre / post: each row's chunks rotated by its rank."""
+        c = self.chunks
+        if kind == "bruck_pre":
+            self.buf = _chunk_permute(self.buf, c, self.ranks,
+                                      lambda r, j: (j + r) % c)
+            self._hold()
+        else:
+            self.buf = _chunk_permute(
+                self.buf, c, self.ranks,
+                lambda r, j: c - 1 - ((j - r - 1) % c))
 
     def source(self, which: str):
         if which == SRC_ORIGINAL:
@@ -243,107 +346,10 @@ class _State:
         return self.buf
 
 
-def _exchange(st: _State, body: tuple, k_req: int, step,
-              in_place: bool = False):
-    """Compute one exchange over every rank, writing it only where
-    `in_place` (the program's proof) allows and a kernel can.
-
-    body = (Copy('load'), [Compress], Send, [Decompress], RecvCombine).
-    In place, a plain combine (no codec, no relay register) is K1's
-    indexed entry point writing back through the target index, and a
-    plain copy the indexed copy: one launch over the whole exchange, the
-    buffer updated, no value returned. Else the new region values are
-    computed from the current state into fresh tensors, so a caller that
-    defers the returned write — a LOOP iteration — gets the reference's
-    two-phase semantics: a plain combine reads its payload and target in
-    place through the region indices (K1), one launch; a codec with
-    indexed hooks (int8) compresses and consumes the whole exchange in
-    place, one launch each; every other exchange gathers (copies) its
-    operands first. While a span records, counts the exchange into
-    `exchange.in_place` or `exchange.deferred`. Returns (target index,
-    new region values or None where written, raw arrivals or None)."""
-    load, recv = body[0], body[-1]
-    send_ops, _dec_ops = _split_wire(body[1:-1])
-    send = send_ops[-1]
-    codec = _codec_of(send_ops)
-    n, chunks = st.n, st.chunks
-    src_of = {d: s for (s, d) in send.perm}
-    dsts = sorted(recv.dsts) if recv.dsts is not None else list(range(n))
-    missing = [d for d in dsts if d not in src_of]
-    if missing:
-        raise ValueError(f"step {step}: ranks {missing} receive nothing "
-                         f"but mask_recv=False")
-    if recv.track_recv and len(dsts) != n:
-        raise ValueError("relay='received' needs every rank to receive")
-
-    src_t = st.source(load.source)
-    buf = st.buf
-    pay_spans = tuple(_spans(load.sel, chunks, src_t.shape[1], src_of[d],
-                             step) for d in dsts)
-    tgt_spans = tuple(_spans(recv.sel, chunks, buf.shape[1], d, step)
-                      for d in dsts)
-    pay_rows = sum(ln for _s, ln in pay_spans[0])
-    view_rows = sum(ln for _s, ln in tgt_spans[0])
-    if pay_rows != view_rows:
-        raise ValueError(f"step {step}: payload of {pay_rows} rows cannot "
-                         f"land in a region of {view_rows} rows")
-    row_elems = 1
-    for d in buf.shape[2:]:
-        row_elems *= int(d)
-    k = 1
-    if k_req > 1:
-        k = fit_segments(pay_rows, k_req, row_elems,
-                         codec.block_elems if codec is not None else 1)
-
-    groups = range(st.groups)
-    src_rows = tuple(g * n + src_of[d] for g in groups for d in dsts)
-    dst_rows = tuple(g * n + d for g in groups for d in dsts)
-    pay_idx = _region_index(src_rows, pay_spans * st.groups, k, buf.device)
-    tgt_idx = _region_index(dst_rows, tgt_spans * st.groups, k, buf.device)
-
-    wrote = in_place and _writes_in_place(codec, recv)
-    live = telemetry.LIVE
-    if live is not None:
-        live.count("exchange.in_place" if wrote else "exchange.deferred")
-    if wrote:
-        if recv.op == "copy":
-            kops.region_copy(src_t, pay_idx, buf, tgt_idx)
-        else:
-            kops.fused_combine_at(buf, tgt_idx, src_t, pay_idx, recv.op,
-                                  in_place=True)
-        return tgt_idx, None, None
-    path = _path(codec, recv)
-    if path == "indexed":
-        return tgt_idx, kops.fused_combine_at(buf, tgt_idx, src_t, pay_idx,
-                                              recv.op), None
-    if path == "codec":
-        wire = codec.compress_at(src_t, pay_idx)               # at send
-        raw = None
-        if recv.track_recv:
-            seg = pay_rows // k * row_elems
-            raw = codec.decompress(wire, (seg,), src_t.dtype).reshape(
-                k, -1, seg)
-        return tgt_idx, codec.consume_at(wire, buf, tgt_idx, recv.op), raw
-    inc = _gather(src_t, pay_idx)                  # arrivals, (k, ranks, seg)
-    if codec is None and recv.op == "copy":
-        return tgt_idx, inc, (inc if recv.track_recv else None)
-    out = inc if recv.op == "copy" else _gather(buf, tgt_idx)
-    raw = torch.empty_like(inc) if (recv.track_recv and codec) else None
-    for j in range(k):
-        if codec is None:
-            plugins.combine(recv.op, out[j], inc[j], out=out[j])
-            continue
-        wire = codec.compress(inc[j])              # at send
-        if raw is not None:
-            raw[j] = codec.decompress(wire, inc.shape[2:], inc.dtype)
-        codec.consume(wire, out[j], recv.op, out=out[j])   # at consume
-    if recv.track_recv:
-        raw = inc if raw is None else raw
-    return tgt_idx, out, raw
-
-
 def _apply(st: _State, tgt_idx, new_val, raw) -> None:
-    if new_val is not None:        # None: written in place already
+    """Land one pending write: new region values (None: written in place
+    already), and the raw arrival into the relay register."""
+    if new_val is not None:
         _scatter(st.buf, tgt_idx, new_val)
     if raw is not None:
         # the relay register holds the raw arrival, payload-shaped
@@ -351,36 +357,53 @@ def _apply(st: _State, tgt_idx, new_val, raw) -> None:
             (st.buf.shape[0], -1) + tuple(st.buf.shape[2:]))
 
 
-def _traced_exchange(st: _State, body: tuple, k_req: int, step,
-                     in_place: bool = False):
-    """`_exchange` under an `exchange` span of the wall-clock recorder,
-    tagged with its path and whether it wrote in place."""
-    path = _path(_codec_of(_split_wire(body[1:-1])[0]), body[-1])
-    with st.tr.span("exchange", track="engine", step=step, path=path) as sp:
-        res = _exchange(st, body, k_req, step, in_place)
-        sp.add(segments=int(res[0][2].shape[0]), in_place=res[1] is None)
-    return res
-
-
 def _run_exchange(st: _State, body: tuple, k_req: int, step,
-                  in_place: bool) -> None:
-    run = _traced_exchange if st.tr.enabled else _exchange
-    _apply(st, *run(st, body, k_req, step, in_place))
+                  in_place: bool):
+    """One exchange over every rank, under an `exchange` span tagged with
+    its path (`exchange_path`), segments and whether it wrote in place.
 
-
-def _exec_loop(st: _State, loop: Loop, in_place: bool) -> None:
-    run = _traced_exchange if st.tr.enabled else _exchange
-    for it in range(loop.trip):
-        # two-phase: every slot reads the iteration-start state, the
-        # writes land at iteration end; in place where the program proves
-        # that no slot's write reaches what any slot reads
-        writes = []
-        for slot, seq in enumerate(loop.slots):
-            body, k_req = split_exchange(seq)
-            writes.append(run(st, body, k_req,
-                              loop.base + it * loop.period + slot, in_place))
-        for w in writes:
-            _apply(st, *w)
+    body = (Copy('load'), [Compress], Send, [Decompress], RecvCombine).
+    Where `in_place` (the batch's proof) allows and a kernel can, the
+    exchange writes the buffer as it runs; else it computes the new
+    region values from the current state, so the writes of a batch land
+    after every exchange of it has read. While a span records, counts
+    the exchange into `exchange.in_place` or `exchange.deferred`. Returns
+    the pending write: (target index, new values or None where written,
+    raw arrivals or None)."""
+    load, _send, recv, codec, src_of, dsts = _ends(body, st.n, step)
+    path = exchange_path(codec, recv, in_place)
+    with st.tr.span("exchange", track="engine", step=step, path=path) as sp:
+        src_t, buf, n = st.source(load.source), st.buf, st.n
+        pay_spans = tuple(_spans(load.sel, st.chunks, src_t.shape[1],
+                                 src_of[d], step) for d in dsts)
+        tgt_spans = tuple(_spans(recv.sel, st.chunks, buf.shape[1], d, step)
+                          for d in dsts)
+        pay_rows = sum(ln for _s, ln in pay_spans[0])
+        view_rows = sum(ln for _s, ln in tgt_spans[0])
+        if pay_rows != view_rows:
+            raise ValueError(f"step {step}: payload of {pay_rows} rows "
+                             f"cannot land in a region of {view_rows} rows")
+        k = _segments(pay_rows, k_req, math.prod(buf.shape[2:]), codec)
+        groups = range(buf.shape[0] // n)
+        pay_idx = _region_index(
+            tuple(g * n + src_of[d] for g in groups for d in dsts),
+            pay_spans * len(groups), k, buf.device)
+        tgt_idx = _region_index(tuple(g * n + d for g in groups
+                                      for d in dsts),
+                                tgt_spans * len(groups), k, buf.device)
+        live = telemetry.LIVE
+        if live is not None:
+            live.count("exchange.in_place" if path == "in_place"
+                       else "exchange.deferred")
+        if path in ("in_place", "indexed"):
+            arrival = (src_t, pay_idx)
+        elif path == "codec":
+            arrival = codec.compress_at(src_t, pay_idx)         # at send
+        else:
+            arrival = _segment_wire(codec, _gather(src_t, pay_idx))
+        new_val, raw = _consume(buf, tgt_idx, recv, codec, path, arrival)
+        sp.add(segments=k, in_place=new_val is None)
+    return tgt_idx, new_val, raw
 
 
 def execute_program(prog: Program, buf, *, groups: int = 1):
@@ -394,17 +417,13 @@ def execute_program(prog: Program, buf, *, groups: int = 1):
     run updates a clone of it, in place where the program proves it).
 
     This is the single data plane: every collective the engine issues —
-    whatever the algorithm, codec, or segment count — runs through here.
-    While the wall-clock recorder records (`telemetry.wall()`), the run
-    is an `execute_program` span and each exchange an `exchange` span.
+    whatever the algorithm, codec, or segment count — runs through here,
+    batch by batch of the program's walk (`program.batches`): every
+    exchange of a batch through `_run_exchange`, then the batch's pending
+    writes in order. While the wall-clock recorder records
+    (`telemetry.wall()`), the run is an `execute_program` span and each
+    exchange an `exchange` span.
     """
-    tr = telemetry.wall()
-    with tr.span("execute_program", track="engine", program=prog.name,
-                 segments=prog.segments, codec=prog.codec):
-        return _execute_ops(prog, buf, groups, tr)
-
-
-def _execute_ops(prog: Program, buf, groups: int, tr):
     if buf.ndim < 2 or buf.shape[0] != groups * prog.nranks:
         raise ValueError(f"buffer of shape {tuple(buf.shape)} is not "
                          f"{groups} x {prog.nranks} stacked ranks")
@@ -412,66 +431,20 @@ def _execute_ops(prog: Program, buf, groups: int, tr):
         raise ValueError(
             f"buffer leading dim {buf.shape[1]} not divisible by "
             f"{prog.chunks} chunks")
-    ops = prog.ops
-    n, chunks = prog.nranks, prog.chunks
-    buf = buf.contiguous().clone()
-    i = 0
-    if ops and isinstance(ops[0], Copy) and ops[0].kind == "bruck_pre":
-        buf = _chunk_permute(buf, chunks, n,
-                             lambda r, j: (j + r) % chunks)
-        i = 1
-    st = _State(prog, buf, groups, tr)
-    plan = in_place_plan(prog)
-    if prog.relay == SRC_ORIGINAL:
-        st.orig = buf.clone()
-    elif prog.relay == SRC_RECEIVED:
-        st.prev = buf.clone()  # relay='received': step 0 forwards the input
-
-    while i < len(ops):
-        op = ops[i]
-        if isinstance(op, Stream):
-            # the stream's wave order is value-identical to the per-step
-            # order (what fuse_streams proves): run the unfused LOOP of
-            # SEG_LOOPs, segment granularity included
-            _exec_loop(st, Loop(base=op.base, trip=op.trip,
-                                period=op.period,
-                                slots=tuple((SegLoop(op.segments, b),)
-                                            for b in op.slots)), plan[i])
-            i += 1
-        elif isinstance(op, Loop):
-            _exec_loop(st, op, plan[i])
-            i += 1
-        elif isinstance(op, StreamChain):
-            # likewise proven value-identical to per-step SEG_LOOPs
-            for body, safe in zip(op.bodies, plan[i]):
-                _run_exchange(st, body, op.segments, body[0].step, safe)
-            i += 1
-        elif isinstance(op, StackedRecv):
-            # write-disjoint copies of the original: step order
-            for body, safe in zip(op.bodies, plan[i]):
-                _run_exchange(st, body, 1, body[0].step, safe)
-            i += 1
-        elif isinstance(op, Copy) and op.kind == "bruck_post":
-            st.buf = _chunk_permute(
-                st.buf, chunks, n,
-                lambda r, j: chunks - 1 - ((j - r - 1) % chunks))
-            i += 1
-        elif isinstance(op, SegLoop) or (
-                isinstance(op, Copy) and op.kind == "load"):
-            safe = plan[i]
-            if isinstance(op, SegLoop):
-                body, k_req = op.body, op.segments
-                i += 1
-            else:
-                j = i
-                while not isinstance(ops[j], RecvCombine):
-                    j += 1
-                body, k_req = ops[i:j + 1], 1
-                i = j + 1
-            _run_exchange(st, body, k_req, body[0].step, safe)
-        else:
-            raise ValueError(f"unexpected micro-op {op}")
-    return st.buf
+    tr = telemetry.wall()
+    with tr.span("execute_program", track="engine", program=prog.name,
+                 segments=prog.segments, codec=prog.codec):
+        st = _State(prog, buf.contiguous().clone(),
+                    tuple(r % prog.nranks for r in range(buf.shape[0])), tr)
+        for item in batches(prog):
+            if isinstance(item, Copy):
+                st.roll(item.kind)
+                continue
+            pending = [_run_exchange(st, body, k_req, step, item.in_place)
+                       for body, k_req, step in item.exchanges]
+            for write in filter(None, pending):
+                _apply(st, *write)
+        return st.buf
 
 
 # --------------------------------------------------------------------------

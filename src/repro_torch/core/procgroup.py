@@ -17,26 +17,29 @@ Here each process holds one rank's shard and runs the same compiled
     are. The transport never changes backend. Messages are tagged by
     their (slot, part) within the call, so two slots of one LOOP
     iteration between the same pair of ranks never cross.
-  * `execute_program_local(prog, buf, rank, transport)` mirrors the
-    stacked executor (`engine.execute_program`) op for op on one rank's
-    `(L, ...)` shard: Bruck pre/post as a local chunk roll by `rank`, the
-    `orig` / `prev` relay registers, LOOP two-phase (every slot's payload
-    leaves from the iteration-start state; the writes land after all
-    waits), STREAM and STREAM_CHAIN as their unfused per-step SEG_LOOPs,
-    STACKED_RECV's bodies posted together and written in step order,
-    hierarchical programs through their flat perms. A rank sends to `d`
-    where `(rank, d)` is in the SEND's perm and `d` receives, and
-    receives from `src_of[rank]`. Payload spans come from the sender's
-    rank and target spans from the receiver's; both sides compute the
-    exchange's segment count, and a disagreement raises.
-  * Kernels per rank, through the stacked path's entry points: a plain
-    combine launches K1 (`ops.fused_combine_at`) once over the whole
-    exchange, reading the local target in place and the arrival from the
-    receive buffer; an int8 exchange launches K2 (`compress_at`) once
-    over the local payload at send and K3 (`consume_at`) once into the
-    local target at receive (a relay exchange adds one K3 copy for its
-    raw arrival); bf16 keeps its per-segment gathered path. Copy
-    receives launch nothing.
+  * `execute_program_local(prog, buf, rank, transport)` walks the
+    stacked executor's batches (`program.batches`) on one rank's
+    `(L, ...)` shard, held as a stack of one row in the stacked
+    executor's registers (`engine._State`: Bruck pre/post as a local
+    chunk roll by `rank`, the `orig` / `prev` relay registers). Each
+    batch — a LOOP iteration, a STACKED_RECV, or one exchange — posts
+    every wire from the batch-start state, waits, and lands its writes
+    in order after all waits; hierarchical programs run through their
+    flat perms. A rank sends to `d` where `(rank, d)` is in the SEND's
+    perm and `d` receives, and receives from `src_of[rank]`. Payload
+    spans come from the sender's rank and target spans from the
+    receiver's; both sides compute the exchange's segment count, and a
+    disagreement raises.
+  * Kernels per rank, on the stacked executor's paths
+    (`engine.exchange_path`, never in place) and through its consume
+    half (`engine._consume`) on the arrival: a plain combine launches K1
+    (`ops.fused_combine_at`) once over the whole exchange, reading the
+    local target in place and the arrival from the receive buffer; an
+    int8 exchange launches K2 (`compress_at`) once over the local
+    payload at send and K3 (`consume_at`) once into the local target at
+    receive (a relay exchange adds one K3 copy for its raw arrival);
+    bf16 keeps its per-segment gathered path. Copy receives launch
+    nothing.
   * `ProcessGroupEngine` is the `CollectiveEngine` of one process: its
     inputs and outputs are this rank's local shard (no mesh dims lead,
     `stack_shape == ()`), `_resolve`, the selector, the schedule cache
@@ -83,15 +86,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import autograd as _autograd
-from repro_torch.core import plugins, telemetry
+from repro_torch.core import telemetry
 from repro_torch.core.engine import (
-    CollectiveEngine, _Layout, _codec_of, _gather, _path, _region_index,
-    _scatter, _spans, _split_wire,
+    CollectiveEngine, _apply, _consume, _ends, _Layout, _region_index,
+    _segment_wire, _segments, _spans, _State, exchange_path,
 )
 from repro_torch.core.plugins import Compressed
 from repro_torch.core.program import (
-    SRC_ORIGINAL, SRC_RECEIVED, Copy, Loop, Program, RecvCombine, SegLoop,
-    StackedRecv, Stream, StreamChain, fit_segments, split_exchange,
+    SRC_RECEIVED, Copy, Program, RecvCombine, batches,
 )
 from repro_torch.kernels import ops as kops
 
@@ -207,46 +209,8 @@ class Transport:
 # The per-rank executor
 # --------------------------------------------------------------------------
 
-class _Local:
-    """One rank's registers: its shard plus the relay sources."""
-
-    def __init__(self, prog: Program, buf, rank: int):
-        self.n = prog.nranks
-        self.chunks = prog.chunks
-        self.rank = rank
-        self.relay = prog.relay
-        self.buf = buf
-        self._hold()
-
-    def _hold(self) -> None:
-        """The relay registers take the buffer as it stands before step 0
-        (relay='received': step 0 forwards the input)."""
-        self.orig = self.buf.clone() if self.relay == SRC_ORIGINAL else None
-        self.prev = self.buf.clone() if self.relay == SRC_RECEIVED else None
-
-    def roll(self, kind: str) -> None:
-        """Bruck pre / post: the local chunk rotation by this rank."""
-        c, r = self.chunks, self.rank
-        if kind == "bruck_pre":
-            self.buf = _chunk_roll(self.buf, c, lambda j: (j + r) % c)
-            self._hold()
-        else:
-            self.buf = _chunk_roll(self.buf, c,
-                                   lambda j: c - 1 - ((j - r - 1) % c))
-
-    def source(self, which: str):
-        if which == SRC_ORIGINAL:
-            return self.orig
-        if which == SRC_RECEIVED:
-            return self.prev
-        return self.buf
-
-
-def _chunk_roll(buf, chunks: int, src_chunk):
-    """The local chunk rotation: new chunk j is old chunk src_chunk(j)."""
-    idx = torch.as_tensor([src_chunk(j) for j in range(chunks)],
-                          device=buf.device)
-    return buf.reshape(chunks, -1)[idx].reshape(buf.shape)
+def _whole(rows: int) -> tuple:
+    return (((0, rows),),)
 
 
 def _rows_of(t, spans):
@@ -255,13 +219,9 @@ def _rows_of(t, spans):
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _meta_rows(t, rows: int):
-    return torch.empty((1, rows) + tuple(t.shape[1:]), dtype=t.dtype,
-                       device="meta")
-
-
-def _whole(rows: int) -> tuple:
-    return (((0, rows),),)
+def _tensors(wire) -> tuple:
+    """A wire's tensors, as they cross: the payload, or its fields."""
+    return tuple(wire) if isinstance(wire, Compressed) else (wire,)
 
 
 @dataclasses.dataclass
@@ -271,78 +231,43 @@ class _Xfer:
 
     recv: RecvCombine
     codec: object
+    path: str
     dst: Optional[int] = None            # the rank this one sends to
     out: tuple = ()                      # the wire tensors it sends
     src: Optional[int] = None            # the rank it receives from
     inbox: tuple = ()                    # receive buffers, filled in place
-    k: int = 1                           # segments
-    pay_rows: int = 0
-    seg: int = 0                         # elements per segment
+    arrival: object = None               # what `_consume` reads of them
     tgt_idx: object = None
 
 
-def _indexed(codec) -> bool:
-    """Whether a codec takes a whole exchange in place (int8)."""
-    return codec is not None and codec.compress_at is not None and \
-        codec.consume_at is not None
-
-
-def _segments(rows: int, k_req: int, row_elems: int, codec) -> int:
-    if k_req <= 1:
-        return 1
-    return fit_segments(rows, k_req, row_elems,
-                        codec.block_elems if codec is not None else 1)
-
-
-def _wire(codec, payload, k: int):
-    """The sender's wire of a (k, 1, seg) payload: the payload itself, or
-    each segment's compressed payload and scales stacked in j order."""
-    if codec is None:
-        return (payload,)
-    ws = [codec.compress(payload[j]) for j in range(k)]
-    return tuple(torch.stack([getattr(w, f) for w in ws])
-                 for f in ("payload", "scale"))
-
-
-def _plan(st: _Local, body: tuple, k_req: int, step) -> _Xfer:
+def _plan(st: _State, body: tuple, k_req: int, step) -> _Xfer:
     """This rank's side of one exchange, before anything moves: the wire
     it sends (read from the current state) and the buffers it receives
-    into."""
-    load, recv = body[0], body[-1]
-    send_ops, _dec_ops = _split_wire(body[1:-1])
-    send = send_ops[-1]
-    codec = _codec_of(send_ops)
-    n, chunks, me = st.n, st.chunks, st.rank
-    src_of = {d: s for (s, d) in send.perm}
+    into. `st` holds this rank's shard as a stack of one row."""
+    load, send, recv, codec, src_of, dsts = _ends(body, st.n, step)
+    me, chunks = st.ranks[0], st.chunks
     dst_of = {s: d for (s, d) in send.perm}
-    dsts = sorted(recv.dsts) if recv.dsts is not None else list(range(n))
-    missing = [d for d in dsts if d not in src_of]
-    if missing:
-        raise ValueError(f"step {step}: ranks {missing} receive nothing "
-                         f"but mask_recv=False")
-    if recv.track_recv and len(dsts) != n:
-        raise ValueError("relay='received' needs every rank to receive")
     src_t, buf = st.source(load.source), st.buf
-    row_elems = math.prod(buf.shape[1:])
-    x = _Xfer(recv=recv, codec=codec)
+    row_elems = math.prod(buf.shape[2:])
+    x = _Xfer(recv=recv, codec=codec,
+              path=exchange_path(codec, recv, False))
 
     if dst_of.get(me) in dsts:                                 # at send
-        spans = _spans(load.sel, chunks, src_t.shape[0], me, step)
-        rows = sum(ln for _s, ln in spans)
-        k = _segments(rows, k_req, row_elems, codec)
+        spans = _spans(load.sel, chunks, src_t.shape[1], me, step)
+        k = _segments(sum(ln for _s, ln in spans), k_req, row_elems, codec)
         x.dst = dst_of[me]
-        if _indexed(codec):
-            idx = _region_index((0,), (spans,), k, src_t.device)
-            x.out = tuple(codec.compress_at(src_t.unsqueeze(0), idx))
+        if x.path == "codec":
+            x.out = tuple(codec.compress_at(src_t, _region_index(
+                (0,), (spans,), k, src_t.device)))
         else:
-            x.out = _wire(codec, _rows_of(src_t, spans).reshape(k, 1, -1),
-                          k)
+            x.out = _tensors(_segment_wire(codec, _rows_of(
+                src_t[0], spans).reshape(k, 1, -1)))
 
     if me in dsts:                                             # at receive
         x.src = src_of[me]
         pay_rows = sum(ln for _s, ln in _spans(load.sel, chunks,
-                                               src_t.shape[0], x.src, step))
-        tgt_spans = _spans(recv.sel, chunks, buf.shape[0], me, step)
+                                               src_t.shape[1], x.src, step))
+        tgt_spans = _spans(recv.sel, chunks, buf.shape[1], me, step)
         view_rows = sum(ln for _s, ln in tgt_spans)
         if pay_rows != view_rows:
             raise ValueError(f"step {step}: payload of {pay_rows} rows "
@@ -351,71 +276,31 @@ def _plan(st: _Local, body: tuple, k_req: int, step) -> _Xfer:
         if _segments(view_rows, k_req, row_elems, codec) != k:
             raise ValueError(f"step {step}: rank {x.src} sends {k} segments "
                              f"but rank {me} expects another count")
-        seg = pay_rows // k * row_elems
-        x.k, x.pay_rows, x.seg = k, pay_rows, seg
         x.tgt_idx = _region_index((0,), (tgt_spans,), k, buf.device)
-        if codec is None:
-            tmpl = (_meta_rows(src_t, pay_rows).reshape(k, 1, seg),)
-        elif _indexed(codec):
-            tmpl = codec.compress_at(
-                _meta_rows(src_t, pay_rows),
-                _region_index((0,), _whole(pay_rows), k, "meta"))
-        else:
-            w = codec.compress(torch.empty((1, seg), dtype=src_t.dtype,
-                                           device="meta"))
-            tmpl = tuple(torch.empty((k,) + tuple(t.shape), dtype=t.dtype,
-                                     device="meta") for t in w)
+        if x.path == "codec":
+            tmpl = tuple(codec.compress_at(
+                torch.empty((1, pay_rows) + buf.shape[2:], dtype=buf.dtype,
+                            device="meta"),
+                _region_index((0,), _whole(pay_rows), k, "meta")))
+        else:       # one segment's wire, k times
+            tmpl = tuple(torch.empty((k,) + t.shape[1:], dtype=t.dtype,
+                                     device="meta")
+                         for t in _tensors(_segment_wire(codec, torch.empty(
+                             (1, 1, pay_rows // k * row_elems),
+                             dtype=buf.dtype, device="meta"))))
         x.inbox = tuple(torch.empty(t.shape, dtype=t.dtype,
                                     device=buf.device) for t in tmpl)
+        if x.path in ("in_place", "indexed"):    # K1 reads it in place
+            x.arrival = (x.inbox[0].reshape((1, pay_rows) + buf.shape[2:]),
+                         _region_index((0,), _whole(pay_rows), k,
+                                       buf.device))
+        else:
+            x.arrival = x.inbox[0] if codec is None else \
+                Compressed(*x.inbox)
     return x
 
 
-def _finish(st: _Local, x: _Xfer):
-    """The arrival consumed into new target values, computed from the
-    current state WITHOUT writing it: (new values (k, 1, seg), raw
-    arrival or None). The stacked `_exchange`'s three paths, per rank."""
-    recv, codec, k, seg, buf = x.recv, x.codec, x.k, x.seg, st.buf
-    if _path(codec, recv) == "indexed":
-        inc = x.inbox[0].reshape((1, x.pay_rows) + tuple(buf.shape[1:]))
-        inc_idx = _region_index((0,), _whole(x.pay_rows), k, buf.device)
-        return kops.fused_combine_at(buf.unsqueeze(0), x.tgt_idx, inc,
-                                     inc_idx, recv.op), None
-    if _indexed(codec):
-        wire = Compressed(*x.inbox)
-        out = codec.consume_at(wire, buf.unsqueeze(0), x.tgt_idx, recv.op)
-        raw = None
-        if recv.track_recv:
-            raw = codec.decompress(wire, (seg,), buf.dtype).reshape(
-                k, -1, seg)
-        return out, raw
-    if codec is None:
-        inc = x.inbox[0]
-        if recv.op == "copy":
-            return inc, (inc if recv.track_recv else None)
-        out = _gather(buf.unsqueeze(0), x.tgt_idx)
-        for j in range(k):
-            plugins.combine(recv.op, out[j], inc[j], out=out[j])
-        return out, (inc if recv.track_recv else None)
-    payloads, scales = x.inbox
-    out = torch.empty((k, 1, seg), dtype=buf.dtype, device=buf.device) \
-        if recv.op == "copy" else _gather(buf.unsqueeze(0), x.tgt_idx)
-    raw = torch.empty_like(out) if recv.track_recv else None
-    for j in range(k):
-        wire = Compressed(payloads[j], scales[j])              # at consume
-        if raw is not None:
-            raw[j] = codec.decompress(wire, (seg,), buf.dtype)
-        codec.consume(wire, out[j], recv.op, out=out[j])
-    return out, raw
-
-
-def _apply(st: _Local, x: _Xfer, new_val, raw) -> None:
-    _scatter(st.buf.unsqueeze(0), x.tgt_idx, new_val)
-    if raw is not None:
-        # the relay register holds the raw arrival, payload-shaped
-        st.prev = raw.transpose(0, 1).reshape((-1,) + tuple(st.buf.shape[1:]))
-
-
-def _run(st: _Local, transport: Transport, exchanges) -> None:
+def _run(st: _State, transport: Transport, exchanges) -> None:
     """One batch: every exchange's wire leaves from the current state,
     everything is posted at once, then each arrival is consumed against
     the pre-batch state and the writes land in order (a LOOP iteration's
@@ -428,49 +313,11 @@ def _run(st: _Local, transport: Transport, exchanges) -> None:
              if x.src is not None for p, t in enumerate(x.inbox)
              if t.numel()]
     transport.exchange(sends, recvs)
-    writes = [(x, *_finish(st, x)) for x in xs if x.src is not None]
-    for x, new_val, raw in writes:
-        _apply(st, x, new_val, raw)
-
-
-def batches(prog: Program):
-    """The per-rank walk of a program, in execution order: a Bruck
-    pre / post `Copy`, or a batch — a list of (body, requested segments,
-    step) exchanges whose wires all leave from one state and whose writes
-    land together after every wait. A LOOP iteration and a STACKED_RECV
-    (write-disjoint copies of the original) are one batch each; any other
-    exchange is a batch of one. STREAM and STREAM_CHAIN run as their
-    unfused per-step SEG_LOOPs (what `fuse_streams` proves
-    value-identical)."""
-    ops = prog.ops
-    i = 0
-    while i < len(ops):
-        op = ops[i]
-        i += 1
-        if isinstance(op, (Loop, Stream)):
-            for it in range(op.trip):
-                yield [(seq, op.segments, op.base + it * op.period + slot)
-                       if isinstance(op, Stream) else
-                       (*split_exchange(seq), op.base + it * op.period + slot)
-                       for slot, seq in enumerate(op.slots)]
-        elif isinstance(op, StreamChain):
-            for body in op.bodies:
-                yield [(body, op.segments, body[0].step)]
-        elif isinstance(op, StackedRecv):
-            yield [(body, 1, body[0].step) for body in op.bodies]
-        elif isinstance(op, SegLoop):
-            yield [(op.body, op.segments, op.body[0].step)]
-        elif isinstance(op, Copy) and (op.kind == "bruck_post" or (
-                op.kind == "bruck_pre" and i == 1)):
-            yield op
-        elif isinstance(op, Copy) and op.kind == "load":
-            j = i
-            while not isinstance(ops[j], RecvCombine):
-                j += 1
-            yield [(ops[i - 1:j + 1], 1, op.step)]
-            i = j + 1
-        else:
-            raise ValueError(f"unexpected micro-op {op}")
+    writes = [(x.tgt_idx, *_consume(st.buf, x.tgt_idx, x.recv, x.codec,
+                                    x.path, x.arrival))
+              for x in xs if x.src is not None]
+    for write in writes:
+        _apply(st, *write)
 
 
 def execute_program_local(prog: Program, buf, rank: int,
@@ -483,20 +330,21 @@ def execute_program_local(prog: Program, buf, rank: int,
     communicator's processes. Every process of the communicator calls
     this with the same program at the same time. Returns the final
     buffer (a new tensor; `buf` is not modified) — bitwise the row
-    `rank` of `engine.execute_program` on the stacked buffers.
+    `rank` of `engine.execute_program` on the stacked buffers. Every
+    write is deferred to its batch's end, whatever the program proves.
     """
     if buf.ndim < 1 or buf.shape[0] % prog.chunks:
         raise ValueError(f"buffer of shape {tuple(buf.shape)} is not cut "
                          f"into {prog.chunks} chunks")
     if not 0 <= rank < prog.nranks:
         raise ValueError(f"rank {rank} outside {prog.nranks} ranks")
-    st = _Local(prog, buf.contiguous().clone(), rank)
+    st = _State(prog, buf.contiguous().clone().unsqueeze(0), (rank,))
     for item in batches(prog):
         if isinstance(item, Copy):
             st.roll(item.kind)
         else:
-            _run(st, transport, item)
-    return st.buf
+            _run(st, transport, item.exchanges)
+    return st.buf[0]
 
 
 # --------------------------------------------------------------------------
@@ -505,42 +353,38 @@ def execute_program_local(prog: Program, buf, rank: int,
 
 def implied_launches(prog: Program, rank: int, shape) -> dict:
     """The kernel launches rank `rank`'s share of `prog` implies on a
-    buffer of local shape `shape`, from the program alone: K1 once for
-    every plain combining exchange it receives (one launch over all its
-    segments) and once per segment of any other combining exchange (a
-    relay's or bf16's, at consume), K2 once per int8 exchange it sends,
-    K3 once per int8 exchange it consumes and once more where that
-    exchange is a relay. Keys as `ops.launch_counts()`."""
+    buffer of local shape `shape`, from the program alone, on the paths
+    the per-rank executor takes (`exchange_path`, never in place): K1
+    once for every plain combining exchange it receives (one launch over
+    all its segments) and once per segment of any other combining
+    exchange (a relay's or bf16's, at consume), K2 once per int8
+    exchange it sends, K3 once per int8 exchange it consumes and once
+    more where that exchange is a relay. Keys as `ops.launch_counts()`."""
     counts = dict.fromkeys(kops.KERNELS, 0)
     L, row_elems = int(shape[0]), math.prod(shape[1:])
-    chunks, n = prog.chunks, prog.nranks
     prev_len = L
-    for batch in batches(prog):
-        for body, k_req, step in ([] if isinstance(batch, Copy) else batch):
-            load, recv = body[0], body[-1]
-            send_ops, _dec = _split_wire(body[1:-1])
-            codec = _codec_of(send_ops)
-            send = send_ops[-1]
-            dsts = set(recv.dsts) if recv.dsts is not None else set(range(n))
-            src_of = {d: s for (s, d) in send.perm}
-            dst_of = {s: d for (s, d) in send.perm}
-            length = prev_len if load.source == SRC_RECEIVED else L
-            indexed = _indexed(codec)
-            if indexed and dst_of.get(rank) in dsts:
+    for item in batches(prog):
+        for body, k_req, step in ([] if isinstance(item, Copy)
+                                  else item.exchanges):
+            load, send, recv, codec, src_of, dsts = _ends(body, prog.nranks,
+                                                          step)
+            path = exchange_path(codec, recv, False)
+            if path == "codec" and dict(send.perm).get(rank) in dsts:
                 counts["quantize_blocks"] += 1
-            rows = sum(ln for _s, ln in _spans(load.sel, chunks, length,
+            length = prev_len if load.source == SRC_RECEIVED else L
+            rows = sum(ln for _s, ln in _spans(load.sel, prog.chunks, length,
                                                src_of.get(rank, rank), step))
             if recv.track_recv:
                 prev_len = rows
             if rank not in dsts:
                 continue
-            k = _segments(rows, k_req, row_elems, codec)
-            if indexed:
+            if path == "codec":
                 counts["dequantize_blocks"] += 1 + int(recv.track_recv)
-            elif _path(codec, recv) == "indexed":
+            elif path == "indexed":
                 counts["fused_combine"] += 1
             elif recv.op != "copy":
-                counts["fused_combine"] += k
+                counts["fused_combine"] += _segments(rows, k_req, row_elems,
+                                                     codec)
     return counts
 
 

@@ -654,7 +654,8 @@ def _detect_run(steps: tuple, i: int) -> Optional[tuple]:
 def split_exchange(node) -> tuple:
     """(body, k_req) of an exchange node — a SegLoop (possibly the sole
     element of a LOOP slot tuple) or a plain micro-op tuple. The one
-    IR-shape helper both executors use to walk a Program."""
+    IR-shape helper of the program's walks (`batches`, `exchange_terms`)
+    and of the verifier."""
     if isinstance(node, tuple) and len(node) == 1 \
             and isinstance(node[0], SegLoop):
         node = node[0]
@@ -943,7 +944,7 @@ def fuse_stacked_recv(ops: tuple, nranks: int) -> tuple:
 
 
 # --------------------------------------------------------------------------
-# In-place writes: the data plane's write-back proof
+# Execution order: the executors' walk and its in-place proof
 # --------------------------------------------------------------------------
 
 def _chunk_spans(sel: Sel, r: int, step: int, chunks: int) -> tuple:
@@ -999,48 +1000,84 @@ def _writes_safe(bodies, steps, nranks: int, chunks: int) -> bool:
     return True
 
 
-def in_place_plan(prog: Program) -> tuple:
-    """Where the data plane may write each exchange of `prog` straight
-    into the buffer through its target index (`_writes_safe`), one entry
-    per op of `prog.ops`: a bool for a LOOP or STREAM (every iteration's
-    slots proved together, as they read one iteration-start state), for a
-    SEG_LOOP, and for a bare exchange at its COPY('load'); a tuple of
-    bools, one a body, for a STREAM_CHAIN or STACKED_RECV (bodies run one
-    after another, each proved alone); None elsewhere. Computed once a
-    program (`compile_schedule` proves every program it compiles) and
-    kept on it, outside its fields: a program's fields mirror the JAX
-    IR's, and a `dataclasses.replace` copy proves its own ops again."""
-    plan = prog.__dict__.get("_in_place")
-    if plan is not None:
-        return plan
+@dataclasses.dataclass(frozen=True)
+class Batch:
+    """Exchanges that all read one state: each reads its payload and its
+    combine target before any of them writes. `exchanges` holds (body,
+    requested segments, step) triples in the order their writes land;
+    `in_place` is the region proof (`_writes_safe`) that each may write
+    straight into the buffer as it runs."""
+
+    exchanges: tuple
+    in_place: bool
+
+
+def batches(prog: Program) -> tuple:
+    """The program in execution order, the walk every executor runs: a
+    Bruck `Copy` (`bruck_pre` only as the first op, `bruck_post`) or a
+    `Batch`. Each LOOP or STREAM iteration is one batch, a STREAM as its
+    unfused SEG_LOOP slots (what `fuse_streams` proves value-identical),
+    and a STACKED_RECV is one; a SEG_LOOP, a bare exchange and each body
+    of a STREAM_CHAIN (what `fuse_chains` proves) are a batch of one.
+
+    A LOOP or STREAM is proved over all its iterations together, so its
+    batches share one verdict; every other batch is proved alone. A
+    STACKED_RECV proved as one batch is each body proved alone: every
+    body reads the immutable original, and their target chunks are
+    pairwise distinct (`_stackable`, `_distinct_recv_chunks`).
+
+    Built once a program (`compile_schedule` builds it for every program
+    it compiles) and kept on it, outside its fields: a program's fields
+    mirror the JAX IR's, and a `dataclasses.replace` copy builds its own
+    at first use."""
+    walk = prog.__dict__.get("_batches")
+    if walk is not None:
+        return walk
     n, chunks, ops = prog.nranks, prog.chunks, prog.ops
 
-    def alone(body) -> bool:
-        return _writes_safe((body,), (body[0].step,), n, chunks)
+    def proved(exchanges) -> bool:
+        return _writes_safe([b for b, _k, _s in exchanges],
+                            [s for _b, _k, s in exchanges], n, chunks)
 
-    plan = []
-    for i, op in enumerate(ops):
+    def batch(exchanges) -> Batch:
+        return Batch(tuple(exchanges), proved(exchanges))
+
+    walk = []
+    i = 0
+    while i < len(ops):
+        op = ops[i]
+        i += 1
         if isinstance(op, (Loop, Stream)):
-            bodies = tuple(split_exchange(s)[0] for s in op.slots) \
-                if isinstance(op, Loop) else op.slots
-            plan.append(all(_writes_safe(
-                bodies, [op.base + it * op.period + j
-                         for j in range(len(bodies))], n, chunks)
-                for it in range(op.trip)))
-        elif isinstance(op, (StreamChain, StackedRecv)):
-            plan.append(tuple(alone(b) for b in op.bodies))
+            slots = [split_exchange(s) for s in op.slots] \
+                if isinstance(op, Loop) else [(b, op.segments)
+                                              for b in op.slots]
+            its = [tuple((body, k, op.base + it * op.period + j)
+                         for j, (body, k) in enumerate(slots))
+                   for it in range(op.trip)]
+            safe = all(proved(x) for x in its)
+            walk.extend(Batch(x, safe) for x in its)
+        elif isinstance(op, StreamChain):
+            walk.extend(batch([(body, op.segments, body[0].step)])
+                        for body in op.bodies)
+        elif isinstance(op, StackedRecv):
+            walk.append(batch([(body, 1, body[0].step)
+                               for body in op.bodies]))
         elif isinstance(op, SegLoop):
-            plan.append(alone(op.body))
+            walk.append(batch([(op.body, op.segments, op.body[0].step)]))
+        elif isinstance(op, Copy) and (op.kind == "bruck_post" or (
+                op.kind == "bruck_pre" and i == 1)):
+            walk.append(op)
         elif isinstance(op, Copy) and op.kind == "load":
             j = i
             while not isinstance(ops[j], RecvCombine):
                 j += 1
-            plan.append(alone(ops[i:j + 1]))
+            walk.append(batch([(ops[i - 1:j + 1], 1, op.step)]))
+            i = j + 1
         else:
-            plan.append(None)
-    plan = tuple(plan)
-    object.__setattr__(prog, "_in_place", plan)   # frozen: set once
-    return plan
+            raise ValueError(f"unexpected micro-op {op}")
+    walk = tuple(walk)
+    object.__setattr__(prog, "_batches", walk)     # frozen: set once
+    return walk
 
 
 # Schedules hash their Sel closures by identity, so freshly generated
@@ -1193,7 +1230,7 @@ def compile_schedule(schedule: Schedule, segments: Optional[int] = None,
             raise
         if tr.enabled:
             sp.add(ops=len(ops), verify=mode, passes=passes)
-        in_place_plan(prog)
+        batches(prog)
         if len(_COMPILE_CACHE) >= _COMPILE_CACHE_MAX:
             evicted = next(iter(_COMPILE_CACHE))  # FIFO eviction
             _COMPILE_CACHE.pop(evicted)

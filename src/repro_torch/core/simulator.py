@@ -22,9 +22,8 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.program import (
-    Copy, Compress, Decompress, Loop, Program, RecvCombine, SegLoop, Send,
-    StackedRecv, Stream, StreamChain, compile_schedule, fit_segments,
-    split_exchange,
+    Copy, Compress, Decompress, Program, Send, batches, compile_schedule,
+    fit_segments,
 )
 from repro_torch.core.schedule import (
     SEL_ALL, SEL_CHUNK, SEL_MASK, SEL_RANGE, Schedule, Sel,
@@ -135,10 +134,10 @@ class _State:
 
 
 def _exchange_writes(body: tuple, k_req: int, state: _State, chunks: int,
-                     step: int, read_bufs, transport=None) -> list:
+                     step: int, transport=None) -> list:
     """One exchange across all ranks, two-phase: every rank's payload and
-    combine target are read from `read_bufs` (the pre-step state), then the
-    region writes are returned for the caller to apply.
+    combine target are read from the current state, then the region
+    writes are returned for the caller to apply.
 
     Mirrors the engine's `_exchange_update` + deferred `_apply_write`,
     including SEG_LOOP's per-segment combine granularity, so numerics
@@ -161,8 +160,7 @@ def _exchange_writes(body: tuple, k_req: int, state: _State, chunks: int,
 
     n = len(state.bufs)
     srcs = state.source(load.source)
-    payloads = {r: _select(srcs[r] if load.source != "buffer"
-                           else read_bufs[r], chunks, load.sel, r, step)
+    payloads = {r: _select(srcs[r], chunks, load.sel, r, step)
                 for r in range(n)}
     wire = {dst: payloads[src] for (src, dst) in send_op.perm}
 
@@ -183,7 +181,7 @@ def _exchange_writes(body: tuple, k_req: int, state: _State, chunks: int,
         incoming = wire.get(dst)
         if incoming is None:
             continue  # masked non-destination keeps its state
-        view, off, mask_idxs = _recv_region(read_bufs[dst], chunks,
+        view, off, mask_idxs = _recv_region(state.bufs[dst], chunks,
                                             recv.sel, dst, step)
         comb = _COMBINE[recv.op]
         k = 1
@@ -213,6 +211,12 @@ def _apply(state: _State, chunks: int, writes: list) -> None:
 def execute_program(prog: Program, inputs: list, transport=None) -> list:
     """Run a compiled Program over per-rank buffers; returns final buffers.
 
+    The program runs batch by batch of the engine's walk
+    (`program.batches`: a STREAM or STREAM_CHAIN as its unfused per-step
+    exchanges, segment granularity included, which the fusion passes
+    prove value-identical): every exchange of a batch reads the
+    batch-start buffers, and the writes land at its end.
+
     `transport` (optional `faults.FaultyTransport`) injects the fault
     plan at every wire crossing; see `_exchange_writes`.
     """
@@ -223,82 +227,18 @@ def execute_program(prog: Program, inputs: list, transport=None) -> list:
             raise ValueError(
                 f"leading dim {b.shape[0]} not divisible by {prog.chunks}")
 
-    bufs = [np.array(b, copy=True) for b in inputs]
-    ops = prog.ops
-    i = 0
-    if ops and isinstance(ops[0], Copy) and ops[0].kind == "bruck_pre":
-        bufs = _bruck_pre(bufs, prog.chunks)
-        i = 1
-    state = _State(bufs)
-
-    while i < len(ops):
-        op = ops[i]
-        if isinstance(op, Stream):
-            # The stream's wave order is value-identical to the per-step
-            # order by construction (that is exactly what fuse_streams
-            # proves before emitting one) — the bus-functional model
-            # executes the unfused equivalent, segment granularity
-            # included, so streamed programs validate through the same
-            # two-phase path.
-            op = Loop(base=op.base, trip=op.trip, period=op.period,
-                      slots=tuple((SegLoop(op.segments, b),)
-                                  for b in op.slots))
-        if isinstance(op, StreamChain):
-            # the chain's wave order is value-identical to the per-step
-            # order — that is exactly what fuse_chains' region-overlap
-            # proof establishes — so the bus-functional model executes
-            # the unfused per-step equivalent, segment granularity
-            # included.
-            for body in op.bodies:
-                writes = _exchange_writes(body, op.segments, state,
-                                          prog.chunks, body[0].step,
-                                          state.bufs, transport)
-                _apply(state, prog.chunks, writes)
-            i += 1
-            continue
-        if isinstance(op, StackedRecv):
-            # stacked receives are write-disjoint: applying them in step
-            # order reproduces the engine's one-scatter result exactly
-            for body in op.bodies:
-                writes = _exchange_writes(body, 1, state, prog.chunks,
-                                          body[0].step, state.bufs,
-                                          transport)
-                _apply(state, prog.chunks, writes)
-            i += 1
-        elif isinstance(op, Loop):
-            for it in range(op.trip):
-                # two-phase like the engine's LOOP: all slots read the
-                # iteration-start buffers, writes land at iteration end
-                snap = [b.copy() for b in state.bufs]
-                writes = []
-                for slot, seq in enumerate(op.slots):
-                    step = op.base + it * op.period + slot
-                    body, k_req = split_exchange(seq)
-                    writes.extend(_exchange_writes(body, k_req, state,
-                                                   prog.chunks, step, snap,
-                                                   transport))
-                _apply(state, prog.chunks, writes)
-            i += 1
-        elif isinstance(op, Copy) and op.kind == "bruck_post":
+    state = _State([np.array(b, copy=True) for b in inputs])
+    for item in batches(prog):
+        if isinstance(item, Copy) and item.kind == "bruck_pre":
+            # the relay registers hold the rotated input
+            state = _State(_bruck_pre(state.bufs, prog.chunks))
+        elif isinstance(item, Copy):
             state.bufs = _bruck_post(state.bufs, prog.chunks)
-            i += 1
-        elif isinstance(op, SegLoop) or (
-                isinstance(op, Copy) and op.kind == "load"):
-            if isinstance(op, SegLoop):
-                body, k_req = op.body, op.segments
-                i += 1
-            else:
-                j = i
-                while not isinstance(ops[j], RecvCombine):
-                    j += 1
-                body, k_req = ops[i:j + 1], 1
-                i = j + 1
-            step = body[0].step
-            writes = _exchange_writes(body, k_req, state, prog.chunks,
-                                      step, state.bufs, transport)
-            _apply(state, prog.chunks, writes)
         else:
-            raise ValueError(f"unexpected micro-op {op}")
+            _apply(state, prog.chunks, [
+                w for body, k_req, step in item.exchanges
+                for w in _exchange_writes(body, k_req, state, prog.chunks,
+                                          step, transport)])
     return state.bufs
 
 

@@ -27,8 +27,8 @@
 //    pass, two reads and one write an element, with no temporary and no
 //    scatter after it. Within the launch a thread alone reads and writes
 //    its element of a; that no rank's write lands where another rank's
-//    payload is read is the executor's compile-time proof
-//    (core/program.py::in_place_plan). Grid: x cuts a row's vectors, y is
+//    payload is read is the executor's compile-time proof (each batch
+//    verdict of core/program.py::batches). Grid: x cuts a row's vectors, y is
 //    the rank, z the segment; at k = 1 it is the one-segment launch it
 //    replaces, element for element.
 //

@@ -191,20 +191,20 @@ class _EngineTap:
                 self._program(sched, rows, axis)
                 return real_execute(sched, rows, lay, compression)
             sent = {"ici": 0.0, "dcn": 0.0}
-            real_exchange = engine_mod._exchange
+            real_exchange = engine_mod._run_exchange
 
-            def exchange(st, body, k_req, step, *in_place):
-                res = real_exchange(st, body, k_req, step, *in_place)
+            def exchange(st, body, k_req, step, in_place):
+                res = real_exchange(st, body, k_req, step, in_place)
                 fabric, nbytes = _coded_wire(eng.comm(axis), body, res[0],
                                              st.buf)
                 sent[fabric] += nbytes
                 return res
 
-            engine_mod._exchange = exchange
+            engine_mod._run_exchange = exchange
             try:
                 out = real_execute(sched, rows, lay, compression)
             finally:
-                engine_mod._exchange = real_exchange
+                engine_mod._run_exchange = real_exchange
             self._program(sched, rows, axis, compression, sent)
             return out
 

@@ -71,8 +71,8 @@ def test_k2_k3_bitwise(card, dtype, n):
 def _ring_index(L, width, k, step, device, rows=8, spans=1):
     """Target and payload indices of ring step `step` over a (rows, L,
     width) buffer in `rows` chunks: rank d combines chunk (d - 1 - step)
-    of rank d - 1 into its own — as `engine._exchange` builds them. With
-    spans=2 each rank's region is two chunks, 3 apart."""
+    of rank d - 1 into its own — as `engine._run_exchange` builds them.
+    With spans=2 each rank's region is two chunks, 3 apart."""
     c = L // rows
     tgt = tuple(tuple((((d - 1 - step + 3 * s) % rows) * c, c)
                       for s in range(spans)) for d in range(rows))

@@ -1,5 +1,6 @@
 """The data plane's in-place write on the CPU: the compile-time proof
-(`core/program.py::in_place_plan`) and the executor that follows it.
+(each `Batch` verdict of `core/program.py::batches`) and the executor
+that follows it.
 
 Where the proof holds, `execute_program` writes each exchange straight
 into the stacked buffer through its target index (K1's in-place entry,
@@ -24,8 +25,8 @@ from repro_torch.core import CollectiveEngine, telemetry
 from repro_torch.core import algorithms as A
 from repro_torch.core import engine as tengine
 from repro_torch.core.program import (
-    SRC_BUFFER, Copy, Loop, RecvCombine, SegLoop, Send, StackedRecv, Stream,
-    StreamChain, compile_schedule, in_place_plan, split_exchange,
+    SRC_BUFFER, Batch, Copy, Loop, RecvCombine, SegLoop, Send, StackedRecv,
+    Stream, StreamChain, batches, compile_schedule, split_exchange,
 )
 from repro_torch.core.selector import _POW2_ONLY
 from repro_torch.core.topology import Communicator
@@ -107,27 +108,36 @@ def _brute_plan(prog) -> tuple:
     return tuple(out)
 
 
+def _expanded(plan, prog) -> list:
+    """The per-op brute plan in the walk's batch order: a LOOP's or
+    STREAM's verdict once an iteration, a STREAM_CHAIN's once a body, and
+    a STACKED_RECV's bodies, each proved alone, as one batch."""
+    out = []
+    for op, v in zip(prog.ops, plan):
+        if isinstance(op, (Loop, Stream)):
+            out.extend([v] * op.trip)
+        elif isinstance(op, StackedRecv):
+            out.append(all(v))
+        elif isinstance(v, tuple):
+            out.extend(v)
+        elif v is not None:
+            out.append(v)
+    return out
+
+
+def _verdicts(prog) -> list:
+    return [b.in_place for b in batches(prog) if isinstance(b, Batch)]
+
+
 @pytest.mark.parametrize("segments", [1, 4])
 @pytest.mark.parametrize("coll,algo,n", CASES,
                          ids=[f"{c}-{a}-n{n}" for c, a, n in CASES])
 def test_verdict_matches_brute_force(coll, algo, n, segments):
     """The compile-time verdict of every registered generator equals a
-    brute-force check over each rank's concrete rows, entry for entry."""
+    brute-force check over each rank's concrete rows, batch for batch."""
     prog = compile_schedule(_schedule(coll, algo, n), segments=segments)
-    plan = in_place_plan(prog)
-    assert len(plan) == len(prog.ops)
-    assert plan == _brute_plan(prog)
-    assert in_place_plan(prog) is plan          # proved once a program
-
-
-def _verdicts(plan) -> list:
-    flat = []
-    for v in plan:
-        if isinstance(v, tuple):
-            flat.extend(v)
-        elif v is not None:
-            flat.append(v)
-    return flat
+    assert _verdicts(prog) == _expanded(_brute_plan(prog), prog)
+    assert batches(prog) is batches(prog)       # walked once a program
 
 
 @pytest.mark.parametrize("coll,algo,segments,shape", [
@@ -140,7 +150,7 @@ def test_benchmark_programs_prove_safe(coll, algo, segments, shape):
     alltoall, its regather allgather) write every exchange in place."""
     prog = compile_schedule(_schedule(coll, algo, 8), segments=segments)
     assert tuple(type(op) for op in prog.ops) == shape
-    verdicts = _verdicts(in_place_plan(prog))
+    verdicts = _verdicts(prog)
     assert verdicts and all(verdicts)
 
 
@@ -151,7 +161,7 @@ def test_recursive_doubling_stays_deferred(segments):
     exchange keeps the deferred write."""
     prog = compile_schedule(_schedule("allreduce", "recursive_doubling", 8),
                             segments=segments)
-    verdicts = _verdicts(in_place_plan(prog))
+    verdicts = _verdicts(prog)
     assert len(verdicts) == 3 and not any(verdicts)
 
 
@@ -166,7 +176,9 @@ def _run(prog, buf, groups, deferred: bool, monkeypatch):
     """(result, counters) of one run; all writes deferred if asked."""
     with monkeypatch.context() as m:
         if deferred:
-            m.setattr(tengine, "_writes_in_place", lambda codec, recv: False)
+            path = tengine.exchange_path
+            m.setattr(tengine, "exchange_path",
+                      lambda codec, recv, _proved: path(codec, recv, False))
         rec = telemetry.WallTracer()
         with telemetry.use(rec):
             out = tengine.execute_program(prog, buf, groups=groups)
@@ -203,29 +215,15 @@ def test_in_place_equals_deferred_bitwise(monkeypatch, coll, algo, codec,
 
 
 def _expected_in_place(prog) -> int:
-    """Exchanges a run of `prog` writes in place: those the plan proves
+    """Exchanges a run of `prog` writes in place: those its batch proves
     that have a kernel to write them (no codec, no relay register)."""
-    def has_kernel(body) -> bool:
+    def path(body, in_place) -> str:
         codec = tengine._codec_of(tengine._split_wire(body[1:-1])[0])
-        return tengine._writes_in_place(codec, body[-1])
+        return tengine.exchange_path(codec, body[-1], in_place)
 
-    plan, ops_, count = in_place_plan(prog), prog.ops, 0
-    for i, op in enumerate(ops_):
-        if isinstance(op, (Loop, Stream)) and plan[i]:
-            bodies = [split_exchange(s)[0] for s in op.slots] \
-                if isinstance(op, Loop) else op.slots
-            count += op.trip * sum(map(has_kernel, bodies))
-        elif isinstance(op, (StreamChain, StackedRecv)):
-            count += sum(has_kernel(b) and v
-                         for b, v in zip(op.bodies, plan[i]))
-        elif isinstance(op, SegLoop) and plan[i]:
-            count += has_kernel(op.body)
-        elif isinstance(op, Copy) and op.kind == "load" and plan[i]:
-            j = i
-            while not isinstance(ops_[j], RecvCombine):
-                j += 1
-            count += has_kernel(ops_[i:j + 1])
-    return count
+    return sum(path(body, b.in_place) == "in_place"
+               for b in batches(prog) if isinstance(b, Batch)
+               for body, _k, _step in b.exchanges)
 
 
 @pytest.mark.parametrize("L,width", [(8 * 2 * 32, 1), (8 * 2 * 32 * 3, 5),

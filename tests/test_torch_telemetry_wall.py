@@ -104,7 +104,8 @@ def test_engine_spans_nest_and_share_a_call_id(collective):
                 "exchange"} <= names
         for e in group:
             if e["name"] == "exchange":
-                assert e["args"]["path"] in ("indexed", "codec", "gather")
+                assert e["args"]["path"] in ("in_place", "indexed", "codec",
+                                             "gather")
                 assert e["args"]["segments"] >= 1
 
 
@@ -169,21 +170,26 @@ def test_kernel_entries_count_the_calls_made(monkeypatch):
 
 
 def test_k1_entry_counts_each_exchange_and_its_segments():
-    """A traced 4-segment ring allreduce: each of its 7 combining
-    exchanges is one K1 entry over all 4 segments, so `kernel.entries`
-    rises by 1 an exchange and `k1.segments` by 4; each of its 7 copy
-    exchanges is one entry of the indexed copy."""
+    """A traced 4-segment ring allreduce, every exchange written in place:
+    each of its 7 combining exchanges is one K1 entry over all 4
+    segments, so `kernel.entries` rises by 1 an exchange and
+    `k1.segments` by 4; each of its 7 copy exchanges is one entry of the
+    indexed copy."""
     eng = CollectiveEngine({"x": 8}, device="cpu")
     x = _input(8 * 4 * 64)
     with profiled() as spans:
         eng.allreduce(x, "x", algorithm="ring", segments=4)
     root, = _roots(spans)
-    combining = [e for e in spans if e["name"] == "exchange"
-                 and e["args"]["path"] == "indexed"]
+    exchanges = [e for e in spans if e["name"] == "exchange"]
+    assert len(exchanges) == 14
+    combining = [e for e in exchanges
+                 if e["counters"].get(telemetry.K1_SEGMENTS)]
     assert len(combining) == 7
-    for e in combining:
+    for e in exchanges:
+        assert e["args"]["path"] == "in_place"
         assert e["args"]["segments"] == 4
         assert e["counters"][telemetry.ENTRIES] == 1
+    for e in combining:
         assert e["counters"][telemetry.K1_SEGMENTS] == 4
     assert root["counters"][telemetry.ENTRIES] == 7 + 7
     assert root["counters"][telemetry.K1_SEGMENTS] == 7 * 4
