@@ -36,15 +36,19 @@ Phases, one line each:
      call on the CPU (plain versions) at 4 MiB per rank; one K2 and one
      K3 launch per compressed exchange;
   5. times: the median of >= 10 runs after warm-up (CUDA events) per
-     collective; where one fp32 and one int8 allreduce spend device time
-     (torch.profiler, by kernel group, and the device's idle share);
-     per-launch times of K1-K3 (K1 also one launch per bidi_ring exchange
+     collective (where their device time goes is perfbench's traced
+     split); per-launch times of K1-K3 (K1 also one launch per bidi_ring exchange
      of 32 segments, read through its index out of the 8 x 64 MiB stack:
      `exchange_ms` beside `exchange_bound_ms`; K2 and K3 also one
      launch per compressed exchange of the int8 allreduce: `exchange_ms`
      beside `exchange_bound_ms`, and a line with k per-segment launches
      against one exchange launch, after K2 and K3 are held BITWISE
-     against their plain versions on every one of those exchanges);
+     against their plain versions on every one of those exchanges); the
+     SSD prefill scan (`ops.ssd_chunked`) at Granite-4.0-H-Small's
+     per-card prefill (8 x 16384 positions, 16 heads, P 64, n 128,
+     chunk 256, bf16): y and the final state within twice the plain
+     version's error against the float64 recurrence (`ssd_within`), its
+     device time beside the plain version's and its bound;
   6. dlrm: the full `CONFIG` (100 tables x 4,000,000 rows x 32 fp32,
      51.2 GB, drawn on the card from --seed) served by `DLRMServer` on
      the (pod, data, model) = (1, 1, 8) mesh with collective_matmul:
@@ -130,7 +134,11 @@ Phases, one line each:
      per layer. Then the phase 8 timings per model at (4, 16, 8) and at
      a second shape whose 1024 generated tokens are held to the
      reference by the same rules: (32, 512, 32) for 9a and 9b, (32, 16,
-     32) for 9c and 9d.
+     32) for 9c and 9d. Every SSD scan of 9b and 9c, in the serve phase
+     and in that second shape's generate (9b's 512-token prefill: two
+     chunks), within twice the plain version's error against the float64
+     recurrence (`ssd_within`); the single-copy reference runs the plain
+     scan (`fam_reference_logits`).
  10. train: qwen3-0.6b trained at full width and depth (28 layers, bf16
      params, fp32 AdamW state: 9.6 GB stacked) on `launch/train.py`'s
      (1, 4, 2) mesh (FSDP over data, TP 2), params drawn on the card from
@@ -280,7 +288,8 @@ Phases, one line each:
      later steps within P14_TRAJ_RTOL), K4 a step the stacked run's.
      Launches and checks as phase 13's.
 
-Then one JSON line of the five kernels with their launches on every
+Then one JSON line of the five kernels and the SSD scan with their
+launches on every
 path (in total and by path: collectives, dlrm, vecmat, queue, lm,
 lm_families, train, dryrun, procs, procs_lm, procs_families — the
 children's launches, summed),
@@ -288,7 +297,8 @@ time, plain time, bound and library time (K4 also with the tile
 configuration that ran and its achieved rate; K5 also its `lookup` entry
 at B = 32 and 2048, beside the device time of the sequence of PyTorch
 ops and `gather_rows` it replaced, `sequence_ms`). The last line is
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero;
+{"ok": true, "device": {...}}. (The SSD scan's launches are those of
+phase 9's served path: it is not one of `ops.KERNELS`.) Any failure raises and exits non-zero;
 without a CUDA device the script exits non-zero at once.
 
     python3 chip_smoke.py [--seed 0] [--mib 64] [--reps 10]
@@ -324,6 +334,8 @@ REPLACES = {
     "gather_rows": "src/repro/kernels/embedding_gather.py:34",
     # no TPU kernel: the JAX engine's region write after a copy exchange
     "region_copy": "src/repro/core/engine.py:99",
+    # no TPU kernel: the reference's SSD scan is jnp, left to XLA
+    "ssd_chunked": "src/repro/models/ssm.py:76",
 }
 SOURCES = {
     "fused_combine": "src/repro_torch/kernels/csrc/fused_combine.cu",
@@ -332,7 +344,11 @@ SOURCES = {
     "matmul_tiled": "src/repro_torch/kernels/csrc/matmul.cu",
     "gather_rows": "src/repro_torch/kernels/csrc/embedding_gather.cu",
     "region_copy": "src/repro_torch/kernels/csrc/fused_combine.cu",
+    "ssd_chunked": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
+#: (N, S, H, P, n, chunk): Granite-4.0-H-Small's per-card SSD prefill
+#: (8 stacked ranks x one 16k prompt, 16 of 128 heads a rank)
+SSD_SHAPE = (8, 16384, 16, 64, 128, 256)
 DLRM_MESH = {"pod": 1, "data": 1, "model": 8}
 DLRM_BATCHES, DLRM_SMALL, DLRM_LARGE = 20, 32, 2048
 DLRM_HEADROOM = 10 * 2**30    # bytes the serving path needs beside the tables
@@ -841,16 +857,6 @@ def busy_and_idle(split: dict, median_ms: float) -> dict:
             "idle_share": (1.0 - busy / median_ms) if seen else None, **split}
 
 
-def phase_profile(runs, times) -> dict:
-    """Phase 5a: where one allreduce's time goes — device busy time by
-    kernel group (torch.profiler), against the collective's median."""
-    out = {name: busy_and_idle(device_split(runs[name], _KERNEL_GROUPS),
-                               times[name])
-           for name in ("allreduce", "allreduce_int8")}
-    emit({"phase": "profile", **out})
-    return out
-
-
 def kernel_rows(ref, fr, qz, ops, X, gen, err) -> list:
     """Phase 5b: per-kernel device time at the main path's segment shape,
     cycling through 128 MiB of operands so each launch reads cold HBM;
@@ -973,6 +979,56 @@ def kernel_rows(ref, fr, qz, ops, X, gen, err) -> list:
     row("dequantize_blocks", k3, k3_plain, None, el + 4 * nb + 2 * 4 * el)
     exchange_rows(rows, ref, qz, ops, X, gen, err)
     return rows
+
+
+def ssd_row(ops, ref, ssd, gen) -> dict:
+    """Phase 5b's SSD scan row at SSD_SHAPE, x, B and C in bf16 as the
+    Granite cell runs them (dt log-uniform over [1e-3, 0.1], a over
+    [-16, -1]: Mamba2's init ranges): the entry point's y and final
+    state within twice the plain version's error against the float64
+    recurrence (`ssd_within`), then its device time (`ms`) beside the
+    plain version's and the bound: the larger of the bytes the scan
+    needs over HBM and its causal products over fp32's peak
+    (`ssd.needs`)."""
+    N, S, H, P, n, chunk = SSD_SHAPE
+    dev = "cuda"
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    dt = torch.exp(math.log(1e-3) + rand(N, S, H) * math.log(100.0))
+    args = (randn(N, S, H, P), dt, -(1 + 15 * rand(N, H)), randn(N, S, n),
+            randn(N, S, n))
+    launches = ssd.ssd_chunked.launches
+    res = ops.ssd_chunked(*args, chunk)
+    if ssd.ssd_chunked.launches != launches + ssd.LAUNCHES:
+        fail("SSD scan at Granite's shape: the kernel did not launch")
+    ratio = ssd_within("SSD scan at Granite's shape", res,
+                       ref.ssd_chunked(*args, chunk),
+                       ref.ssd_recurrence(*args))
+    del res
+    torch.cuda.empty_cache()
+    nbytes, flops = ssd.needs(N, S, H, P, n, chunk, 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return {
+        "name": "ssd_chunked", "route": "cuda",
+        "source": SOURCES["ssd_chunked"],
+        "replaces": REPLACES["ssd_chunked"], "err_over_plain": ratio,
+        "ms": device_time_ms(lambda: ops.ssd_chunked(*args, chunk), 20),
+        "plain_ms": device_time_ms(lambda: ref.ssd_chunked(*args, chunk),
+                                   3),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        "library_ms": None,
+        "library_why": "no PyTorch call computes a chunked state-space "
+                       "scan; the plain version is the einsum scan it "
+                       "replaced",
+        "shape": dict(zip(("N", "S", "H", "P", "n", "chunk"), SSD_SHAPE)),
+        "dtype": "bfloat16"}
 
 
 def check_exchanges(ref, qz, X, ex, seg, gen, err) -> int:
@@ -1730,19 +1786,78 @@ def lm_token_check(name, tokens, logits, cfg) -> dict:
             "median_gap_over_margin": float((gap / margin).median())}
 
 
+SSD_ERR_FACTOR = 2   # the SSD kernel's error: at most twice the plain one's
+
+
+def ssd_within(name, res, plain, want) -> float:
+    """Fails unless the kernel's largest error on y and on the final state
+    (a share of the largest entry of the float64 recurrence `want`,
+    `ref.ssd_recurrence`) is at most SSD_ERR_FACTOR times the plain
+    version's; returns the larger ratio of the two errors."""
+    worst = 0.0
+    for part, got, p, w in zip(("y", "state"), res, plain, want):
+        top = w.abs().max()
+        err = float((got.double() - w).abs().max() / top)
+        plain_err = float((p.double() - w).abs().max() / top)
+        if err > SSD_ERR_FACTOR * plain_err:
+            fail(f"{name}: {part} error {err} over {SSD_ERR_FACTOR} x the "
+                 f"plain version's {plain_err}")
+        worst = max(worst, err / plain_err if plain_err else 0.0)
+    return worst
+
+
+@contextlib.contextmanager
+def ssd_checked(ops, ref, log):
+    """While the block runs, hold every SSD scan (`ops.ssd_chunked`)
+    within twice the plain version's error against the float64
+    recurrence (`ssd_within`), right after the call; `log["ssd"]` gets
+    each scan's [N, S, H, P, n], its chunks and its larger error
+    ratio."""
+    real = ops.ssd_chunked
+    log.setdefault("ssd", [])
+
+    def ssd(xh, dt, a_neg, b_in, c_in, chunk):
+        res = real(xh, dt, a_neg, b_in, c_in, chunk)
+        args = (xh, dt, a_neg, b_in, c_in)
+        ratio = ssd_within(
+            f"SSD scan {len(log['ssd'])} at {tuple(xh.shape)}", res,
+            ref.ssd_chunked(*args, chunk), ref.ssd_recurrence(*args))
+        S = xh.shape[1]
+        log["ssd"].append({"shape": [*xh.shape, b_in.shape[-1]],
+                           "chunks": S // min(chunk, S),
+                           "err_over_plain": ratio})
+        return res
+
+    ops.ssd_chunked = ssd
+    try:
+        yield
+    finally:
+        ops.ssd_chunked = real
+
+
+def ssd_summary(log) -> dict:
+    """The line's account of the scans `ssd_checked` held."""
+    return {"ssd_checked": len(log["ssd"]),
+            "ssd_chunks": sorted({e["chunks"] for e in log["ssd"]}),
+            "ssd_max_err_over_plain": max(
+                (e["err_over_plain"] for e in log["ssd"]), default=None)}
+
+
 @contextlib.contextmanager
 def lm_checked(ops, ref, log):
     """While the block runs, hold every K1 call (`fused_combine_at`) and
     every indexed copy (`region_copy`) BITWISE against its plain version
-    on the operands it was given, and every K4 call (`matmul`) within
+    on the operands it was given, every K4 call (`matmul`) within
     2 K 2^-24 (|x| @ |w|) of the fp32 plain product plus one rounding to
-    its output type (bf16: 2^-8 |y|), right after the call, before any
-    later write (plain versions launch no kernel, so the counts are the
-    path's; an in-place write's plain version runs first, on a clone).
-    Log what a later replay on normal values needs (the indices and
-    operand shapes); `log["copy"]` counts the copies held."""
-    real = {n: getattr(ops, n)
-            for n in ("fused_combine_at", "matmul", "region_copy")}
+    its output type (bf16: 2^-8 |y|), and every SSD scan as
+    `ssd_checked` holds it, right after the call, before any later write
+    (plain versions launch no kernel, so the counts are the path's; an
+    in-place write's plain version runs first, on a clone). Log what a
+    later replay on normal values needs (the indices and operand
+    shapes); `log["copy"]` counts the copies held, `log["ssd"]` the
+    scans."""
+    real = {n: getattr(ops, n) for n in ("fused_combine_at", "matmul",
+                                         "region_copy")}
     log.setdefault("copy", [])
 
     def k1(*args, **kwargs):
@@ -1783,7 +1898,8 @@ def lm_checked(ops, ref, log):
 
     ops.fused_combine_at, ops.matmul, ops.region_copy = k1, k4, copy
     try:
-        yield
+        with ssd_checked(ops, ref, log):
+            yield
     finally:
         for n, fn in real.items():
             setattr(ops, n, fn)
@@ -2159,11 +2275,28 @@ def fam_single_copy(params, cfg, mesh, tp, convert, stages, dtype,
             for k, v in params.items()}
 
 
+@contextlib.contextmanager
+def plain_ssd():
+    """While the block runs, `ops.ssd_chunked` is the plain version
+    (`ref.ssd_chunked`), so a reference forward shares no SSD kernel with
+    the run it checks; fails if the block launches that kernel anyway."""
+    from repro_torch.kernels import ops, ref, ssd_scan
+    real, launches = ops.ssd_chunked, ssd_scan.ssd_chunked.launches
+    ops.ssd_chunked = ref.ssd_chunked
+    try:
+        yield
+    finally:
+        ops.ssd_chunked = real
+    if ssd_scan.ssd_chunked.launches != launches:
+        fail("the single-copy reference launched the SSD kernel")
+
+
 def fam_reference_logits(G, cfg, pcfg, stages, lm_mod, toks, frames=None,
                          start: int = 0, routes=None, routing=None,
                          vis=None):
     """The single-copy forward through the port's own modules on the
-    (1, 1, 1) mesh (no collective, no kernel): logits (B, T - start,
+    (1, 1, 1) mesh (no collective, no kernel: the SSD scan is the plain
+    version, `plain_ssd`): logits (B, T - start,
     vocab) at positions start.. of `toks` (B, T), a VLM's prefix `vis`
     (B, n_vis, d) in place of its first positions. Rows go through in
     chunks of about FAM_REF_TOKENS positions (encoder frames included);
@@ -2195,7 +2328,7 @@ def fam_reference_logits(G, cfg, pcfg, stages, lm_mod, toks, frames=None,
         forced = contextlib.nullcontext() if routes is None else moe_forced(
             mlp_mod, [tuple(t[r] for t in lr) for lr in routes], cfg,
             routing)
-        with torch.inference_mode(), forced:
+        with torch.inference_mode(), forced, plain_ssd():
             x, _ = lm_mod.forward(G, batch, cfg, ctx)
         out.append(x[0, 0, 0, :, start:] @ w.T)
         del x
@@ -2517,6 +2650,8 @@ def phase_fam_serve(run, cfg, params, mesh, tp, pcfg, ref_dtype, mods, ops,
     del server.decode_ctx.engine._execute
     if counts[f"lm_families_{run}"]["fused_combine"] < 1:
         fail(f"lm {run}: no K1 launch")
+    if cfg.family in ("ssm", "hybrid") and not log["ssd"]:
+        fail(f"lm {run}: no SSD scan held to its plain version")
     line = {"phase": "lm_families_serve", "run": run,
             "shape": {"batch": B, "prompt": P, "gen": Gn},
             "path": "ServeSession" if frames is None else
@@ -2616,6 +2751,7 @@ def phase_fam_serve(run, cfg, params, mesh, tp, pcfg, ref_dtype, mods, ops,
         "launches": counts[f"lm_families_{run}"],
         "k1_checked_bitwise": len(log["k1"]), "k1_replayed_normal": replayed,
         "copy_checked_bitwise": len(log["copy"]),
+        **ssd_summary(log),
         "margin": f"{LM_Z} sqrt(2) eps rms(logits), eps = 2^-8 sqrt(n_r) = "
                   f"{lm_eps(cfg):.4f}",
         "reference": f"the port's modules on the (1, 1, 1) mesh, "
@@ -2627,7 +2763,7 @@ def phase_fam_serve(run, cfg, params, mesh, tp, pcfg, ref_dtype, mods, ops,
 
 
 def phase_fam_times(phase, run, cfg, params, mesh, tp, pcfg, shapes, mods,
-                    ops, reps: int, smi: str, check=None) -> None:
+                    ops, ref, reps: int, smi: str, check=None) -> None:
     """Phases 8c and 9 (per model): prefill ms, the median decode step
     (CUDA events, >= 10 steps), tokens/s = B / step and generate seconds
     at each (batch, prompt, gen) of `shapes`, through `FamServer`, with
@@ -2636,7 +2772,9 @@ def phase_fam_times(phase, run, cfg, params, mesh, tp, pcfg, shapes, mods,
     out, frames, rec) -> the row's entries, the tokens generated at
     every shape after the first are held to the reference (the first's
     were in the serve phase); a MoE model's routings are logged
-    (`moe_recording`) during that generate, which its seconds include."""
+    (`moe_recording`) and an SSM or hybrid model's SSD scans held to
+    their plain version (`ssd_checked`) during that generate, which its
+    seconds include."""
     from repro_torch.models import mlp as mlp_mod
     rows = []
     for i, (B, P, Gn) in enumerate(shapes):
@@ -2662,11 +2800,17 @@ def phase_fam_times(phase, run, cfg, params, mesh, tp, pcfg, shapes, mods,
         k1_per_step = ops.launch_counts()["fused_combine"] - k0
         checked = check is not None and i > 0
         rec: list = []
+        log: dict = {}
+        ssd = checked and cfg.family in ("ssm", "hybrid")
         t0 = time.perf_counter()
         with (moe_recording(mlp_mod, rec) if checked
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), \
+                (ssd_checked(ops, ref, log) if ssd
+                 else contextlib.nullcontext()):
             out = server.generate(params, prompt, Gn)
         gen_s = time.perf_counter() - t0
+        if ssd and not log["ssd"]:
+            fail(f"lm {run} at B={B}: no SSD scan held to its plain version")
         if out.shape != (B, Gn) or not bool(((out >= 0)
                                              & (out < cfg.vocab_size)).all()):
             fail(f"lm {run} at B={B}: generated tokens {tuple(out.shape)} "
@@ -2685,6 +2829,8 @@ def phase_fam_times(phase, run, cfg, params, mesh, tp, pcfg, shapes, mods,
         torch.cuda.empty_cache()
         if checked:
             rows[-1].update(check(prompt, out, frames, rec))
+        if ssd:
+            rows[-1].update(ssd_summary(log))
     emit({"phase": phase, "run": run, "arch": cfg.name, "rows": rows,
           "card": smi})
 
@@ -2714,7 +2860,8 @@ def phase_lm_families(get_config, mods, ops, ref, counts, gen, seed: int,
             torch.cuda.empty_cache()
             return line
         phase_fam_times("lm_families_times", run, cfg, params, mesh, tp,
-                        pcfg, (LM_SMALL, wide), mods, ops, reps, smi, check)
+                        pcfg, (LM_SMALL, wide), mods, ops, ref, reps, smi,
+                        check)
         del params, check
         torch.cuda.empty_cache()
         emit({"phase": "lm_families_done", "run": run,
@@ -6248,6 +6395,7 @@ def main() -> int:
     from repro_torch.kernels import fused_reduce as fr
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch import distributed_vecmat as vm
     from repro_torch.launch import procs
     from repro_torch.launch import serve as serve_launch
@@ -6289,10 +6437,11 @@ def main() -> int:
     times = {name: median_ms(fn, args.reps) for name, fn in runs.items()}
     emit({"phase": "times", "median_ms": times, "reps": args.reps,
           "mib_per_rank": args.mib, "card": smi})
-    phase_profile(runs, times)
     rows = kernel_rows(ref, fr, qz, ops, X, gen, err)
     torch.cuda.synchronize()
     del runs, X
+    torch.cuda.empty_cache()
+    ssd_kernel = ssd_row(ops, ref, ssd, gen)
     torch.cuda.empty_cache()
 
     # phase 6: DLRM inference
@@ -6315,14 +6464,19 @@ def main() -> int:
     params = phase_lm_build(lm_cfg, stages, args.seed)
     phase_lm_serve(lm_cfg, params, mods, ops, ref, counts, gen, args.seed)
     phase_fam_times("lm_times", "8", lm_cfg, params, LM_MESH, LM_TP,
-                    ParallelConfig(), (LM_SMALL, LM_LARGE), mods, ops,
+                    ParallelConfig(), (LM_SMALL, LM_LARGE), mods, ops, ref,
                     args.reps, smi)
     del params
     torch.cuda.empty_cache()
 
     # phase 9: LM serving for the MoE, SSM, hybrid and audio families
+    ssd0 = ssd.ssd_chunked.launches
     phase_lm_families(get_config, mods, ops, ref, counts, gen, args.seed,
                       args.reps, smi)
+    ssd_kernel["launches"] = ssd.ssd_chunked.launches - ssd0
+    ssd_kernel["launches_by_path"] = {"lm_families": ssd_kernel["launches"]}
+    if not ssd_kernel["launches"]:
+        fail("the main path launched no ssd_chunked")
 
     # phase 10: LM training, qwen3-0.6b at full width
     torch.cuda.empty_cache()
@@ -6372,6 +6526,7 @@ def main() -> int:
             row["lookup"]["launches"] = sum(
                 c["gather_rows"] for k, c in counts.items()
                 if k.startswith("dlrm"))
+    rows.append(ssd_kernel)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -394,6 +394,10 @@ ENTRIES = "kernel.entries"
 ENTRY_NS = "kernel.entry_ns"
 #: the segments K1's whole-exchange entry point combined (k a call)
 K1_SEGMENTS = "k1.segments"
+#: SSD prefill scans run by the kernel, and by the plain version (on the
+#: CPU and on 'meta'), one a call
+SSD_KERNEL = "ssd.kernel"
+SSD_PLAIN = "ssd.plain"
 
 
 def _delta(c0: Optional[dict], c1: Optional[dict]) -> dict:

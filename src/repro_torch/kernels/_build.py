@@ -124,6 +124,7 @@ ARGTYPES = {
     "k5_gather_rows": [_P, _P, _P, _LL, _LL, _LL, _LL, _I, _P],
     "k5_lookup_rows": [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                        _LL, _I, _P],
+    "ssd_chunked": [_P] * 12 + [_LL] * 16 + [_I, _P],
 }
 
 

@@ -2,14 +2,16 @@
 plain PyTorch version on the CPU.
 
 A CUDA tensor launches the hand-written kernel (fused_reduce.py,
-quantize.py, matmul.py, embedding_gather.py) or raises; a CPU tensor
-takes the plain version in ref.py. A storage-free 'meta' tensor (the dry
-run, `launch/dryrun.py`) gets the kernel's result as the kernel makes it:
-its output alone, by shape and dtype, with none of the plain version's
-temporaries; K4 alone runs its plain version there, so that its products
-are counted as aten products. The choice follows the tensor's device
-alone — there is no fallback and no flag. Mirrors `repro/kernels/ops.py`, whose `_interpret` picks the
-Pallas interpreter off a TPU.
+quantize.py, matmul.py, embedding_gather.py, ssd_scan.py) or raises; a
+CPU tensor takes the plain version in ref.py. A storage-free 'meta'
+tensor (the dry run, `launch/dryrun.py`) gets the kernel's result as the
+kernel makes it: its output alone, by shape and dtype, with none of the
+plain version's temporaries; K4 alone runs its plain version there, so
+that its products are counted as aten products, and so does the SSD
+scan (whose kernel has no backward: under autograd its backward
+differentiates the plain version, run again). The choice follows the
+tensor's device alone — there is no fallback and no flag. Mirrors `repro/kernels/ops.py`, whose `_interpret`
+picks the Pallas interpreter off a TPU.
 
 Each entry point below, while a wall-clock span is open
 (`telemetry.LIVE`), charges its call and its ns — argument and index
@@ -29,6 +31,7 @@ from repro_torch.kernels import fused_reduce as _fr
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 COMBINE_OPS = _fr.OPS     # the ops K1 computes
 
@@ -295,6 +298,55 @@ def embedding_lookup_rows(tables, ids, lo):
     return res
 
 
+class _SSDScan(torch.autograd.Function):
+    """The kernel's forward with the plain version's gradients: the
+    backward runs `ref.ssd_chunked` again on the saved operands under
+    autograd and differentiates it (the kernel has no backward)."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, a_neg, b_in, c_in, chunk: int):
+        ctx.save_for_backward(xh, dt, a_neg, b_in, c_in)
+        ctx.chunk = chunk
+        return _ssd.ssd_chunked(xh, dt, a_neg, b_in, c_in, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        args = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        leaves = [t.detach().requires_grad_(r) for t, r in zip(args, need)]
+        with torch.enable_grad():
+            y, final = ref.ssd_chunked(*leaves, ctx.chunk)
+        wrt = [t for t, r in zip(leaves, need) if r]
+        grads = iter(torch.autograd.grad((y, final), wrt, (dy, dfinal),
+                                         allow_unused=True))
+        return tuple(next(grads) if r else None for r in need) + (None,)
+
+
+def ssd_chunked(xh, dt, a_neg, b_in, c_in, chunk: int):
+    """The SSD prefill scan: xh (N, S, H, P), dt (N, S, H), a_neg (H,) or
+    (N, H), b_in and c_in (N, S, n) -> (y (N, S, H, P) in xh's dtype,
+    final state (N, H, n, P) fp32), `ref.ssd_chunked`'s contract. The
+    kernel on the card (where an operand requires grad, through
+    `_SSDScan`, whose backward differentiates the plain version); the
+    plain version on the CPU and on 'meta'. While a span records, counts
+    the call into `ssd.kernel` or `ssd.plain`."""
+    live = _tel.LIVE
+    if live is not None:
+        t0 = time.perf_counter_ns()
+    args = (xh, dt, a_neg, b_in, c_in)
+    kernel = _on_card(xh)
+    if not kernel:
+        res = ref.ssd_chunked(*args, chunk)
+    elif torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        res = _SSDScan.apply(*args, chunk)
+    else:
+        res = _ssd.ssd_chunked(*args, chunk)
+    if live is not None:
+        live.count(_tel.SSD_KERNEL if kernel else _tel.SSD_PLAIN)
+        live.entry(t0)
+    return res
+
+
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset."""
     return {name: fn.launches for name, fn in KERNELS.items()}
@@ -302,9 +354,10 @@ def launch_counts() -> dict:
 
 def kernel_flops() -> int:
     """Products of the kernel launches no dispatch mode sees (a ctypes
-    launch): K4's 2 G M N K per launch since import. The other kernels
+    launch) since import: K4's 2 G M N K per launch and the SSD scan's
+    plain-version count per call (`ssd_scan.flops`). The other kernels
     compute no products."""
-    return _mm.matmul_tiled.flops
+    return _mm.matmul_tiled.flops + _ssd.ssd_chunked.flops
 
 
 def reset_launch_counts() -> None:

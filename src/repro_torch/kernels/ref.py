@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the port's CUDA kernels (K1-K5).
+"""Plain PyTorch versions of the port's CUDA kernels (K1-K5 and the SSD
+scan).
 
 The indexed entry points (`fused_combine_at`, `quantize_blocks_at`,
 `dequantize_blocks_at`) gather their operands' regions and run the
@@ -11,8 +12,11 @@ hit mask, clamp, gather, zeroed misses, concat layout), so it equals
 `repro/models/dlrm.py::embedding_lookup`'s per-rank vector bitwise.
 
 K1-K3 and K5 compute exactly what their kernels compute, bit for bit;
-K4 (`matmul`) sums in another order than its kernel, so the card holds
-the kernel to it within a per-element bound (`chip_smoke.py`). Either way
+K4 (`matmul`) and the SSD scan (`ssd_chunked`, the Mamba2 prefill's
+chunked scan, moved here from `models/ssm.py` unchanged) sum in another
+order than their kernels, so the card holds K4 to it within a per-element
+bound and the scan to twice its own error against float64
+(`chip_smoke.py`, `tests/test_torch_cuda.py`). Either way
 the CPU path of `ops` runs these, and `chip_smoke.py` holds every kernel
 against them on the card. They mirror the reference package's oracles in
 `repro/kernels/ref.py` and its jnp codec in `repro/core/plugins.py`,
@@ -202,3 +206,76 @@ def lookup_rows(tables, ids, lo, gather=gather_rows):
     rows = gather(tables.reshape(G * T, rows_l, D), safe.reshape(G * T, B))
     rows = torch.where(hit[..., None], rows.reshape(G, T, B, D), 0.0)
     return rows.movedim(1, 2).reshape(G, B, T * D)
+
+
+def ssd_chunked(xh, dt, a_neg, b_in, c_in, chunk: int):
+    """The SSD prefill scan (chunked, paper Alg. 1 of arXiv:2405.21060),
+    `repro/models/ssm.py::_ssd_chunked` in PyTorch.
+
+    xh: (N, S, H, P); dt: (N, S, H) (post-softplus); a_neg: (H,) or
+    (N, H), negative; b_in, c_in: (N, S, n). Returns (y: (N, S, H, P) in
+    xh's dtype, final state (N, H, n, P) fp32).
+    """
+    bsz, s, h, p = xh.shape
+    n = b_in.shape[-1]
+    l = min(chunk, s)
+    if s % l:
+        raise ValueError(f"chunk {l} does not tile {s} positions")
+    nc = s // l
+
+    xc = xh.reshape(bsz, nc, l, h, p).float()
+    dtc = dt.reshape(bsz, nc, l, h).float()
+    bc = b_in.reshape(bsz, nc, l, n).float()
+    cc = c_in.reshape(bsz, nc, l, n).float()
+
+    log_a = dtc * a_neg[..., None, None, :]               # (b,c,l,h) <= 0
+    ll = torch.cumsum(log_a, dim=2)                       # within-chunk
+    ll_last = ll[:, :, -1:]                               # (b,c,1,h)
+
+    # intra-chunk quadratic form
+    scores = torch.einsum("bcln,bcsn->bcls", cc, bc)      # (b,c,l,s)
+    decay = ll[:, :, :, None, :] - ll[:, :, None, :, :]   # (b,c,l,s,h)
+    mask = torch.ones((l, l), dtype=torch.bool, device=xh.device).tril()
+    m = torch.where(mask[None, None, :, :, None], torch.exp(decay),
+                    0.0) * scores[..., None]
+    xdt = xc * dtc[..., None]                             # (b,c,l,h,p)
+    y_intra = torch.einsum("bclsh,bcshp->bclhp", m, xdt)
+
+    # chunk-end states and the inter-chunk recurrence
+    decay_to_end = torch.exp(ll_last - ll)                # (b,c,l,h)
+    s_chunk = torch.einsum("bcln,bclh,bclhp->bchnp",
+                           bc, decay_to_end * dtc, xc)
+    a_chunk = torch.exp(ll_last[:, :, 0])                 # (b,c,h)
+
+    h_prev = torch.zeros((bsz, h, n, p), dtype=torch.float32,
+                         device=xh.device)
+    h_prevs = []
+    for ci in range(nc):
+        h_prevs.append(h_prev)
+        h_prev = a_chunk[:, ci, :, None, None] * h_prev + s_chunk[:, ci]
+    h_prevs = torch.stack(h_prevs, dim=1)                 # (b,c,h,n,p)
+
+    y_inter = torch.einsum("bcln,bchnp->bclhp", cc, h_prevs) \
+        * torch.exp(ll)[..., None]
+    y = (y_intra + y_inter).reshape(bsz, s, h, p)
+    return y.to(xh.dtype), h_prev
+
+
+def ssd_recurrence(xh, dt, a_neg, b_in, c_in):
+    """The SSD scan's recurrence in float64, one position at a time:
+    h_t = exp(dt_t a) h_{t-1} + dt_t B_t x_t^T, y_t = C_t . h_t ->
+    (y (N, S, H, P), h_S (N, H, n, P)), both float64. The yardstick the
+    card holds the scan's kernel and `ssd_chunked` to (their errors
+    against it), not a plain version of either."""
+    N, S, H, P = xh.shape
+    x, dt, b, c = (t.double() for t in (xh, dt, b_in, c_in))
+    a = a_neg.double().expand(N, H)
+    h = torch.zeros((N, H, b.shape[-1], P), dtype=torch.float64,
+                    device=xh.device)
+    y = torch.empty((N, S, H, P), dtype=torch.float64, device=xh.device)
+    for t in range(S):
+        h = h * torch.exp(dt[:, t] * a)[..., None, None] + (
+            dt[:, t, :, None, None] * b[:, t, None, :, None]
+            * x[:, t, :, None, :])
+        y[:, t] = torch.einsum("bn,bhnp->bhp", c[:, t], h)
+    return y, h

@@ -9,8 +9,12 @@ the card).
 Chunked SSD (paper Alg. 1 of arXiv:2405.21060): within a chunk the dual
 quadratic form (an L x L decay-masked attention-like product); across
 chunks a recurrence over (heads, state, head_dim) states — the
-reference's `lax.scan`, here a loop over the chunks. Decode carries
-(conv window, ssm state): constant memory.
+reference's `lax.scan`; on the card one fused kernel entry
+(`kernels/csrc/ssd_scan.cu`, no (L, L, heads) tensor in device memory;
+under autograd its backward differentiates the plain version), on the
+CPU and on 'meta' the plain version's loop over the chunks
+(`kernels/ref.py::ssd_chunked`). Decode carries (conv window,
+ssm state): constant memory.
 
 Activations are mesh-stacked (`parallel/ops.py`): (*mesh, B, S, ...).
 The per-rank params (`a_log`, `dt_bias`, `d_skip`, the conv weights) are
@@ -34,6 +38,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import telemetry
+from repro_torch.kernels import ops as kops
 from repro_torch.models.common import Builder, _trailing, silu
 from repro_torch.parallel.ops import ParCtx, local_matmul
 
@@ -105,55 +110,15 @@ def _causal_conv(x, w, state=None, bias=None):
 
 
 def _ssd_chunked(xh, dt, a_neg, b_in, c_in, chunk: int):
-    """Chunked SSD scan.
+    """Chunked SSD scan (`kernels/ops.py::ssd_chunked`: the fused kernel
+    on the card, the plain version `kernels/ref.py::ssd_chunked`
+    elsewhere).
 
     xh: (N, S, H, P); dt: (N, S, H) (post-softplus); a_neg: (H,) or
     (N, H), negative; b_in, c_in: (N, S, n). Returns (y: (N, S, H, P) in
     xh's dtype, final state (N, H, n, P) fp32).
     """
-    bsz, s, h, p = xh.shape
-    n = b_in.shape[-1]
-    l = min(chunk, s)
-    if s % l:
-        raise ValueError(f"chunk {l} does not tile {s} positions")
-    nc = s // l
-
-    xc = xh.reshape(bsz, nc, l, h, p).float()
-    dtc = dt.reshape(bsz, nc, l, h).float()
-    bc = b_in.reshape(bsz, nc, l, n).float()
-    cc = c_in.reshape(bsz, nc, l, n).float()
-
-    log_a = dtc * a_neg[..., None, None, :]               # (b,c,l,h) <= 0
-    ll = torch.cumsum(log_a, dim=2)                       # within-chunk
-    ll_last = ll[:, :, -1:]                               # (b,c,1,h)
-
-    # intra-chunk quadratic form
-    scores = torch.einsum("bcln,bcsn->bcls", cc, bc)      # (b,c,l,s)
-    decay = ll[:, :, :, None, :] - ll[:, :, None, :, :]   # (b,c,l,s,h)
-    mask = torch.ones((l, l), dtype=torch.bool, device=xh.device).tril()
-    m = torch.where(mask[None, None, :, :, None], torch.exp(decay),
-                    0.0) * scores[..., None]
-    xdt = xc * dtc[..., None]                             # (b,c,l,h,p)
-    y_intra = torch.einsum("bclsh,bcshp->bclhp", m, xdt)
-
-    # chunk-end states and the inter-chunk recurrence
-    decay_to_end = torch.exp(ll_last - ll)                # (b,c,l,h)
-    s_chunk = torch.einsum("bcln,bclh,bclhp->bchnp",
-                           bc, decay_to_end * dtc, xc)
-    a_chunk = torch.exp(ll_last[:, :, 0])                 # (b,c,h)
-
-    h_prev = torch.zeros((bsz, h, n, p), dtype=torch.float32,
-                         device=xh.device)
-    h_prevs = []
-    for ci in range(nc):
-        h_prevs.append(h_prev)
-        h_prev = a_chunk[:, ci, :, None, None] * h_prev + s_chunk[:, ci]
-    h_prevs = torch.stack(h_prevs, dim=1)                 # (b,c,h,n,p)
-
-    y_inter = torch.einsum("bcln,bchnp->bclhp", cc, h_prevs) \
-        * torch.exp(ll)[..., None]
-    y = (y_intra + y_inter).reshape(bsz, s, h, p)
-    return y.to(xh.dtype), h_prev
+    return kops.ssd_chunked(xh, dt, a_neg, b_in, c_in, chunk)
 
 
 def ssm_mixer(params, x, cfg: ArchConfig, ctx: ParCtx, conv_state=None,

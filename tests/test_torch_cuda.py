@@ -6,6 +6,8 @@ it runs on a machine without jax:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,7 @@ from repro_torch.core import CollectiveEngine, Sequencer
 from repro_torch.core import engine as engine_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import embedding_gather, fused_reduce, matmul, \
-    quantize
+    quantize, ssd_scan
 from repro_torch.launch import distributed_vecmat
 from repro_torch.launch.dlrm_serve import DLRMServer
 from repro_torch.models import dlrm
@@ -870,3 +872,125 @@ def test_meta_counters_equal_card_step(card):
         analysis.arg_bytes(args, mesh)
     assert [(p[0], p[2], p[4]) for p in st_c.programs] == \
         [(p[0], p[2], p[4]) for p in st_m.programs]
+
+
+# --------------------------------------------------------------------------
+# The SSD prefill scan (csrc/ssd_scan.cu) against its plain version
+# --------------------------------------------------------------------------
+
+# (N, S, H, P, n, chunk)
+SSD_CASES = {
+    "granite": (8, 16384, 16, 64, 128, 256),   # Granite-4.0-H's per-card prefill
+    "reduced": (4, 48, 4, 16, 16, 16),         # the reduced configs' widths
+    "hymba": (4, 1024, 8, 64, 16, 256),        # hymba-1.5b's state width
+    "short": (2, 100, 4, 64, 128, 256),        # a prompt shorter than a chunk
+}
+
+
+def _ssd_inputs(N, S, H, P, n, dtype, device, seed):
+    """x, B, C normal; dt log-uniform over [1e-3, 0.1] and a over
+    [-16, -1] (Mamba2's init ranges), a per sequence and head."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    dt = torch.exp(math.log(1e-3) + rand(N, S, H) * math.log(100.0))
+    return (randn(N, S, H, P), dt, -(1 + 15 * rand(N, H)), randn(N, S, n),
+            randn(N, S, n))
+
+
+def _rel_err(got, want) -> float:
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_kernel_within_twice_the_plain_error(card, case, dtype):
+    """The kernel's y and final state, and the plain version's (fp32, no
+    TF32), against the recurrence in float64 (`ref.ssd_recurrence`): the
+    kernel's largest error (a share of the largest entry) at most twice
+    the plain version's."""
+    *dims, chunk = SSD_CASES[case]
+    args = _ssd_inputs(*dims, dtype, card, seed=len(case))
+    launches = ssd_scan.ssd_chunked.launches
+    y, h = ops.ssd_chunked(*args, chunk)
+    assert ssd_scan.ssd_chunked.launches == launches + ssd_scan.LAUNCHES
+    y_p, h_p = ref.ssd_chunked(*args, chunk)
+    y64, h64 = ref.ssd_recurrence(*args)
+    for got, plain, want in ((y, y_p, y64), (h, h_p, h64)):
+        assert (got.shape, got.dtype) == (plain.shape, plain.dtype)
+        err, plain_err = _rel_err(got, want), _rel_err(plain, want)
+        assert err <= 2 * plain_err, (err, plain_err)
+
+
+def test_ssd_kernel_reads_strided_and_mixed_operands(card):
+    """The mixer's layout (x, B and C slices of one conv output, a_neg by
+    head alone) gives the bits of contiguous copies; fp32 B and C beside
+    bf16 x read x widened, as the all-fp32 call, y cast to bf16; float64
+    operands are read as fp32."""
+    N, S, H, P, n, chunk = 2, 512, 4, 64, 128, 256
+    g = torch.Generator(device=card).manual_seed(5)
+    conv = torch.randn((N, S, H * P + 2 * n), generator=g,
+                       device=card).to(torch.bfloat16)
+    xh = conv[..., :H * P].reshape(N, S, H, P)
+    b, c = conv[..., H * P:H * P + n], conv[..., H * P + n:]
+    dt = torch.rand((N, S, H), generator=g, device=card) * 0.1 + 1e-3
+    a = -(1 + 15 * torch.rand((H,), generator=g, device=card))
+    y, h = ops.ssd_chunked(xh, dt, a, b, c, chunk)
+    y2, h2 = ops.ssd_chunked(xh.contiguous(), dt, a.expand(N, H).contiguous(),
+                             b.contiguous(), c.contiguous(), chunk)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    y3, h3 = ops.ssd_chunked(xh, dt, a, b.float(), c.float(), chunk)
+    y4, h4 = ops.ssd_chunked(xh.float(), dt, a, b.float(), c.float(), chunk)
+    assert y3.dtype == torch.bfloat16
+    assert torch.equal(y3, y4.to(torch.bfloat16)) and torch.equal(h3, h4)
+    # a float64 model (a reference forward) is read as fp32, as the plain
+    # version reads it, and y cast back
+    y5, h5 = ops.ssd_chunked(xh.double(), dt, a, b.double(), c.double(),
+                             chunk)
+    assert y5.dtype == torch.float64
+    assert torch.equal(y5, y4.double()) and torch.equal(h5, h4)
+
+
+def test_ssd_kernel_raises_and_autograd_differentiates_the_plain_version(
+        card):
+    """A chunk that does not tile S raises; operands that require grad
+    still launch the kernel (its five launches, none in the backward),
+    and their gradients are the plain version's (a loss linear in y and
+    the final state, so the same output gradients reach both: bitwise);
+    the kernel's products are counted as the plain version's."""
+    args = _ssd_inputs(2, 64, 3, 16, 16, torch.float32, card, seed=6)
+    with pytest.raises(ValueError, match="does not tile"):
+        ops.ssd_chunked(*args, 48)
+    with pytest.raises(ValueError, match="exceed"):
+        ssd_scan.ssd_chunked(*_ssd_inputs(1, 2048, 1, 16, 16, torch.float32,
+                                          card, seed=7), 2048)
+    g = torch.Generator(device=card).manual_seed(8)
+    wy = torch.randn((2, 64, 3, 16), generator=g, device=card)
+    wh = torch.randn((2, 3, 16, 16), generator=g, device=card)
+    launches = ssd_scan.ssd_chunked.launches
+    leaves = [t.clone().requires_grad_() for t in args]
+    y, h = ops.ssd_chunked(*leaves, 16)
+    assert ssd_scan.ssd_chunked.launches == launches + ssd_scan.LAUNCHES
+    ((y * wy).sum() + (h * wh).sum()).backward()
+    assert ssd_scan.ssd_chunked.launches == launches + ssd_scan.LAUNCHES
+    want = [t.clone().requires_grad_() for t in args]
+    y_r, h_r = ref.ssd_chunked(*want, 16)
+    ((y_r * wy).sum() + (h_r * wh).sum()).backward()
+    y64, h64 = ref.ssd_recurrence(*args)
+    for got, plain, exact in ((y, y_r, y64), (h, h_r, h64)):
+        assert _rel_err(got, exact) <= 2 * _rel_err(plain, exact)
+    for a, b in zip(leaves, want):
+        assert torch.equal(a.grad, b.grad)
+    flops = ops.kernel_flops()
+    with torch.no_grad():
+        ops.ssd_chunked(*leaves, 16)
+    assert ops.kernel_flops() - flops == ssd_scan.flops(2, 64, 3, 16, 16, 16)
+    from repro_torch.launch import analysis
+    meta = [t.detach().to("meta") for t in args]
+    _, st = analysis.count(lambda: ref.ssd_chunked(*meta, 16))
+    assert st.flops == ssd_scan.flops(2, 64, 3, 16, 16, 16)
