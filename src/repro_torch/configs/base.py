@@ -76,6 +76,18 @@ class ArchConfig:
     ssm_conv_bias = False
     moe_dropless = False
     expert_init_fan_in = False
+    q_lora_rank = 0
+    kv_lora_rank = 0
+    qk_nope_head_dim = 0
+    qk_rope_head_dim = 0
+    v_head_dim = 0
+    yarn = ()
+    router_scoring = "softmax"
+    router_groups = 1
+    router_topk_groups = 1
+    routed_scaling = 1.0
+    router_experts = 0
+    expert_offset = 0
 
     @property
     def resolved_head_dim(self) -> int:
@@ -166,6 +178,30 @@ class LayerTypedConfig(ArchConfig):
                           their capacity rule)
     expert_init_fan_in    draw each expert matrix by its fan-in (the
                           reference's law scales it by the expert count)
+
+    DeepSeek-V3's knobs (`deepseek_v3`; layer types "mla_dense", MLA and
+    the dense SwiGLU of `d_ff`, and "mla_moe", MLA and the MoE):
+
+    q_lora_rank           MLA's query down-projection width
+    kv_lora_rank          the latent `c_kv` width (0: no MLA)
+    qk_nope_head_dim      a head's query / key width without rotation
+    qk_rope_head_dim      the rotated width, shared by every head's key
+    v_head_dim            a head's value width
+    yarn                  MLA's YaRN rotary scaling (factor, original
+                          max positions, beta_fast, beta_slow, mscale,
+                          mscale_all_dim); () the plain frequencies
+    router_scoring        "softmax" over the router's logits, or
+                          "sigmoid" (each expert's own score, with a
+                          correction bias for selection only: `noaux_tc`)
+    router_groups         expert groups; each scored by the sum of its
+                          two best biased scores
+    router_topk_groups    the groups kept before the top-k
+    routed_scaling        multiplies the (normalised) gates
+    router_experts        the router's width, the published expert count
+                          (0: `n_experts`); `n_experts` is then how many
+                          this layer holds
+    expert_offset         the first expert id held here: assignments to
+                          the others add nothing and are counted
     """
 
     layer_types: tuple = ()
@@ -178,6 +214,18 @@ class LayerTypedConfig(ArchConfig):
     ssm_conv_bias: bool = False
     moe_dropless: bool = False
     expert_init_fan_in: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    yarn: tuple = ()
+    router_scoring: str = "softmax"
+    router_groups: int = 1
+    router_topk_groups: int = 1
+    routed_scaling: float = 1.0
+    router_experts: int = 0
+    expert_offset: int = 0
 
     @property
     def kinds(self) -> tuple:
@@ -191,17 +239,37 @@ class LayerTypedConfig(ArchConfig):
         if self.ssm_conv_bias:
             mamba += di + 2 * st
         attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-        ffn = d * self.n_experts + self.n_experts * 3 * d * self.moe_d_ff \
+        if self.kv_lora_rank:
+            attn = mla_params(self)
+        ffn = d * (self.router_experts or self.n_experts) \
+            + self.n_experts * 3 * d * self.moe_d_ff \
             + 3 * d * self.shared_d_ff + 2 * d
-        layers = sum((mamba if k == "mamba" else attn) + ffn
+        if self.router_scoring == "sigmoid":      # the correction bias
+            ffn += self.router_experts or self.n_experts
+        dense = 3 * d * self.d_ff + 2 * d
+        layers = sum((mamba if k == "mamba" else attn)
+                     + (dense if k == "mla_dense" else ffn)
                      for k in self.kinds)
         emb = v * d if self.tie_embeddings else 2 * v * d
         return layers + emb + d
 
     def n_active_params(self) -> int:
+        n_moe = sum(k != "mla_dense" for k in self.kinds)
         unused = (self.n_experts - self.experts_per_token) * 3 \
-            * self.d_model * self.moe_d_ff * self.n_layers
+            * self.d_model * self.moe_d_ff * n_moe
         return self.n_params() - unused
+
+
+def mla_params(cfg: ArchConfig) -> int:
+    """One MLA mixer's parameters: the query down- and up-projections and
+    their norm, the joint latent / rotated-key projection, the latent's
+    norm, the per-head key and value up-projection, the out-projection."""
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    return (d * cfg.q_lora_rank + cfg.q_lora_rank + cfg.q_lora_rank * h * qk
+            + d * (r + cfg.qk_rope_head_dim) + r
+            + r * h * (cfg.qk_nope_head_dim + cfg.v_head_dim)
+            + h * cfg.v_head_dim * d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,6 +354,7 @@ ARCH_IDS = {
 # ARCH_IDS and ASSIGNED_ARCHS copy): CLI id -> module.
 PORT_ARCH_IDS = {
     "granite-4.0-h-small": "granite_4p0_h_small",
+    "deepseek-v3": "deepseek_v3",
 }
 
 
@@ -323,5 +392,12 @@ def reduced_config(cfg: ArchConfig, **overrides) -> ArchConfig:
         kinds = tuple(dict.fromkeys(cfg.kinds))
         shrink.update(n_layers=len(kinds), layer_types=kinds,
                       shared_d_ff=64 if cfg.shared_d_ff else 0)
+    if cfg.kv_lora_rank:
+        # MLA at tiny widths; the router over 8 experts in 4 groups, 2
+        # kept, this layer holding all of them
+        shrink.update(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
+                      qk_rope_head_dim=8, v_head_dim=16, n_experts=8,
+                      router_experts=8, router_groups=4,
+                      router_topk_groups=2)
     shrink.update(overrides)
     return dataclasses.replace(cfg, **shrink)

@@ -23,6 +23,26 @@ allreduces — a distributed flash-combine.
 A config may set the softmax scale (`attention_multiplier`; 0 keeps
 1 / sqrt(head_dim)) and leave out the rotary embedding (`use_rope`
 False: NoPE), in prefill and decode alike (`softmax_scale`).
+
+Multi-head latent attention (MLA, DeepSeek-V3; a config with
+`kv_lora_rank`), per token x and head i:
+
+    q        = rmsnorm(x W_qa) W_qb          -> [q_nope_i, q_pe_i]
+    c_kv     = rmsnorm((x W_kva)[:r])        the latent, r wide
+    k_pe     = rope((x W_kva)[r:])           one rotated key, every head's
+    [k_nope_i, v_i] = c_kv W_kvb,i
+    o_i      = softmax_s(s ([q_nope_i, rope(q_pe_i)] . [k_nope_i, k_pe]))
+               v_i,   s = m^2 / sqrt(nope + rope), m YaRN's mscale
+    y        = [o_1 .. o_H] W_o
+
+with the rotation YaRN's on interleaved pairs (`common.rope`). Prefill
+(`mla_block`) computes it in this expanded per-head form through the
+blocked core, v at its own width; heads split over TP, the latent
+projections replicated. Each layer's cache is the latent pair (c_kv,
+k_pe), the same on every rank; decode (`serve.mla_decode`) reads it in
+the absorbed form. While the wall-clock recorder records, `mla.mixer`
+holds `mla.q`, `mla.kv`, `mla.core` and `mla.out`, and `mla.cache_bytes`
+counts the latent cache bytes written.
 """
 from __future__ import annotations
 
@@ -33,7 +53,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import Builder, rms_norm, rope
+from repro_torch.core import telemetry
+from repro_torch.models.common import Builder, rms_norm, rope, yarn_mscale
 from repro_torch.parallel.ops import ParCtx, local_matmul
 
 NEG_INF = -1e30
@@ -86,10 +107,12 @@ def softmax_scale(cfg: ArchConfig) -> Optional[float]:
 def _flash_fwd_blocks(q, k, v, window: int, *, causal: bool, qb: int,
                       kb: int, q_offset: int, scale: Optional[float] = None):
     """Returns (out, lse). Shapes as the reference's (already grouped):
-    q: (b, nq, qb, kv, g, hd); k, v: (nk, b, kb, kv, hd); out
-    (b, nq, kv, g, qb, hd), lse (b, nq, kv, g, qb)."""
+    q: (b, nq, qb, kv, g, hd); k: (nk, b, kb, kv, hd); v: (nk, b, kb,
+    kv, hd_v), v's own width (MLA's 128 beside q / k's 192); out
+    (b, nq, kv, g, qb, hd_v), lse (b, nq, kv, g, qb)."""
     b, nq, qbs, kv, g, hd = q.shape
     nk = k.shape[0]
+    hd_v = v.shape[-1]
     dev = q.device
     scale = scale or 1.0 / math.sqrt(hd)
     eff_w = window if window > 0 else 1 << 30     # 0 means unlimited
@@ -100,7 +123,7 @@ def _flash_fwd_blocks(q, k, v, window: int, *, causal: bool, qb: int,
         m = torch.full((b, kv, g, qbs), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((b, kv, g, qbs), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, kv, g, qbs, hd), dtype=torch.float32,
+        acc = torch.zeros((b, kv, g, qbs, hd_v), dtype=torch.float32,
                           device=dev)
         for ki in range(nk):
             kblk, vblk = k[ki], v[ki]
@@ -130,7 +153,7 @@ def _flash_bwd_blocks(q, k, v, out, lse, dout, window: int, *,
     (kv block, q block) pair, P recomputed from lse under the forward's
     mask, then dv += P^T dO, dS = P (dO V^T - delta) scale, dq += dS K,
     dk += dS^T Q, all in fp32. Shapes as `_flash_fwd_blocks`'s (dout
-    like out); returns (dq, dk, dv) in fp32."""
+    like out, v and dv of v's own width); returns (dq, dk, dv) in fp32."""
     b, nq, qbs, kv, g, hd = q.shape
     nk = k.shape[0]
     dev = q.device
@@ -188,10 +211,12 @@ class _Flash(torch.autograd.Function):
 
 def _blocked(q, k, v, causal, window, q_block, kv_block, q_offset,
              scale=None):
-    """q: (..., Sq, H, hd); k, v: (..., Skv, KV, hd); the leading dims
-    (batch and any mesh dims) fold into one batch dim."""
+    """q: (..., Sq, H, hd); k: (..., Skv, KV, hd); v: (..., Skv, KV,
+    hd_v); the leading dims (batch and any mesh dims) fold into one batch
+    dim. Returns (..., Sq, H, hd_v)."""
     lead = tuple(q.shape[:-3])
     sq, h, hd = q.shape[-3:]
+    hd_v = v.shape[-1]
     skv, kv = k.shape[-3], k.shape[-2]
     b = math.prod(lead)
     g = h // kv
@@ -202,7 +227,7 @@ def _blocked(q, k, v, causal, window, q_block, kv_block, q_offset,
         raise ValueError(f"blocks do not tile: {(sq, qb, skv, kb)}")
     qr = q.reshape(b, nq, qb, kv, g, hd)
     kr = k.reshape(b, nk, kb, kv, hd).movedim(1, 0)
-    vr = v.reshape(b, nk, kb, kv, hd).movedim(1, 0)
+    vr = v.reshape(b, nk, kb, kv, hd_v).movedim(1, 0)
     if q_offset == 0 and torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad):
         out = _Flash.apply(qr, kr, vr, int(window), causal, qb, kb, scale)
@@ -211,15 +236,16 @@ def _blocked(q, k, v, causal, window, q_block, kv_block, q_offset,
                                       causal=causal, qb=qb, kb=kb,
                                       q_offset=q_offset, scale=scale)
     out = out.permute(0, 1, 4, 2, 3, 5)   # (b,nq,kv,g,qb,hd)->(b,nq,qb,..)
-    return out.reshape(lead + (sq, h, hd))
+    return out.reshape(lead + (sq, h, hd_v))
 
 
 def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
                       q_block: int = 512, kv_block: int = 1024,
                       q_offset: int = 0, scale: Optional[float] = None):
-    """q: (..., Sq, H, hd); k, v: (..., Skv, KV, hd); H % KV == 0.
+    """q: (..., Sq, H, hd); k: (..., Skv, KV, hd); v: (..., Skv, KV,
+    hd_v); H % KV == 0.
 
-    Returns (..., Sq, H, hd). `window` > 0 masks keys older than `window`
+    Returns (..., Sq, H, hd_v). `window` > 0 masks keys older than `window`
     positions (0 = unlimited); `q_offset` is the absolute position of
     q[0] (for caches); `scale` the softmax scale (None: 1 / sqrt(hd))."""
     return _blocked(q, k, v, causal, window, q_block, kv_block, q_offset,
@@ -396,3 +422,115 @@ def attention_block(params, x, cfg: ArchConfig, ctx: ParCtx,
         sl = skv // ctx.tp
         kc, vc = ctx.tp_slice(kc, sl, dim=1), ctx.tp_slice(vc, sl, dim=1)
     return y, (kc, vc)
+
+
+# --------------------------------------------------------------------------
+# Multi-head latent attention (MLA)
+# --------------------------------------------------------------------------
+
+def mla_heads(cfg: ArchConfig, tp: int) -> int:
+    """Each rank's heads: MLA splits its heads evenly over TP."""
+    if cfg.n_heads % tp:
+        raise ValueError(f"{cfg.n_heads} MLA heads on {tp} ranks")
+    return cfg.n_heads // tp
+
+
+def mla_params(b: Builder, cfg: ArchConfig, tp: int):
+    """Every matrix as x @ w: the latent projections (`wq_a`, `wkv_a`) and
+    their norms replicated, the per-head up-projections (`wq_b`, `wkv_b`,
+    each head's columns [nope | rope] and [k_nope | v]) column-parallel
+    over heads, `wo` row-parallel."""
+    mla_heads(cfg, tp)
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    return {
+        "wq_a": b.param((d, cfg.q_lora_rank), ("data", None)),
+        "q_a_norm": b.param((cfg.q_lora_rank,), (None,), init="ones"),
+        "wq_b": b.param((cfg.q_lora_rank, h * qk), ("data", "model")),
+        "wkv_a": b.param((d, r + cfg.qk_rope_head_dim), ("data", None)),
+        "kv_a_norm": b.param((r,), (None,), init="ones"),
+        "wkv_b": b.param((r, h * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                         ("data", "model")),
+        "wo": b.param((h * cfg.v_head_dim, d), ("model", "data")),
+    }
+
+
+def mla_scale(cfg: ArchConfig) -> float:
+    """The softmax scale m^2 / sqrt(nope + rope), m the YaRN mscale of
+    `mscale_all_dim` (1 without YaRN)."""
+    m = yarn_mscale(cfg.yarn[0], cfg.yarn[5]) if cfg.yarn else 1.0
+    return m * m / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def mla_rope(x, positions, cfg: ArchConfig):
+    """MLA's rotation: YaRN's frequencies (`cfg.yarn`) on interleaved
+    pairs, as the published MLA code rotates."""
+    return rope(x, positions, cfg.rope_theta, cfg.yarn, interleave=True)
+
+
+def mla_query(params, x, cfg: ArchConfig, ctx: ParCtx, positions):
+    """Each rank's heads' queries of x stacked (*mesh, B, S, D): (q_nope
+    (*mesh, B, S, hl, nope), q_pe (..., hl, rope) rotated)."""
+    nope = cfg.qk_nope_head_dim
+    q_a = ctx.col_parallel_matmul(x, params["wq_a"])
+    q_a = rms_norm(q_a, params["q_a_norm"], cfg.norm_eps)
+    q = local_matmul(q_a, ctx.gather_fsdp(params["wq_b"]).to(q_a.dtype),
+                     ctx.lead)
+    q = q.reshape(tuple(q.shape[:-1])
+                  + (-1, nope + cfg.qk_rope_head_dim))
+    return q[..., :nope], mla_rope(q[..., nope:], positions, cfg)
+
+
+def mla_latent(params, x, cfg: ArchConfig, ctx: ParCtx, positions):
+    """The latent pair of x stacked (*mesh, B, S, D), the same on every
+    rank: (c_kv (*mesh, B, S, r) normed, k_pe (*mesh, B, S, rope)
+    rotated)."""
+    r = cfg.kv_lora_rank
+    kv = ctx.col_parallel_matmul(x, params["wkv_a"])
+    c_kv = rms_norm(kv[..., :r], params["kv_a_norm"], cfg.norm_eps)
+    k_pe = mla_rope(kv[..., None, r:], positions, cfg)[..., 0, :]
+    return c_kv, k_pe
+
+
+def latent_bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def mla_block(params, x, cfg: ArchConfig, ctx: ParCtx, positions,
+              q_block: int = 512, kv_block: int = 1024,
+              return_kv: bool = False):
+    """Prefill MLA over each rank's heads in the expanded form. x: stacked
+    (*mesh, B, S, D). Returns the stacked (*mesh, B, S, D) output,
+    finished via row_parallel_finish (and, with return_kv, the latent
+    cache (c_kv, k_pe) this layer emits, (*mesh, B, S, r) and (*mesh,
+    B, S, rope))."""
+    L = ctx.lead
+    nope, v_d = cfg.qk_nope_head_dim, cfg.v_head_dim
+    tr = telemetry.wall()
+    with tr.span("mla.mixer", track="lm"):
+        with tr.span("mla.q", track="lm"):
+            q_nope, q_pe = mla_query(params, x, cfg, ctx, positions)
+            q = torch.cat([q_nope, q_pe], dim=-1)
+            del q_nope, q_pe
+        with tr.span("mla.kv", track="lm"):
+            c_kv, k_pe = mla_latent(params, x, cfg, ctx, positions)
+            wkv_b = ctx.gather_fsdp(params["wkv_b"]).to(c_kv.dtype)
+            kv = local_matmul(c_kv, wkv_b, L)
+            kv = kv.reshape(tuple(kv.shape[:-1]) + (-1, nope + v_d))
+            hl = kv.shape[-2]
+            k = torch.cat([kv[..., :nope], k_pe[..., None, :].expand(
+                tuple(k_pe.shape[:-1]) + (hl, k_pe.shape[-1]))], dim=-1)
+            v = kv[..., nope:]
+            del kv
+        with tr.span("mla.core", track="lm"):
+            out = flash_attention(q, k, v, causal=True, q_block=q_block,
+                                  kv_block=kv_block, scale=mla_scale(cfg))
+            del q, k, v
+        with tr.span("mla.out", track="lm"):
+            out = out.reshape(tuple(out.shape[:-2]) + (hl * v_d,))
+            wo = ctx.gather_fsdp(params["wo"], dim=1)
+            y = ctx.row_parallel_finish(local_matmul(out, wo.to(out.dtype),
+                                                     L))
+        if return_kv and tr.enabled:
+            tr.count("mla.cache_bytes", latent_bytes(c_kv, k_pe))
+    return (y, (c_kv, k_pe)) if return_kv else y

@@ -36,7 +36,10 @@ by `residual_multiplier`. `layer_plan` is the one place the kinds are
 read. The stack's params are then one layer-stacked tree per kind,
 `{"mamba": ..., "attention": ...}` (each (L_kind, *mesh, *local)), and
 layer i takes row `index` of its kind's tree; its caches likewise
-(`cache_names`).
+(`cache_names`). DeepSeek-V3's types are "mla_dense" (kind "mla": MLA,
+`attention.mla_block`, then the dense SwiGLU of `d_ff`) and "mla_moe"
+(kind "mla_moe": MLA, then the MoE and its shared expert); both emit
+the latent cache (`c_kv`, `k_pe`).
 """
 from __future__ import annotations
 
@@ -107,7 +110,10 @@ def layer_slice(stack_params, i: int):
 # --------------------------------------------------------------------------
 
 # `layer_types` entry -> the kind of layer `layer_forward` runs
-TYPED_KINDS = {"mamba": "ssm_moe", "attention": "moe"}
+TYPED_KINDS = {"mamba": "ssm_moe", "attention": "moe", "mla_dense": "mla",
+               "mla_moe": "mla_moe"}
+# the kinds whose feed-forward half is the dense MLP
+DENSE_KINDS = ("mla",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,13 +133,14 @@ def layer_plan(cfg: ArchConfig, n_layers: Optional[int] = None,
     if not kinds:
         fam = family or cfg.family
         return tuple(LayerSpot(fam, None, i) for i in range(n))
-    if not cfg.n_experts:
-        raise ValueError("layer_types need an MoE after every mixer")
     seen: dict = {}
     out = []
     for t in kinds:
         if t not in TYPED_KINDS:
             raise ValueError(f"unknown layer type {t!r}")
+        if TYPED_KINDS[t] not in DENSE_KINDS and not cfg.n_experts:
+            raise ValueError(f"layer type {t!r} needs an MoE after its "
+                             "mixer")
         out.append(LayerSpot(TYPED_KINDS[t], t, seen.get(t, 0)))
         seen[t] = seen.get(t, 0) + 1
     return tuple(out)
@@ -162,12 +169,17 @@ def stack_params(b: Builder, cfg: ArchConfig, tp: int, cross: bool = False):
 def cache_names(kind: str, cross: bool = False) -> tuple:
     """The caches a layer of `kind` emits in prefill, in order."""
     names = {"ssm": ("conv", "state"), "ssm_moe": ("conv", "state"),
-             "hybrid": ("k", "v", "conv", "state")}.get(kind, ("k", "v"))
+             "hybrid": ("k", "v", "conv", "state"), "mla": ("c_kv", "k_pe"),
+             "mla_moe": ("c_kv", "k_pe")}.get(kind, ("k", "v"))
     return names + (("xk", "xv") if cross else ())
 
 
 def has_ssm(kind: str) -> bool:
     return kind in ("ssm", "ssm_moe", "hybrid")
+
+
+def has_mla(kind: str) -> bool:
+    return kind in ("mla", "mla_moe")
 
 
 def has_attention(kind: str) -> bool:
@@ -193,10 +205,12 @@ def layer_params(b: Builder, cfg: ArchConfig, tp: int, cross: bool = False,
         p["ssm"] = ssm_mod.ssm_params(b, cfg, tp)
         if family == "ssm":
             return p
+    elif has_mla(family):
+        p["attn"] = attn_mod.mla_params(b, cfg, tp)
     else:
         p["attn"] = attn_mod.attn_params(b, cfg, tp)
     p["norm2"] = b.param((d,), (None,), init="ones")
-    if family in ("moe", "ssm_moe"):
+    if family in ("moe", "ssm_moe", "mla_moe"):
         p["moe"] = mlp_mod.moe_params(b, cfg, tp)
         if cfg.shared_d_ff:
             p["shared"] = mlp_mod.mlp_params(b, cfg, cfg.shared_d_ff)
@@ -324,6 +338,13 @@ def layer_forward(lp, x, cfg: ArchConfig, ctx: ParCtx, io: LayerIO,
         if family == "ssm":
             return x + y, aux, cache
         x = x + residual(cfg, y)
+    elif has_mla(family):
+        y = attn_mod.mla_block(
+            lp["attn"], h, cfg, ctx, io.positions, q_block=pc.attn_q_block,
+            kv_block=pc.attn_kv_block, return_kv=collect_cache)
+        if collect_cache:
+            y, cache = y
+        x = x + residual(cfg, checkpoint_name(y, "mixer_out"))
     else:
         acfg = AttnConfig(causal=causal)
         y = attention_block(

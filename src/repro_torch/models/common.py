@@ -173,20 +173,65 @@ def rms_norm(x, weight, eps: float = 1e-6):
     return (y * _trailing(weight, x.ndim).float()).to(x.dtype)
 
 
-def rope(x, positions, theta: float):
+def rope(x, positions, theta: float, yarn: tuple = (),
+         interleave: bool = False):
     """Rotary embeddings. x: (..., S, H, hd); positions: (S,) (every rank
-    holds the same positions)."""
+    holds the same positions). `yarn`: YaRN's scaled frequencies and
+    cos / sin factor (`yarn_inv_freq`); `interleave`: x's rotated pairs
+    are (2i, 2i + 1), taken apart into halves first (the published MLA
+    code's `view(..., d / 2, 2).transpose`), so the result is in halves."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = torch.exp(-math.log(theta)
-                      * torch.arange(half, dtype=torch.float32,
-                                     device=x.device) / half)
+    if yarn:
+        freqs, m = yarn_inv_freq(hd, theta, *yarn)
+        freqs = freqs.to(x.device)
+    else:
+        freqs = torch.exp(-math.log(theta)
+                          * torch.arange(half, dtype=torch.float32,
+                                         device=x.device) / half)
     angles = positions.to(x.device).float()[..., None] * freqs  # (S, half)
     cos = torch.cos(angles)[..., None, :]       # (S, 1, half)
     sin = torch.sin(angles)[..., None, :]
+    if yarn and m != 1.0:
+        cos, sin = cos * m, sin * m
+    if interleave:
+        x = x.reshape(tuple(x.shape[:-1]) + (half, 2)).transpose(-1, -2) \
+            .reshape(x.shape)
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor: 0.1 mscale ln(factor) + 1 (1 unscaled)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_inv_freq(dim: int, base: float, factor: float, original: int,
+                  beta_fast: float, beta_slow: float, mscale: float,
+                  mscale_all_dim: float) -> tuple:
+    """(the (dim / 2,) inverse frequencies, the cos / sin factor) of YaRN
+    as the published DeepSeek code computes them: the plain frequencies
+    above the correction range (rotations faster than `beta_fast` over
+    the original context), the frequencies / factor below it (slower
+    than `beta_slow`), a linear ramp between; the factor
+    yarn_mscale(factor, mscale) / yarn_mscale(factor, mscale_all_dim)."""
+    def corr(rot):
+        return dim * math.log(original / (rot * 2 * math.pi)) \
+            / (2 * math.log(base))
+    lo = max(math.floor(corr(beta_fast)), 0)
+    hi = min(math.ceil(corr(beta_slow)), dim - 1)
+    if lo == hi:
+        hi += 0.001
+    extra = 1.0 / (base ** (torch.arange(0, dim, 2, dtype=torch.float32)
+                            / dim))
+    inter = extra / factor
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32) - lo)
+                       / (hi - lo), 0, 1)
+    keep = 1.0 - ramp
+    inv = inter * (1 - keep) + extra * keep
+    return inv, yarn_mscale(factor, mscale) / yarn_mscale(factor,
+                                                          mscale_all_dim)
 
 
 def silu(x):

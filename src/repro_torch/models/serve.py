@@ -31,8 +31,12 @@ same cache dicts.
 
 A config with `layer_types` holds both kinds in one cache list: each
 layer's entry is its kind's (`blocks.layer_plan`), k/v for an attention
-layer, conv and state for a Mamba layer, and prefill emits each name
-stacked over the layers that hold it (`prefill_cache_names`). Prefill
+layer, conv and state for a Mamba layer, the latent pair for an MLA
+layer, and prefill emits each name stacked over the layers that hold it
+(`prefill_cache_names`). The latent cache (MLA, DeepSeek-V3) is `c_kv`
+(B, len, kv_lora_rank) and `k_pe` (B, len, qk_rope_head_dim), the same
+on every rank (every head reads it); decode writes a token's pair in
+place and reads the cache in the absorbed form (`mla_decode`). Prefill
 and decode can also return the head's logits (`return_logits`), each
 rank's vocab slice, (*mesh, B, V / tp).
 """
@@ -44,11 +48,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import telemetry
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
-    decode_attention, kv_layout, kv_owner, padded_heads,
+    NEG_INF, decode_attention, kv_layout, kv_owner, latent_bytes,
+    mla_latent, mla_query, mla_scale, padded_heads,
 )
 from repro_torch.models.blocks import (
-    cache_names, ffn_block, has_attention, has_ssm, layer_params_of,
-    layer_plan, residual, stack_forward, window_per_layer,
+    cache_names, ffn_block, has_attention, has_mla, has_ssm,
+    layer_params_of, layer_plan, residual, stack_forward, window_per_layer,
 )
 from repro_torch.models.common import Builder, rms_norm, rope
 from repro_torch.models.lm import (
@@ -88,7 +93,15 @@ def make_cache(b: Builder, cfg: ArchConfig, tp: int, batch: int,
     caches = []
     for layer, spot in enumerate(layer_plan(cfg)):
         entry = {}
-        if cfg.has_attention and has_attention(spot.kind):
+        if has_mla(spot.kind):
+            if pcfg.kv_cache_dtype != "param":
+                raise ValueError("the latent cache is held in the model's "
+                                 "dtype")
+            for name, width in (("c_kv", cfg.kv_lora_rank),
+                                ("k_pe", cfg.qk_rope_head_dim)):
+                entry[name] = b.param((batch, s_max, width), (dp, None, None),
+                                      init="zeros")
+        elif cfg.has_attention and has_attention(spot.kind):
             length = layer_cache_len(cfg, layer, s_max)
             shp, spec = attn_cache_params(b, cfg, tp, dp, length,
                                           pcfg.decode_seq_shard)
@@ -169,7 +182,8 @@ def prefill_cache_specs(cfg: ArchConfig, pcfg, tp: int, s: int,
         kv = (None, dp, None, None, None)
     xkv = (None, dp, None, "model" if kv_sharded else None, None)
     specs = {"k": kv, "v": kv, "conv": (None, dp, None, m),
-             "state": (None, dp, m, None, None), "xk": xkv, "xv": xkv}
+             "state": (None, dp, m, None, None), "xk": xkv, "xv": xkv,
+             "c_kv": (None, dp, None, None), "k_pe": (None, dp, None, None)}
     return tuple(specs[name] for name in prefill_cache_names(cfg))
 
 
@@ -342,6 +356,59 @@ def attn_decode(lp, h, cache, cfg: ArchConfig, ctx: ParCtx, pos: int,
     return y, cache
 
 
+def mla_decode(lp, h, cache, cfg: ArchConfig, ctx: ParCtx, pos: int):
+    """h: stacked (*mesh, B, 1, D) normed input. Writes this token's
+    latent pair into the layer's cache in place (every rank alike) and
+    attends over the cache in the absorbed form, each rank its own
+    heads, in fp32: with W_kvb,i = [W_UK,i | W_UV,i],
+    q_lat_i = q_nope_i W_UK,i^T (kv_lora_rank wide), s = scale (q_lat_i .
+    c_kv + q_pe_i . k_pe) over the slots written, o_i = (softmax(s)
+    c_kv) W_UV,i. Returns (y (*mesh, B, 1, D), the cache)."""
+    L = ctx.lead
+    params = lp["attn"]
+    nope, v_d = cfg.qk_nope_head_dim, cfg.v_head_dim
+    lead = tuple(h.shape[:L])
+    bsz = h.shape[L]
+    length = cache["c_kv"].shape[L + 1]
+    if not 0 <= pos < length:
+        raise ValueError(f"position {pos} outside a cache of {length}")
+    positions = torch.tensor([pos], device=h.device)
+    tr = telemetry.wall()
+    with tr.span("mla.mixer", track="lm"):
+        with tr.span("mla.q", track="lm"):
+            q_nope, q_pe = mla_query(params, h, cfg, ctx, positions)
+        with tr.span("mla.kv", track="lm"):
+            c_new, pe_new = mla_latent(params, h, cfg, ctx, positions)
+            cl = torch.tensor(pos, device=h.device)
+            ok = torch.tensor(True, device=h.device)
+            _write(cache["c_kv"], c_new, cl, ok, L)
+            _write(cache["k_pe"], pe_new, cl, ok, L)
+            if tr.enabled:
+                tr.count("mla.cache_bytes", latent_bytes(c_new, pe_new))
+        with tr.span("mla.core", track="lm"):
+            w = ctx.gather_fsdp(params["wkv_b"]).float()
+            w = w.reshape(tuple(w.shape[:-1]) + (-1, nope + v_d))
+            q_lat = torch.einsum("...bhn,...rhn->...bhr",
+                                 q_nope[..., 0, :, :].float(), w[..., :nope])
+            c_kv = cache["c_kv"].float()
+            s = torch.einsum("...bhr,...bsr->...bhs", q_lat, c_kv)
+            s = s + torch.einsum("...bhe,...bse->...bhs",
+                                 q_pe[..., 0, :, :].float(),
+                                 cache["k_pe"].float())
+            written = torch.arange(length, device=h.device) <= pos
+            s = torch.where(written, s * mla_scale(cfg), NEG_INF)
+            p = torch.softmax(s, dim=-1)
+            o_lat = torch.einsum("...bhs,...bsr->...bhr", p, c_kv)
+            out = torch.einsum("...bhr,...rhv->...bhv", o_lat,
+                               w[..., nope:])
+        with tr.span("mla.out", track="lm"):
+            out = out.to(h.dtype).reshape(lead + (bsz, 1, -1))
+            wo = ctx.gather_fsdp(params["wo"], dim=1)
+            y = ctx.row_parallel_finish(local_matmul(out, wo.to(out.dtype),
+                                                     L))
+    return y, cache
+
+
 def decode_step(params, caches, tokens, pos: int, cfg: ArchConfig,
                 ctx: ParCtx, s_max: int, return_logits: bool = False):
     """One greedy decode step. tokens: stacked (*mesh, B, 1); pos: the
@@ -377,6 +444,8 @@ def _decode_layer(lp, cache, x, kind: str, window: int, pos: int,
             ssm_state=cache["state"], decode=True)
         if kind == "ssm":
             return x + y
+    elif has_mla(kind):
+        y, _ = mla_decode(lp, h, cache, cfg, ctx, pos)
     else:
         y, _ = attn_decode(lp, h, cache, cfg, ctx, pos, window, s_max)
         if kind == "hybrid":

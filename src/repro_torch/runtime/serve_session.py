@@ -52,18 +52,20 @@ def convert_prefill_caches(prefill_caches, cfg: ArchConfig,
                            s_enc: int = 0, engine=None):
     """Rearrange prefill's layer-stacked caches into decode's per-layer
     layout (int8 with its scales when pcfg.kv_cache_dtype says so). Per
-    layer (`serve.prefill_cache_rows`: a layer-typed stack emits each name
-over the layers that hold it), as the reference's: the attention k/v
-are placed at s_max
-    (SWA windows rolled); the SSM `conv`/`state` and the audio cross
-    cache `xk`/`xv` carry over as they are (prefill emits them in
-    decode's layout). With a per-process `engine`, the caches are this
+    layer (`serve.prefill_cache_rows`: a layer-typed stack emits each
+    name over the layers that hold it), as the reference's: the attention
+    k/v are placed at s_max (SWA windows rolled), and so is MLA's latent
+    pair `c_kv`/`k_pe`; the SSM `conv`/`state` and the audio cross cache
+    `xk`/`xv` carry over as they are (prefill emits them in decode's
+    layout). With a per-process `engine`, the caches are this
     process's local shards, and so is the result."""
     windows = window_per_layer(cfg, cfg.n_layers)
     dp = stages.dp_axes(mesh_shape, batch)
     decode_specs = stages.cache_specs(cfg, pcfg, tp, s_max, s_enc=s_enc,
                                       dp=dp)
-    pf_spec = prefill_cache_specs(cfg, pcfg, tp, s_prompt, dp=dp)[0][1:]
+    pf_specs = {name: spec[1:] for name, spec in zip(
+        prefill_cache_names(cfg),
+        prefill_cache_specs(cfg, pcfg, tp, s_prompt, dp=dp))}
     q8 = pcfg.kv_cache_dtype == "int8"
     stacks = dict(zip(prefill_cache_names(cfg), prefill_caches))
     local = engine is not None and engine.stack_shape == ()
@@ -85,6 +87,12 @@ are placed at s_max
     for layer, rows in enumerate(prefill_cache_rows(cfg)):
         entry = {name: stacks[name][row].clone() for name, row in
                  rows.items() if name in ("conv", "state", "xk", "xv")}
+        for name in ("c_kv", "k_pe"):
+            if name in rows:
+                g = whole(stacks[name][rows[name]], pf_specs[name])
+                out = g.new_zeros((g.shape[0], s_max) + tuple(g.shape[2:]))
+                out[:, :s_prompt] = g
+                entry[name] = place(out, decode_specs[layer][name])
         if "k" not in rows:
             caches.append(entry)
             continue
@@ -98,7 +106,7 @@ are placed at s_max
         else:
             pos = slots = torch.arange(s_prompt)
         for name in ("k", "v"):
-            g = whole(stacks[name][rows[name]], pf_spec)
+            g = whole(stacks[name][rows[name]], pf_specs[name])
             src = g[:, pos.to(g.device)]                  # (B, S_p, ...)
             shape = (g.shape[0], length) + tuple(g.shape[2:])
             spec = decode_specs[layer][name]
